@@ -1,0 +1,72 @@
+"""polar_tpu_torch — the polar-coding framework in PyTorch, with CUDA kernels.
+
+The port of ``polar_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100:
+code construction, Fast-SSC compilation, systematic and non-systematic
+encoding, saturating-int8 Fast-SSC decoding and AWGN Monte-Carlo BER
+campaigns. On a CUDA device the decoder and the fused Monte-Carlo step run
+as hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on
+the CPU their plain PyTorch versions run. Importing this package imports
+neither JAX nor ``polar_tpu``.
+
+Quick start::
+
+    import torch, polar_tpu_torch as pt
+
+    code = pt.make_code(10, rate=0.5)                    # Polar(1024, 512)
+    result = pt.run_campaign(code, device="cuda")        # BER waterfall
+"""
+
+from .ber import CampaignResult, SnrPoint, make_step, run_campaign, run_point
+from .campaign_io import load_result, save_result
+from .channel import awgn_llrs, ebn0_db, noise_sigma
+from .code.compiler import Node, compile_code, compile_program
+from .code.construction import (
+    PolarCode,
+    bhattacharyya_dual,
+    bhattacharyya_logpe,
+    code_from_jax,
+    design_snr_db,
+    erasure_probability_for_snr_db,
+    frozen_mask_fixed_k,
+    frozen_mask_threshold,
+    make_code,
+    make_code_threshold,
+)
+from .decode.auto import make_auto_decoder
+from .decode.fastssc import make_fastssc_decoder
+from .encode import encode, encode_systematic, extract_systematic
+from .ops.transform import polar_transform
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PolarCode",
+    "make_code",
+    "make_code_threshold",
+    "code_from_jax",
+    "frozen_mask_fixed_k",
+    "frozen_mask_threshold",
+    "bhattacharyya_logpe",
+    "bhattacharyya_dual",
+    "design_snr_db",
+    "erasure_probability_for_snr_db",
+    "Node",
+    "compile_code",
+    "compile_program",
+    "polar_transform",
+    "encode",
+    "encode_systematic",
+    "extract_systematic",
+    "make_fastssc_decoder",
+    "make_auto_decoder",
+    "awgn_llrs",
+    "noise_sigma",
+    "ebn0_db",
+    "make_step",
+    "run_point",
+    "run_campaign",
+    "SnrPoint",
+    "CampaignResult",
+    "save_result",
+    "load_result",
+]

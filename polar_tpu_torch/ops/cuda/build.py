@@ -1,0 +1,121 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+All ``polar_tpu_torch/csrc/*.cu`` sources compile into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -fmad=false -o libpolar_tpu_torch_<hash>.so *.cu
+
+``-fmad=false`` keeps every float product and sum of the step kernel
+rounded on its own, as the plain torch chain rounds them. The library goes
+to ``build/polar_tpu_torch/`` under the repository root, named by a hash of
+the sources and the flags, and is built at first use: a process that finds
+the library for its hash loads it, any other builds it. There is no
+fallback: if nvcc is missing or the build fails, :func:`load_library`
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "polar_tpu_torch"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+)
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# C entry points and their argument types (see the .cu files)
+SIGNATURES = {
+    "polar_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "polar_step": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _U, _U, _U,
+                   _P, _P, _P, _P, _P, _P, _P, _I, _P),
+}
+
+_lib = None
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else under $CUDA_HOME or the default toolkit path."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise BuildError(
+        "nvcc not found (searched PATH, $CUDA_HOME/bin and "
+        f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels of polar_tpu_torch "
+        "are built from source at first use and need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libpolar_tpu_torch_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for their hash exists.
+    Returns its path; the compiler's output (``-Xptxas -v``: registers,
+    spills) is kept beside it as ``.log``."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise BuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                         f"{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' library, once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
