@@ -3,9 +3,13 @@
 Builds the CUDA kernels from ``polar_tpu_torch/csrc``, holds each against
 its plain PyTorch version, drives the port's main path at Polar(1024, 512)
 int8 through them (the decode benchmark at batch 32768, then a BER
-campaign), and times kernel against plain version. Phases print one line
-each; any failure raises, so the script exits non-zero and prints no
-result. The last two lines are the kernel table and the device line.
+campaign), and times kernel against plain version (phases 1-6). Then the
+large-N path at Polar(131072, 65536) systematic int8: the subtree decoder
+and the hybrid against the whole-code kernel (7), the block front and the
+counter kernel (8), the large-N step against the fused step and a BER
+campaign against the JAX package's result, with timings (9). Phases print
+one line each; any failure raises, so the script exits non-zero and prints
+no result. The last two lines are the kernel table and the device line.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -25,6 +29,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 AVX2_REFERENCE_FPS_N1024 = 2_983_104.0  # bench.py:27, a CPU figure
 BATCH = 32768
+LARGE_M = 17          # Polar(131072, 65536), results/n131072_sys_int8.json
+LARGE_BATCH = 4096
 SIGMAS = 4.0  # width of the statistical bounds
 
 
@@ -48,6 +54,259 @@ def ber_ok(e1, n1, e2, n2, k) -> tuple[bool, float]:
     return abs(e1 / (n1 * k) - e2 / (n2 * k)) <= SIGMAS * sd, sd
 
 
+def _reset(*counts) -> None:
+    for c in counts:
+        for name in c:
+            c[name] = 0
+
+
+def _subtree_nodes(tree, levels):
+    """One kernel-eligible composite node of each kind at each level."""
+    out, stack = {}, [tree]
+    while stack:
+        node = stack.pop()
+        if node.level in levels and node.mesg_bits >= 1 and node.kind in (
+                "branch", "rate0_right", "rate1_comb"):
+            out.setdefault((node.level, node.kind), node)
+        stack.extend(c for c in (node.left, node.right) if c is not None)
+    return [out[k] for k in sorted(out)]
+
+
+def large_n_phases(dev, card, ms) -> dict:
+    """Phases 7-9: the large-N path at Polar(131072, 65536)."""
+    import numpy as np
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.decode import auto
+    from polar_tpu_torch.decode.auto import make_kernel_decoder
+    from polar_tpu_torch.ops.cuda import (count_kernel, decoder_kernel,
+                                          front_kernel, step_kernel,
+                                          subtree_kernel)
+
+    code = pt.make_code(LARGE_M, rate=0.5)
+    n, k, b = code.N, code.K, LARGE_BATCH
+    frozen = code.frozen
+    kl = auto.hybrid_kernel_level(LARGE_M)
+    err = {"subtree_decoder": 0, "front_blocks_a": 0, "front_blocks_b": 0,
+           "count": 0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+
+    def rand_i8(rows, batch, lo=-128, hi=128):
+        return torch.randint(lo, hi, (rows, batch), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def max_err(got, want):
+        return max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+
+    # -- 7. subtree decoder: every body, then the hybrid at full width -----
+    tree = pt.compile_code(code)
+    nodes = _subtree_nodes(tree, (6, kl))
+    bodies = 0
+    for node in nodes:
+        m_n = 1 << node.level
+        slot = rand_i8(2 * m_n, 2048)
+        assert bool((slot == -128).any()), "slots must include -128"
+        hl, cwl = rand_i8(m_n, 2048, -1, 2), rand_i8(m_n, 2048, -1, 2)
+        for fuse in (None, "f", "g"):
+            for emit_u, emit_cw in ((True, False), (True, True), (False, True)):
+                fn = subtree_kernel.make_subtree_decoder(
+                    node, emit_u=emit_u, emit_cw=emit_cw, fuse=fuse)
+                args = ((slot[:m_n],) if fuse is None else (slot,)
+                        if fuse == "f" else (slot, hl) + ((cwl,) if emit_cw else ()))
+                got = fn(*args)
+                want = subtree_kernel.decode_plain(node, args, fuse=fuse,
+                                                   emit_u=emit_u, emit_cw=emit_cw)
+                e = max_err(got, want)
+                err["subtree_decoder"] = max(err["subtree_decoder"], e)
+                if e or len(got) != len(want):
+                    raise AssertionError(f"subtree body differs: {node.kind} "
+                                         f"level {node.level} fuse={fuse} "
+                                         f"u={emit_u} cw={emit_cw}")
+                bodies += 1
+    phase("7", f"subtree decoder == plain in {bodies} bodies (nodes "
+          f"{[(nd.kind, nd.level) for nd in nodes]}, fuse none/f/g, u, u+cw, "
+          "cw) on full-range int8 slots, B=2048 (max abs err 0)")
+
+    llr_t = rand_i8(n, b)
+    for mode in ("u", "systematic", "codeword", "both"):
+        whole = make_kernel_decoder(code, output=mode).lane_major(llr_t)
+        whole = whole if mode == "both" else (whole,)
+        for fuse in (False, True):
+            hyb = pt.make_fastssc_decoder(code, output=mode,
+                                          output_dtype=torch.int8,
+                                          kernel_level=kl, kernel_fuse=fuse)
+            lane = hyb.lane_major(llr_t)
+            lane = lane if mode == "both" else (lane,)
+            e = max_err(lane, whole)
+            if not fuse:
+                frame = hyb(llr_t.t().contiguous())
+                frame = frame if mode == "both" else (frame,)
+                e = max(e, max_err([f.t() for f in frame], whole))
+            if e:
+                raise AssertionError(f"hybrid differs from the whole-code "
+                                     f"kernel, output={mode} fuse={fuse}")
+        del whole, lane
+    phase("7", f"hybrid kl{kl} == whole-code kernel at Polar({n}, {k}) B={b}, "
+          "u/systematic/codeword/both, lane entry with and without fusion, "
+          "frame entry (max abs err 0)")
+
+    # -- 8. block front and counter kernel ----------------------------------
+    msg = (1 - 2 * rand_i8(n, b, 0, 2)).to(torch.int8)
+    nrm = torch.randn((n, b), generator=gen, device=dev)
+    params = snr_params(-1.5)
+    blk_a = 1 << min(front_kernel.BLOCK_LEVEL, LARGE_M)
+    blk_b = 1 << min(front_kernel.CHAN_BLOCK_LEVEL, LARGE_M)
+    for systematic in (True, False):
+        kw = dict(msg_t=msg, normals_t=nrm)
+        got = front_kernel.front_blocks(frozen, params, systematic, **kw)
+        x = front_kernel.msg_blocks_plain(frozen, blk_a, systematic, msg_t=msg)
+        want = front_kernel.chan_blocks_plain(
+            front_kernel.middle(x, frozen, blk_a, blk_b, systematic), blk_b,
+            params, normals_t=nrm) + (() if systematic else (x,))
+        e = max_err(got, want)
+        err["front_blocks_a"] = max(err["front_blocks_a"], e)
+        err["front_blocks_b"] = max(err["front_blocks_b"], e)
+        if e:
+            raise AssertionError(f"inject front differs, sys={systematic}")
+    phase("8", f"inject front == plain at Polar({n}, {k}) B={b}, both modes, "
+          f"blocks 2^{front_kernel.BLOCK_LEVEL}/2^{front_kernel.CHAN_BLOCK_LEVEL}")
+    kw = dict(seeds=(2024, 8), call=1)
+    xa = front_kernel.msg_blocks(frozen, blk_a, True, batch=b, device=dev, **kw)
+    xp = front_kernel.msg_blocks_plain(frozen, blk_a, True, batch=b, device=dev,
+                                       **kw)
+    e_a = max_err([xa], [xp])
+    y = front_kernel.middle(xa, frozen, blk_a, blk_b, True)
+    got = front_kernel.chan_blocks(y, blk_b, params, **kw)
+    want = front_kernel.chan_blocks_plain(y, blk_b, params, **kw)
+    e_b = max_err(got, want)
+    moved = int((got[0] != want[0]).sum())
+    phase("8", f"native front on the same Philox words: kernel A max abs err "
+          f"{e_a}, kernel B max abs err {e_b} ({moved} of {n * b} LLRs moved)")
+    if e_a or e_b:
+        raise AssertionError("native front differs from plain")
+    del xa, xp, y, want
+    llr_c, cw_c = got
+    hat = cw_c.clone()
+    hat[rand_i8(n, b, 0, 100) == 0] = 0
+    hat[rand_i8(n, b, 0, 100) == 0] *= -1
+    got_c = count_kernel.count(frozen, llr_c, cw_c, hat)
+    want_c = count_kernel.count_plain(frozen, llr_c, cw_c, hat)
+    e = int((got_c - want_c).abs().max())
+    err["count"] = e
+    if e:
+        raise AssertionError(f"count kernel {got_c.tolist()} vs plain "
+                             f"{want_c.tolist()}")
+    phase("8", f"count kernel == plain at Polar({n}, {k}) B={b}: "
+          f"{got_c.tolist()}")
+
+    # -- 9. the large-N step and campaign -----------------------------------
+    for level in (14, pt.ber.STEP_KERNEL_MAX_LEVEL, LARGE_M):
+        lc = pt.make_code(level, rate=0.5)
+        for systematic in (True, False):
+            chain = pt.ber.make_front_chain(lc, systematic=systematic)
+            kw = dict(seeds=(level, 99), call=0, batch=2048, device=dev)
+            got = chain(snr_params(-1.4), **kw).cpu()
+            want = step_kernel.step(pt.compile_program(lc), lc.frozen,
+                                    snr_params(-1.4), systematic, **kw).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(f"large-N step {got.tolist()} vs fused "
+                                     f"step {want.tolist()} at m={level} "
+                                     f"sys={systematic}")
+            phase("9", f"m={level} sys={systematic}: large-N step == fused "
+                  f"step on the same seeds, B=2048: {got.tolist()}")
+
+    counts = (decoder_kernel.launches, step_kernel.launches,
+              subtree_kernel.launches, front_kernel.launches,
+              count_kernel.launches)
+    plains = (decoder_kernel.plain_calls, step_kernel.plain_calls,
+              subtree_kernel.plain_calls, front_kernel.plain_calls,
+              count_kernel.plain_calls)
+    _reset(*counts, *plains)
+    t0 = time.perf_counter()
+    res = pt.run_campaign(code, device=dev, seed=3, batch=2048,
+                          snr_range=(-1.7, -1.4), snr_step=0.1,
+                          max_frames_per_point=2048, measure_throughput=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: v for c in counts for name, v in c.items()}
+    plain = {name: v for c in plains for name, v in c.items()}
+    new = ("subtree_decoder", "front_blocks_a", "front_blocks_b", "count")
+    if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
+        raise AssertionError(f"large-N campaign launches {launched}, plain "
+                             f"calls {plain}")
+    phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
+          f"2048 frames in {wall:.1f} s; launches {launched}; plain calls "
+          f"{plain}")
+    ref = json.loads((ROOT / "results" / "n131072_sys_int8.json").read_text())
+    ref_pts = {round(p["snr_db"], 1): p for p in ref["points"]}
+    within = 0
+    for p in res.points:
+        r = ref_pts[round(p.snr_db, 1)]
+        if not (np.isfinite(p.ber) and 0 <= p.ber <= 1):
+            raise AssertionError(f"BER out of range at {p.snr_db}: {p.ber}")
+        ok_f, sd_f = bounds_ok(p.fer * p.frames, p.frames,
+                               r["fer"] * r["frames"], r["frames"])
+        ok_b, sd_b = ber_ok(p.bit_errors, p.frames, r["bit_errors"],
+                            r["frames"], k)
+        within += ok_f and ok_b
+        phase("9", f"snr {p.snr_db + 0.0:+.1f} dB: BER {p.ber:.4g} FER "
+              f"{p.fer:.4g} ({p.frames} frames) vs JAX-package result BER "
+              f"{r['ber']:.4g} FER {r['fer']:.4g} ({r['frames']} frames), "
+              f"{SIGMAS:g}-sigma bounds {SIGMAS * sd_b:.3g} / "
+              f"{SIGMAS * sd_f:.3g}: {'ok' if ok_f and ok_b else 'OUTSIDE'}")
+    if within < 3:
+        raise AssertionError(f"only {within} campaign points within bounds")
+
+    # timings at Polar(131072, 65536), B = 4096
+    times = {}
+    node = max(_subtree_nodes(tree, (kl,)), key=lambda nd: nd.mesg_bits)
+    slot = rand_i8(1 << node.level, b)
+    fn = subtree_kernel.make_subtree_decoder(node, emit_u=False, emit_cw=True)
+    times["subtree_decoder"] = (
+        ms(lambda: fn(slot), 10),
+        ms(lambda: subtree_kernel.decode_plain(node, (slot,), emit_u=False,
+                                               emit_cw=True), 2))
+    kw = dict(seeds=(5, 6), call=0)
+    times["front_blocks_a"] = (
+        ms(lambda: front_kernel.msg_blocks(frozen, blk_a, True, batch=b,
+                                           device=dev, **kw), 10),
+        ms(lambda: front_kernel.msg_blocks_plain(frozen, blk_a, True, batch=b,
+                                                 device=dev, **kw), 2))
+    y = front_kernel.middle(msg, frozen, blk_a, blk_b, True)
+    times["front_blocks_b"] = (
+        ms(lambda: front_kernel.chan_blocks(y, blk_b, params, **kw), 10),
+        ms(lambda: front_kernel.chan_blocks_plain(y, blk_b, params, **kw), 2))
+    times["count"] = (
+        ms(lambda: count_kernel.count(frozen, llr_c, cw_c, hat), 10),
+        ms(lambda: count_kernel.count_plain(frozen, llr_c, cw_c, hat), 2))
+    for name, (t_k, t_p) in times.items():
+        phase("9", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
+              f"Polar({n}, {k}) B={b} ({card})")
+    program = pt.compile_program(code)
+    for want_cw in (False, True):
+        track = "cw" if want_cw else "u"
+        t_whole = ms(lambda: decoder_kernel.decode(program, frozen, llr_t,
+                                                   want_cw), 2)
+        line = [f"whole-code {t_whole:.1f}"]
+        for level in sorted({kl - 2, kl, min(kl + 2, LARGE_M - 1)}):
+            hyb = pt.make_fastssc_decoder(
+                code, output="codeword" if want_cw else "u",
+                output_dtype=torch.int8, kernel_level=level).lane_major
+            line.append(f"hybrid kl{level} {ms(lambda: hyb(llr_t), 2):.1f}")
+        phase("9", f"decoder {track} track ms at Polar({n}, {k}) B={b}: "
+              f"{', '.join(line)} ({card})")
+    chain = pt.ber.make_front_chain(code, systematic=True)
+    t_step = ms(lambda: chain(snr_params(-1.4), seeds=(1, 2), call=0,
+                              batch=b, device=dev), 2)
+    phase("9", f"large-N step (systematic, kl{kl}): {t_step:.1f} ms per "
+          f"{b} frames, {b / t_step * 1e3:.1f} frames/s ({card})")
+    return {"err": err, "times": times,
+            "launched": {name: launched[name] for name in new}}
+
+
 def main() -> int:
     import torch
 
@@ -59,7 +318,9 @@ def main() -> int:
     import polar_tpu_torch as pt
     from polar_tpu_torch.channel import snr_params
     from polar_tpu_torch.decode.auto import make_kernel_decoder
-    from polar_tpu_torch.ops.cuda import build, decoder_kernel, step_kernel
+    from polar_tpu_torch.ops.cuda import (build, count_kernel, decoder_kernel,
+                                          front_kernel, step_kernel,
+                                          subtree_kernel)
     from polar_tpu_torch.utils.benchmark import (elapsed_seconds,
                                                  measure_decode_fps)
 
@@ -247,6 +508,11 @@ def main() -> int:
               f"plain {t_p:.3f} ms ({BATCH / t_p * 1e3:.4g} frames/s) at "
               f"Polar({n}, {k}) B={BATCH} ({card})")
 
+    large = large_n_phases(dev, card, ms)
+    err.update(large["err"])
+    times.update(large["times"])
+    launched.update(large["launched"])
+
     replaces = {
         "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",
                               "polar_tpu/ops/pallas/decoder_kernel.py:404"),
@@ -254,6 +520,14 @@ def main() -> int:
                                "polar_tpu/ops/pallas/decoder_kernel.py:410"),
         "mc_step": ("polar_tpu_torch/csrc/step.cu",
                     "polar_tpu/ops/pallas/step_kernel.py:328"),
+        "subtree_decoder": ("polar_tpu_torch/csrc/subtree.cu",
+                            "polar_tpu/ops/pallas/decoder_kernel.py:562"),
+        "front_blocks_a": ("polar_tpu_torch/csrc/front.cu",
+                           "polar_tpu/ops/pallas/step_kernel.py:713"),
+        "front_blocks_b": ("polar_tpu_torch/csrc/front.cu",
+                           "polar_tpu/ops/pallas/step_kernel.py:762"),
+        "count": ("polar_tpu_torch/csrc/count.cu",
+                  "polar_tpu/ops/pallas/step_kernel.py:544"),
     }
     print(card, flush=True)
     print(json.dumps({"kernels": [

@@ -17,9 +17,13 @@ pure function of (seed, point index), as checkpoint/resume needs.
 
 One step runs a whole frame batch. int8 codes at levels 2 ..
 ``STEP_KERNEL_MAX_LEVEL`` go through the fused step
-(:mod:`polar_tpu_torch.ops.cuda.step_kernel`: the CUDA kernel on a card,
-its eager chain on the CPU); every other configuration runs the plain
-chain below with the device's decoder.
+(:mod:`polar_tpu_torch.ops.cuda.step_kernel`); int8 codes above it
+through the large-N front path (``polar_tpu/ber.py:193-359``): the block
+front (:mod:`~polar_tpu_torch.ops.cuda.front_kernel`), the hybrid
+decoder's element-major entry and, when systematic, the counter kernel
+(:mod:`~polar_tpu_torch.ops.cuda.count_kernel`). Each runs its CUDA
+kernels on a card and their plain versions on the CPU. Every other
+configuration runs the plain chain below with the device's decoder.
 """
 
 from __future__ import annotations
@@ -32,10 +36,10 @@ import torch
 from .channel import awgn_llrs, ebn0_db, snr_params
 from .code.compiler import compile_program
 from .code.construction import PolarCode, design_snr_db
-from .decode.auto import make_auto_decoder
+from .decode.auto import hybrid_kernel_level, make_auto_decoder
 from .decode.fastssc import make_fastssc_decoder
 from .encode import encode, encode_systematic
-from .ops.cuda import step_kernel
+from .ops.cuda import count_kernel, front_kernel, step_kernel
 from .utils.benchmark import measure_decode_fps
 
 # Levels at which make_step runs the fused step kernel for int8 codes. The
@@ -140,42 +144,113 @@ def step_kernel_eligible(code: PolarCode, dtype, compute) -> bool:
             and STEP_KERNEL_MIN_LEVEL <= code.level <= STEP_KERNEL_MAX_LEVEL)
 
 
-def _fused_selected(code: PolarCode, dtype, compute, decoder, fused) -> bool:
-    """Whether ``make_step`` runs the fused step: ``fused=True`` asks for
-    it, ``"auto"`` takes it for eligible configurations without a pinned
-    ``decoder``."""
-    return fused is True or (fused == "auto" and decoder is None
-                             and step_kernel_eligible(code, dtype, compute))
+def _step_path(code: PolarCode, dtype, compute, decoder, fused) -> str:
+    """Which step ``make_step`` runs: ``"fused"`` (``fused=True``, or
+    ``"auto"`` for eligible configurations without a pinned ``decoder``),
+    ``"front"`` (``"auto"``, int8, no override, no pinned decoder, above
+    ``STEP_KERNEL_MAX_LEVEL``) or ``"plain"``."""
+    if fused is True or (fused == "auto" and decoder is None
+                         and step_kernel_eligible(code, dtype, compute)):
+        return "fused"
+    if (fused == "auto" and decoder is None and compute is None
+            and dtype == torch.int8 and code.level > STEP_KERNEL_MAX_LEVEL):
+        return "front"
+    return "plain"
+
+
+def make_front_chain(code: PolarCode, *, systematic: bool = True,
+                     kernel_level: int | None = None):
+    """The large-N step's chain (``polar_tpu/ber.py:323-359``):
+    ``chain(params, **draw)`` → the five counters as a ``(5,)`` int64
+    tensor in ``step_kernel.COUNTERS`` order.
+
+    ``params`` = (σ, 2/σ²); ``draw`` is the front's: ``msg_t`` and
+    ``normals_t`` (inject) or ``seeds``, ``call``, ``batch`` and
+    ``device`` (native, the fused step's Philox words). Systematic: the
+    block front, the hybrid's codeword output, the counter kernel (cw
+    domain). Plain: the block front with ``u0``, the hybrid's u output,
+    u-domain counters in torch (XLA in the JAX package). ``kernel_level``
+    is the hybrid's, by default
+    :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`'s."""
+    if kernel_level is None:
+        kernel_level = hybrid_kernel_level(code.level)
+    dec = make_fastssc_decoder(
+        code, output="codeword" if systematic else "u",
+        output_dtype=torch.int8, kernel_level=kernel_level).lane_major
+    frozen = code.frozen
+
+    def chain(params, **draw):
+        outs = front_kernel.front_blocks(frozen, params, systematic, **draw)
+        if systematic:
+            llr_t, cw_t = outs
+            return count_kernel.count(frozen, llr_t, cw_t, dec(llr_t))
+        llr_t, cw_t, u0_t = outs
+        hat = dec(llr_t)
+        msg = u0_t[torch.as_tensor(code.info_indices, device=u0_t.device)]
+        zero_d = hat == 0
+        err = zero_d | ((hat < 0) != (msg < 0))
+        awgn = (llr_t != 0) & ((llr_t < 0) != (cw_t < 0))
+        return torch.stack([err.sum(), err.any(dim=0).sum(), zero_d.sum(),
+                            awgn.sum(), (llr_t == 0).sum()]).to(torch.int64)
+
+    return chain
 
 
 def make_step(code: PolarCode, *, systematic: bool = True, dtype=torch.int8,
               decoder=None, compute=None, fused: str | bool = "auto",
-              device):
+              front_decode_cfg: int | None = None, device):
     """Build the Monte-Carlo step: ``step(gen, snr_db, batch)`` → the
     counter dict (0-d int64 tensors on ``device``).
 
     ``fused``: ``"auto"`` runs the fused step for eligible configurations
-    (see :func:`step_kernel_eligible`) unless a ``decoder`` is pinned;
-    ``True`` requires it; ``False`` runs the plain chain. The fused step
-    draws two fresh Philox seed words from ``gen`` on every call, so its
-    call word stays 0 and each step is a pure function of ``gen``'s state
-    (a resumed campaign repeats an uninterrupted one)."""
+    (see :func:`step_kernel_eligible`) and the large-N front path for
+    int8 codes above them, unless a ``decoder`` is pinned; ``True``
+    requires the fused step; ``False`` runs the plain chain. The kernel
+    steps draw two fresh Philox seed words from ``gen`` on every call, so
+    their call word stays 0 and each step is a pure function of ``gen``'s
+    state (a resumed campaign repeats an uninterrupted one); the front
+    path draws the fused step's words, so both count alike on the same
+    seeds.
+
+    ``front_decode_cfg``: the front path's hybrid kernel level, in place
+    of the default (``polar_tpu/ber.py:167-176``); a measurement hook.
+    It raises ``ValueError`` when the configuration does not take the
+    front path, where it would be ignored."""
     if fused is True and not step_kernel_eligible(code, dtype, compute):
         raise ValueError(
             f"fused step supports int8 codes (no compute override) at levels "
             f"{STEP_KERNEL_MIN_LEVEL}..{STEP_KERNEL_MAX_LEVEL} only (got "
             f"N={code.N}, dtype={dtype}, compute={compute!r})")
-    if not _fused_selected(code, dtype, compute, decoder, fused):
+    path = _step_path(code, dtype, compute, decoder, fused)
+    if front_decode_cfg is not None and path != "front":
+        raise ValueError(
+            f"front_decode_cfg was passed but N={code.N} takes the {path} "
+            "step, not the large-N front path: the override would be "
+            "ignored")
+    if path == "plain":
         return make_step_body(code, systematic=systematic, dtype=dtype,
                               decoder=decoder, compute=compute, device=device)
+
+    def seeds_from(gen):
+        return tuple(int(s) for s in torch.randint(
+            0, 2**32, (2,), generator=gen, dtype=torch.int64))
+
+    if path == "front":
+        chain = make_front_chain(code, systematic=systematic,
+                                 kernel_level=front_decode_cfg)
+
+        def front_step(gen, snr_db, batch: int):
+            t = chain(snr_params(snr_db), seeds=seeds_from(gen), call=0,
+                      batch=batch, device=device)
+            return dict(zip(step_kernel.COUNTERS, t))
+
+        return front_step
     program = compile_program(code)
 
     def fused_step(gen, snr_db, batch: int):
-        seeds = tuple(int(s) for s in torch.randint(
-            0, 2**32, (2,), generator=gen, dtype=torch.int64))
         t = step_kernel.step(program, code.frozen, snr_params(snr_db),
-                             systematic, seeds=seeds, call=0, batch=batch,
-                             device=device)
+                             systematic, seeds=seeds_from(gen), call=0,
+                             batch=batch, device=device)
         return dict(zip(step_kernel.COUNTERS, t))
 
     return fused_step
@@ -263,6 +338,7 @@ def run_campaign(
     checkpoint_path=None,
     decoder=None,
     fused: str | bool = "auto",
+    front_decode_cfg: int | None = None,
     device,
 ) -> CampaignResult:
     """Full waterfall sweep with the reference's early-stop rule: finish
@@ -274,20 +350,22 @@ def run_campaign(
     point's generator is seeded from the campaign seed in point order, so
     a resumed campaign is identical to an uninterrupted one.
 
-    The steps run the fused step kernel where :func:`make_step` picks it
-    (a passed-in ``decoder`` pins the plain chain); the decoder built here
-    serves the decode-only throughput gauge, measured once per campaign.
+    The steps run the fused step or the large-N front path where
+    :func:`make_step` picks them (a passed-in ``decoder`` pins the plain
+    chain; ``front_decode_cfg`` goes to :func:`make_step`); the decoder
+    built here serves the decode-only throughput gauge, measured once per
+    campaign.
     """
     device = torch.device(device)
     design = design_snr_db(1.0 - code.rate)
     if snr_range is None:
         snr_range = (math.floor(design - 3), math.ceil(design + 5))
-    fused_step = _fused_selected(code, dtype, compute, decoder, fused)
-    if decoder is None and (measure_throughput or not fused_step):
+    kernel_step = _step_path(code, dtype, compute, decoder, fused) != "plain"
+    if decoder is None and (measure_throughput or not kernel_step):
         decoder = _default_decoder(code, systematic, dtype, compute, device)
     step = make_step(code, systematic=systematic, dtype=dtype, compute=compute,
-                     decoder=None if fused_step else decoder, fused=fused,
-                     device=device)
+                     decoder=None if kernel_step else decoder, fused=fused,
+                     front_decode_cfg=front_decode_cfg, device=device)
     gen = torch.Generator()
     gen.manual_seed(seed)
     result = CampaignResult(code_n=code.N, code_k=code.K,

@@ -81,6 +81,34 @@ def build_tree(frozen: np.ndarray, level: int) -> Node:
     return Node("branch", level, left.mesg_bits + right.mesg_bits, left=left, right=right)
 
 
+def node_frozen(node: Node) -> np.ndarray:
+    """The node's own frozen pattern: uint8 rows ``[0, 2**node.level)`` of
+    its subtree, rebuilt from the node kinds (each leaf kind fixes its
+    pattern, ``polar_compiler.hh:21-49``). ``build_tree`` of the result
+    gives back ``node``, so a subtree's program and mask pass the same
+    emitted-from check as a whole code's."""
+    n = 1 << node.level
+    kind = node.kind
+    if kind == "rate0":
+        return np.ones(n, np.uint8)
+    if kind == "rate1":
+        return np.zeros(n, np.uint8)
+    if kind == "rep":
+        out = np.ones(n, np.uint8)
+        out[-1] = 0
+        return out
+    if kind == "spc":
+        out = np.zeros(n, np.uint8)
+        out[0] = 1
+        return out
+    half = n >> 1
+    left = (np.ones(half, np.uint8) if kind == "rate0_right"
+            else node_frozen(node.left))
+    right = (np.zeros(half, np.uint8) if kind == "rate1_comb"
+             else node_frozen(node.right))
+    return np.concatenate([left, right])
+
+
 def emit_program(tree: Node, level: int) -> np.ndarray:
     """Serialize a node tree to the reference byte-code format.
 

@@ -16,7 +16,8 @@
 //      other than cw's) and quantization erasures (llr == 0).
 // Message symbols and normals come from the inputs (inject mode) or from
 // Philox words (native mode, philox.cuh); Box-Muller pairs row i (radius)
-// with row N/2 + i (angle) as _bits_to_normals does.
+// with row N/2 + i (angle) as _bits_to_normals does. The normal and the
+// quantizer are channel.cuh's, shared with the large-N front (front.cu).
 //
 // What bounds it on the card: like the decoder, the latency of per-row byte
 // accesses to the frame's columns in device memory. The design keeps every
@@ -27,20 +28,13 @@
 
 #include <cuda_runtime.h>
 
+#include "channel.cuh"
 #include "fastssc.cuh"
-#include "philox.cuh"
 
 namespace {
 
 constexpr int kCounters = 5;
 constexpr int kMaxWarps = 32;
-
-__device__ __forceinline__ int8_t quantize(float cw, float noise, float sigma,
-                                           float scale) {
-  const float y = __fadd_rn(cw, __fmul_rn(sigma, noise));
-  const float q = rintf(__fmul_rn(scale, y));
-  return (int8_t)fminf(fmaxf(q, -128.0f), 127.0f);
-}
 
 __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
                                const uint8_t* __restrict__ frozen, int n,
@@ -87,20 +81,15 @@ __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
         n0 = normals_in[(long long)i * b + f];
         n1 = normals_in[(long long)(h + i) * b + f];
       } else {
-        const float u1 = polar::bits_to_unit(radius_words.word(i));
-        const float u2 = polar::bits_to_unit(angle_words.word(h + i));
-        const float r = sqrtf(-2.0f * logf(u1));
-        float cs, sn;
-        polar::sincos_2pi(u2, &cs, &sn);
-        n0 = r * cs;
-        n1 = r * sn;
+        polar::box_muller(radius_words.word(i), angle_words.word(h + i), &n0,
+                          &n1);
       }
       const int rows[2] = {i, h + i};
       const float nz[2] = {n0, n1};
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int cwv = c[rows[j]];
-        const int8_t l = quantize((float)cwv, nz[j], sigma, scale);
+        const int8_t l = polar::quantize((float)cwv, nz[j], sigma, scale);
         llr[rows[j]] = l;
         cnt[3] += (l != 0) & ((l < 0) != (cwv < 0));
         cnt[4] += l == 0;

@@ -1,13 +1,16 @@
-"""Decoder selection by device.
+"""Decoder selection by device and code size.
 
-* CUDA — the hand-written Fast-SSC kernel
+* CUDA — the hand-written whole-code Fast-SSC kernel
   (:mod:`polar_tpu_torch.ops.cuda.decoder_kernel`), one launch per call,
-  for every output mode;
+  for every output mode; from ``HYBRID_MIN_LEVEL`` up, the hybrid decoder
+  (eager top levels, subtree kernels at and below ``HYBRID_KERNEL_LEVEL``)
+  where the H100 timings in PERF.md put it ahead;
 * CPU — the eager decoder (:func:`~polar_tpu_torch.decode.fastssc.make_fastssc_decoder`).
 
-Both are bit-exact with each other and with ``polar_tpu``; the choice is
-the device's. The JAX package's per-level tile and VMEM tables are facts
-about the TPU and do not carry over.
+All are bit-exact with each other and with ``polar_tpu``; the choice is
+speed only. The JAX package's per-level tile, VMEM and hybrid tables
+(``_HYBRID_KL_*``, ``_HYBRID_MIN_LEVEL``) are facts about the TPU and do
+not carry over.
 """
 
 from __future__ import annotations
@@ -18,6 +21,21 @@ from ..code.compiler import compile_program
 from ..code.construction import PolarCode
 from ..ops.cuda import decoder_kernel
 from .fastssc import OUTPUTS, make_fastssc_decoder
+
+
+# Measured on an H100 at B = 4096 (PERF.md): at Polar(131072, 65536) the
+# hybrid at kernel level 9 took 106 ms (u) and 141 ms (cw) per decode, the
+# whole-code kernel 567 and 1060 ms; kernel levels 8 and 10 came within
+# 50 %, 6 and 12-16 lost. At levels 13-16 the hybrid at kernel level 9
+# won as well (2.5-6.8x); below 13 nothing was measured.
+HYBRID_MIN_LEVEL = 13
+HYBRID_KERNEL_LEVEL = 9
+
+
+def hybrid_kernel_level(level: int) -> int:
+    """The hybrid's kernel level for a code of this level: the measured
+    ``HYBRID_KERNEL_LEVEL``, cut to ``level - 1`` for smaller codes."""
+    return min(HYBRID_KERNEL_LEVEL, level - 1)
 
 
 def make_kernel_decoder(code: PolarCode, *, output: str = "u",
@@ -61,6 +79,11 @@ def make_auto_decoder(code: PolarCode, *, output: str = "u",
     """Best decoder for ``code`` on ``device``: returns ``(decode_fn,
     description)``. Inputs are int8 LLRs."""
     device = torch.device(device)
+    if device.type == "cuda" and code.level >= HYBRID_MIN_LEVEL:
+        kl = hybrid_kernel_level(code.level)
+        return (make_fastssc_decoder(code, output=output,
+                                     output_dtype=output_dtype,
+                                     kernel_level=kl), f"cuda-hybrid-kl{kl}")
     if device.type == "cuda":
         return (make_kernel_decoder(code, output=output,
                                     output_dtype=output_dtype), "cuda-fastssc")

@@ -1,7 +1,8 @@
-"""Fast-SSC decoder, eager PyTorch: the plain version of the CUDA decoder.
+"""Fast-SSC decoder, eager PyTorch: the plain version of the CUDA decoder,
+and the hybrid large-N decoder.
 
-The port of ``polar_tpu.decode.fastssc`` without the hybrid subtree
-kernels. The pruned-tree recursion runs in Python over the
+The port of ``polar_tpu.decode.fastssc``. The pruned-tree recursion runs
+in Python over the
 :class:`~polar_tpu_torch.code.compiler.Node` tree, one batched tensor op
 per node step; the frame batch rides along (the analog of the reference's
 SIMD lane axis). Node semantics are op-for-op those of
@@ -21,14 +22,17 @@ SIMD lane axis). Node semantics are op-for-op those of
 
 The systematic and codeword outputs re-encode the u estimate
 (``testbench.cc:177-183``); there is no root-hard shortcut, which would
-differ whenever zero-LLR ties or SPC even-tie flips occur.
+differ whenever zero-LLR ties or SPC even-tie flips occur. The hybrid
+(``kernel_level``) hands the subtrees below a level to the subtree decoder
+and combines their codeword-estimate blocks up the tree, which equals the
+re-encode by construction.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..code.compiler import Node, compile_code
+from ..code.compiler import Node, compile_code, emit_program
 from ..code.construction import PolarCode
 from ..ops.arith import FloatArith, Int8Arith, QuantFloatArith, arith_for
 from ..ops.transform import polar_transform
@@ -38,12 +42,29 @@ OUTPUTS = ("u", "systematic", "codeword", "both")
 
 class _TreeDecoder:
     """Recursion over the pruned tree along the code-element ``axis``:
-    ``-1`` (frame-major ``(B, N)``) or ``0`` (element-major ``(N, B)``)."""
+    ``-1`` (frame-major ``(B, N)``) or ``0`` (element-major ``(N, B)``).
 
-    def __init__(self, ph, axis: int = -1):
+    ``subtree_kernel_for``: optional ``(node, fuse=None) -> fn or None``
+    that hands composite subtrees to the subtree decoder
+    (:mod:`polar_tpu_torch.ops.cuda.subtree_kernel`): the hybrid decoder,
+    eager torch for the upper levels. ``want_cw`` carries the re-encoded
+    codeword-estimate track through the recursion (each node's
+    ``encode`` of its u segment, frozen rows +1, combined as
+    ``[cw_l·cw_r, cw_r]``). ``kernel_emits_u``: whether the subtree
+    decoders return a leading u block. The routing is
+    ``polar_tpu/decode/fastssc.py:140-240``'s, so the message blocks come
+    in the same order."""
+
+    _KERNEL_KINDS = ("branch", "rate0_right", "rate1_comb")
+
+    def __init__(self, ph, subtree_kernel_for=None, want_cw: bool = False,
+                 axis: int = -1, kernel_emits_u: bool = True):
         if axis not in (0, -1):
             raise ValueError("axis must be 0 or -1")
         self.ph = ph
+        self.subtree_kernel_for = subtree_kernel_for
+        self.want_cw = want_cw
+        self.kernel_emits_u = kernel_emits_u
         self.axis = axis
         self.mesg: list = []
 
@@ -93,34 +114,91 @@ class _TreeDecoder:
         return ph.flip(hard, parity, weak, sabs)
 
     def decode(self, node: Node, soft):
-        """Returns this node's hard codeword estimate; message blocks are
-        appended in emission order (in-order traversal)."""
+        """Returns ``(hard, cw)``: this node's hard codeword estimate and,
+        with ``want_cw``, its codeword-estimate block (else None). Message
+        blocks are appended in emission order (in-order traversal)."""
         kind = node.kind
         ph = self.ph
+        cw = self.want_cw
+        if self.subtree_kernel_for is not None and kind in self._KERNEL_KINDS:
+            kernel = self.subtree_kernel_for(node)
+            if kernel is not None:
+                return self._kernel_outs(kernel(soft.contiguous()))
         if kind == "rate0":
-            return torch.ones_like(soft)
+            ones = torch.ones_like(soft)
+            return ones, (ones if cw else None)
         if kind == "rate1":
             hard = ph.signum(soft)
-            self.mesg.append(self._transform(hard))
-            return hard
+            t = self._transform(hard)
+            self.mesg.append(t)
+            return hard, (self._transform(t) if cw else None)
         if kind == "rep":
-            return self._rep(soft)
+            hard = self._rep(soft)
+            # u segment [+1, ..., +1, bit] encodes to bit everywhere
+            return hard, (hard if cw else None)
         if kind == "spc":
             hard = self._spc_hard(soft)
-            self.mesg.append(self._sl(self._transform(hard), 1, None))
-            return hard
+            v = self._transform(hard)
+            self.mesg.append(self._sl(v, 1, None))
+            cw_v = None
+            if cw:  # u segment [+1 (frozen), v_1 .. v_{L-1}]
+                cw_v = self._transform(self._cat(
+                    [torch.ones_like(self._sl(v, None, 1)), self._sl(v, 1, None)]))
+            return hard, cw_v
         if kind == "rate0_right":
-            hard_r = self.decode(node.right, self._g_rate0(soft))
-            return self._cat([hard_r, hard_r])
-        hard_l = self.decode(node.left, self._f(soft))
+            hard_r, cw_r = self.decode(node.right, self._g_rate0(soft))
+            return (self._cat([hard_r, hard_r]),
+                    self._cat([cw_r, cw_r]) if cw else None)
         if kind == "rate1_comb":
+            hard_l, cw_l = self._decode_left(node, soft)
             hard_r = ph.signum(self._g(hard_l, soft))
-            self.mesg.append(self._transform(hard_r))
-        elif kind == "branch":
-            hard_r = self.decode(node.right, self._g(hard_l, soft))
-        else:  # pragma: no cover
-            raise AssertionError(kind)
-        return self._cat([ph.qmul(hard_l, hard_r), hard_r])
+            t = self._transform(hard_r)
+            self.mesg.append(t)
+            cw_v = None
+            if cw:
+                cw_r = self._transform(t)
+                cw_v = self._cat([cw_l * cw_r, cw_r])
+            return self._cat([ph.qmul(hard_l, hard_r), hard_r]), cw_v
+        if kind == "branch":
+            hard_l, cw_l = self._decode_left(node, soft)
+            fused = self._decode_right_fused(node, soft, hard_l, cw_l)
+            if fused is not None:
+                return fused
+            hard_r, cw_r = self.decode(node.right, self._g(hard_l, soft))
+            return (self._cat([ph.qmul(hard_l, hard_r), hard_r]),
+                    self._cat([cw_l * cw_r, cw_r]) if cw else None)
+        raise AssertionError(kind)  # pragma: no cover
+
+    def _kernel_outs(self, outs):
+        base = 0
+        if self.kernel_emits_u:
+            self.mesg.append(outs[0])
+            base = 1
+        return outs[base], (outs[base + 1] if self.want_cw else None)
+
+    def _decode_left(self, node: Node, soft):
+        """The left child of a branch / rate1_comb node: with boundary
+        fusion, a kernel-eligible child takes the parent's slot and runs
+        the parent's f itself; otherwise f here feeds the recursion."""
+        if (self.subtree_kernel_for is not None
+                and node.left.kind in self._KERNEL_KINDS):
+            kernel = self.subtree_kernel_for(node.left, fuse="f")
+            if kernel is not None:
+                return self._kernel_outs(kernel(soft.contiguous()))
+        return self.decode(node.left, self._f(soft))
+
+    def _decode_right_fused(self, node: Node, soft, hard_l, cw_l):
+        """The right child of a branch node with the parent's g and
+        combine fused into its kernel: returns the parent's combined
+        ``(hard, cw)``, or None when the child takes no fused kernel."""
+        if (self.subtree_kernel_for is None
+                or node.right.kind not in self._KERNEL_KINDS):
+            return None
+        kernel = self.subtree_kernel_for(node.right, fuse="g")
+        if kernel is None:
+            return None
+        args = (soft, hard_l) + ((cw_l,) if self.want_cw else ())
+        return self._kernel_outs(kernel(*(a.contiguous() for a in args)))
 
 
 def _resolve_arith(compute, dtype):
@@ -150,6 +228,9 @@ def make_fastssc_decoder(
     output: str = "u",
     compute=None,
     output_dtype=None,
+    kernel_level: int | None = None,
+    kernel_style: str = "ssa",
+    kernel_fuse: bool = False,
 ):
     """Build an eager Fast-SSC decoder for ``code``.
 
@@ -166,45 +247,94 @@ def make_fastssc_decoder(
     ``"qfloat-bf16"``, ``"qfloat-f32"``, ``"float32"``, ``"bfloat16"``, or
     an arith object. ``output_dtype`` casts the hard outputs.
 
+    ``kernel_level``: the hybrid decoder (``polar_tpu/decode/fastssc.py``'s
+    ``kernel_level`` path). Composite nodes at or below this level that
+    emit message bits go to the subtree decoder
+    (:mod:`polar_tpu_torch.ops.cuda.subtree_kernel`: the CUDA kernel for
+    CUDA tensors, its plain version for CPU ones); the levels above run
+    eagerly. One decoder per distinct node pattern, keyed by
+    ``emit_program(node, node.level)`` and the fuse mode. The hybrid takes
+    int8 arithmetic only, any batch (the kernels mask their last block),
+    and 2-D inputs. With a non-u output the codeword estimate comes from
+    the subtrees' cw blocks combined up the tree (the fused cw track);
+    ``"systematic"`` and ``"codeword"`` then skip the subtrees' u blocks.
+    ``kernel_fuse``: boundary fusion — a kernel-eligible left child runs
+    its parent's f, a kernel-eligible right child of a branch its
+    parent's g and combine. ``kernel_style`` is ``"ssa"``; the scratch
+    and interpreter styles are TPU kernels still to port.
+
     The returned ``decode(llrs)`` takes frame-major ``(..., N)`` LLRs;
     ``decode.lane_major(llr_t)`` takes element-major ``(N, B)`` LLRs and
     returns outputs with the code axis leading (``u (K, B)``,
-    ``cw (N, B)``).
+    ``cw (N, B)``). The hybrid always runs element-major: its frame-major
+    entry transposes in and out.
     """
     if tree is None:
         tree = compile_code(code)
     if output not in OUTPUTS:
         raise ValueError(f"unknown output mode {output!r}")
+    if kernel_style != "ssa":
+        raise ValueError(
+            f"kernel_style {kernel_style!r} is not ported (ROADMAP.md "
+            "queue 2, rows 3 and 15): use 'ssa'")
     info_np = code.info_indices
+    hybrid = kernel_level is not None
+    # fused cw track: non-u hybrid outputs combine the subtrees' cw blocks
+    # instead of re-encoding the whole u; "systematic" / "codeword" then
+    # never read the u blocks, so the subtrees skip them
+    use_fused_cw = hybrid and output != "u"
+    kernel_emit_u = not use_fused_cw or output == "both"
+    kernel_for = None
+    if hybrid:
+        from ..ops.cuda.subtree_kernel import make_subtree_decoder
+
+        cache: dict = {}
+
+        def kernel_for(node: Node, fuse: str | None = None):
+            if node.level > kernel_level or node.mesg_bits < 1:
+                return None
+            if fuse and not kernel_fuse:
+                return None
+            key = (emit_program(node, node.level).tobytes(), fuse)
+            if key not in cache:
+                cache[key] = make_subtree_decoder(
+                    node, emit_u=kernel_emit_u, emit_cw=use_fused_cw,
+                    fuse=fuse)
+            return cache[key]
 
     def run(x, axis):
         ph, work_dtype = _resolve_arith(compute, x.dtype)
+        if hybrid and not isinstance(ph, Int8Arith):
+            raise ValueError("the hybrid decoder takes int8 arithmetic only")
         if work_dtype is not None:
             x = x.to(work_dtype)
-        dec = _TreeDecoder(ph, axis=axis)
-        dec.decode(tree, x)
-        u = torch.cat(dec.mesg, dim=axis)
-        out_dtype = output_dtype or u.dtype
-        info = torch.as_tensor(info_np, dtype=torch.long, device=x.device)
+        dec = _TreeDecoder(ph, kernel_for, want_cw=use_fused_cw, axis=axis,
+                           kernel_emits_u=kernel_emit_u)
+        _, cw = dec.decode(tree, x)
+        # without subtree u blocks, dec.mesg holds only the (dead) blocks of
+        # eager leaves, so no u is assembled
+        u = torch.cat(dec.mesg, dim=axis) if kernel_emit_u else None
+        out_dtype = output_dtype or (u if u is not None else cw).dtype
         if output == "u":
             return u.to(out_dtype)
-        # re-encode: scatter u into the +1-filled u-domain block, transform
-        shape = list(u.shape)
-        shape[axis] = code.N
-        full = torch.ones(shape, dtype=u.dtype, device=u.device)
-        if axis == 0:
-            full[info] = u
-        else:
-            full[..., info] = u
-        cw = polar_transform(full, axis=axis)
+        if cw is None:
+            # re-encode: scatter u into the +1-filled u-domain block,
+            # transform
+            info = torch.as_tensor(info_np, dtype=torch.long, device=x.device)
+            shape = list(u.shape)
+            shape[axis] = code.N
+            full = torch.ones(shape, dtype=u.dtype, device=u.device)
+            if axis == 0:
+                full[info] = u
+            else:
+                full[..., info] = u
+            cw = polar_transform(full, axis=axis)
         if output == "systematic":
+            info = torch.as_tensor(info_np, dtype=torch.long, device=cw.device)
             return (cw[info] if axis == 0 else cw[..., info]).to(out_dtype)
         if output == "codeword":
             return cw.to(out_dtype)
         return u.to(out_dtype), cw.to(out_dtype)
-
-    def decode(llrs):
-        return run(llrs, -1)
 
     def decode_lane_major(llr_t):
         """Element-major entry: LLRs ``(N, B)`` → outputs with the code
@@ -213,6 +343,15 @@ def make_fastssc_decoder(
             raise ValueError(f"expected (N={code.N}, B) lane-major LLRs")
         return run(llr_t, 0)
 
+    def decode(llrs):
+        if not hybrid:
+            return run(llrs, -1)
+        if llrs.ndim != 2:
+            raise ValueError("hybrid decoder expects (batch, N) LLRs")
+        out = decode_lane_major(llrs.t().contiguous())
+        if isinstance(out, tuple):
+            return tuple(o.t().contiguous() for o in out)
+        return out.t().contiguous()
+
     decode.lane_major = decode_lane_major
     return decode
-

@@ -1,12 +1,16 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 All ``polar_tpu_torch/csrc/*.cu`` sources compile into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds):
+with a plain C interface (no PyTorch headers, so a build takes seconds).
+Every source compiles to an object of its own, all nvcc processes started
+together, and one more nvcc links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -fmad=false -o libpolar_tpu_torch_<hash>.so *.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -fmad=false -c -o <name>.o <name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libpolar_tpu_torch_<hash>.so *.o
 
-``-fmad=false`` keeps every float product and sum of the step kernel
+``-fmad=false`` keeps every float product and sum of the channel math
 rounded on its own, as the plain torch chain rounds them. The library goes
 to ``build/polar_tpu_torch/`` under the repository root, named by a hash of
 the sources and the flags, and is built at first use: a process that finds
@@ -29,9 +33,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "polar_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -41,6 +45,12 @@ SIGNATURES = {
     "polar_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "polar_step": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _U, _U, _U,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "polar_subtree": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _P),
+    "polar_front_msg": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I, _P),
+    "polar_front_chan": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
+                         _I, _P),
+    "polar_count": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -81,24 +91,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists.
-    Returns its path; the compiler's output (``-Xptxas -v``: registers,
-    spills) is kept beside it as ``.log``."""
+    """Compile the sources unless the library for their hash exists: one
+    nvcc per source, all at once, then the link. Returns the library's
+    path; the compiler's output (``-Xptxas -v``: registers, spills) is
+    kept beside it as ``.log``."""
     out = library_path()
     if out.is_file():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise BuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                         f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.communicate()
+                raise BuildError(f"nvcc failed ({proc.returncode}):\n"
+                                 f"{' '.join(cmd)}\n{text}")
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc link failed ({proc.returncode}):\n"
+                             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(lib, out)
     return out
 
 

@@ -44,6 +44,16 @@ def device_tables(program: np.ndarray, frozen: np.ndarray, device):
     return _tables[key]
 
 
+def device_mask(frozen: np.ndarray, device):
+    """Device copy (uint8) of a frozen mask, made once per mask and
+    device."""
+    frozen = np.asarray(frozen, dtype=np.uint8)
+    key = ("mask", frozen.tobytes(), str(device))
+    if key not in _tables:
+        _tables[key] = torch.tensor(frozen, device=device)
+    return _tables[key]
+
+
 def _code(program, frozen):
     """The code and node tree that ``program`` was emitted from."""
     program = np.asarray(program, dtype=np.uint8)

@@ -51,12 +51,14 @@ def philox4x32_10(c0, c1, c2, c3, key: tuple[int, int]):
 
 
 def random_bits(seeds: tuple[int, int], call: int, rows: int, batch: int,
-                device) -> torch.Tensor:
-    """(rows, batch) int64 words: word w of frame f as the step kernel
-    draws it. ``rows`` must be a multiple of 4."""
-    if rows % 4:
-        raise ValueError("rows must be a multiple of 4")
-    blk = torch.arange(rows // 4, dtype=torch.int64, device=device)[:, None]
+                device, first: int = 0) -> torch.Tensor:
+    """(rows, batch) int64 words: words ``first .. first + rows - 1`` of
+    frame f as the step kernel draws them. ``first`` and ``rows`` must be
+    multiples of 4."""
+    if rows % 4 or first % 4:
+        raise ValueError("first and rows must be multiples of 4")
+    blk = torch.arange(first // 4, (first + rows) // 4, dtype=torch.int64,
+                       device=device)[:, None]
     frame = torch.arange(batch, dtype=torch.int64, device=device)[None, :]
     zero = torch.zeros((), dtype=torch.int64, device=device)
     words = philox4x32_10(frame.expand(rows // 4, batch), blk.expand(rows // 4, batch),

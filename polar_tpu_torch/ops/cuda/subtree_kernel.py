@@ -1,0 +1,118 @@
+"""Subtree Fast-SSC decoder on the card: wrapper and plain version.
+
+The kernel (``csrc/subtree.cu`` over ``csrc/fastssc.cuh``) replaces
+``polar_tpu/ops/pallas/decoder_kernel.py:make_subtree_decoder`` (``:562``)
+in its SSA bodies and ``"lane"`` layout: it decodes one pruned-tree node
+for the hybrid decoder (:mod:`polar_tpu_torch.decode.fastssc`), one
+thread per frame, over element-major ``(rows, B)`` int8 blocks.
+
+``make_subtree_decoder(node, ...)`` returns ``fn(*blocks)``:
+
+* inputs — the node's slot ``(2^l, B)``; with ``fuse="f"`` the parent's
+  slot ``(2^{l+1}, B)`` (the parent's f runs in the kernel); with
+  ``fuse="g"`` the parent's slot plus the left child's hard block (and its
+  cw block when ``emit_cw``), the parent's g running in the kernel;
+* outputs — ``(u (k, B))?``, ``hard``, ``(cw)?``; ``hard`` and ``cw`` are
+  the node's ``(2^l, B)`` blocks, or under ``fuse="g"`` the parent's
+  combined ``[hl·hr, hr]`` / ``[cwl·cwr, cwr]`` ``(2^{l+1}, B)`` blocks.
+
+The function launches the kernel for CUDA tensors and runs
+:func:`decode_plain` (the eager recursion over the node) only for CPU
+tensors; :data:`launches` counts the launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...code.compiler import Node, emit_program, node_frozen
+from ...decode.fastssc import _TreeDecoder
+from ...ops.arith import Int8Arith
+from . import build
+from .decoder_kernel import THREADS, device_tables
+
+FUSE_CODES = {None: 0, "f": 1, "g": 2}
+launches = {"subtree_decoder": 0}
+plain_calls = {"subtree_plain": 0}
+
+
+def decode_plain(node: Node, blocks, *, fuse=None, emit_u=True,
+                 emit_cw=False) -> tuple:
+    """The eager recursion over ``node`` on element-major int8 blocks,
+    with the fused parent f / g and combine of the kernel."""
+    plain_calls["subtree_plain"] += 1
+    dec = _TreeDecoder(Int8Arith(), want_cw=emit_cw, axis=0)
+    if fuse == "f":
+        x = dec._f(blocks[0])
+    elif fuse == "g":
+        x = dec._g(blocks[1], blocks[0])
+    else:
+        x = blocks[0]
+    hard, cw = dec.decode(node, x)
+    if fuse == "g":
+        hard = torch.cat([dec.ph.qmul(blocks[1], hard), hard], dim=0)
+        if emit_cw:
+            cw = torch.cat([blocks[2] * cw, cw], dim=0)
+    outs = (hard,) + ((cw,) if emit_cw else ())
+    return ((torch.cat(dec.mesg, dim=0),) if emit_u else ()) + outs
+
+
+def make_subtree_decoder(node: Node, *, emit_u: bool = True,
+                         emit_cw: bool = False, fuse: str | None = None):
+    """The decoder of one node (see the module docstring). Any batch."""
+    if node.mesg_bits < 1:
+        raise ValueError("only nodes that emit message bits take a kernel")
+    if not emit_u and not emit_cw:
+        raise ValueError("emit_u=False needs emit_cw")
+    if fuse not in FUSE_CODES:
+        raise ValueError(f"unknown fuse mode {fuse!r}")
+    n, k = 1 << node.level, node.mesg_bits
+    if fuse == "g":
+        in_rows = (2 * n, n) + ((n,) if emit_cw else ())
+    else:
+        in_rows = (2 * n,) if fuse == "f" else (n,)
+    out_n = 2 * n if fuse == "g" else n
+    program = emit_program(node, node.level)
+    frozen = node_frozen(node)
+
+    def run(*blocks):
+        if len(blocks) != len(in_rows):
+            raise ValueError(f"expected {len(in_rows)} input blocks")
+        dev = blocks[0].device
+        if dev.type == "cpu":
+            return decode_plain(node, blocks, fuse=fuse, emit_u=emit_u,
+                                emit_cw=emit_cw)
+        if dev.type != "cuda":
+            raise ValueError(f"no subtree decoder for device {dev}")
+        b = blocks[0].shape[1] if blocks[0].ndim == 2 else -1
+        for t, rows in zip(blocks, in_rows):
+            if (t.dtype != torch.int8 or tuple(t.shape) != (rows, b)
+                    or not t.is_contiguous() or t.device != dev):
+                raise ValueError(
+                    f"expected contiguous int8 blocks of {in_rows} rows and "
+                    f"one batch on {dev}, got "
+                    f"{[(tuple(x.shape), x.dtype) for x in blocks]}")
+        mesg = torch.empty((k, b), dtype=torch.int8, device=dev)
+        hard = torch.empty((out_n, b), dtype=torch.int8, device=dev)
+        cw = (torch.empty((out_n, b), dtype=torch.int8, device=dev)
+              if emit_cw else None)
+        outs = ((mesg,) if emit_u else ()) + (hard,) + ((cw,) if emit_cw else ())
+        if b == 0:
+            return outs
+        prog_d, frozen_d = device_tables(program, frozen, dev)
+        soft = torch.empty((n, b), dtype=torch.int8, device=dev)
+        child = (torch.empty((n, b), dtype=torch.int8, device=dev)
+                 if fuse else None)
+        ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
+        lib = build.load_library()
+        err = lib.polar_subtree(
+            prog_d.data_ptr(), frozen_d.data_ptr(), n, b, FUSE_CODES[fuse],
+            *ptr, child.data_ptr() if fuse else None, soft.data_ptr(),
+            mesg.data_ptr(), hard.data_ptr(),
+            cw.data_ptr() if emit_cw else None, THREADS,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, "polar_subtree")
+        launches["subtree_decoder"] += 1
+        return outs
+
+    return run

@@ -116,3 +116,144 @@ def test_campaign_runs_through_the_kernels(dev):
     assert step_kernel.launches["mc_step"] > 0
     assert decoder_kernel.launches["fastssc_decoder_cw"] > 0
     assert np.isfinite(res.peak_mbps) and res.peak_mbps > 0
+
+
+def _subtree_nodes(m, level):
+    """Composite nodes of one level of Polar(2^m, 2^(m-1)) that take a
+    subtree kernel, one per kind present."""
+    out, stack = {}, [pt.compile_code(pt.make_code(m, rate=0.5))]
+    while stack:
+        node = stack.pop()
+        if node.level == level and node.mesg_bits >= 1 and node.kind in (
+                "branch", "rate0_right", "rate1_comb"):
+            out.setdefault(node.kind, node)
+        stack.extend(c for c in (node.left, node.right) if c is not None)
+    return list(out.values())
+
+
+@pytest.mark.parametrize("level", [4, 7])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_subtree_kernel_matches_plain(dev, level, batch):
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    nodes = _subtree_nodes(11, level)
+    assert nodes
+    for node in nodes:
+        n = 1 << node.level
+        slot = _llrs(dev, 2 * n, max(batch, 2), level)[:, :batch].contiguous()
+        g = torch.Generator(device=dev)
+        g.manual_seed(batch)
+        hl = torch.randint(-1, 2, (n, batch), generator=g, device=dev,
+                           dtype=torch.int8)
+        cwl = torch.randint(-1, 2, (n, batch), generator=g, device=dev,
+                            dtype=torch.int8)
+        for fuse in (None, "f", "g"):
+            for emit_u, emit_cw in ((True, False), (True, True), (False, True)):
+                fn = subtree_kernel.make_subtree_decoder(
+                    node, emit_u=emit_u, emit_cw=emit_cw, fuse=fuse)
+                args = ((slot[:n].contiguous(),) if fuse is None else
+                        (slot,) if fuse == "f" else
+                        (slot, hl) + ((cwl,) if emit_cw else ()))
+                before = subtree_kernel.launches["subtree_decoder"]
+                got = fn(*args)
+                assert subtree_kernel.launches["subtree_decoder"] == before + 1
+                want = subtree_kernel.decode_plain(
+                    node, [a.cpu() for a in args], fuse=fuse, emit_u=emit_u,
+                    emit_cw=emit_cw)
+                assert len(got) == len(want)
+                for a, b in zip(got, want):
+                    assert torch.equal(a.cpu(), b), (node.kind, fuse, emit_u)
+
+
+def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
+    from polar_tpu_torch.decode import auto
+
+    for m in (auto.HYBRID_MIN_LEVEL - 1, auto.HYBRID_MIN_LEVEL):
+        _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5), device=dev)
+        assert desc == ("cuda-fastssc" if m < auto.HYBRID_MIN_LEVEL
+                        else f"cuda-hybrid-kl{auto.HYBRID_KERNEL_LEVEL}")
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_hybrid_matches_whole_code_kernel(dev, fuse):
+    c = pt.make_code(12, rate=0.5)
+    llr = _llrs(dev, c.N, 1000, 12)
+    for mode in ("u", "systematic", "codeword", "both"):
+        want = make_kernel_decoder(c, output=mode).lane_major(llr)
+        for kl in (6, 9):
+            got = pt.make_fastssc_decoder(c, output=mode, output_dtype=torch.int8,
+                                          kernel_level=kl, kernel_fuse=fuse)
+            got_lane = got.lane_major(llr)
+            got_frame = got(llr.t().contiguous())
+            pairs = (zip(got_lane, want) if mode == "both"
+                     else [(got_lane, want)])
+            for a, b in pairs:
+                assert torch.equal(a, b), (mode, kl)
+            pairs = (zip(got_frame, want) if mode == "both"
+                     else [(got_frame, want)])
+            for a, b in pairs:
+                assert torch.equal(a.t(), b), (mode, kl)
+
+
+@pytest.mark.parametrize("systematic", [True, False])
+@pytest.mark.parametrize("batch", [1, 999])
+def test_front_kernels_match_plain(dev, systematic, batch):
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    c = pt.make_code(10, rate=0.5)
+    g = torch.Generator(device=dev)
+    g.manual_seed(batch)
+    msg = (1 - 2 * torch.randint(0, 2, (c.N, batch), generator=g,
+                                 device=dev)).to(torch.int8)
+    nrm = torch.randn((c.N, batch), generator=g, device=dev)
+    params = snr_params(-1.0)
+    for blk in (16, 256):
+        a = front_kernel.msg_blocks(c.frozen, blk, systematic, msg_t=msg)
+        assert torch.equal(a, front_kernel.msg_blocks_plain(
+            c.frozen, blk, systematic, msg_t=msg))
+        kw = dict(seeds=(5, 6), call=2, batch=batch, device=dev)
+        a = front_kernel.msg_blocks(c.frozen, blk, systematic, **kw)
+        assert torch.equal(a, front_kernel.msg_blocks_plain(
+            c.frozen, blk, systematic, **kw))
+        for inject in (True, False):
+            kw = dict(normals_t=nrm) if inject else dict(seeds=(5, 6), call=2)
+            got = front_kernel.chan_blocks(a, blk, params, **kw)
+            want = front_kernel.chan_blocks_plain(a, blk, params, **kw)
+            assert torch.equal(got[1], want[1])
+            # native: the same words; an ulp of log/sqrt between the card
+            # and torch may move an LLR by one step
+            d = (got[0].int() - want[0].int()).abs()
+            assert int(d.max()) <= (0 if inject else 1)
+            assert int((d != 0).sum()) <= (0 if inject else 3)
+
+
+def test_count_kernel_matches_plain(dev):
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(11, rate=0.5)
+    for batch in (1, 77, 4099):
+        llr = _llrs(dev, c.N, max(batch, 2), batch)[:, :batch].contiguous()
+        g = torch.Generator(device=dev)
+        g.manual_seed(batch)
+        cw = (1 - 2 * torch.randint(0, 2, (c.N, batch), generator=g,
+                                    device=dev)).to(torch.int8)
+        hat = cw.clone()
+        flips = torch.randint(0, 400, (c.N, batch), generator=g, device=dev)
+        hat[flips == 0] = 0
+        hat[flips == 1] *= -1
+        got = count_kernel.count(c.frozen, llr, cw, hat)
+        want = count_kernel.count_plain(c.frozen, llr, cw, hat)
+        assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("systematic", [True, False])
+def test_large_n_chain_matches_fused_step(dev, systematic):
+    c = pt.make_code(12, rate=0.5)
+    chain = pt.ber.make_front_chain(c, systematic=systematic, kernel_level=8)
+    kw = dict(seeds=(31, 41), call=0, batch=3000, device=dev)
+    for snr in (-1.0, 0.5):
+        got = chain(snr_params(snr), **kw)
+        want = step_kernel.step(pt.compile_program(c), c.frozen,
+                                snr_params(snr), systematic, **kw)
+        assert torch.equal(got, want), (snr, got.tolist(), want.tolist())
+    assert int(got[3]) > 0
