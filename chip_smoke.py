@@ -7,7 +7,12 @@ campaign), and times kernel against plain version (phases 1-6). Then the
 large-N path at Polar(131072, 65536) systematic int8: the subtree decoder
 and the hybrid against the whole-code kernel (7), the block front and the
 counter kernel (8), the large-N step against the fused step and a BER
-campaign against the JAX package's result, with timings (9). Phases print
+campaign against the JAX package's result, with timings (9). Then the
+caller's-decoder path: the symbols, AWGN and block-encoder kernels
+against their plain versions, with timings (10), and the pinned-decoder
+step with the kernel draws at both codes: exact counters on injected
+words, chained campaigns against the JAX package's results, step rates
+against the torch draws, and the SC decoder on the card (11). Phases print
 one line each; any failure raises, so the script exits non-zero and prints
 no result. The last two lines are the kernel table and the device line.
 
@@ -72,9 +77,36 @@ def _subtree_nodes(tree, levels):
     return [out[k] for k in sorted(out)]
 
 
+def campaign_vs_reference(label, res, name, k, need) -> None:
+    """A phase line per campaign point against the JAX package's result
+    file ``results/<name>``; raises unless at least ``need`` points lie
+    within the bounds."""
+    import numpy as np
+
+    ref = json.loads((ROOT / "results" / name).read_text())
+    ref_pts = {round(p["snr_db"], 1): p for p in ref["points"]}
+    within = 0
+    for p in res.points:
+        r = ref_pts[round(p.snr_db, 1)]
+        if not (np.isfinite(p.ber) and 0 <= p.ber <= 1):
+            raise AssertionError(f"BER out of range at {p.snr_db}: {p.ber}")
+        ok_f, sd_f = bounds_ok(p.fer * p.frames, p.frames,
+                               r["fer"] * r["frames"], r["frames"])
+        ok_b, sd_b = ber_ok(p.bit_errors, p.frames, r["bit_errors"],
+                            r["frames"], k)
+        within += ok_f and ok_b
+        phase(label, f"Polar({res.code_n}, {k}) snr {p.snr_db + 0.0:+.1f} dB: "
+              f"BER {p.ber:.4g} FER {p.fer:.4g} ({p.frames} frames) vs "
+              f"{name} BER {r['ber']:.4g} FER {r['fer']:.4g} ({r['frames']} "
+              f"frames), {SIGMAS:g}-sigma bounds {SIGMAS * sd_b:.3g} / "
+              f"{SIGMAS * sd_f:.3g}: {'ok' if ok_f and ok_b else 'OUTSIDE'}")
+    if within < need:
+        raise AssertionError(f"only {within} of {len(res.points)} campaign "
+                             f"points within bounds of {name}")
+
+
 def large_n_phases(dev, card, ms) -> dict:
     """Phases 7-9: the large-N path at Polar(131072, 65536)."""
-    import numpy as np
     import torch
 
     import polar_tpu_torch as pt
@@ -240,25 +272,7 @@ def large_n_phases(dev, card, ms) -> dict:
     phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
           f"2048 frames in {wall:.1f} s; launches {launched}; plain calls "
           f"{plain}")
-    ref = json.loads((ROOT / "results" / "n131072_sys_int8.json").read_text())
-    ref_pts = {round(p["snr_db"], 1): p for p in ref["points"]}
-    within = 0
-    for p in res.points:
-        r = ref_pts[round(p.snr_db, 1)]
-        if not (np.isfinite(p.ber) and 0 <= p.ber <= 1):
-            raise AssertionError(f"BER out of range at {p.snr_db}: {p.ber}")
-        ok_f, sd_f = bounds_ok(p.fer * p.frames, p.frames,
-                               r["fer"] * r["frames"], r["frames"])
-        ok_b, sd_b = ber_ok(p.bit_errors, p.frames, r["bit_errors"],
-                            r["frames"], k)
-        within += ok_f and ok_b
-        phase("9", f"snr {p.snr_db + 0.0:+.1f} dB: BER {p.ber:.4g} FER "
-              f"{p.fer:.4g} ({p.frames} frames) vs JAX-package result BER "
-              f"{r['ber']:.4g} FER {r['fer']:.4g} ({r['frames']} frames), "
-              f"{SIGMAS:g}-sigma bounds {SIGMAS * sd_b:.3g} / "
-              f"{SIGMAS * sd_f:.3g}: {'ok' if ok_f and ok_b else 'OUTSIDE'}")
-    if within < 3:
-        raise AssertionError(f"only {within} campaign points within bounds")
+    campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
 
     # timings at Polar(131072, 65536), B = 4096
     times = {}
@@ -303,6 +317,220 @@ def large_n_phases(dev, card, ms) -> dict:
                               batch=b, device=dev), 2)
     phase("9", f"large-N step (systematic, kl{kl}): {t_step:.1f} ms per "
           f"{b} frames, {b / t_step * 1e3:.1f} frames/s ({card})")
+    return {"err": err, "times": times,
+            "launched": {name: launched[name] for name in new}}
+
+
+def draw_phases(dev, card, ms) -> dict:
+    """Phases 10-11: the caller's-decoder path, whose message, encode and
+    noise come from the symbols, block-encoder and AWGN kernels, at
+    Polar(1024, 512) B=32768 and Polar(131072, 65536) B=4096."""
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.ops.cuda import (channel_kernel, count_kernel,
+                                          decoder_kernel, encode_kernel,
+                                          front_kernel, step_kernel,
+                                          subtree_kernel)
+    from polar_tpu_torch.utils.benchmark import measure_step_rate
+
+    new = ("channel_symbols", "channel_awgn", "block_encoder")
+    err = dict.fromkeys(new, 0)
+    times = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def words(rows, cols):
+        return torch.randint(0, 2**32, (rows, cols), generator=gen,
+                             dtype=torch.int64, device=dev)
+
+    def max_err(got, want):
+        return int((got.int() - want.int()).abs().max())
+
+    # -- 10. each kernel against its plain version, at the shapes that both
+    # configurations give it; the large one last, whose codeword the noise
+    # moments and the timings below use ------------------------------------
+    for m, b in ((10, BATCH), (LARGE_M, LARGE_BATCH)):
+        shape = (b, 1 << (m - 1))
+        kw = dict(seeds=(101, 202), call=0, device=dev)
+        w = words(*shape)
+        for mode, a, p in (
+                ("native", lambda: channel_kernel.symbols(shape, **kw),
+                 lambda: channel_kernel.symbols_plain(shape, **kw)),
+                ("bits", lambda: channel_kernel.symbols(words=w),
+                 lambda: channel_kernel.symbols_plain(words=w))):
+            e = max_err(a(), p())
+            err["channel_symbols"] = max(err["channel_symbols"], e)
+            phase("10", f"symbols {mode} {shape}: max abs err {e}")
+            if e:
+                raise AssertionError(f"symbols kernel ({mode}) differs from "
+                                     f"plain at {shape}")
+        if m == LARGE_M:
+            times["channel_symbols"] = (
+                ms(lambda: channel_kernel.symbols(shape, **kw), 10),
+                ms(lambda: channel_kernel.symbols_plain(shape, **kw), 2))
+        del w
+
+        shape = (b, 1 << m)
+        cw = (1 - 2 * torch.randint(0, 2, shape, generator=gen,
+                                    device=dev)).to(torch.int8)
+        w1, w2 = words(*shape), words(*shape)
+        for snr in (-1.5, 3.0):
+            params = snr_params(snr)
+            for mode, kw in (("native", dict(seeds=(303, 404), call=1)),
+                             ("bits", dict(words=(w1, w2)))):
+                got = channel_kernel.awgn(cw, params, **kw)
+                want = channel_kernel.awgn_plain(cw, params, **kw)
+                e = max_err(got, want)
+                moved = int((got != want).sum())
+                err["channel_awgn"] = max(err["channel_awgn"], e)
+                phase("10", f"awgn {mode} {shape} at {snr:+.1f} dB: max abs "
+                      f"err {e} ({moved} of {got.numel()} LLRs moved), "
+                      f"{int((got == 0).sum())} zero LLRs")
+                if e:
+                    raise AssertionError(f"AWGN kernel ({mode}) differs from "
+                                         f"plain at {shape}")
+                del got, want
+        del w1, w2
+    # native normals through the kernel itself: cw = 0, sigma = 1, scale 16
+    q = channel_kernel.awgn(torch.zeros_like(cw), (1.0, 16.0), seeds=(5, 5))
+    z = q.double() / 16.0
+    mean, std = float(z.mean()), float(z.std())
+    # |z| > 3 on the 1/16 grid is |16 n| > 48.5 (ties round to the even 48)
+    tail, kurt = float((z.abs() > 3.0).double().mean()), float((z**4).mean())
+    p_tail = math.erfc(48.5 / 16 / math.sqrt(2))
+    phase("10", f"native normals ({q.numel()} through the kernel, 1/16 "
+          f"steps): mean {mean:.5f} std {std:.5f} P(|n|>3.03) {tail:.6f} "
+          f"(normal law {p_tail:.6f}) E[n^4] {kurt:.4f}")
+    # within 5 standard errors; the 1/16 grid adds 1/(12 * 256) to the
+    # variance and about 0.002 to E[n^4]
+    se = 5 / math.sqrt(q.numel())
+    if not (abs(mean) < se and abs(std**2 - 1 - 1 / 3072) < se * math.sqrt(2)
+            and abs(kurt - 3) < se * math.sqrt(96) + 0.003
+            and abs(tail - p_tail) < se * math.sqrt(p_tail)):
+        raise AssertionError("native AWGN normals off their moments")
+    del q, z
+    params = snr_params(-1.5)
+    kw = dict(seeds=(7, 8), call=0)
+    times["channel_awgn"] = (ms(lambda: channel_kernel.awgn(cw, params, **kw), 10),
+                             ms(lambda: channel_kernel.awgn_plain(cw, params, **kw), 2))
+    del cw
+
+    for m, b in ((10, BATCH), (LARGE_M, LARGE_BATCH)):
+        code = pt.make_code(m, rate=0.5)
+        msg = channel_kernel.symbols((b, code.K), seeds=(m, 1), device=dev)
+        for systematic in (True, False):
+            ref = (pt.encode_systematic if systematic else pt.encode)(code, msg)
+            levels = sorted({2, m - 7, encode_kernel.BLOCK_LEVEL, m}
+                            & set(range(1, m + 1)))
+            for bl in levels:
+                got = encode_kernel.make_encoder(code, systematic=systematic,
+                                                 block_level=bl)(msg)
+                plain = encode_kernel.encode_plain(code, msg, systematic, 1 << bl)
+                e = max(max_err(got, plain), max_err(got, ref))
+                err["block_encoder"] = max(err["block_encoder"], e)
+                if e:
+                    raise AssertionError(f"encoder differs at m={m} block "
+                                         f"level {bl} sys={systematic}")
+            phase("10", f"block encoder Polar({code.N}, {code.K}) B={b} "
+                  f"sys={systematic}: == plain and == encode"
+                  f"{'_systematic' if systematic else ''} at block levels "
+                  f"{levels} (max abs err 0)")
+        enc = encode_kernel.make_encoder(code)
+        blk = 1 << min(encode_kernel.BLOCK_LEVEL, m)
+        t_enc = (ms(lambda: enc(msg), 10),
+                 ms(lambda: encode_kernel.encode_plain(code, msg, True, blk), 2))
+        phase("10", f"block encoder Polar({code.N}, {code.K}) B={b} systematic, "
+              f"block level {blk.bit_length() - 1}: kernel {t_enc[0]:.3f} ms, "
+              f"plain {t_enc[1]:.3f} ms ({card})")
+        if m == LARGE_M:
+            times["block_encoder"] = t_enc
+        del msg, ref, got, plain
+    for name in new:
+        t_k, t_p = times[name]
+        phase("10", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
+              f"B={LARGE_BATCH}, Polar({1 << LARGE_M}, {1 << (LARGE_M - 1)}) "
+              f"shapes ({card})")
+
+    # -- 11. the path: pinned decoders with the kernel draws -----------------
+    configs = []
+    for m, b in ((10, BATCH), (LARGE_M, LARGE_BATCH)):
+        code = pt.make_code(m, rate=0.5)
+        dec, desc = pt.make_auto_decoder(code, output="systematic", device=dev)
+        configs.append((code, b, dec, desc))
+    for code, b, dec, desc in configs:
+        body = pt.ber.make_step_body(code, decoder=dec, rng="kernel-bits",
+                                     device=dev)
+        ws = (words(b, code.K), words(b, code.N), words(b, code.N))
+        got = {k: int(v) for k, v in body(None, -1.5, b, words=ws).items()}
+        msg = channel_kernel.symbols_plain(words=ws[0])
+        cw = pt.encode_systematic(code, msg)
+        llr = channel_kernel.awgn_plain(cw, snr_params(-1.5), words=ws[1:])
+        want = {k: int(v) for k, v in pt.ber.frame_counters(
+            msg, cw, llr, dec(llr)).items()}
+        if got != want:
+            raise AssertionError(f"kernel-draw step {got} vs torch-draw step "
+                                 f"{want} at Polar({code.N}, {code.K})")
+        phase("11", f"Polar({code.N}, {code.K}) B={b} ({desc}), injected "
+              f"words at -1.5 dB: kernel-draw step == torch-draw step "
+              f"{list(got.values())}")
+        del ws, msg, cw, llr
+
+    counts = (channel_kernel.launches, encode_kernel.launches,
+              decoder_kernel.launches, subtree_kernel.launches,
+              step_kernel.launches, front_kernel.launches,
+              count_kernel.launches)
+    plains = (channel_kernel.plain_calls, encode_kernel.plain_calls,
+              decoder_kernel.plain_calls, subtree_kernel.plain_calls)
+    _reset(*counts, *plains)
+    results = []
+    t0 = time.perf_counter()
+    for (code, b, dec, _), snr_range in zip(configs, ((-1.0, 0.0), (-1.7, -1.4))):
+        results.append(pt.run_campaign(
+            code, device=dev, decoder=dec, seed=11, batch=b, steps_per_call=4,
+            snr_range=snr_range, snr_step=0.2 if code.level == 10 else 0.1,
+            max_frames_per_point=4 * b, measure_throughput=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: v for c in counts for name, v in c.items()}
+    plain = {name: v for c in plains for name, v in c.items()}
+    if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
+        raise AssertionError(f"pinned-decoder campaigns launches {launched}, "
+                             f"plain calls {plain}")
+    phase("11", f"campaigns with pinned decoders, 4 steps per call, "
+          f"{sum(len(r.points) for r in results)} points in {wall:.1f} s; "
+          f"launches {launched}; plain calls {plain}")
+    campaign_vs_reference("11", results[0], "n1024_sys_int8.json", 512,
+                          len(results[0].points))
+    campaign_vs_reference("11", results[1], "n131072_sys_int8.json",
+                          1 << (LARGE_M - 1), 3)
+
+    for code, b, dec, desc in configs:
+        g = torch.Generator()
+        g.manual_seed(code.level)
+        large = code.level > 10
+        kw = (dict(device=dev, iters=8, repeats=2, warmup=False, max_iters=32)
+              if large else dict(device=dev, iters=16, max_iters=256))
+        rates = {}
+        for label, fused in (("torch", False), ("kernel", "auto"), ("kernel", "auto"),
+                             ("torch", False)):
+            step = pt.make_step(code, decoder=dec, fused=fused, device=dev)
+            rates.setdefault(label, []).append(
+                measure_step_rate(step, g, -1.5, b, **kw))
+        phase("11", f"step rate Polar({code.N}, {code.K}) B={b} ({desc}), "
+              f"frames/s: kernel draws {rates['kernel']}, torch draws "
+              f"{rates['torch']} (order torch, kernel, kernel, torch; {card})")
+
+    code = configs[0][0]
+    llr = torch.randint(-128, 128, (256, code.N), generator=gen, device=dev,
+                        dtype=torch.int8)
+    sc = pt.make_sc_decoder(code, output="both")
+    got, want = sc(llr), sc(llr.cpu())
+    if not all(torch.equal(a.cpu(), b_) for a, b_ in zip(got, want)):
+        raise AssertionError("SC decoder on the card differs from the CPU")
+    phase("11", f"SC decoder Polar({code.N}, {code.K}) B=256 full-range "
+          "int8: u and codeword on the card == on the CPU")
     return {"err": err, "times": times,
             "launched": {name: launched[name] for name in new}}
 
@@ -463,28 +691,7 @@ def main() -> int:
     phase("5", f"campaign {len(res.points)} points in {wall:.1f} s; launches "
           f"{launched}; plain calls {plain}; decode gauge "
           f"{res.peak_mbps:.1f} info Mbit/s")
-    ref = json.loads((ROOT / "results" / "n1024_sys_int8.json").read_text())
-    ref_pts = {round(p["snr_db"], 1): p for p in ref["points"]}
-    compared = 0
-    for p in res.points:
-        r = ref_pts.get(round(p.snr_db, 1))
-        if not (np.isfinite(p.ber) and 0 <= p.ber <= 1):
-            raise AssertionError(f"BER out of range at {p.snr_db}: {p.ber}")
-        if r is None:
-            continue
-        ok_f, sd_f = bounds_ok(p.fer * p.frames, p.frames,
-                               r["fer"] * r["frames"], r["frames"])
-        ok_b, sd_b = ber_ok(p.bit_errors, p.frames, r["bit_errors"],
-                            r["frames"], k)
-        phase("5", f"snr {p.snr_db + 0.0:+.1f} dB: BER {p.ber:.4g} FER {p.fer:.4g} "
-              f"({p.frames} frames) vs JAX-package result BER {r['ber']:.4g} "
-              f"FER {r['fer']:.4g} ({r['frames']} frames), "
-              f"{SIGMAS:g}-sigma bounds {SIGMAS * sd_b:.3g} / {SIGMAS * sd_f:.3g}")
-        if not (ok_f and ok_b):
-            raise AssertionError(f"campaign point {p.snr_db} outside bounds")
-        compared += 1
-    if compared < 5:
-        raise AssertionError("too few campaign points compared")
+    campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
 
     # -- 6. timings, kernel against plain version --------------------------
     def ms(fn, reps):
@@ -508,10 +715,10 @@ def main() -> int:
               f"plain {t_p:.3f} ms ({BATCH / t_p * 1e3:.4g} frames/s) at "
               f"Polar({n}, {k}) B={BATCH} ({card})")
 
-    large = large_n_phases(dev, card, ms)
-    err.update(large["err"])
-    times.update(large["times"])
-    launched.update(large["launched"])
+    for more in (large_n_phases(dev, card, ms), draw_phases(dev, card, ms)):
+        err.update(more["err"])
+        times.update(more["times"])
+        launched.update(more["launched"])
 
     replaces = {
         "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",
@@ -528,6 +735,12 @@ def main() -> int:
                            "polar_tpu/ops/pallas/step_kernel.py:762"),
         "count": ("polar_tpu_torch/csrc/count.cu",
                   "polar_tpu/ops/pallas/step_kernel.py:544"),
+        "channel_symbols": ("polar_tpu_torch/csrc/channel_grid.cu",
+                            "polar_tpu/ops/pallas/channel_kernel.py:77"),
+        "channel_awgn": ("polar_tpu_torch/csrc/channel_grid.cu",
+                         "polar_tpu/ops/pallas/channel_kernel.py:60"),
+        "block_encoder": ("polar_tpu_torch/csrc/encode.cu",
+                          "polar_tpu/ops/pallas/encode_kernel.py:52"),
     }
     print(card, flush=True)
     print(json.dumps({"kernels": [

@@ -2,11 +2,11 @@
 
 The port of ``polar_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100:
 code construction, Fast-SSC compilation, systematic and non-systematic
-encoding, saturating-int8 Fast-SSC decoding and AWGN Monte-Carlo BER
-campaigns. On a CUDA device the decoder and the fused Monte-Carlo step run
-as hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on
-the CPU their plain PyTorch versions run. Importing this package imports
-neither JAX nor ``polar_tpu``.
+encoding, saturating-int8 Fast-SSC and SC decoding and AWGN Monte-Carlo
+BER campaigns. On a CUDA device the decoders, the Monte-Carlo steps and the
+channel and encoder draws run as hand-written CUDA kernels (``csrc/``,
+built with nvcc at first use); on the CPU their plain PyTorch versions
+run. Importing this package imports neither JAX nor ``polar_tpu``.
 
 Quick start::
 
@@ -14,10 +14,13 @@ Quick start::
 
     code = pt.make_code(10, rate=0.5)                    # Polar(1024, 512)
     result = pt.run_campaign(code, device="cuda")        # BER waterfall
+
+The waterfall CLI: ``python -m polar_tpu_torch.waterfall --help``.
 """
 
-from .ber import CampaignResult, SnrPoint, make_step, run_campaign, run_point
-from .campaign_io import load_result, save_result
+from .ber import (CampaignResult, SnrPoint, make_multi_step, make_step,
+                  run_campaign, run_point)
+from .campaign_io import load_result, plot_waterfall, save_result
 from .channel import awgn_llrs, ebn0_db, noise_sigma
 from .code.compiler import Node, compile_code, compile_program
 from .code.construction import (
@@ -34,6 +37,7 @@ from .code.construction import (
 )
 from .decode.auto import make_auto_decoder
 from .decode.fastssc import make_fastssc_decoder
+from .decode.sc import make_sc_decoder
 from .encode import encode, encode_systematic, extract_systematic
 from .ops.transform import polar_transform
 
@@ -57,16 +61,19 @@ __all__ = [
     "encode",
     "encode_systematic",
     "extract_systematic",
+    "make_sc_decoder",
     "make_fastssc_decoder",
     "make_auto_decoder",
     "awgn_llrs",
     "noise_sigma",
     "ebn0_db",
     "make_step",
+    "make_multi_step",
     "run_point",
     "run_campaign",
     "SnrPoint",
     "CampaignResult",
     "save_result",
     "load_result",
+    "plot_waterfall",
 ]

@@ -1,9 +1,10 @@
 // The channel math of the Monte-Carlo front, shared by the fused step kernel
-// (step.cu) and the large-N block front (front.cu), so that both compute
-// every normal and every LLR with the same instructions: the large-N step
-// reproduces the fused step's counters on the same Philox words.
+// (step.cu), the large-N block front (front.cu) and the elementwise channel
+// kernels (channel_grid.cu), so that all compute every normal and every LLR
+// with the same instructions: the large-N step reproduces the fused step's
+// counters on the same Philox words.
 //
-// Both files are built with -fmad=false: each product and sum below rounds
+// Every file is built with -fmad=false: each product and sum below rounds
 // on its own, as the plain torch chain (channel.py:channel_llrs) rounds them.
 #pragma once
 
@@ -36,6 +37,16 @@ __device__ __forceinline__ void box_muller(uint32_t radius_word,
   sincos_2pi(u2, &cs, &sn);
   *n0 = r * cs;
   *n1 = r * sn;
+}
+
+// Cosine-only Box-Muller on two independent words
+// (polar_tpu/ops/pallas/channel_kernel.py:_normals): sqrt(-2 ln u1) cos 2 pi u2.
+__device__ __forceinline__ float normal_cos(uint32_t radius_word,
+                                            uint32_t angle_word) {
+  const float r = sqrtf(-2.0f * logf(bits_to_unit(radius_word)));
+  float cs, sn;
+  sincos_2pi(bits_to_unit(angle_word), &cs, &sn);
+  return r * cs;
 }
 
 }  // namespace polar

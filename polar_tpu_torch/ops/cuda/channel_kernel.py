@@ -1,0 +1,158 @@
+"""Elementwise channel kernels on the card: wrappers and plain versions.
+
+The kernels (``csrc/channel_grid.cu``) replace
+``polar_tpu/ops/pallas/channel_kernel.py``: :func:`symbols` replaces
+``make_pallas_symbols`` (``:120``, ``_sym_kernel_native`` / ``_bits``
+``:77-86``), random ±1 int8 message symbols; :func:`awgn` replaces
+``make_pallas_awgn`` (``:146``, ``_awgn_body`` ``:60``, ``_normals``
+``:47``), ``quant(2/σ²·(cw + σ·n))`` with cosine-only Box-Muller normals.
+Both work on frame-major ``(rows, cols)`` grids, as the JAX kernels do.
+
+Two modes, as the JAX kernels' ``native`` and ``bits``:
+
+* native — words from Philox (``csrc/philox.cuh``): word c of row f is
+  lane c % 4 of ``philox4x32_10(counter=(f, c // 4, call, 0), key=seeds)``
+  (:func:`~.philox.frame_words`). A symbol takes word c of the message
+  stream; a normal takes words c and cols + c of the noise stream, which
+  the caller keys with seeds of its own (the JAX package splits ``kmsg``
+  and ``knoise``);
+* bits — the words come in as int64 tensors holding values in
+  [0, 2^32): the counterpart of the JAX ``bits`` mode, and the way to hold
+  the kernels against any other chain on the same words.
+
+Each wrapper launches its kernel for CUDA tensors (or a CUDA ``device``)
+and runs its plain version only for CPU ones; :data:`launches` counts the
+launches, :data:`plain_calls` the plain runs. The plain versions build
+int64 Philox temporaries several times the grid's size, so they run in
+chunks of frames of at most :data:`PLAIN_CHUNK` elements; a word depends
+only on its frame and column, so chunks are exact.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...channel import channel_llrs
+from . import build, philox
+
+THREADS = 256
+PLAIN_CHUNK = 1 << 24   # grid elements per chunk of a plain version
+launches = {"channel_symbols": 0, "channel_awgn": 0}
+plain_calls = {"symbols_plain": 0, "awgn_plain": 0}
+
+
+def _chunks(rows: int, cols: int):
+    step = max(1, PLAIN_CHUNK // max(cols, 1))
+    return [(f0, min(step, rows - f0)) for f0 in range(0, rows, step)]
+
+
+def _check(t, name, shape, dtype, dev):
+    if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+            or t.device != dev or t.data_ptr() % 4):
+        raise ValueError(f"{name}: expected contiguous, 4-byte aligned {shape} "
+                         f"{dtype} on {dev}, got {tuple(t.shape)} {t.dtype} "
+                         f"on {t.device}")
+
+
+def symbols_plain(shape=None, *, words=None, seeds=None, call: int = 0,
+                  device=None) -> torch.Tensor:
+    """The symbols kernel's plain version: ``(rows, cols)`` ±1 int8."""
+    plain_calls["symbols_plain"] += 1
+    if words is not None:
+        return philox.bits_to_sym(words)
+    rows, cols = shape
+    s = philox.seed_words(seeds)
+    parts = [philox.bits_to_sym(philox.frame_words(s, call, nf, cols, device,
+                                                   frame0=f0))
+             for f0, nf in _chunks(rows, cols)]
+    return (torch.cat(parts) if parts else
+            torch.empty((0, cols), dtype=torch.int8, device=device))
+
+
+def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
+            device=None) -> torch.Tensor:
+    """Random ±1 int8 symbols: ``(rows, cols)`` = ``shape``. Bits mode
+    with ``words`` (rows, cols) int64; native mode with ``shape``,
+    ``seeds`` (two words), ``call`` and ``device``."""
+    dev = words.device if words is not None else torch.device(device)
+    if dev.type == "cpu":
+        return symbols_plain(shape, words=words, seeds=seeds, call=call,
+                             device=dev)
+    if dev.type != "cuda":
+        raise ValueError(f"no symbols kernel for device {dev}")
+    s0 = s1 = 0
+    if words is not None:
+        shape = tuple(words.shape)
+        if len(shape) != 2:
+            raise ValueError(f"words: expected (rows, cols), got {shape}")
+        _check(words, "words", shape, torch.int64, dev)
+    else:
+        s0, s1 = philox.seed_words(seeds)
+    rows, cols = shape
+    out = torch.empty((rows, cols), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    err = build.load_library().polar_symbols(
+        rows, cols, words.data_ptr() if words is not None else None, s0, s1,
+        call & 0xFFFFFFFF, out.data_ptr(), THREADS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "polar_symbols")
+    launches["channel_symbols"] += 1
+    return out
+
+
+def awgn_plain(codeword, params, *, words=None, seeds=None,
+               call: int = 0) -> torch.Tensor:
+    """The AWGN kernel's plain version: ``(rows, cols)`` int8 LLRs."""
+    plain_calls["awgn_plain"] += 1
+    sigma, scale = params
+    if words is not None:
+        return channel_llrs(codeword, philox.bits_to_normals_cos(*words),
+                            sigma, scale)
+    rows, cols = codeword.shape
+    s = philox.seed_words(seeds)
+    parts = []
+    for f0, nf in _chunks(rows, cols):
+        w = philox.frame_words(s, call, nf, 2 * cols, codeword.device,
+                               frame0=f0)
+        parts.append(channel_llrs(
+            codeword[f0:f0 + nf],
+            philox.bits_to_normals_cos(w[:, :cols], w[:, cols:]), sigma, scale))
+    return torch.cat(parts) if parts else torch.empty_like(codeword)
+
+
+def awgn(codeword, params, *, words=None, seeds=None,
+         call: int = 0) -> torch.Tensor:
+    """AWGN and quantization of ``codeword`` ``(rows, cols)`` int8 (±1):
+    ``quant(scale · (cw + σ·n))`` with ``params`` = (σ, 2/σ²) as float32
+    values. Bits mode with ``words`` = (radius, angle), both (rows, cols)
+    int64; native mode with ``seeds`` (two words) and ``call``."""
+    dev = codeword.device
+    if dev.type == "cpu":
+        return awgn_plain(codeword, params, words=words, seeds=seeds,
+                          call=call)
+    if dev.type != "cuda":
+        raise ValueError(f"no AWGN kernel for device {dev}")
+    if codeword.ndim != 2:
+        raise ValueError(f"codeword: expected (rows, cols), got "
+                         f"{tuple(codeword.shape)}")
+    shape = tuple(codeword.shape)
+    _check(codeword, "codeword", shape, torch.int8, dev)
+    s0 = s1 = 0
+    if words is not None:
+        for name, w in zip(("radius words", "angle words"), words):
+            _check(w, name, shape, torch.int64, dev)
+    else:
+        s0, s1 = philox.seed_words(seeds)
+    llr = torch.empty(shape, dtype=torch.int8, device=dev)
+    if llr.numel() == 0:
+        return llr
+    sigma, scale = params
+    err = build.load_library().polar_awgn(
+        shape[0], shape[1], sigma, scale, codeword.data_ptr(),
+        *((w.data_ptr() for w in words) if words is not None else (None, None)),
+        s0, s1, call & 0xFFFFFFFF, llr.data_ptr(), THREADS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "polar_awgn")
+    launches["channel_awgn"] += 1
+    return llr

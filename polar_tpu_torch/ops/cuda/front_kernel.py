@@ -41,10 +41,6 @@ launches = {"front_blocks_a": 0, "front_blocks_b": 0}
 plain_calls = {"msg_blocks_plain": 0, "chan_blocks_plain": 0}
 
 
-def _seed_words(seeds) -> tuple[int, int]:
-    return tuple(int(s) & 0xFFFFFFFF for s in seeds)
-
-
 def _check_blk(n: int, blk: int) -> None:
     if blk < 1 or blk & (blk - 1) or n % blk or n // blk > 65535:
         raise ValueError(f"block of {blk} rows does not tile N={n}")
@@ -65,7 +61,7 @@ def msg_blocks_plain(frozen, blk: int, butterfly: bool, *, msg_t=None,
     n = frozen.size
     if msg_t is None:
         msg_t = philox.bits_to_sym(philox.random_bits(
-            _seed_words(seeds), call, n, batch, device, first=n))
+            philox.seed_words(seeds), call, n, batch, device, first=n))
     frz = torch.as_tensor(frozen.astype(bool), device=msg_t.device).reshape(n, 1)
     u0 = torch.where(frz, torch.ones_like(msg_t), msg_t)
     return polar_transform_stages(u0, 1, blk, axis=0) if butterfly else u0
@@ -92,7 +88,7 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
         batch = msg_t.shape[1] if msg_t.ndim == 2 else -1
         _check(msg_t, "msg_t", (n, batch), torch.int8, dev)
     else:
-        s0, s1 = _seed_words(seeds)
+        s0, s1 = philox.seed_words(seeds)
     out = torch.empty((n, batch), dtype=torch.int8, device=dev)
     if batch == 0:
         return out
@@ -113,7 +109,7 @@ def chan_blocks_plain(y, blk: int, params, *, normals_t=None, seeds=None,
     n, batch = y.shape
     if normals_t is None:
         normals_t = philox.bits_to_normals(philox.random_bits(
-            _seed_words(seeds), call, n, batch, y.device))
+            philox.seed_words(seeds), call, n, batch, y.device))
     cw = polar_transform_stages(y, 1, blk, axis=0)
     sigma, scale = params
     return channel_llrs(cw, normals_t, sigma, scale), cw
@@ -138,7 +134,7 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
     if normals_t is not None:
         _check(normals_t, "normals_t", (n, batch), torch.float32, dev)
     else:
-        s0, s1 = _seed_words(seeds)
+        s0, s1 = philox.seed_words(seeds)
     llr = torch.empty((n, batch), dtype=torch.int8, device=dev)
     cw = torch.empty((n, batch), dtype=torch.int8, device=dev)
     if batch == 0:

@@ -10,7 +10,8 @@ values in [0, 2^32) and the products are formed from 16-bit halves.
 
 The bit maps are those of ``polar_tpu/ops/pallas/step_kernel.py:83-149``
 (``_bits_to_unit``, ``_sincos_2pi``, ``_bits_to_normals``,
-``_bits_to_sym``), operation for operation in float32.
+``_bits_to_sym``) and ``channel_kernel.py:_normals``, operation for
+operation in float32.
 """
 
 from __future__ import annotations
@@ -36,6 +37,11 @@ def _mulhilo(a: int, b: torch.Tensor):
     return hi & _MASK, lo
 
 
+def seed_words(seeds) -> tuple[int, int]:
+    """Two seed integers as the 32-bit key words a kernel takes."""
+    return tuple(int(s) & _MASK for s in seeds)
+
+
 def philox4x32_10(c0, c1, c2, c3, key: tuple[int, int]):
     """Ten Philox rounds over broadcastable int64 counter words; returns
     the four output words."""
@@ -50,21 +56,32 @@ def philox4x32_10(c0, c1, c2, c3, key: tuple[int, int]):
     return c0, c1, c2, c3
 
 
+def frame_words(seeds: tuple[int, int], call: int, frames: int, count: int,
+                device, *, first: int = 0, frame0: int = 0) -> torch.Tensor:
+    """(frames, count) int64 words, frame-major: row i holds words
+    ``first .. first + count - 1`` of frame ``frame0 + i``'s stream."""
+    b0, b1 = first // 4, -(-(first + count) // 4)
+    blk = torch.arange(b0, b1, dtype=torch.int64, device=device)[None, :]
+    frame = torch.arange(frame0, frame0 + frames, dtype=torch.int64,
+                         device=device)[:, None]
+    shape = (frames, b1 - b0)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = philox4x32_10(frame.expand(shape), blk.expand(shape),
+                          zero + (call & _MASK), zero, seeds)
+    w = torch.stack([x.expand(shape) for x in words], dim=2).reshape(
+        frames, 4 * (b1 - b0))
+    return w[:, first - 4 * b0:first - 4 * b0 + count]
+
+
 def random_bits(seeds: tuple[int, int], call: int, rows: int, batch: int,
                 device, first: int = 0) -> torch.Tensor:
-    """(rows, batch) int64 words: words ``first .. first + rows - 1`` of
-    frame f as the step kernel draws them. ``first`` and ``rows`` must be
-    multiples of 4."""
+    """(rows, batch) int64 words, element-major: words ``first .. first +
+    rows - 1`` of frame f as the step kernel draws them. ``first`` and
+    ``rows`` must be multiples of 4."""
     if rows % 4 or first % 4:
         raise ValueError("first and rows must be multiples of 4")
-    blk = torch.arange(first // 4, (first + rows) // 4, dtype=torch.int64,
-                       device=device)[:, None]
-    frame = torch.arange(batch, dtype=torch.int64, device=device)[None, :]
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    words = philox4x32_10(frame.expand(rows // 4, batch), blk.expand(rows // 4, batch),
-                          zero + (call & _MASK), zero, seeds)
-    return torch.stack([w.expand(rows // 4, batch) for w in words],
-                       dim=1).reshape(rows, batch)
+    return frame_words(seeds, call, batch, rows, device,
+                       first=first).t().contiguous()
 
 
 def _f32(x: float) -> float:
@@ -106,6 +123,14 @@ def bits_to_normals(b: torch.Tensor) -> torch.Tensor:
     r = torch.sqrt(-2.0 * torch.log(u1))
     c, s = sincos_2pi(u2)
     return torch.cat([r * c, r * s], dim=0)
+
+
+def bits_to_normals_cos(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Standard normals by the cosine-only Box-Muller of
+    ``polar_tpu/ops/pallas/channel_kernel.py:_normals``: ``sqrt(-2 log u1)
+    · cos 2πu2``, one normal from two independent words per element."""
+    r = torch.sqrt(-2.0 * torch.log(bits_to_unit(b1)))
+    return r * sincos_2pi(bits_to_unit(b2))[0]
 
 
 def bits_to_sym(b: torch.Tensor) -> torch.Tensor:

@@ -101,7 +101,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
                                  f"{dtype} on {dev}")
         s0 = s1 = 0
     else:
-        s0, s1 = (int(s) & 0xFFFFFFFF for s in seeds)
+        s0, s1 = philox.seed_words(seeds)
     if batch == 0:
         return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
     blocks = -(-batch // THREADS)

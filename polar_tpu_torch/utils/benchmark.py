@@ -1,7 +1,7 @@
 """Throughput measurement by the chained slope method.
 
-The port of ``polar_tpu.utils.benchmark`` (``measure_decode_fps`` and its
-slope core):
+The port of ``polar_tpu.utils.benchmark`` (``measure_decode_fps``,
+``measure_step_rate`` and their slope core):
 
 * ``iters`` decodes are chained, each input perturbed by the previous
   output (a true data dependency, nothing can be skipped or cached);
@@ -107,3 +107,33 @@ def slope_seconds_per_iter(timed, iters, *, warmup=True, repeats=3,
                     f"{iters} iters (workload too small vs timer noise)")
             return best
         iters = min(iters * 4, max_iters)
+
+
+def measure_step_rate(step, gen, snr_db, batch: int, *, device,
+                      iters: int = 16, warmup: bool = True, repeats: int = 3,
+                      max_iters: int = 4096,
+                      max_rel_spread: float = 0.25) -> float:
+    """Frames/s of the whole Monte-Carlo step (message, encode, AWGN,
+    decode, counters): the campaign's rate, against
+    :func:`measure_decode_fps`'s decode-only rate
+    (``polar_tpu/utils/benchmark.py:135-171``).
+
+    ``step`` is a :func:`polar_tpu_torch.ber.make_step` callable and
+    ``gen`` the host generator its steps draw their seeds from. A timed
+    run chains ``it`` steps with :func:`polar_tpu_torch.ber.chain_steps`
+    (counters summed on the device) and ends with a host pull of the sum,
+    timed by CUDA events on a card and the host clock on the CPU; the
+    slope acceptance is :func:`slope_seconds_per_iter`'s."""
+    from ..ber import chain_steps
+
+    multi = chain_steps(step)
+
+    def timed(it):
+        return elapsed_seconds(
+            lambda: int(multi(gen, snr_db, batch, it)["uncorrected_errors"]),
+            device)
+
+    slope = slope_seconds_per_iter(timed, iters, warmup=warmup,
+                                   repeats=repeats, max_iters=max_iters,
+                                   max_rel_spread=max_rel_spread)
+    return batch / slope

@@ -1,0 +1,113 @@
+"""Where the card's time goes in a pinned-decoder Monte-Carlo step.
+
+Profiles, with ``torch.profiler``, steps of the caller's-decoder path
+chained by :func:`polar_tpu_torch.ber.chain_steps` at -1.5 dB, once with
+the kernel draws (``make_step(code, decoder=dec)``) and once with the torch
+draws (``fused=False``), at the path's two configurations:
+Polar(1024, 512) systematic int8, B = 32768, 8 steps, and
+Polar(131072, 65536) systematic int8, B = 4096, 2 steps, each with
+:func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder pinned.
+
+For each run it prints the host's wall time, the number of device
+kernels, the device's busy time over the span from the first kernel's
+start to the last one's end (and so the idle share), then the device time
+by kernel and by the torch operator that launched it (the port's own CUDA
+kernels are launched through ctypes and show under the first list only).
+The shares are of the device-only trace's busy time.
+
+    python -m polar_tpu_torch.utils.profile_step      # one CUDA device
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+CONFIGS = ((10, 32768, 8), (17, 4096, 2))   # (level, batch, steps)
+SNR_DB = -1.5
+TOP = 12
+
+
+def _rows(totals: dict, busy: float) -> list[str]:
+    top = sorted(totals.items(), key=lambda kv: -kv[1])[:TOP]
+    return [f"    {ms:9.3f} ms {100 * ms / busy:5.1f} %  {name[:90]}"
+            for name, ms in top]
+
+
+def profile_steps(multi, gen, batch: int, steps: int) -> list[str]:
+    """Profile ``multi(gen, SNR_DB, batch, steps)`` after a warm-up run;
+    the lines of its report. Three runs: untraced (the wall time), traced
+    on the device only (kernels, busy time, idle share: tracing the host's
+    operators too would widen the gaps between launches), and traced with
+    the host's operators (device time by operator)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        t0 = time.perf_counter()
+        int(multi(gen, SNR_DB, batch, steps)["uncorrected_errors"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()   # warm-up: the first run of a chain on an idle card is slower
+    wall = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced = run()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / 1e3
+    by_kernel: dict = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    by_op = {e.key: e.self_device_time_total / 1e3
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+             and e.self_device_time_total > 0}
+    return ([f"  {steps} steps: wall {wall:.2f} ms untraced, {traced:.2f} ms "
+             f"traced; {len(kernels)} kernels, device busy {busy:.2f} of a "
+             f"{span:.2f} ms span ({100 * (1 - busy / span):.1f} % idle)",
+             "  by kernel:"] + _rows(by_kernel, busy)
+            + ["  by torch operator (self device time, traced with the "
+               "host's operators):"] + _rows(by_op, busy))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.ber import chain_steps
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    for level, batch, steps in CONFIGS:
+        code = pt.make_code(level, rate=0.5)
+        dec, desc = pt.make_auto_decoder(code, output="systematic", device=dev)
+        for label, fused in (("kernel draws", "auto"), ("torch draws", False)):
+            gen = torch.Generator()
+            gen.manual_seed(level)
+            multi = chain_steps(pt.make_step(code, decoder=dec, fused=fused,
+                                             device=dev))
+            print(f"Polar({code.N}, {code.K}) B={batch}, {desc}, {label}, "
+                  f"{SNR_DB} dB:", flush=True)
+            for line in profile_steps(multi, gen, batch, steps):
+                print(line, flush=True)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

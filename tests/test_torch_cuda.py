@@ -257,3 +257,111 @@ def test_large_n_chain_matches_fused_step(dev, systematic):
                                 snr_params(snr), systematic, **kw)
         assert torch.equal(got, want), (snr, got.tolist(), want.tolist())
     assert int(got[3]) > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 3), (63, 70), (1000, 512)])
+def test_symbols_kernel_matches_plain(dev, shape):
+    from polar_tpu_torch.ops.cuda import channel_kernel
+
+    before = channel_kernel.launches["channel_symbols"]
+    kw = dict(seeds=(12, 34), call=5, device=dev)
+    got = channel_kernel.symbols(shape, **kw)
+    assert torch.equal(got.cpu(), channel_kernel.symbols_plain(shape, **kw).cpu())
+    g = torch.Generator(device=dev)
+    g.manual_seed(shape[1])
+    words = torch.randint(0, 2**32, shape, generator=g, dtype=torch.int64,
+                          device=dev)
+    got = channel_kernel.symbols(words=words)
+    assert torch.equal(got, channel_kernel.symbols_plain(words=words))
+    assert channel_kernel.launches["channel_symbols"] == before + 2
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (63, 70), (1000, 1024)])
+@pytest.mark.parametrize("snr_db", [-1.5, 3.0])
+def test_awgn_kernel_matches_plain(dev, shape, snr_db):
+    from polar_tpu_torch.ops.cuda import channel_kernel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(shape[0])
+    cw = (1 - 2 * torch.randint(0, 2, shape, generator=g, device=dev)).to(torch.int8)
+    words = tuple(torch.randint(0, 2**32, shape, generator=g, dtype=torch.int64,
+                                device=dev) for _ in range(2))
+    params = snr_params(snr_db)
+    for kw in (dict(words=words), dict(seeds=(7, 9), call=3)):
+        got = channel_kernel.awgn(cw, params, **kw)
+        want = channel_kernel.awgn_plain(cw, params, **kw)
+        # the same words; an ulp of log/sqrt between the card and torch
+        # may move an LLR by one step
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and int((d != 0).sum()) <= 3
+
+
+@pytest.mark.parametrize("m,rate", [(1, 0.5), (2, 0.5), (7, 0.5), (10, 0.25),
+                                    (12, 0.75)])
+@pytest.mark.parametrize("systematic", [True, False])
+def test_encoder_kernel_matches_plain(dev, m, rate, systematic):
+    from polar_tpu_torch.ops.cuda import encode_kernel
+
+    c = pt.make_code(m, rate=rate)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    msg = (1 - 2 * torch.randint(0, 2, (777, c.K), generator=g,
+                                 device=dev)).to(torch.int8)
+    want = (pt.encode_systematic if systematic else pt.encode)(c, msg)
+    for bl in sorted({1, 2, max(1, m - 3), m}):
+        before = encode_kernel.launches["block_encoder"]
+        got = encode_kernel.make_encoder(c, systematic=systematic,
+                                         block_level=bl)(msg)
+        assert encode_kernel.launches["block_encoder"] == before + 1
+        assert torch.equal(got, want), bl
+
+
+def test_pinned_decoder_step_runs_the_draw_kernels(dev):
+    from polar_tpu_torch.ops.cuda import channel_kernel, encode_kernel
+
+    c = pt.make_code(9, rate=0.5)
+    dec = make_kernel_decoder(c, output="systematic")
+    counts = (channel_kernel.launches, encode_kernel.launches,
+              channel_kernel.plain_calls, encode_kernel.plain_calls)
+    for count in counts:
+        for k in count:
+            count[k] = 0
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    multi = pt.make_multi_step(c, decoder=dec, device=dev)
+    out = multi(gen, 0.0, 1000, 3)
+    assert int(out["uncorrected_errors"]) > 0
+    assert channel_kernel.launches == {"channel_symbols": 3, "channel_awgn": 3}
+    assert encode_kernel.launches == {"block_encoder": 3}
+    assert max(channel_kernel.plain_calls.values()) == 0
+    assert encode_kernel.plain_calls["encode_plain"] == 0
+    # on the same words the kernel draws count what the plain versions on
+    # the card (and the torch encoder) count
+    bits = pt.ber.make_step_body(c, decoder=dec, rng="kernel-bits", device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    words = tuple(torch.randint(0, 2**32, (1000, cols), generator=g,
+                                dtype=torch.int64, device=dev)
+                  for cols in (c.K, c.N, c.N))
+    got = bits(None, -1.0, 1000, words=words)
+    msg = channel_kernel.symbols_plain(words=words[0])
+    cw = pt.encode_systematic(c, msg)
+    llr = channel_kernel.awgn_plain(cw, snr_params(-1.0), words=words[1:])
+    want = pt.ber.frame_counters(msg, cw, llr, dec(llr))
+    assert {k: int(v) for k, v in got.items()} == {k: int(v) for k, v in want.items()}
+
+
+def test_profile_step_reports_device_time(dev):
+    from polar_tpu_torch.ber import chain_steps
+    from polar_tpu_torch.utils.profile_step import profile_steps
+
+    c = pt.make_code(8, rate=0.5)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    multi = chain_steps(pt.make_step(c, decoder=make_kernel_decoder(
+        c, output="systematic"), device=dev))
+    lines = profile_steps(multi, gen, 512, 2)
+    assert "kernels, device busy" in lines[0] and "% idle" in lines[0]
+    report = "\n".join(lines)
+    # the decoder takes most of the step; only the top rows are listed
+    assert "fastssc_decoder_kernel" in lines[2] and "aten::" in report

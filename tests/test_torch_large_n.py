@@ -62,7 +62,7 @@ def test_large_n_step_inject_matches_jax_chain(monkeypatch, systematic):
     jc = jpt.make_code(9, rate=0.5)
     code = pt.code_from_jax(jc)
     monkeypatch.setattr(ber, "STEP_KERNEL_MAX_LEVEL", 8)
-    assert ber._step_path(code, torch.int8, None, None, "auto") == "front"
+    assert ber._step_path(code, torch.int8, None, None, "auto", "cpu") == "front"
     snr = -1.0
     kmsg, knoise = jax.random.split(jax.random.PRNGKey(3))
     msg = np.array(_bits_to_sym(jax.random.bits(kmsg, (jc.N, 128), jnp.uint32)),
