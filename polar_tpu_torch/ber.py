@@ -15,17 +15,21 @@ host generator, which draws one seed per SNR point; each step draws its
 own seed words from the point's generator. Every point is therefore a
 pure function of (seed, point index), as checkpoint/resume needs.
 
-One step runs a whole frame batch. int8 codes at levels 2 ..
-``STEP_KERNEL_MAX_LEVEL`` go through the fused step
-(:mod:`polar_tpu_torch.ops.cuda.step_kernel`); int8 codes above it
-through the large-N front path (``polar_tpu/ber.py:193-359``): the block
-front (:mod:`~polar_tpu_torch.ops.cuda.front_kernel`), the hybrid
-decoder's element-major entry and, when systematic, the counter kernel
-(:mod:`~polar_tpu_torch.ops.cuda.count_kernel`). Each runs its CUDA
-kernels on a card and their plain versions on the CPU. A decoder pinned
-by the caller keeps the chain of :func:`make_step_body` around it: on a
-card its message, encode and noise come from the symbols, block-encoder
-and AWGN kernels (:mod:`~polar_tpu_torch.ops.cuda.channel_kernel`,
+One step runs a whole frame batch. For int8 codes without a pinned
+decoder, :data:`AUTO_STEP_PATH` picks by level, mode and batch, from the
+H100 step A/B, between the fused step
+(:mod:`polar_tpu_torch.ops.cuda.step_kernel`), the kernel draws around
+the auto decoder and the element-major front path
+(``polar_tpu/ber.py:186-279``, ``:323-359``): a front (the whole-block
+front kernel, or the block front of
+:mod:`~polar_tpu_torch.ops.cuda.front_kernel`), then decode+count, or a
+lane-major decoder (whole-code or hybrid) and, when systematic, the
+counter kernel (:mod:`~polar_tpu_torch.ops.cuda.count_kernel`); see
+:func:`front_branch`. Each runs its CUDA kernels on a card and their plain
+versions on the CPU. A decoder pinned by the caller keeps the chain of
+:func:`make_step_body` around it: on a card its message, encode and noise
+come from the symbols, block-encoder and AWGN kernels
+(:mod:`~polar_tpu_torch.ops.cuda.channel_kernel`,
 :mod:`~polar_tpu_torch.ops.cuda.encode_kernel`), the JAX package's
 second rung (``polar_tpu/ber.py:497-508``); on the CPU, and for every
 other configuration, the torch draws.
@@ -41,7 +45,9 @@ import torch
 from .channel import awgn_llrs, ebn0_db, snr_params
 from .code.compiler import compile_program
 from .code.construction import PolarCode, design_snr_db
-from .decode.auto import hybrid_kernel_level, make_auto_decoder
+from .decode import auto as decode_auto
+from .decode.auto import (hybrid_kernel_level, make_auto_decoder,
+                          make_kernel_decoder)
 from .decode.fastssc import make_fastssc_decoder
 from .encode import encode, encode_systematic
 from .ops.cuda import (channel_kernel, count_kernel, encode_kernel,
@@ -54,6 +60,58 @@ from .utils.benchmark import measure_decode_fps
 # the card against the plain chain (chip_smoke.py, phase 3).
 STEP_KERNEL_MIN_LEVEL = 2
 STEP_KERNEL_MAX_LEVEL = 16
+
+# make_step's "auto" path for int8 codes without a pinned decoder, by
+# (level, systematic): the path of a step of fewer than AUTO_BIG_BATCH
+# frames, then the path from AUTO_BIG_BATCH on; each "fused", "front" or
+# "draws" (the kernel draws around make_auto_decoder's decoder, on a card).
+# Levels not listed (above 17: not measured) take the front path. From the
+# step A/B (python -m polar_tpu_torch.utils.step_ab --levels 6-16, and
+# --levels 10-17 for m = 17; -1.5 dB; frames/s, the mean of two readings,
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md's table): the best arm at B = 4096
+# and at B = 32768 (m <= 14), the fused step kept where it is within 1 %.
+# - m <= 9: fused, both modes (m = 9 systematic 4.96M at B = 4096 against the
+#   whole front's 4.56M, 24.1M at 32768 against 24.3M; plain 7.35M / 32.9M
+#   against the draws' 6.01M / 23.0M); m < 6 not measured;
+# - m = 10: fused at 4096 (systematic 1.97M against the front's 1.98M,
+#   plain 2.77M against the draws' 2.19M), the draws at 32768 (8.08M against
+#   the front's 6.53M, plain 10.1M against the fused step's 8.44M);
+# - systematic m = 11, 12: the front at 4096 (1.27M, 748k against the draws'
+#   1.14M, 527k), the draws at 32768 (3.67M, 1.70M against 2.87M, 1.68M);
+#   m = 13 the front (357.5k / 850.1k against 337.2k / 782.1k); m = 14 the
+#   draws at 4096 (199.8k against 176.8k), the front at 32768 (397.0k
+#   against 365.1k); m = 15 the draws (99.51k against 97.09k); m = 16, 17 the
+#   front (50.99k against 49.46k; 25.53k against 24.65k);
+# - plain m >= 11: the draws, by 1-47 % (m = 14 267.3k / 423.4k against the
+#   front's 233.5k / 419.8k; m = 17 31.30k against 30.99k).
+# AUTO_BIG_BATCH lies between the two batches measured; no batch between
+# them was timed.
+AUTO_BIG_BATCH = 16384
+AUTO_STEP_PATH = {
+    **{(m, s): ("fused", "fused") for m in range(2, 10) for s in (True, False)},
+    (10, True): ("fused", "draws"), (10, False): ("fused", "draws"),
+    (11, True): ("front", "draws"), (12, True): ("front", "draws"),
+    (13, True): ("front", "front"), (14, True): ("draws", "front"),
+    (15, True): ("draws", "draws"),
+    **{(m, False): ("draws", "draws") for m in range(11, 18)}}
+
+# The front path's branches (polar_tpu/ber.py:193-279), by level; the JAX
+# package's thresholds are VMEM facts about the TPU. Systematic codes at
+# m <= FRONT_WHOLE_MAX_LEVEL take the whole-block front + decode+count, the
+# best front at m = 6..9 in the same A/B (frames/s at B = 4096 / 32768;
+# m = 9: 4.56M / 24.3M against block + whole-code 4.35M / 23.0M); above it
+# the whole front's per-thread transforms slow down (11.0 ms at m = 12
+# against the block front's 1.15 ms, B = 4096). Every other code takes the
+# block front, then the whole-code decoder below
+# decode.auto.HYBRID_MIN_LEVEL and the hybrid from it (the best front arm
+# at every level, both modes: m = 10 systematic 1.98M / 6.53M against
+# 1.91M / 5.79M, plain 1.58M / 6.85M against 1.49M / 6.34M), with
+# the counter kernel when systematic (2.26 ms against its plain version's
+# 19.2 ms at Polar(131072, 65536), B = 4096). The block front +
+# decode+count won at no level (m = 10: 1.72M / 5.12M); it and the
+# systematic whole-code branch run only when asked for by name.
+FRONT_WHOLE_MAX_LEVEL = 9
+FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid")
 
 
 @dataclass
@@ -137,7 +195,9 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
     * ``"kernel"`` — the symbols kernel, the block encoder and the AWGN
       kernel, with native Philox words keyed by two seed pairs drawn from
       ``gen`` per step, one for the message and one for the noise (the
-      counterpart of ``"pallas"``);
+      counterpart of ``"pallas"``); with no pinned decoder (int8, no
+      compute override) the step is the element-major front path
+      instead, as the JAX package's (:func:`make_front_step`);
     * ``"kernel-bits"`` — the same kernels fed the
       ``words=(message (B, K), radius (B, N), angle (B, N))`` int64
       tensors that the caller passes to every step (the counterpart of
@@ -152,6 +212,9 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode {rng!r}")
     device = torch.device(device)
+    if (rng == "kernel" and decoder is None and compute is None
+            and dtype == torch.int8):
+        return make_front_step(code, systematic=systematic, device=device)
     enc = encode_systematic if systematic else encode
     if decoder is None:
         decoder = _default_decoder(code, systematic, dtype, compute, device)
@@ -218,49 +281,103 @@ def step_kernel_eligible(code: PolarCode, dtype, compute) -> bool:
             and STEP_KERNEL_MIN_LEVEL <= code.level <= STEP_KERNEL_MAX_LEVEL)
 
 
-def _step_path(code: PolarCode, dtype, compute, decoder, fused,
-               device) -> str:
-    """Which step ``make_step`` runs: ``"fused"`` (``fused=True``, or
-    ``"auto"`` for eligible configurations without a pinned ``decoder``),
-    ``"front"`` (``"auto"``, int8, no override, no pinned decoder, above
-    ``STEP_KERNEL_MAX_LEVEL``), ``"draws"`` (``"auto"``, int8, no
-    override, a pinned decoder, a CUDA device: the kernel draws around
-    the caller's decoder) or ``"plain"`` (the torch draws; on the CPU the
-    JAX package keeps threefry too, ``polar_tpu/ber.py:501-504``)."""
+def _step_path(code: PolarCode, dtype, compute, decoder, fused, device,
+               systematic: bool = True, batch: int = 4096) -> str:
+    """Which step ``make_step`` runs for steps of ``batch`` frames (by
+    default :func:`run_campaign`'s): ``"fused"`` (``fused=True``, or
+    ``"auto"`` where :data:`AUTO_STEP_PATH` says so and the fused step
+    covers the configuration), ``"front"`` (``"auto"``, int8, no
+    override, no pinned decoder, elsewhere), ``"draws"`` (``"auto"``,
+    int8, no override, on a CUDA device: the kernel draws around a pinned
+    decoder, or around the auto decoder where :data:`AUTO_STEP_PATH` says
+    so) or ``"plain"`` (the torch draws; on the CPU the JAX package keeps
+    threefry too, ``polar_tpu/ber.py:501-504``)."""
     auto_int8 = fused == "auto" and compute is None and dtype == torch.int8
-    if fused is True or (auto_int8 and decoder is None
+    want = AUTO_STEP_PATH.get((code.level, systematic),
+                              ("front", "front"))[batch >= AUTO_BIG_BATCH]
+    if fused is True or (auto_int8 and decoder is None and want == "fused"
                          and step_kernel_eligible(code, dtype, compute)):
         return "fused"
-    if auto_int8 and decoder is None and code.level > STEP_KERNEL_MAX_LEVEL:
+    if auto_int8 and decoder is None and want != "draws":
         return "front"
-    if auto_int8 and decoder is not None and torch.device(device).type == "cuda":
+    if auto_int8 and torch.device(device).type == "cuda":
         return "draws"
     return "plain"
 
 
+def front_branch(code: PolarCode, systematic: bool) -> str:
+    """The front path's branch for this code (``polar_tpu/ber.py:193-279``):
+    ``"whole"`` (systematic: the whole-block front, decode+count),
+    ``"block-count"`` (systematic: the block front, decode+count),
+    ``"block-whole"`` (the block front, the whole-code kernel decoder's
+    lane-major entry, the counter kernel or torch u-domain counters) or
+    ``"block-hybrid"`` (the same with the hybrid decoder); the choice of
+    decoder is :mod:`~polar_tpu_torch.decode.auto`'s. ``"block-count"``
+    (systematic: the block front, decode+count) is never the default."""
+    if systematic and code.level <= FRONT_WHOLE_MAX_LEVEL:
+        return "whole"
+    return ("block-hybrid" if code.level >= decode_auto.HYBRID_MIN_LEVEL
+            else "block-whole")
+
+
 def make_front_chain(code: PolarCode, *, systematic: bool = True,
-                     kernel_level: int | None = None):
-    """The large-N step's chain (``polar_tpu/ber.py:323-359``):
+                     branch: str | None = None,
+                     kernel_level: int | None = None,
+                     middle_mode: str = "kernel"):
+    """The front path's chain (``polar_tpu/ber.py:323-359``):
     ``chain(params, **draw)`` → the five counters as a ``(5,)`` int64
     tensor in ``step_kernel.COUNTERS`` order.
 
     ``params`` = (σ, 2/σ²); ``draw`` is the front's: ``msg_t`` and
     ``normals_t`` (inject) or ``seeds``, ``call``, ``batch`` and
-    ``device`` (native, the fused step's Philox words). Systematic: the
-    block front, the hybrid's codeword output, the counter kernel (cw
-    domain). Plain: the block front with ``u0``, the hybrid's u output,
-    u-domain counters in torch (XLA in the JAX package). ``kernel_level``
-    is the hybrid's, by default
-    :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`'s."""
-    if kernel_level is None:
-        kernel_level = hybrid_kernel_level(code.level)
-    dec = make_fastssc_decoder(
-        code, output="codeword" if systematic else "u",
-        output_dtype=torch.int8, kernel_level=kernel_level).lane_major
+    ``device`` (native, the fused step's Philox words, so every branch
+    counts what the fused step counts on the same seeds). ``branch`` is
+    :func:`front_branch`'s unless given (one of :data:`FRONT_BRANCHES`;
+    ``"whole"`` and ``"block-count"`` are systematic only). Systematic
+    decoders emit the codeword estimate, counted against the codeword in
+    the cw domain; plain ones the u estimate, counted against the block
+    front's ``u0`` in torch (XLA in the JAX package). ``kernel_level`` is
+    the hybrid's (by default
+    :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`'s) and
+    implies the ``"block-hybrid"`` branch; ``middle_mode`` goes to the
+    block front."""
+    if branch is None:
+        branch = ("block-hybrid" if kernel_level is not None
+                  else front_branch(code, systematic))
+    if branch not in FRONT_BRANCHES or (
+            not systematic and branch in ("whole", "block-count")):
+        raise ValueError(f"no front branch {branch!r} for "
+                         f"systematic={systematic}")
+    if kernel_level is not None and branch != "block-hybrid":
+        raise ValueError(f"kernel_level is the hybrid's; branch {branch!r} "
+                         "has none")
     frozen = code.frozen
 
+    def front(params, draw):
+        if branch == "whole":
+            return step_kernel.front(frozen, params, **draw)
+        return front_kernel.front_blocks(frozen, params, systematic,
+                                         middle_mode=middle_mode, **draw)
+
+    if branch in ("whole", "block-count"):
+        program = compile_program(code)
+
+        def count_chain(params, **draw):
+            return step_kernel.decode_count(program, frozen,
+                                            *front(params, draw))
+
+        return count_chain
+    out = "codeword" if systematic else "u"
+    if branch == "block-whole":
+        dec = make_kernel_decoder(code, output=out).lane_major
+    else:
+        dec = make_fastssc_decoder(
+            code, output=out, output_dtype=torch.int8,
+            kernel_level=(hybrid_kernel_level(code.level)
+                          if kernel_level is None else kernel_level)).lane_major
+
     def chain(params, **draw):
-        outs = front_kernel.front_blocks(frozen, params, systematic, **draw)
+        outs = front(params, draw)
         if systematic:
             llr_t, cw_t = outs
             return count_kernel.count(frozen, llr_t, cw_t, dec(llr_t))
@@ -276,53 +393,94 @@ def make_front_chain(code: PolarCode, *, systematic: bool = True,
     return chain
 
 
+def make_front_step(code: PolarCode, *, systematic: bool = True,
+                    device, **chain_kw):
+    """The front path as a step: ``step(gen, snr_db, batch)`` → the
+    counter dict, over :func:`make_front_chain` (``chain_kw``: its
+    ``branch``, ``kernel_level``, ``middle_mode``) with native Philox
+    words, seeds drawn fresh from ``gen`` on every call (call word 0),
+    the fused step's words."""
+    chain = make_front_chain(code, systematic=systematic, **chain_kw)
+
+    def front_step(gen, snr_db, batch: int, *, words=None):
+        if words is not None:
+            raise ValueError("words= is taken by int8 rng='kernel-bits' only")
+        t = chain(snr_params(snr_db), seeds=_philox_seeds(gen), call=0,
+                  batch=batch, device=device)
+        return dict(zip(step_kernel.COUNTERS, t))
+
+    return front_step
+
+
 def make_step(code: PolarCode, *, systematic: bool = True, dtype=torch.int8,
               decoder=None, compute=None, fused: str | bool = "auto",
               front_decode_cfg: int | None = None, device):
     """Build the Monte-Carlo step: ``step(gen, snr_db, batch)`` → the
     counter dict (0-d int64 tensors on ``device``).
 
-    ``fused``: ``"auto"`` runs the fused step for eligible configurations
-    (see :func:`step_kernel_eligible`) and the large-N front path for
-    int8 codes above them; with a pinned int8 ``decoder`` on a CUDA device
-    it runs the kernel draws (:func:`make_step_body` with ``rng="kernel"``)
-    around that decoder. ``True`` requires the fused step; ``False`` runs
-    the plain chain with the torch draws. The kernel steps draw fresh
-    Philox seed words from ``gen`` on every call, so their call word stays
-    0 and each step is a pure function of ``gen``'s state (a resumed
-    campaign repeats an uninterrupted one); the front path draws the fused
-    step's words, so both count alike on the same seeds.
+    ``fused``: ``"auto"`` runs, for int8 codes without a pinned decoder,
+    the fused step, the front path or the kernel draws around the auto
+    decoder, as :data:`AUTO_STEP_PATH` says for the level, the mode and
+    the batch of each call (on the CPU the torch draws in place of the
+    kernel draws); with a pinned
+    int8 ``decoder`` on a CUDA device it runs the kernel draws
+    (:func:`make_step_body` with ``rng="kernel"``) around that decoder.
+    ``True`` requires the fused step; ``False`` runs the plain chain with
+    the torch draws. The kernel steps draw fresh Philox seed words from
+    ``gen`` on every call, so their call word stays 0 and each step is a
+    pure function of ``gen``'s state (a resumed campaign repeats an
+    uninterrupted one); the front path draws the fused step's words, so
+    both count alike on the same seeds.
 
     ``front_decode_cfg``: the front path's hybrid kernel level, in place
     of the default (``polar_tpu/ber.py:167-176``); a measurement hook.
     It raises ``ValueError`` when the configuration does not take the
-    front path, where it would be ignored."""
+    front path's hybrid branch at every batch, where it would be
+    ignored."""
     if fused is True and not step_kernel_eligible(code, dtype, compute):
         raise ValueError(
             f"fused step supports int8 codes (no compute override) at levels "
             f"{STEP_KERNEL_MIN_LEVEL}..{STEP_KERNEL_MAX_LEVEL} only (got "
             f"N={code.N}, dtype={dtype}, compute={compute!r})")
-    path = _step_path(code, dtype, compute, decoder, fused, device)
-    if front_decode_cfg is not None and path != "front":
-        raise ValueError(
-            f"front_decode_cfg was passed but N={code.N} takes the {path} "
-            "step, not the large-N front path: the override would be "
-            "ignored")
+    # the path below AUTO_BIG_BATCH frames a step, and from it on
+    paths = [_step_path(code, dtype, compute, decoder, fused, device,
+                        systematic, batch) for batch in (1, AUTO_BIG_BATCH)]
+    for path in paths:
+        if front_decode_cfg is not None and (
+                path != "front"
+                or front_branch(code, systematic) != "block-hybrid"):
+            where = (f"the {front_branch(code, systematic)} branch of the "
+                     "front path" if path == "front" else f"the {path} step")
+            raise ValueError(
+                f"front_decode_cfg was passed but N={code.N} takes {where}, "
+                "not the front path's hybrid decoder: the override would be "
+                "ignored")
+    steps = {path: _path_step(code, path, systematic=systematic, dtype=dtype,
+                              decoder=decoder, compute=compute,
+                              kernel_level=front_decode_cfg, device=device)
+             for path in set(paths)}
+    if len(steps) == 1:
+        return steps[paths[0]]
+
+    def by_batch(gen, snr_db, batch: int):
+        return steps[paths[batch >= AUTO_BIG_BATCH]](gen, snr_db, batch)
+
+    return by_batch
+
+
+def _path_step(code: PolarCode, path: str, *, systematic: bool, dtype,
+               decoder, compute, kernel_level, device):
+    """:func:`make_step`'s step on one of :func:`_step_path`'s paths."""
+    if path == "draws" and decoder is None:
+        decoder = _default_decoder(code, systematic, dtype, compute, device)
     if path in ("plain", "draws"):
         return make_step_body(code, systematic=systematic, dtype=dtype,
                               decoder=decoder, compute=compute,
                               rng="kernel" if path == "draws" else "torch",
                               device=device)
     if path == "front":
-        chain = make_front_chain(code, systematic=systematic,
-                                 kernel_level=front_decode_cfg)
-
-        def front_step(gen, snr_db, batch: int):
-            t = chain(snr_params(snr_db), seeds=_philox_seeds(gen), call=0,
-                      batch=batch, device=device)
-            return dict(zip(step_kernel.COUNTERS, t))
-
-        return front_step
+        return make_front_step(code, systematic=systematic,
+                               kernel_level=kernel_level, device=device)
     program = compile_program(code)
 
     def fused_step(gen, snr_db, batch: int):
@@ -478,9 +636,9 @@ def run_campaign(
     point's generator is seeded from the campaign seed in point order, so
     a resumed campaign is identical to an uninterrupted one.
 
-    The steps run the fused step or the large-N front path where
-    :func:`make_step` picks them; a passed-in ``decoder`` is kept, with
-    the kernel draws on a card (``front_decode_cfg`` goes to
+    The steps run the fused step, the front path or the kernel draws
+    where :func:`make_step` picks them; a passed-in ``decoder`` is kept,
+    with the kernel draws on a card (``front_decode_cfg`` goes to
     :func:`make_step`). ``steps_per_call`` > 1 chains that many steps per
     host pull (:func:`make_multi_step`). The decoder serves the
     decode-only throughput gauge too, measured once per campaign.
@@ -489,8 +647,8 @@ def run_campaign(
     design = design_snr_db(1.0 - code.rate)
     if snr_range is None:
         snr_range = (math.floor(design - 3), math.ceil(design + 5))
-    kernel_step = _step_path(code, dtype, compute, decoder, fused,
-                             device) in ("fused", "front")
+    kernel_step = _step_path(code, dtype, compute, decoder, fused, device,
+                             systematic, batch) in ("fused", "front")
     if decoder is None and (measure_throughput or not kernel_step):
         decoder = _default_decoder(code, systematic, dtype, compute, device)
     make = make_multi_step if steps_per_call > 1 else make_step

@@ -4,7 +4,8 @@
   (:mod:`polar_tpu_torch.ops.cuda.decoder_kernel`), one launch per call,
   for every output mode; from ``HYBRID_MIN_LEVEL`` up, the hybrid decoder
   (eager top levels, subtree kernels at and below ``HYBRID_KERNEL_LEVEL``)
-  where the H100 timings in PERF.md put it ahead;
+  where the H100 timings in PERF.md put it ahead, for the frame-major
+  decoders built here and for the front path's lane-major ones alike;
 * CPU — the eager decoder (:func:`~polar_tpu_torch.decode.fastssc.make_fastssc_decoder`).
 
 All are bit-exact with each other and with ``polar_tpu``; the choice is
@@ -23,12 +24,20 @@ from ..ops.cuda import decoder_kernel
 from .fastssc import OUTPUTS, make_fastssc_decoder
 
 
-# Measured on an H100 at B = 4096 (PERF.md): at Polar(131072, 65536) the
-# hybrid at kernel level 9 took 106 ms (u) and 141 ms (cw) per decode, the
-# whole-code kernel 567 and 1060 ms; kernel levels 8 and 10 came within
-# 50 %, 6 and 12-16 lost. At levels 13-16 the hybrid at kernel level 9
-# won as well (2.5-6.8x); below 13 nothing was measured.
-HYBRID_MIN_LEVEL = 13
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): at
+# Polar(131072, 65536), B = 4096, the hybrid at kernel level 9 took 106 ms
+# (u) and 141 ms (cw) per decode, the whole-code kernel 567 and 1060 ms;
+# kernel levels 8 and 10 came within 50 %, 6 and 12-16 lost. At levels
+# 13-16 it won as well (2.5-6.8x). Below, one decode of full-range LLRs
+# (python -m polar_tpu_torch.utils.step_ab --decoders-only), whole-code
+# against hybrid, u / cw, frame-major entry: m = 9 0.73 / 1.00 against
+# 0.89 / 1.01 ms at B = 32768, 0.39 / 0.49 against 0.86 / 0.89 at B = 4096;
+# m = 10 2.09 / 3.21 against 1.99 / 2.63 at B = 32768, 0.77 / 1.16 against
+# 0.71 / 1.11 at B = 4096; m = 11, 12 the hybrid by 1.1-2.6x. The
+# lane-major entry (the front path's) ranks them alike, but for m = 9 cw
+# at B = 32768 (0.82 against 0.78 ms). The front path's branches follow
+# this threshold too (polar_tpu_torch.ber.front_branch).
+HYBRID_MIN_LEVEL = 10
 HYBRID_KERNEL_LEVEL = 9
 
 

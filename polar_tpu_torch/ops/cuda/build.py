@@ -50,6 +50,11 @@ SIGNATURES = {
     "polar_front_msg": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_front_chan": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
                          _I, _P),
+    "polar_front_middle": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P),
+    "polar_front_whole": (_P, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
+                          _I, _P),
+    "polar_decode_count": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
     "polar_count": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "polar_symbols": (_I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_awgn": (_I, _I, _F, _F, _P, _P, _P, _U, _U, _U, _P, _I, _P),

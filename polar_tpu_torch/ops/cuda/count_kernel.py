@@ -17,7 +17,7 @@ import torch
 
 from . import build
 from .decoder_kernel import device_mask
-from .step_kernel import COUNTERS
+from .step_kernel import COUNTERS, cw_counts
 
 FRAMES_PER_BLOCK = 32  # csrc/count.cu kFrames
 LANES = 32             # threads sharing one frame's rows
@@ -29,14 +29,8 @@ def count_plain(frozen, llr_t, cw_t, hat_t) -> torch.Tensor:
     """The counters in plain torch (the bool-domain block of
     ``polar_tpu/ber.py:344-359``)."""
     plain_calls["count_plain"] += 1
-    n = llr_t.shape[0]
-    info = ~torch.as_tensor(np.asarray(frozen, bool),
-                            device=llr_t.device).reshape(n, 1)
-    zero_d = (hat_t == 0) & info
-    err = (hat_t != cw_t) & info
-    awgn = (llr_t != 0) & ((llr_t < 0) != (cw_t < 0))
-    return torch.stack([err.sum(), err.any(dim=0).sum(), zero_d.sum(),
-                        awgn.sum(), (llr_t == 0).sum()]).to(torch.int64)
+    frz = torch.as_tensor(np.asarray(frozen, bool), device=llr_t.device)
+    return cw_counts(frz.reshape(-1, 1), llr_t, cw_t, hat_t)
 
 
 def count(frozen, llr_t, cw_t, hat_t) -> torch.Tensor:

@@ -7,10 +7,11 @@ kernel A (:func:`msg_blocks`, ``:713-759``) draws ±1 message symbols per
 row block, pins the frozen rows and, when systematic, applies the block's
 bottom butterfly stages; kernel B (:func:`chan_blocks`, ``:762-778``)
 applies the bottom stages of its block, AWGN and quantization. Between
-them :func:`middle` runs the top butterfly stages and the systematic
-refreeze in plain torch, as the JAX package runs them in XLA
-(``:957-970``). The butterfly's stages commute, so any block levels give
-the same result.
+them the middle runs the top butterfly stages and the systematic
+refreeze: :func:`middle_kernel` (``_stages_kernel``, ``:800``, with the
+refreeze in the same pass) or :func:`middle_plain` in torch, as the JAX
+package's ``middle_mode="xla"`` runs them (``:957-970``). The butterfly's
+stages commute, so any block levels give the same result.
 
 Two modes, as the fused step's: inject (``msg_t`` ±1 int8 and
 ``normals_t`` float32, both ``(N, B)``) and native, which draws the fused
@@ -37,8 +38,20 @@ from .decoder_kernel import THREADS, device_mask
 # they only move butterfly stages between the kernels and the middle.
 BLOCK_LEVEL = 10
 CHAN_BLOCK_LEVEL = 10
-launches = {"front_blocks_a": 0, "front_blocks_b": 0}
-plain_calls = {"msg_blocks_plain": 0, "chan_blocks_plain": 0}
+# front_blocks runs the middle kernel unless asked for the torch middle:
+# the kernel was faster at every level measured (python -m
+# polar_tpu_torch.utils.step_ab, B = 4096, systematic, NVIDIA H100 80GB
+# HBM3, 700 W): 0.027 against 0.048 ms at m = 6, 0.471 against 28.510 ms
+# at m = 17.
+MIDDLE_MODES = ("kernel", "torch")
+# The middle kernel's window: a thread holds 2^MIDDLE_MAX_LOG rows of four
+# frames as bits (csrc/front.cu takes at most 8); more stages take more
+# passes.
+MIDDLE_MAX_LOG = 8
+launches = {"front_blocks_a": 0, "front_blocks_b": 0, "front_middle": 0}
+plain_calls = {"msg_blocks_plain": 0, "chan_blocks_plain": 0,
+               "middle_plain": 0}
+_frozen_bits: dict = {}
 
 
 def _check_blk(n: int, blk: int) -> None:
@@ -150,12 +163,13 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
     return llr, cw
 
 
-def middle(x, frozen, blk_a: int, blk_b: int, systematic: bool):
+def middle_plain(x, frozen, blk_a: int, blk_b: int, systematic: bool):
     """The top butterfly stages between the kernels, plain torch on
     element-major int8 (values ±1, products exact). Systematic: the first
     transform's stages from ``blk_a`` up, the refreeze, the second
     transform's stages from ``blk_b`` up; plain: the single transform's
     stages from ``blk_b`` up."""
+    plain_calls["middle_plain"] += 1
     n = x.shape[0]
     if systematic:
         x = polar_transform_stages(x, blk_a, n, axis=0)
@@ -164,17 +178,102 @@ def middle(x, frozen, blk_a: int, blk_b: int, systematic: bool):
     return polar_transform_stages(x, blk_b, n, axis=0)
 
 
+def middle_passes(n: int, blk_a: int, blk_b: int, systematic: bool,
+                  max_log: int = MIDDLE_MAX_LOG) -> list:
+    """The middle kernel's passes: ``(lo, glog, s1, refreeze, s2)`` each,
+    a window of ``2^glog`` rows at stride ``2^lo`` (butterfly stages
+    ``2^lo <= h < 2^(lo + glog)``), running the window's stages ``s1 =
+    (from, to)`` of the first transform, the refreeze, then ``s2`` of the
+    second (stage s of the window is h = 2^(lo + s)).
+
+    The top window, ``glog <= max_log`` stages up to N, holds the
+    refreeze; the first transform's stages below it run in passes before
+    it, the second's after it. At m = 17 with row blocks of 2^10 the whole
+    middle is the top pass. An empty list when there is nothing to do
+    (plain, ``blk_b == n``)."""
+    m = n.bit_length() - 1
+    lb = blk_b.bit_length() - 1
+    la = blk_a.bit_length() - 1 if systematic else m
+    if not systematic and lb == m:
+        return []
+    top = max(m - max_log, min(la, lb))
+    passes = [(lo, min(max_log, top - lo), (0, min(max_log, top - lo)),
+               False, (0, 0)) for lo in range(la, top, max_log)]
+    passes.append((top, m - top, (max(la, top) - top, m - top), systematic,
+                   (max(lb, top) - top, m - top)))
+    passes += [(lo, min(max_log, top - lo), (0, 0), False,
+                (0, min(max_log, top - lo))) for lo in range(lb, top, max_log)]
+    return passes
+
+
+def _frozen_words(frozen: np.ndarray, lo: int, glog: int, device):
+    """(2^lo, W) int32 words of frozen bits for the top pass: bit j of
+    residue r's row is frozen[r + j 2^lo], W = max(1, 2^glog / 32)."""
+    key = (frozen.tobytes(), lo, glog, str(device))
+    if key not in _frozen_bits:
+        g = 1 << glog
+        bits = frozen.astype(bool).reshape(g, 1 << lo).T      # (h_lo, G)
+        bits = np.pad(bits, ((0, 0), (0, max(32, g) - g)))
+        words = np.ascontiguousarray(
+            np.packbits(bits, axis=1, bitorder="little")).view("<i4")
+        _frozen_bits[key] = torch.tensor(words, device=device)
+    return _frozen_bits[key]
+
+
+def middle_kernel(x, frozen, blk_a: int, blk_b: int, systematic: bool):
+    """The middle on the card (arguments and result as
+    :func:`middle_plain`; ``x`` must hold ±1): one launch per pass of
+    :func:`middle_passes`, each element read and written once per pass.
+    The first pass writes a new array, later ones update it in place;
+    ``x`` itself is never changed (it is the plain front's ``u0``). With
+    no pass to run (plain, ``blk_b == N``) it returns ``x``. On a CPU
+    tensor :func:`middle_plain` runs."""
+    if x.device.type == "cpu":
+        return middle_plain(x, frozen, blk_a, blk_b, systematic)
+    if x.device.type != "cuda":
+        raise ValueError(f"no front kernel for device {x.device}")
+    frozen = np.asarray(frozen, dtype=np.uint8)
+    n = frozen.size
+    batch = x.shape[1] if x.ndim == 2 else -1
+    _check(x, "x", (n, batch), torch.int8, x.device)
+    _check_blk(n, blk_a)
+    _check_blk(n, blk_b)
+    passes = middle_passes(n, blk_a, blk_b, systematic)
+    if not passes or batch == 0:
+        return x
+    out = torch.empty_like(x)
+    words = int(batch % 4 == 0 and x.data_ptr() % 4 == 0)
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = x
+    for lo, glog, s1, refreeze, s2 in passes:
+        frz = _frozen_words(frozen, lo, glog, x.device) if refreeze else None
+        err = lib.polar_front_middle(
+            src.data_ptr(), out.data_ptr(),
+            frz.data_ptr() if refreeze else None, n, batch, words, 1 << lo,
+            glog, *s1, int(refreeze), *s2, THREADS, stream)
+        build.check(err, "polar_front_middle")
+        launches["front_middle"] += 1
+        src = out
+    return out
+
+
 def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
                  normals_t=None, seeds=None, call: int = 0, batch: int = 0,
                  device=None, block_level: int | None = None,
-                 chan_block_level: int | None = None):
+                 chan_block_level: int | None = None,
+                 middle_mode: str = "kernel"):
     """The large-N front: message, encode, AWGN, quantize.
 
     Returns ``(llr_t, cw_t)`` when ``systematic``, else ``(llr_t, cw_t,
     u0_t)`` with ``u0_t`` the frozen-pinned u-domain message; all (N, B)
     int8. ``params`` = (σ, 2/σ²); inject mode with ``msg_t`` and
     ``normals_t``, native mode with ``seeds``, ``call``, ``batch`` and
-    ``device``."""
+    ``device``. ``middle_mode``: ``"kernel"`` (:func:`middle_kernel`) or
+    ``"torch"`` (:func:`middle_plain`, the JAX package's ``"xla"``); the
+    same result in either mode."""
+    if middle_mode not in MIDDLE_MODES:
+        raise ValueError(f"unknown middle_mode {middle_mode!r}")
     frozen = np.asarray(frozen, dtype=np.uint8)
     n = frozen.size
     level = n.bit_length() - 1
@@ -185,6 +284,7 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
     kw = dict(seeds=seeds, call=call)
     x = msg_blocks(frozen, blk_a, systematic, msg_t=msg_t, batch=batch,
                    device=device, **kw)
-    llr, cw = chan_blocks(middle(x, frozen, blk_a, blk_b, systematic), blk_b,
+    mid = middle_kernel if middle_mode == "kernel" else middle_plain
+    llr, cw = chan_blocks(mid(x, frozen, blk_a, blk_b, systematic), blk_b,
                           params, normals_t=normals_t, **kw)
     return (llr, cw) if systematic else (llr, cw, x)

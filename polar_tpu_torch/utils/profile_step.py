@@ -1,12 +1,14 @@
-"""Where the card's time goes in a pinned-decoder Monte-Carlo step.
+"""Where the card's time goes in a Monte-Carlo step.
 
-Profiles, with ``torch.profiler``, steps of the caller's-decoder path
-chained by :func:`polar_tpu_torch.ber.chain_steps` at -1.5 dB, once with
-the kernel draws (``make_step(code, decoder=dec)``) and once with the torch
-draws (``fused=False``), at the path's two configurations:
+Profiles, with ``torch.profiler``, steps chained by
+:func:`polar_tpu_torch.ber.chain_steps` at -1.5 dB, at two configurations:
 Polar(1024, 512) systematic int8, B = 32768, 8 steps, and
-Polar(131072, 65536) systematic int8, B = 4096, 2 steps, each with
-:func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder pinned.
+Polar(131072, 65536) systematic int8, B = 4096, 2 steps. Three steps at
+each: the caller's-decoder path with
+:func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder pinned,
+once with the kernel draws (``make_step(code, decoder=dec)``) and once
+with the torch draws (``fused=False``), then the element-major front step
+(:func:`~polar_tpu_torch.ber.make_front_step`, its default branch).
 
 For each run it prints the host's wall time, the number of device
 kernels, the device's busy time over the span from the first kernel's
@@ -86,7 +88,7 @@ def main() -> int:
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     import polar_tpu_torch as pt
-    from polar_tpu_torch.ber import chain_steps
+    from polar_tpu_torch.ber import chain_steps, front_branch, make_front_step
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -96,12 +98,17 @@ def main() -> int:
     for level, batch, steps in CONFIGS:
         code = pt.make_code(level, rate=0.5)
         dec, desc = pt.make_auto_decoder(code, output="systematic", device=dev)
-        for label, fused in (("kernel draws", "auto"), ("torch draws", False)):
+        runs = [(f"{desc}, {label}", pt.make_step(code, decoder=dec,
+                                                  fused=fused, device=dev))
+                for label, fused in (("kernel draws", "auto"),
+                                     ("torch draws", False))]
+        runs.append((f"front step, {front_branch(code, True)} branch",
+                     make_front_step(code, device=dev)))
+        for label, step in runs:
             gen = torch.Generator()
             gen.manual_seed(level)
-            multi = chain_steps(pt.make_step(code, decoder=dec, fused=fused,
-                                             device=dev))
-            print(f"Polar({code.N}, {code.K}) B={batch}, {desc}, {label}, "
+            multi = chain_steps(step)
+            print(f"Polar({code.N}, {code.K}) B={batch}, {label}, "
                   f"{SNR_DB} dB:", flush=True)
             for line in profile_steps(multi, gen, batch, steps):
                 print(line, flush=True)

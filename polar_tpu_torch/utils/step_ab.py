@@ -1,0 +1,238 @@
+"""The step A/B on one CUDA device: which Monte-Carlo step to run at each
+level.
+
+For Polar(2^m, 2^(m-1)) int8 at ``SNR_DB``, systematic and plain, m in
+``--levels`` (10..17 by default), it measures frames/s with
+:func:`~polar_tpu_torch.utils.benchmark.measure_step_rate` over chained
+steps, at B = 32768 for m <= 14 and B = 4096 at every level, of each arm
+that applies:
+
+* ``fused`` — the fused step kernel (m <= 16);
+* ``whole+count`` — the whole-block front, then decode+count (systematic);
+* ``block+count`` — the block front with the kernel middle, then
+  decode+count (systematic);
+* ``block+whole`` — the block front, the whole-code kernel decoder's
+  lane-major entry, the counter kernel (systematic) or torch u counters
+  (plain), m <= 14;
+* ``block+hybrid`` — the same with the hybrid decoder
+  (:func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`);
+* ``draws`` — the kernel draws around
+  :func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder,
+  pinned.
+
+Arms run in order, then in reverse order (a drift shows as two readings
+apart). Then, at B = 4096, the fronts alone by CUDA events: the
+whole-block front, the block front with the kernel middle and with the
+torch middle, and each middle by itself. Before the steps, the decoders alone, the
+choice of :data:`~polar_tpu_torch.decode.auto.HYBRID_MIN_LEVEL`: one
+decode of full-range int8 LLRs by the whole-code kernel and by the hybrid,
+u and codeword outputs, frame-major and lane-major entries, at both
+batches, m <= 14, in mirrored order. Every line names the card and its
+power limit; ``--out`` also writes the readings as JSON lines.
+
+    python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
+    python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-13
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+SNR_DB = -1.5
+BIG_BATCH = 32768
+BIG_BATCH_MAX_LEVEL = 14
+BATCH = 4096
+WHOLE_DECODER_MAX_LEVEL = 14
+
+
+def _levels(text: str) -> list[int]:
+    lo, _, hi = text.partition("-")
+    return list(range(int(lo), int(hi or lo) + 1))
+
+
+def arms(code, systematic: bool, device) -> dict:
+    """The steps to compare at this code, by arm name."""
+    import polar_tpu_torch as pt
+    from polar_tpu_torch import ber
+
+    level = code.level
+    out = {}
+    if level <= ber.STEP_KERNEL_MAX_LEVEL:
+        out["fused"] = ber.make_step(code, systematic=systematic, fused=True,
+                                     device=device)
+    branches = ["block-hybrid"]
+    if level <= WHOLE_DECODER_MAX_LEVEL:
+        branches.insert(0, "block-whole")
+    if systematic:
+        branches[:0] = ["whole", "block-count"]
+    for branch in branches:
+        name = {"whole": "whole+count", "block-count": "block+count"}.get(
+            branch, branch.replace("-", "+"))
+        out[name] = ber.make_front_step(code, systematic=systematic,
+                                        branch=branch, middle_mode="kernel",
+                                        device=device)
+    dec, _ = pt.make_auto_decoder(
+        code, output="systematic" if systematic else "u", device=device)
+    out["draws"] = ber.make_step(code, systematic=systematic, decoder=dec,
+                                 device=device)
+    return out
+
+
+def rate(step, batch: int, device, seed: int) -> float:
+    """Frames/s of ``step`` by the chained slope method, after one warm-up
+    step; the chain length aims at about a second per timed run."""
+    import torch
+
+    from polar_tpu_torch.utils.benchmark import measure_step_rate
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    int(step(gen, SNR_DB, batch)["uncorrected_errors"])
+    one = time.perf_counter() - t0
+    iters = max(2, min(16, int(1.0 / max(one, 1e-3))))
+    return measure_step_rate(step, gen, SNR_DB, batch, device=device,
+                             iters=iters, repeats=2, warmup=False,
+                             max_iters=4 * iters)
+
+
+def front_times(code, device, ms) -> dict:
+    """ms of the fronts alone at B = BATCH, systematic, native words."""
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.ops.cuda import front_kernel, step_kernel
+
+    frozen, params = code.frozen, snr_params(SNR_DB)
+    kw = dict(seeds=(3, 4), call=0, batch=BATCH, device=device)
+    out = {}
+    if code.level <= 16:
+        out["whole front"] = ms(lambda: step_kernel.front(frozen, params, **kw))
+    for mode in ("kernel", "torch"):
+        out[f"block front, {mode} middle"] = ms(
+            lambda: front_kernel.front_blocks(frozen, params, True,
+                                              middle_mode=mode, **kw))
+    blk_a = 1 << min(front_kernel.BLOCK_LEVEL, code.level)
+    blk_b = 1 << min(front_kernel.CHAN_BLOCK_LEVEL, code.level)
+    x = front_kernel.msg_blocks(frozen, blk_a, True, **kw)
+    for name, fn in (("middle kernel", front_kernel.middle_kernel),
+                     ("middle torch", front_kernel.middle_plain)):
+        out[name] = ms(lambda: fn(x, frozen, blk_a, blk_b, True))
+    return out
+
+
+def _batches(level: int) -> list[int]:
+    return [BIG_BATCH, BATCH] if level <= BIG_BATCH_MAX_LEVEL else [BATCH]
+
+
+def decoder_times(code, device, ms) -> list[dict]:
+    """ms of one decode, whole-code kernel against the hybrid (at
+    :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`), each pair
+    timed whole, hybrid, hybrid, whole."""
+    import torch
+
+    from polar_tpu_torch.decode.auto import (hybrid_kernel_level,
+                                             make_kernel_decoder)
+    from polar_tpu_torch.decode.fastssc import make_fastssc_decoder
+
+    kl = hybrid_kernel_level(code.level)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(code.level)
+    rows = []
+    for batch in _batches(code.level):
+        llr_t = torch.randint(-128, 128, (code.N, batch), generator=gen,
+                              device=device, dtype=torch.int8)
+        llrs = llr_t.t().contiguous()
+        for output in ("u", "codeword"):
+            decs = {"whole-code": make_kernel_decoder(code, output=output),
+                    f"hybrid kl{kl}": make_fastssc_decoder(
+                        code, output=output, output_dtype=torch.int8,
+                        kernel_level=kl)}
+            for entry in ("frame-major", "lane-major"):
+                fns = {name: ((lambda d=d: d(llrs)) if entry == "frame-major"
+                              else (lambda d=d: d.lane_major(llr_t)))
+                       for name, d in decs.items()}
+                names = list(fns)
+                got = {name: [] for name in names}
+                for name in names + names[::-1]:
+                    got[name].append(ms(fns[name]))
+                for name in names:
+                    rows.append(dict(level=code.level, batch=batch,
+                                     output=output, entry=entry, decoder=name,
+                                     ms=got[name]))
+    return rows
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--levels", default="10-17", help="m range, e.g. 10-17")
+    ap.add_argument("--out", default=None, help="JSON lines to this file")
+    ap.add_argument("--decoders-only", action="store_true",
+                    help="time the decoders alone, no steps or fronts")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("step_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.utils.benchmark import elapsed_seconds
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    print(card, flush=True)
+    rows = []
+
+    def ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        return elapsed_seconds(lambda: [fn() for _ in range(reps)], dev) / reps * 1e3
+
+    for level in _levels(args.levels):
+        code = pt.make_code(level, rate=0.5)
+        if level <= WHOLE_DECODER_MAX_LEVEL:
+            for row in decoder_times(code, dev, ms):
+                rows.append(dict(row, card=card))
+                print(f"m={level} B={row['batch']} decode {row['output']} "
+                      f"{row['entry']} {row['decoder']}: "
+                      f"{', '.join(f'{t:.3f}' for t in row['ms'])} ms",
+                      flush=True)
+            torch.cuda.empty_cache()
+        if args.decoders_only:
+            continue
+        for systematic in (True, False):
+            steps = arms(code, systematic, dev)
+            for batch in _batches(level):
+                names = list(steps)
+                got = {name: [] for name in names}
+                for name in names + names[::-1]:
+                    got[name].append(rate(steps[name], batch, dev, level))
+                best = max(names, key=lambda nm: min(got[nm]))
+                for name in names:
+                    row = dict(level=level, systematic=systematic, batch=batch,
+                               arm=name, frames_per_s=got[name], card=card)
+                    rows.append(row)
+                    print(f"m={level} {'sys' if systematic else 'plain'} "
+                          f"B={batch} {name}: "
+                          f"{', '.join(f'{r:.1f}' for r in got[name])} frames/s"
+                          f"{'  <- best' if name == best else ''}", flush=True)
+            del steps
+            torch.cuda.empty_cache()
+        for name, t in front_times(code, dev, ms).items():
+            rows.append(dict(level=level, batch=BATCH, front=name, ms=t,
+                             card=card))
+            print(f"m={level} B={BATCH} {name}: {t:.3f} ms", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -365,3 +365,87 @@ def test_profile_step_reports_device_time(dev):
     report = "\n".join(lines)
     # the decoder takes most of the step; only the top rows are listed
     assert "fastssc_decoder_kernel" in lines[2] and "aten::" in report
+
+
+def _inject(dev, n, batch, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    msg = (1 - 2 * torch.randint(0, 2, (n, batch), generator=g,
+                                 device=dev)).to(torch.int8)
+    return msg, torch.randn((n, batch), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("m", [2, 7, 10, 13])
+@pytest.mark.parametrize("batch", [1, 999])
+def test_front_whole_kernel_matches_plain(dev, m, batch):
+    c = pt.make_code(m, rate=0.5)
+    msg, nrm = _inject(dev, c.N, batch, m)
+    params = snr_params(-1.0)
+    before = step_kernel.launches["front_whole"]
+    got = step_kernel.front(c.frozen, params, msg_t=msg, normals_t=nrm)
+    want = step_kernel.front_plain(c.frozen, params, msg_t=msg, normals_t=nrm)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    kw = dict(seeds=(8, 9), call=3, batch=batch, device=dev)
+    got = step_kernel.front(c.frozen, params, **kw)
+    want = step_kernel.front_plain(c.frozen, params, **kw)
+    assert step_kernel.launches["front_whole"] == before + 2
+    assert torch.equal(got[1], want[1])
+    # the same words; an ulp of log/sqrt may move an LLR by one step
+    d = (got[0].int() - want[0].int()).abs()
+    assert int(d.max()) <= 1 and int((d != 0).sum()) <= 3
+
+
+@pytest.mark.parametrize("m", [2, 8, 11])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_decode_count_kernel_matches_plain(dev, m, batch):
+    c = pt.make_code(m, rate=0.5)
+    llr = _llrs(dev, c.N, max(batch, 2), batch)[:, :batch].contiguous()
+    msg, _ = _inject(dev, c.K, batch, m)
+    cw = pt.encode_systematic(c, msg.t()).t().contiguous()
+    program = pt.compile_program(c)
+    before = step_kernel.launches["decode_count"]
+    got = step_kernel.decode_count(program, c.frozen, llr, cw)
+    assert step_kernel.launches["decode_count"] == before + 1
+    assert torch.equal(got, step_kernel.decode_count_plain(program, c.frozen,
+                                                           llr, cw))
+
+
+@pytest.mark.parametrize("m", [3, 9, 12])
+@pytest.mark.parametrize("systematic", [True, False])
+def test_front_chains_count_what_the_fused_step_counts(dev, m, systematic):
+    c = pt.make_code(m, rate=0.5)
+    kw = dict(seeds=(m, 5), call=0, batch=2000, device=dev)
+    want = step_kernel.step(pt.compile_program(c), c.frozen, snr_params(0.0),
+                            systematic, **kw)
+    branches = (("whole", "block-count", "block-whole", "block-hybrid")
+                if systematic else ("block-whole", "block-hybrid"))
+    for branch in branches:
+        for mode in ("kernel", "torch"):
+            chain = pt.ber.make_front_chain(c, systematic=systematic,
+                                            branch=branch, middle_mode=mode)
+            got = chain(snr_params(0.0), **kw)
+            assert torch.equal(got, want), (branch, mode)
+
+
+@pytest.mark.parametrize("m,blocks", [(11, (10, 10)), (11, (4, 7)),
+                                      (11, (1, 11)), (11, (11, 11)),
+                                      (12, (2, 9)), (5, (1, 1))])
+@pytest.mark.parametrize("systematic", [True, False])
+@pytest.mark.parametrize("batch", [1, 63, 1000, 4099])
+def test_middle_kernel_matches_plain(dev, m, blocks, systematic, batch):
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    x, _ = _inject(dev, c.N, batch, batch)
+    blk_a, blk_b = (1 << b for b in blocks)
+    keep = x.clone()
+    got = front_kernel.middle_kernel(x, c.frozen, blk_a, blk_b, systematic)
+    want = front_kernel.middle_plain(x, c.frozen, blk_a, blk_b, systematic)
+    assert torch.equal(got, want)
+    assert torch.equal(x, keep)                     # the input is not changed
+    # an input that does not start on a 4-byte boundary takes the byte path
+    buf = torch.empty(c.N * batch + 1, dtype=torch.int8, device=dev)
+    buf[1:] = x.view(-1)
+    odd = buf[1:].view(c.N, batch)
+    assert torch.equal(front_kernel.middle_kernel(odd, c.frozen, blk_a, blk_b,
+                                                  systematic), want)

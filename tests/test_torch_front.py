@@ -18,6 +18,7 @@ import polar_tpu_torch as pt
 from polar_tpu.ops.pallas.step_kernel import (_snr_params, make_pallas_count,
                                               make_pallas_front_blocks)
 from polar_tpu_torch import ber
+from polar_tpu_torch.decode import auto as decode_auto
 from polar_tpu_torch.ops.cuda import count_kernel, front_kernel, philox
 
 
@@ -110,6 +111,11 @@ def test_front_decode_cfg_raises_when_not_consumed(monkeypatch):
     monkeypatch.setattr(ber, "STEP_KERNEL_MAX_LEVEL", 8)
     with pytest.raises(ValueError, match="front_decode_cfg"):
         ber.make_step(c, compute="int8", front_decode_cfg=5, device="cpu")
+    with pytest.raises(ValueError, match="front_decode_cfg"):
+        ber.make_step(c, front_decode_cfg=5, device="cpu")     # whole front
+    # the front path's hybrid branch consumes it
+    monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", 0)
+    monkeypatch.setattr(decode_auto, "HYBRID_MIN_LEVEL", 9)
     step = ber.make_step(c, front_decode_cfg=5, device="cpu")
     gen = torch.Generator()
     gen.manual_seed(0)

@@ -22,6 +22,7 @@ from polar_tpu.decode.fastssc import make_fastssc_decoder as j_fastssc
 from polar_tpu.ops.pallas.step_kernel import (_bits_to_normals, _bits_to_sym,
                                               _snr_params, make_pallas_front_blocks)
 from polar_tpu_torch import ber
+from polar_tpu_torch.decode import auto as decode_auto
 from polar_tpu_torch.ops.cuda import (count_kernel, front_kernel, step_kernel,
                                       subtree_kernel)
 
@@ -104,6 +105,9 @@ def test_large_n_campaign_repeats_the_fused_campaign(monkeypatch):
               snr_range=(0.0, 1.0), snr_step=0.5, measure_throughput=False)
     want = pt.run_campaign(code, **kw)
     monkeypatch.setattr(ber, "STEP_KERNEL_MAX_LEVEL", 7)
+    # the front path's hybrid branch, which takes front_decode_cfg
+    monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", 0)
+    monkeypatch.setattr(decode_auto, "HYBRID_MIN_LEVEL", 8)
     counts = (subtree_kernel.launches, front_kernel.launches,
               count_kernel.launches, step_kernel.plain_calls,
               subtree_kernel.plain_calls, count_kernel.plain_calls,
