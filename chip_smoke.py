@@ -17,10 +17,17 @@ element-major front step: the whole-block front, decode+count and the
 middle-stages kernel against their plain versions, the front chains
 against the fused step at every level 2..16, chained campaigns through
 make_step's default path at Polar(8192, 4096) and Polar(16384, 8192)
-against the JAX package's results, and timings (12); each kernel's bound
-(13). Phases print one line each; any failure raises, so the script exits
-non-zero and prints no result. The last three lines are the card, the
-kernel table and the device line.
+against the JAX package's results, and timings (12). Then the decoder's
+scratch (shared-memory) and interpreter styles: the scratch whole-code
+kernel against the golden vectors, its plain version and the SSA kernel;
+the scratch and interpreter subtree kernels in every distinct kernel node
+of the hybrid at Polar(131072, 65536); the hybrid in each style and the
+interpreter decoder against the SSA decoders; interpreter decode+count
+against its plain version and the block-interp front chain against
+block-hybrid; the slice's main path through run_point; timings (14). Last,
+each kernel's bound (13). Phases print one line each; any failure raises,
+so the script exits non-zero and prints no result. The last three lines
+are the card, the kernel table and the device line.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -310,11 +317,14 @@ def large_n_phases(dev, card, ms) -> dict:
     plains = (decoder_kernel.plain_calls, step_kernel.plain_calls,
               subtree_kernel.plain_calls, front_kernel.plain_calls,
               count_kernel.plain_calls)
+    # steps of auto.BIG_BATCH frames, where the path's hybrid runs the SSA
+    # subtree kernel (below it the scratch style runs, phase 14)
+    cb = auto.BIG_BATCH
     _reset(*counts, *plains)
     t0 = time.perf_counter()
-    res = pt.run_campaign(code, device=dev, seed=3, batch=2048,
+    res = pt.run_campaign(code, device=dev, seed=3, batch=cb,
                           snr_range=(-1.7, -1.4), snr_step=0.1,
-                          max_frames_per_point=2048, measure_throughput=False)
+                          max_frames_per_point=cb, measure_throughput=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = {name: v for c in counts for name, v in c.items()}
@@ -324,7 +334,7 @@ def large_n_phases(dev, card, ms) -> dict:
         raise AssertionError(f"large-N campaign launches {launched}, plain "
                              f"calls {plain}")
     phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
-          f"2048 frames in {wall:.1f} s; launches {launched}; plain calls "
+          f"{cb} frames in {wall:.1f} s; launches {launched}; plain calls "
           f"{plain}")
     campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
 
@@ -801,6 +811,298 @@ def front_step_phases(dev, card, ms) -> dict:
             "launched": {name: launched[name] for name in new}}
 
 
+def style_phases(dev, card, ms) -> dict:
+    """Phase 14: the decoder's scratch and interpreter styles. The scratch
+    whole-code kernel against the golden vectors (m = 2..11), its plain
+    version and the SSA kernel; the scratch and interpreter subtree kernels
+    against their plain versions in every distinct kernel node of the
+    hybrid kl9 at Polar(131072, 65536); the hybrid in each style against
+    the SSA hybrid; the interpreter decoder against the SSA whole-code
+    kernel and the SSA hybrid; interpreter decode+count against its plain
+    version and the block-interp chain against block-hybrid; the slice's
+    main path (pinned decoders and the block-interp front step, counts
+    reset just before); timings."""
+    import numpy as np
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.code.compiler import emit_program
+    from polar_tpu_torch.decode import auto
+    from polar_tpu_torch.decode.auto import make_kernel_decoder
+    from polar_tpu_torch.ops.cuda import (channel_kernel, count_kernel,
+                                          decoder_kernel, encode_kernel,
+                                          front_kernel, interp_kernel,
+                                          step_kernel, subtree_kernel)
+    from polar_tpu_torch.ops.cuda.interp_kernel import (
+        make_interp_decode_count, make_interp_decoder, make_interp_subtree)
+
+    new = ("scratch_decoder", "scratch_subtree", "interp_decoder",
+           "interp_decode_count", "interp_subtree")
+    err = dict.fromkeys(new, 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+
+    def rand_i8(rows, batch):
+        x = torch.randint(-128, 128, (rows, batch), generator=gen, device=dev,
+                          dtype=torch.int8)
+        assert bool((x == -128).any()) and bool((x == 0).any())
+        return x
+
+    def check(name, got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} outputs, {len(want)} "
+                                 f"expected: {what}")
+        e = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
+                for g, w in zip(got, want))
+        err[name] = max(err[name], e)
+        if e:
+            raise AssertionError(f"{name} differs: {what}")
+
+    # -- the scratch whole-code kernel: golden vectors, plain, SSA ----------
+    with np.load(ROOT / "tests" / "vectors" / "golden.npz") as z:
+        vec = dict(z.items())
+    batches, levels = 0, set()
+    for key in sorted(vec):
+        if not key.startswith("mask_"):
+            continue
+        _, m, rk = key.split("_")
+        if int(m) > decoder_kernel.SCRATCH_MAX_LEVEL:
+            continue
+        gcode = pt.PolarCode(int(m), vec[key])
+        program = pt.compile_program(gcode)
+        i = 0
+        while f"llr_{m}_{rk}_{i}" in vec:
+            llr_t = torch.from_numpy(vec[f"llr_{m}_{rk}_{i}"].T.copy()).to(dev)
+            got, _ = decoder_kernel.decode(program, gcode.frozen, llr_t, False,
+                                           "scratch")
+            want, _ = decoder_kernel.decode_plain(program, gcode.frozen, llr_t,
+                                                  False)
+            gold = torch.from_numpy(vec[f"dec_{m}_{rk}_{i}"].T.copy()).to(dev)
+            check("scratch_decoder", got, want, f"golden m={m} rate={rk}")
+            check("scratch_decoder", got, gold, f"golden m={m} rate={rk}")
+            batches += 1
+            levels.add(int(m))
+            i += 1
+    phase("14", f"scratch decoder == plain == {batches} golden dec_* batches "
+          f"(m={min(levels)}..{max(levels)}, max abs err 0)")
+    code = pt.make_code(10, rate=0.5)
+    program = pt.compile_program(code)
+    llr_t = rand_i8(code.N, BATCH)
+    got, _ = decoder_kernel.decode(program, code.frozen, llr_t, False, "scratch")
+    check("scratch_decoder", got,
+          decoder_kernel.decode(program, code.frozen, llr_t, False)[0],
+          "Polar(1024, 512) against the SSA kernel")
+    check("scratch_decoder", got,
+          decoder_kernel.decode_plain(program, code.frozen, llr_t, False)[0],
+          "Polar(1024, 512) against plain")
+    phase("14", f"scratch decoder == SSA kernel == plain at Polar(1024, 512) "
+          f"B={BATCH}, full-range int8 (max abs err 0)")
+
+    # -- the interpreter decoder against the SSA whole-code kernel ----------
+    for output in ("u", "systematic", "codeword", "both"):
+        ssa = make_kernel_decoder(code, output=output).lane_major(llr_t)
+        for sl in (5, 10):
+            dec = make_interp_decoder(code, subtree_level=sl, output=output)
+            check("interp_decoder", dec.lane_major(llr_t), ssa,
+                  f"Polar(1024, 512) sl{sl} {output}")
+    dec = make_interp_decoder(code, subtree_level=5, output="both")
+    check("interp_decoder", dec.lane_major(llr_t), dec.plain(llr_t),
+          "Polar(1024, 512) sl5 both against plain")
+    phase("14", f"interp decoder (subtree levels 5, 10) == SSA whole-code "
+          f"kernel at Polar(1024, 512) B={BATCH}, u/systematic/codeword/both, "
+          f"and == plain (sl5, both) (max abs err 0; {dec.program_steps} "
+          f"steps, {dec.program_branches} branches at sl5)")
+    del llr_t, ssa
+
+    # -- the large code: subtree kernels, hybrids, interpreter --------------
+    big = pt.make_code(LARGE_M, rate=0.5)
+    n, k, b = big.N, big.K, LARGE_BATCH
+    kl = auto.hybrid_kernel_level(LARGE_M)
+    tree = pt.compile_code(big)
+    nodes, stack = {}, [tree]
+    while stack:  # the hybrid's kernel nodes, one per distinct pattern
+        node = stack.pop()
+        if node.level <= kl and node.mesg_bits >= 1 and node.kind in (
+                "branch", "rate0_right", "rate1_comb"):
+            nodes.setdefault(emit_program(node, node.level).tobytes(), node)
+            continue
+        stack.extend(c for c in (node.left, node.right) if c is not None)
+    for node in nodes.values():
+        slot = rand_i8(1 << node.level, 1024)
+        want_u = subtree_kernel.decode_plain(node, (slot,))
+        want_cw = subtree_kernel.decode_plain(node, (slot,), emit_cw=True)
+        check("scratch_subtree",
+              subtree_kernel.make_subtree_decoder(node, style="scratch")(slot),
+              want_u, f"{node.kind} level {node.level}")
+        for sl in (5, 10):
+            for emit_u in (True, False):
+                fn = make_interp_subtree(node, emit_u=emit_u, emit_cw=True,
+                                         subtree_level=sl)
+                check("interp_subtree", fn(slot),
+                      want_cw if emit_u else want_cw[1:],
+                      f"{node.kind} level {node.level} sl{sl} u={emit_u}")
+        check("interp_subtree", make_interp_subtree(node)(slot), want_u,
+              f"{node.kind} level {node.level} u")
+    phase("14", f"scratch and interp (sl5, sl10; u, u+cw, cw) subtree kernels "
+          f"== plain in all {len(nodes)} distinct kernel nodes of the hybrid "
+          f"kl{kl} at Polar({n}, {k}), full-range int8 slots, B=1024 "
+          "(max abs err 0)")
+
+    llr_t = rand_i8(n, b)
+    for output in ("u", "systematic", "codeword", "both"):
+        want = pt.make_fastssc_decoder(big, output=output,
+                                       output_dtype=torch.int8,
+                                       kernel_level=kl).lane_major(llr_t)
+        for style in ("scratch", "interp"):
+            hyb = pt.make_fastssc_decoder(big, output=output,
+                                          output_dtype=torch.int8,
+                                          kernel_level=kl, kernel_style=style)
+            name = "scratch_subtree" if style == "scratch" else "interp_subtree"
+            check(name, hyb.lane_major(llr_t), want, f"hybrid {style} {output}")
+            if output == "both":
+                frame = hyb(llr_t.t().contiguous())
+                check(name, tuple(f.t() for f in frame), want,
+                      f"hybrid {style} frame entry")
+        if output in ("u", "codeword"):
+            for sl in (5, 10):
+                dec = make_interp_decoder(big, subtree_level=sl, output=output)
+                check("interp_decoder", dec.lane_major(llr_t), want,
+                      f"Polar({n}, {k}) sl{sl} {output}")
+        del want
+    phase("14", f"hybrid kl{kl} in the scratch and interp styles == SSA hybrid "
+          f"at Polar({n}, {k}) B={b}, all outputs, lane and frame entries; "
+          f"interp decoder (sl5, sl10) == SSA hybrid, u and codeword "
+          "(max abs err 0)")
+
+    params = snr_params(-1.5)
+    llr_f, cw_f = front_kernel.front_blocks(big.frozen, params, True,
+                                            seeds=(14, 1), call=0, batch=b,
+                                            device=dev)
+    count = make_interp_decode_count(big)
+    got = count(llr_f, cw_f)
+    check("interp_decode_count", got, count.plain(llr_f, cw_f),
+          f"Polar({n}, {k}) on the block front's outputs")
+    phase("14", f"interp decode+count == plain at Polar({n}, {k}) B={b} on "
+          f"the block front's outputs: {got.tolist()} (max abs err 0)")
+    kw = dict(seeds=(LARGE_M, 14), call=0, batch=2048, device=dev)
+    counted = [pt.ber.make_front_chain(big, branch=br)(snr_params(-1.4),
+                                                        **kw).tolist()
+               for br in ("block-interp", "block-hybrid")]
+    if counted[0] != counted[1]:
+        raise AssertionError(f"block-interp {counted[0]} vs block-hybrid "
+                             f"{counted[1]} at m={LARGE_M}")
+    phase("14", f"m={LARGE_M}: block-interp chain == block-hybrid chain on the "
+          f"same seeds, B=2048: {counted[0]}")
+
+    # -- the main path of the slice, through the entry points ---------------
+    counts = (decoder_kernel.launches, subtree_kernel.launches,
+              interp_kernel.launches, step_kernel.launches,
+              front_kernel.launches, count_kernel.launches,
+              channel_kernel.launches, encode_kernel.launches)
+    plains = (decoder_kernel.plain_calls, subtree_kernel.plain_calls,
+              interp_kernel.plain_calls, step_kernel.plain_calls,
+              front_kernel.plain_calls, count_kernel.plain_calls,
+              channel_kernel.plain_calls, encode_kernel.plain_calls)
+    runs = (
+        (code, False, BATCH, make_kernel_decoder(code, style="scratch")),
+        (code, True, BATCH, make_interp_decoder(code, output="systematic")),
+        (big, True, b, pt.make_fastssc_decoder(
+            big, output="systematic", output_dtype=torch.int8,
+            kernel_level=kl, kernel_style="scratch")),
+        (big, True, b, pt.make_fastssc_decoder(
+            big, output="systematic", output_dtype=torch.int8,
+            kernel_level=kl, kernel_style="interp")),
+        (big, True, b, None))
+    _reset(*counts, *plains)
+    t0 = time.perf_counter()
+    points = []
+    for i, (c, systematic, batch, dec) in enumerate(runs):
+        g = torch.Generator()
+        g.manual_seed(140 + i)
+        step = (pt.ber.make_front_step(c, branch="block-interp", device=dev)
+                if dec is None else
+                pt.make_step(c, systematic=systematic, decoder=dec, device=dev))
+        points.append(pt.run_point(c, -1.5 if c is big else -0.5, gen=g,
+                                   step=step, systematic=systematic,
+                                   batch=batch, max_frames=batch, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: v for c in counts for name, v in c.items()}
+    plain = {name: v for c in plains for name, v in c.items()}
+    if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
+        raise AssertionError(f"style path launches {launched}, plain calls "
+                             f"{plain}")
+    for p in points:
+        if not (np.isfinite(p.ber) and 0 <= p.ber <= 1 and p.frames > 0):
+            raise AssertionError(f"style path point out of range: {p}")
+    phase("14", "style path (run_point: scratch u decoder, non-systematic "
+          "Polar(1024, 512), interp systematic decoder, hybrid kl9 scratch "
+          "and interp "
+          f"and the block-interp front step at Polar({n}, {k})): BER "
+          f"{[round(p.ber, 5) for p in points]} in {wall:.1f} s; launches "
+          f"{ {name: launched[name] for name in new} }; plain calls {plain}")
+
+    # -- timings at the shapes of the path ----------------------------------
+    times, work = {}, {}
+    llr_s = rand_i8(code.N, BATCH)
+    times["scratch_decoder"] = (
+        ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s, False,
+                                         "scratch"), 20),
+        ms(lambda: decoder_kernel.decode_plain(program, code.frozen, llr_s,
+                                               False), 3))
+    t_ssa = ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s,
+                                             False), 20)
+    dec = make_interp_decoder(code)
+    times["interp_decoder"] = (ms(lambda: dec.lane_major(llr_s), 20),
+                               ms(lambda: dec.plain(llr_s), 3))
+    work["scratch_decoder"] = work["interp_decoder"] = (
+        (code.N + code.K) * BATCH, decode_ops(code.N) * BATCH)
+    node = max(nodes.values(), key=lambda nd: nd.mesg_bits)
+    slot = rand_i8(1 << node.level, b)
+    sc = subtree_kernel.make_subtree_decoder(node, style="scratch")
+    times["scratch_subtree"] = (
+        ms(lambda: sc(slot), 10),
+        ms(lambda: subtree_kernel.decode_plain(node, (slot,)), 2))
+    it = make_interp_subtree(node, emit_u=False, emit_cw=True)
+    times["interp_subtree"] = (ms(lambda: it(slot), 10),
+                               ms(lambda: it.plain(slot), 2))
+    ln = 1 << node.level
+    work["scratch_subtree"] = ((2 * ln + node.mesg_bits) * b,
+                               decode_ops(ln) * b)
+    work["interp_subtree"] = (3 * ln * b,
+                              (decode_ops(ln) + transform_ops(ln)) * b)
+    times["interp_decode_count"] = (ms(lambda: count(llr_f, cw_f), 3),
+                                    ms(lambda: count.plain(llr_f, cw_f), 1))
+    work["interp_decode_count"] = (2 * n * b, decode_count_ops(n) * b)
+    shapes = {"scratch_decoder": f"Polar(1024, 512) B={BATCH} u",
+              "interp_decoder": f"Polar(1024, 512) B={BATCH} u, sl10",
+              "scratch_subtree": f"level-{node.level} node B={b}",
+              "interp_subtree": f"level-{node.level} node B={b} cw",
+              "interp_decode_count": f"Polar({n}, {k}) B={b}, sl10"}
+    for name, shape in shapes.items():
+        t_k, t_p = times[name]
+        phase("14", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
+              f"{shape} ({card})")
+    phase("14", f"SSA whole-code u at Polar(1024, 512) B={BATCH}: {t_ssa:.3f} "
+          f"ms ({card})")
+    chains = {br: pt.ber.make_front_chain(big, branch=br)
+              for br in ("block-interp", "block-hybrid")}
+    rates = {br: [] for br in chains}
+    for br in list(chains) + list(chains)[::-1]:
+        t = ms(lambda: chains[br](params, seeds=(3, 4), call=0, batch=b,
+                                  device=dev), 1)
+        rates[br].append(round(b / t * 1e3, 1))
+    phase("14", f"front step at Polar({n}, {k}) B={b}, frames/s (order "
+          f"interp, hybrid, hybrid, interp): block-interp "
+          f"{rates['block-interp']}, block-hybrid {rates['block-hybrid']} "
+          f"({card})")
+    return {"err": err, "times": times, "work": work,
+            "launched": {name: launched[name] for name in new}}
+
+
 def main() -> int:
     import torch
 
@@ -998,7 +1300,7 @@ def main() -> int:
         "mc_step": (0, (front_ops(n, k) + decode_count_ops(n)) * BATCH),
     }
     for more in (large_n_phases(dev, card, ms), draw_phases(dev, card, ms),
-                 front_step_phases(dev, card, ms)):
+                 front_step_phases(dev, card, ms), style_phases(dev, card, ms)):
         err.update(more["err"])
         times.update(more["times"])
         work.update(more["work"])
@@ -1031,6 +1333,16 @@ def main() -> int:
                          "polar_tpu/ops/pallas/step_kernel.py:453"),
         "front_middle": ("polar_tpu_torch/csrc/front.cu",
                          "polar_tpu/ops/pallas/step_kernel.py:800"),
+        "scratch_decoder": ("polar_tpu_torch/csrc/scratch.cu",
+                            "polar_tpu/ops/pallas/decoder_kernel.py:541"),
+        "scratch_subtree": ("polar_tpu_torch/csrc/scratch.cu",
+                            "polar_tpu/ops/pallas/decoder_kernel.py:550"),
+        "interp_decoder": ("polar_tpu_torch/csrc/interp.cu",
+                           "polar_tpu/ops/pallas/interp_kernel.py:409"),
+        "interp_decode_count": ("polar_tpu_torch/csrc/interp.cu",
+                                "polar_tpu/ops/pallas/interp_kernel.py:569"),
+        "interp_subtree": ("polar_tpu_torch/csrc/interp.cu",
+                           "polar_tpu/ops/pallas/interp_kernel.py:687"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

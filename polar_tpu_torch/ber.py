@@ -51,7 +51,7 @@ from .decode.auto import (hybrid_kernel_level, make_auto_decoder,
 from .decode.fastssc import make_fastssc_decoder
 from .encode import encode, encode_systematic
 from .ops.cuda import (channel_kernel, count_kernel, encode_kernel,
-                       front_kernel, step_kernel)
+                       front_kernel, interp_kernel, step_kernel)
 from .utils.benchmark import measure_decode_fps
 
 # Levels at which make_step runs the fused step kernel for int8 codes. The
@@ -85,11 +85,16 @@ STEP_KERNEL_MAX_LEVEL = 16
 # - plain m >= 11: the draws, by 1-47 % (m = 14 267.3k / 423.4k against the
 #   front's 233.5k / 419.8k; m = 17 31.30k against 30.99k).
 # AUTO_BIG_BATCH lies between the two batches measured; no batch between
-# them was timed.
+# them was timed. The step A/B with the decoder styles of
+# decode.auto.AUTO_DECODERS (--levels 9-12, 13-17; same card) moved plain
+# m = 9, 10 below AUTO_BIG_BATCH to the draws around the scratch u decoder
+# (10.42M, 5.27M frames/s against the fused step's 7.39M, 2.74M); it left
+# every other cell where it was.
 AUTO_BIG_BATCH = 16384
 AUTO_STEP_PATH = {
     **{(m, s): ("fused", "fused") for m in range(2, 10) for s in (True, False)},
-    (10, True): ("fused", "draws"), (10, False): ("fused", "draws"),
+    (9, False): ("draws", "fused"),
+    (10, True): ("fused", "draws"), (10, False): ("draws", "draws"),
     (11, True): ("front", "draws"), (12, True): ("front", "draws"),
     (13, True): ("front", "front"), (14, True): ("draws", "front"),
     (15, True): ("draws", "draws"),
@@ -109,9 +114,13 @@ AUTO_STEP_PATH = {
 # the counter kernel when systematic (2.26 ms against its plain version's
 # 19.2 ms at Polar(131072, 65536), B = 4096). The block front +
 # decode+count won at no level (m = 10: 1.72M / 5.12M); it and the
-# systematic whole-code branch run only when asked for by name.
+# systematic whole-code branch run only when asked for by name, as does the
+# block front + interpreter decode+count ("block-interp", JAX's
+# _INTERP_COUNT_LEVELS branch, empty by measurement there too).
 FRONT_WHOLE_MAX_LEVEL = 9
-FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid")
+FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid",
+                  "block-interp")
+SYSTEMATIC_BRANCHES = ("whole", "block-count", "block-interp")
 
 
 @dataclass
@@ -313,7 +322,9 @@ def front_branch(code: PolarCode, systematic: bool) -> str:
     lane-major entry, the counter kernel or torch u-domain counters) or
     ``"block-hybrid"`` (the same with the hybrid decoder); the choice of
     decoder is :mod:`~polar_tpu_torch.decode.auto`'s. ``"block-count"``
-    (systematic: the block front, decode+count) is never the default."""
+    (systematic: the block front, decode+count) and ``"block-interp"``
+    (systematic: the block front, the interpreter decode+count) are never
+    the default."""
     if systematic and code.level <= FRONT_WHOLE_MAX_LEVEL:
         return "whole"
     return ("block-hybrid" if code.level >= decode_auto.HYBRID_MIN_LEVEL
@@ -323,6 +334,7 @@ def front_branch(code: PolarCode, systematic: bool) -> str:
 def make_front_chain(code: PolarCode, *, systematic: bool = True,
                      branch: str | None = None,
                      kernel_level: int | None = None,
+                     kernel_style: str | None = None,
                      middle_mode: str = "kernel"):
     """The front path's chain (``polar_tpu/ber.py:323-359``):
     ``chain(params, **draw)`` → the five counters as a ``(5,)`` int64
@@ -333,24 +345,30 @@ def make_front_chain(code: PolarCode, *, systematic: bool = True,
     ``device`` (native, the fused step's Philox words, so every branch
     counts what the fused step counts on the same seeds). ``branch`` is
     :func:`front_branch`'s unless given (one of :data:`FRONT_BRANCHES`;
-    ``"whole"`` and ``"block-count"`` are systematic only). Systematic
+    :data:`SYSTEMATIC_BRANCHES` are systematic only). Systematic
     decoders emit the codeword estimate, counted against the codeword in
     the cw domain; plain ones the u estimate, counted against the block
     front's ``u0`` in torch (XLA in the JAX package). ``kernel_level`` is
     the hybrid's (by default
     :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`'s) and
-    implies the ``"block-hybrid"`` branch; ``middle_mode`` goes to the
-    block front."""
+    implies the ``"block-hybrid"`` branch. The decoder of ``"block-whole"``
+    and ``"block-hybrid"`` takes its kernel style from
+    :func:`~polar_tpu_torch.decode.auto.kernel_style` by each call's batch,
+    or ``kernel_style`` when given. ``middle_mode`` goes to the block
+    front."""
     if branch is None:
         branch = ("block-hybrid" if kernel_level is not None
                   else front_branch(code, systematic))
     if branch not in FRONT_BRANCHES or (
-            not systematic and branch in ("whole", "block-count")):
+            not systematic and branch in SYSTEMATIC_BRANCHES):
         raise ValueError(f"no front branch {branch!r} for "
                          f"systematic={systematic}")
     if kernel_level is not None and branch != "block-hybrid":
         raise ValueError(f"kernel_level is the hybrid's; branch {branch!r} "
                          "has none")
+    if kernel_style is not None and branch not in ("block-whole",
+                                                   "block-hybrid"):
+        raise ValueError(f"branch {branch!r} has no kernel_style")
     frozen = code.frozen
 
     def front(params, draw):
@@ -359,22 +377,33 @@ def make_front_chain(code: PolarCode, *, systematic: bool = True,
         return front_kernel.front_blocks(frozen, params, systematic,
                                          middle_mode=middle_mode, **draw)
 
-    if branch in ("whole", "block-count"):
-        program = compile_program(code)
+    if branch in SYSTEMATIC_BRANCHES:
+        if branch == "block-interp":
+            decode_count = interp_kernel.make_interp_decode_count(code)
+        else:
+            program = compile_program(code)
+
+            def decode_count(llr_t, cw_t):
+                return step_kernel.decode_count(program, frozen, llr_t, cw_t)
 
         def count_chain(params, **draw):
-            return step_kernel.decode_count(program, frozen,
-                                            *front(params, draw))
+            return decode_count(*front(params, draw))
 
         return count_chain
     out = "codeword" if systematic else "u"
-    if branch == "block-whole":
-        dec = make_kernel_decoder(code, output=out).lane_major
-    else:
-        dec = make_fastssc_decoder(
-            code, output=out, output_dtype=torch.int8,
-            kernel_level=(hybrid_kernel_level(code.level)
-                          if kernel_level is None else kernel_level)).lane_major
+    hybrid = branch == "block-hybrid"
+    kl = hybrid_kernel_level(code.level) if kernel_level is None else kernel_level
+    decoders = {}
+
+    def dec(llr_t):
+        style = kernel_style or decode_auto.kernel_style(
+            code.level, systematic, llr_t.shape[1], hybrid)
+        if style not in decoders:
+            decoders[style] = (make_fastssc_decoder(
+                code, output=out, output_dtype=torch.int8, kernel_level=kl,
+                kernel_style=style) if hybrid else make_kernel_decoder(
+                    code, output=out, style=style)).lane_major
+        return decoders[style](llr_t)
 
     def chain(params, **draw):
         outs = front(params, draw)
@@ -397,7 +426,8 @@ def make_front_step(code: PolarCode, *, systematic: bool = True,
                     device, **chain_kw):
     """The front path as a step: ``step(gen, snr_db, batch)`` → the
     counter dict, over :func:`make_front_chain` (``chain_kw``: its
-    ``branch``, ``kernel_level``, ``middle_mode``) with native Philox
+    ``branch``, ``kernel_level``, ``kernel_style``, ``middle_mode``) with
+    native Philox
     words, seeds drawn fresh from ``gen`` on every call (call word 0),
     the fused step's words."""
     chain = make_front_chain(code, systematic=systematic, **chain_kw)

@@ -38,6 +38,7 @@ from ..ops.arith import FloatArith, Int8Arith, QuantFloatArith, arith_for
 from ..ops.transform import polar_transform
 
 OUTPUTS = ("u", "systematic", "codeword", "both")
+KERNEL_STYLES = ("ssa", "scratch", "interp")
 
 
 class _TreeDecoder:
@@ -260,8 +261,15 @@ def make_fastssc_decoder(
     ``"systematic"`` and ``"codeword"`` then skip the subtrees' u blocks.
     ``kernel_fuse``: boundary fusion — a kernel-eligible left child runs
     its parent's f, a kernel-eligible right child of a branch its
-    parent's g and combine. ``kernel_style`` is ``"ssa"``; the scratch
-    and interpreter styles are TPU kernels still to port.
+    parent's g and combine (the SSA style only; ``"interp"`` raises,
+    ``"scratch"`` ignores it, as in JAX). ``kernel_style`` picks the
+    subtree kernel (``polar_tpu/decode/fastssc.py:328-394``): ``"ssa"``
+    (:mod:`~polar_tpu_torch.ops.cuda.subtree_kernel`), ``"scratch"`` (its
+    shared-memory twin: u blocks only, so non-u outputs re-encode û, and
+    nodes at most ``decoder_kernel.SCRATCH_MAX_LEVEL``) or ``"interp"``
+    (:func:`~polar_tpu_torch.ops.cuda.interp_kernel.make_interp_subtree`
+    at its default ``subtree_level``, with the fused cw track). All are
+    bit-exact.
 
     The returned ``decode(llrs)`` takes frame-major ``(..., N)`` LLRs;
     ``decode.lane_major(llr_t)`` takes element-major ``(N, B)`` LLRs and
@@ -273,19 +281,21 @@ def make_fastssc_decoder(
         tree = compile_code(code)
     if output not in OUTPUTS:
         raise ValueError(f"unknown output mode {output!r}")
-    if kernel_style != "ssa":
-        raise ValueError(
-            f"kernel_style {kernel_style!r} is not ported (ROADMAP.md "
-            "queue 2, rows 3 and 15): use 'ssa'")
+    if kernel_style not in KERNEL_STYLES:
+        raise ValueError(f"unknown kernel style {kernel_style!r}")
+    if kernel_style == "interp" and kernel_fuse:
+        raise ValueError("the interp kernel style has no boundary fusion")
     info_np = code.info_indices
     hybrid = kernel_level is not None
     # fused cw track: non-u hybrid outputs combine the subtrees' cw blocks
-    # instead of re-encoding the whole u; "systematic" / "codeword" then
-    # never read the u blocks, so the subtrees skip them
-    use_fused_cw = hybrid and output != "u"
+    # instead of re-encoding the whole u (the scratch style has no cw
+    # block); "systematic" / "codeword" then never read the u blocks, so
+    # the subtrees skip them
+    use_fused_cw = hybrid and output != "u" and kernel_style != "scratch"
     kernel_emit_u = not use_fused_cw or output == "both"
     kernel_for = None
     if hybrid:
+        from ..ops.cuda.interp_kernel import make_interp_subtree
         from ..ops.cuda.subtree_kernel import make_subtree_decoder
 
         cache: dict = {}
@@ -293,13 +303,17 @@ def make_fastssc_decoder(
         def kernel_for(node: Node, fuse: str | None = None):
             if node.level > kernel_level or node.mesg_bits < 1:
                 return None
-            if fuse and not kernel_fuse:
+            if fuse and not (kernel_fuse and kernel_style == "ssa"):
                 return None
             key = (emit_program(node, node.level).tobytes(), fuse)
             if key not in cache:
-                cache[key] = make_subtree_decoder(
-                    node, emit_u=kernel_emit_u, emit_cw=use_fused_cw,
-                    fuse=fuse)
+                if kernel_style == "interp":
+                    cache[key] = make_interp_subtree(
+                        node, emit_u=kernel_emit_u, emit_cw=use_fused_cw)
+                else:
+                    cache[key] = make_subtree_decoder(
+                        node, emit_u=kernel_emit_u, emit_cw=use_fused_cw,
+                        fuse=fuse, style=kernel_style)
             return cache[key]
 
     def run(x, axis):

@@ -16,6 +16,12 @@ thread per frame, over element-major ``(rows, B)`` int8 blocks.
   the node's ``(2^l, B)`` blocks, or under ``fuse="g"`` the parent's
   combined ``[hl·hr, hr]`` / ``[cwl·cwr, cwr]`` ``(2^{l+1}, B)`` blocks.
 
+``style="scratch"`` (``csrc/scratch.cu``) replaces the scratch body
+``_subtree_kernel`` (``:550``): u and hard only, no fusion, the node's
+pyramid and hard stack in shared memory (level at most
+``decoder_kernel.SCRATCH_MAX_LEVEL``; above it, as the other refusals,
+``ValueError`` when the decoder is made).
+
 The function launches the kernel for CUDA tensors and runs
 :func:`decode_plain` (the eager recursion over the node) only for CPU
 tensors; :data:`launches` counts the launches.
@@ -29,10 +35,10 @@ from ...code.compiler import Node, emit_program, node_frozen
 from ...decode.fastssc import _TreeDecoder
 from ...ops.arith import Int8Arith
 from . import build
-from .decoder_kernel import THREADS, device_tables
+from .decoder_kernel import STYLES, THREADS, device_tables, scratch_frames
 
 FUSE_CODES = {None: 0, "f": 1, "g": 2}
-launches = {"subtree_decoder": 0}
+launches = {"subtree_decoder": 0, "scratch_subtree": 0}
 plain_calls = {"subtree_plain": 0}
 
 
@@ -58,7 +64,8 @@ def decode_plain(node: Node, blocks, *, fuse=None, emit_u=True,
 
 
 def make_subtree_decoder(node: Node, *, emit_u: bool = True,
-                         emit_cw: bool = False, fuse: str | None = None):
+                         emit_cw: bool = False, fuse: str | None = None,
+                         style: str = "ssa"):
     """The decoder of one node (see the module docstring). Any batch."""
     if node.mesg_bits < 1:
         raise ValueError("only nodes that emit message bits take a kernel")
@@ -66,7 +73,13 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
         raise ValueError("emit_u=False needs emit_cw")
     if fuse not in FUSE_CODES:
         raise ValueError(f"unknown fuse mode {fuse!r}")
+    if style not in STYLES:
+        raise ValueError(f"unknown kernel style {style!r}")
     n, k = 1 << node.level, node.mesg_bits
+    if style == "scratch":
+        if emit_cw or fuse:
+            raise ValueError("emit_cw and fuse require the SSA kernel style")
+        frames = scratch_frames(n)
     if fuse == "g":
         in_rows = (2 * n, n) + ((n,) if emit_cw else ())
     else:
@@ -100,17 +113,24 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
         if b == 0:
             return outs
         prog_d, frozen_d = device_tables(program, frozen, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = build.load_library()
+        if style == "scratch":
+            err = lib.polar_scratch_subtree(
+                prog_d.data_ptr(), n, b, blocks[0].data_ptr(), mesg.data_ptr(),
+                hard.data_ptr(), frames, stream)
+            build.check(err, "polar_scratch_subtree")
+            launches["scratch_subtree"] += 1
+            return outs
         soft = torch.empty((n, b), dtype=torch.int8, device=dev)
         child = (torch.empty((n, b), dtype=torch.int8, device=dev)
                  if fuse else None)
         ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
-        lib = build.load_library()
         err = lib.polar_subtree(
             prog_d.data_ptr(), frozen_d.data_ptr(), n, b, FUSE_CODES[fuse],
             *ptr, child.data_ptr() if fuse else None, soft.data_ptr(),
             mesg.data_ptr(), hard.data_ptr(),
-            cw.data_ptr() if emit_cw else None, THREADS,
-            torch.cuda.current_stream(dev).cuda_stream)
+            cw.data_ptr() if emit_cw else None, THREADS, stream)
         build.check(err, "polar_subtree")
         launches["subtree_decoder"] += 1
         return outs

@@ -16,22 +16,33 @@ that applies:
   (plain), m <= 14;
 * ``block+hybrid`` — the same with the hybrid decoder
   (:func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`);
+* ``block+interp`` — the block front, then the interpreter decode+count
+  (systematic);
 * ``draws`` — the kernel draws around
   :func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder,
-  pinned.
+  pinned;
+* ``block+whole ssa``, ``block+hybrid ssa`` and ``draws ssa`` — the same
+  with the SSA-style decoders alone (``kernel_style="ssa"``;
+  ``make_named_decoder``), where
+  :data:`~polar_tpu_torch.decode.auto.AUTO_DECODERS` picks another style at
+  this level.
 
 Arms run in order, then in reverse order (a drift shows as two readings
 apart). Then, at B = 4096, the fronts alone by CUDA events: the
 whole-block front, the block front with the kernel middle and with the
 torch middle, and each middle by itself. Before the steps, the decoders alone, the
-choice of :data:`~polar_tpu_torch.decode.auto.HYBRID_MIN_LEVEL`: one
-decode of full-range int8 LLRs by the whole-code kernel and by the hybrid,
-u and codeword outputs, frame-major and lane-major entries, at both
-batches, m <= 14, in mirrored order. Every line names the card and its
-power limit; ``--out`` also writes the readings as JSON lines.
+choice of :data:`~polar_tpu_torch.decode.auto.HYBRID_MIN_LEVEL` and of a
+kernel style: one decode of full-range int8 LLRs, u and codeword outputs,
+frame-major and lane-major entries, at both batches, in mirrored order, by
+the whole-code kernel (m <= 14), the hybrid at
+:func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`, the scratch
+whole-code kernel (u, m <= 11), the interpreter at subtree levels 5 and 10
+(m = 9..13) and the hybrid at kernel level 9 in the scratch and
+interpreter styles (m = 13..17). Every line names the card and its power
+limit; ``--out`` also writes the readings as JSON lines.
 
     python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
-    python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-13
+    python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-17
 """
 
 from __future__ import annotations
@@ -47,6 +58,8 @@ BIG_BATCH = 32768
 BIG_BATCH_MAX_LEVEL = 14
 BATCH = 4096
 WHOLE_DECODER_MAX_LEVEL = 14
+INTERP_LEVELS = (9, 13)          # the whole-code interpreter's arms
+STYLE_HYBRID_MIN_LEVEL = 13      # the hybrid's scratch and interp arms
 
 
 def _levels(text: str) -> list[int]:
@@ -58,6 +71,7 @@ def arms(code, systematic: bool, device) -> dict:
     """The steps to compare at this code, by arm name."""
     import polar_tpu_torch as pt
     from polar_tpu_torch import ber
+    from polar_tpu_torch.decode import auto as decode_auto
 
     level = code.level
     out = {}
@@ -69,16 +83,31 @@ def arms(code, systematic: bool, device) -> dict:
         branches.insert(0, "block-whole")
     if systematic:
         branches[:0] = ["whole", "block-count"]
+        branches.append("block-interp")
     for branch in branches:
         name = {"whole": "whole+count", "block-count": "block+count"}.get(
             branch, branch.replace("-", "+"))
         out[name] = ber.make_front_step(code, systematic=systematic,
                                         branch=branch, middle_mode="kernel",
                                         device=device)
-    dec, _ = pt.make_auto_decoder(
-        code, output="systematic" if systematic else "u", device=device)
-    out["draws"] = ber.make_step(code, systematic=systematic, decoder=dec,
-                                 device=device)
+    for branch in branches:  # the front decoders in the SSA style alone
+        if branch in ("block-whole", "block-hybrid") and any(
+                decode_auto.kernel_style(level, systematic, b,
+                                         branch == "block-hybrid") != "ssa"
+                for b in (BATCH, BIG_BATCH)):
+            out[branch.replace("-", "+") + " ssa"] = ber.make_front_step(
+                code, systematic=systematic, branch=branch,
+                kernel_style="ssa", middle_mode="kernel", device=device)
+    output = "systematic" if systematic else "u"
+    decs = {"draws": pt.make_auto_decoder(code, output=output,
+                                          device=device)[0]}
+    if (level, systematic) in decode_auto.AUTO_DECODERS:
+        ssa = "hybrid" if level >= decode_auto.HYBRID_MIN_LEVEL else "ssa"
+        decs["draws ssa"] = decode_auto.make_named_decoder(code, ssa,
+                                                           output)[0]
+    for name, dec in decs.items():
+        out[name] = ber.make_step(code, systematic=systematic, decoder=dec,
+                                  device=device)
     return out
 
 
@@ -127,17 +156,42 @@ def _batches(level: int) -> list[int]:
     return [BIG_BATCH, BATCH] if level <= BIG_BATCH_MAX_LEVEL else [BATCH]
 
 
-def decoder_times(code, device, ms) -> list[dict]:
-    """ms of one decode, whole-code kernel against the hybrid (at
-    :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`), each pair
-    timed whole, hybrid, hybrid, whole."""
+def decoders(code, output: str) -> dict:
+    """The decoders to time at this code, by name (see the module
+    docstring)."""
     import torch
 
     from polar_tpu_torch.decode.auto import (hybrid_kernel_level,
                                              make_kernel_decoder)
     from polar_tpu_torch.decode.fastssc import make_fastssc_decoder
+    from polar_tpu_torch.ops.cuda import decoder_kernel
+    from polar_tpu_torch.ops.cuda.interp_kernel import make_interp_decoder
 
-    kl = hybrid_kernel_level(code.level)
+    level, kl = code.level, hybrid_kernel_level(code.level)
+    out = {}
+    if level <= WHOLE_DECODER_MAX_LEVEL:
+        out["whole-code"] = make_kernel_decoder(code, output=output)
+    if output == "u" and level <= decoder_kernel.SCRATCH_MAX_LEVEL:
+        out["scratch"] = make_kernel_decoder(code, style="scratch")
+    if INTERP_LEVELS[0] <= level <= INTERP_LEVELS[1]:
+        for sl in (5, 10):
+            out[f"interp sl{sl}"] = make_interp_decoder(
+                code, subtree_level=sl, output=output)
+    styles = (("ssa", "scratch", "interp")
+              if level >= STYLE_HYBRID_MIN_LEVEL else ("ssa",))
+    for style in styles:
+        name = f"hybrid kl{kl}" + ("" if style == "ssa" else f" {style}")
+        out[name] = make_fastssc_decoder(code, output=output,
+                                         output_dtype=torch.int8,
+                                         kernel_level=kl, kernel_style=style)
+    return out
+
+
+def decoder_times(code, device, ms) -> list[dict]:
+    """ms of one decode by each of :func:`decoders`, timed in order, then in
+    reverse order."""
+    import torch
+
     gen = torch.Generator(device=device)
     gen.manual_seed(code.level)
     rows = []
@@ -146,10 +200,7 @@ def decoder_times(code, device, ms) -> list[dict]:
                               device=device, dtype=torch.int8)
         llrs = llr_t.t().contiguous()
         for output in ("u", "codeword"):
-            decs = {"whole-code": make_kernel_decoder(code, output=output),
-                    f"hybrid kl{kl}": make_fastssc_decoder(
-                        code, output=output, output_dtype=torch.int8,
-                        kernel_level=kl)}
+            decs = decoders(code, output)
             for entry in ("frame-major", "lane-major"):
                 fns = {name: ((lambda d=d: d(llrs)) if entry == "frame-major"
                               else (lambda d=d: d.lane_major(llr_t)))
@@ -194,7 +245,7 @@ def main(argv=None) -> int:
 
     for level in _levels(args.levels):
         code = pt.make_code(level, rate=0.5)
-        if level <= WHOLE_DECODER_MAX_LEVEL:
+        if level <= WHOLE_DECODER_MAX_LEVEL or args.decoders_only:
             for row in decoder_times(code, dev, ms):
                 rows.append(dict(row, card=card))
                 print(f"m={level} B={row['batch']} decode {row['output']} "

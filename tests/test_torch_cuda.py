@@ -62,8 +62,13 @@ def test_kernel_decoder_output_modes(dev):
         want = pt.make_fastssc_decoder(c, output=mode, output_dtype=torch.int8)(llr)
         for a, b in zip(*((got, want) if mode == "both" else ((got,), (want,)))):
             assert torch.equal(a, b)
-    dec, desc = pt.make_auto_decoder(c, device=dev)
-    assert desc == "cuda-fastssc"
+    from polar_tpu_torch.decode import auto
+
+    _, desc = pt.make_auto_decoder(c, output="codeword", device=dev)
+    assert desc == (f"cuda-fastssc below {auto.BIG_BATCH} frames, "
+                    f"cuda-interp-sl{auto.INTERP_SUBTREE_LEVEL} from it")
+    _, desc = pt.make_auto_decoder(c, device=dev)          # u: shared memory
+    assert desc == "cuda-scratch"
 
 
 def test_decoder_rejects_bad_input(dev):
@@ -168,10 +173,23 @@ def test_subtree_kernel_matches_plain(dev, level, batch):
 def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
     from polar_tpu_torch.decode import auto
 
-    for m in (auto.HYBRID_MIN_LEVEL - 1, auto.HYBRID_MIN_LEVEL):
-        _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5), device=dev)
+    for m in (auto.HYBRID_MIN_LEVEL - 2, auto.HYBRID_MIN_LEVEL, 12):
+        _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5),
+                                       output="codeword", device=dev)
         assert desc == ("cuda-fastssc" if m < auto.HYBRID_MIN_LEVEL
                         else f"cuda-hybrid-kl{auto.HYBRID_KERNEL_LEVEL}")
+    # the u track of m = 10 by batch: the scratch kernel, then the hybrid
+    c = pt.make_code(10, rate=0.5)
+    dec, desc = pt.make_auto_decoder(c, device=dev)
+    assert desc == (f"cuda-scratch below {auto.BIG_BATCH} frames, "
+                    f"cuda-hybrid-kl{auto.HYBRID_KERNEL_LEVEL} from it")
+    want = pt.make_fastssc_decoder(c, output_dtype=torch.int8)
+    for batch in (100, auto.BIG_BATCH):
+        llr = _llrs(dev, c.N, batch, batch).t().contiguous()
+        before = (decoder_kernel.launches["scratch_decoder"],)
+        assert torch.equal(dec(llr).cpu(), want(llr.cpu()))
+        moved = decoder_kernel.launches["scratch_decoder"] - before[0]
+        assert moved == (batch < auto.BIG_BATCH)
 
 
 @pytest.mark.parametrize("fuse", [False, True])
@@ -449,3 +467,168 @@ def test_middle_kernel_matches_plain(dev, m, blocks, systematic, batch):
     odd = buf[1:].view(c.N, batch)
     assert torch.equal(front_kernel.middle_kernel(odd, c.frozen, blk_a, blk_b,
                                                   systematic), want)
+
+
+# -- the scratch and interpreter styles ---------------------------------------
+
+
+@pytest.mark.parametrize("m", [2, 7, 10, 11])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_scratch_decoder_matches_plain(dev, m, batch):
+    c = pt.make_code(m, rate=0.5)
+    llr = _llrs(dev, c.N, max(batch, 2), m)[:, :batch].contiguous()
+    program = pt.compile_program(c)
+    before = dict(decoder_kernel.launches)
+    plain = dict(decoder_kernel.plain_calls)
+    got, cw = decoder_kernel.decode(program, c.frozen, llr, False, "scratch")
+    assert decoder_kernel.launches["scratch_decoder"] == before["scratch_decoder"] + 1
+    assert decoder_kernel.plain_calls == plain and cw is None
+    want, _ = decoder_kernel.decode_plain(program, c.frozen, llr.cpu(), False)
+    assert torch.equal(got.cpu(), want)
+    ssa, _ = decoder_kernel.decode(program, c.frozen, llr, False)
+    assert torch.equal(got, ssa)
+
+
+def test_scratch_refuses_what_its_shared_memory_cannot_hold(dev):
+    from polar_tpu_torch.ops.cuda import build, subtree_kernel
+
+    big = pt.make_code(decoder_kernel.SCRATCH_MAX_LEVEL + 1, rate=0.5)
+    llr = _llrs(dev, big.N, 64, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        decoder_kernel.decode(pt.compile_program(big), big.frozen, llr, False,
+                              "scratch")
+    with pytest.raises(ValueError, match="shared memory"):
+        subtree_kernel.make_subtree_decoder(pt.compile_code(big),
+                                            style="scratch")
+    # a launch above the block's shared memory is refused and reported
+    c = pt.make_code(decoder_kernel.SCRATCH_MAX_LEVEL, rate=0.5)
+    prog, _ = decoder_kernel.device_tables(pt.compile_program(c), c.frozen, dev)
+    llr = _llrs(dev, c.N, 256, 2)
+    mesg = torch.empty((c.K, 256), dtype=torch.int8, device=dev)
+    err = build.load_library().polar_scratch_decode(
+        prog.data_ptr(), c.N, 256, llr.data_ptr(), mesg.data_ptr(), 256,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError):
+        build.check(err, "polar_scratch_decode")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("level", [4, 7, 11])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_scratch_subtree_matches_plain(dev, level, batch):
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    nodes = _subtree_nodes(12, level)
+    assert nodes
+    for node in nodes:
+        n = 1 << node.level
+        slot = _llrs(dev, n, max(batch, 2), level)[:, :batch].contiguous()
+        fn = subtree_kernel.make_subtree_decoder(node, style="scratch")
+        before = subtree_kernel.launches["scratch_subtree"]
+        got = fn(slot)
+        assert subtree_kernel.launches["scratch_subtree"] == before + 1
+        want = subtree_kernel.decode_plain(node, [slot.cpu()])
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), node.kind
+        ssa = subtree_kernel.make_subtree_decoder(node)(slot)
+        for a, b in zip(got, ssa):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,kl", [(4, 2), (9, 5), (12, 10), (12, 4)])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_interp_decoder_matches_plain(dev, m, kl, batch):
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    llr = _llrs(dev, c.N, max(batch, 2), m)[:, :batch].contiguous()
+    for output in ("u", "systematic", "codeword", "both"):
+        dec = interp_kernel.make_interp_decoder(c, subtree_level=kl,
+                                                output=output)
+        before = interp_kernel.launches["interp_decoder"]
+        plain = dict(interp_kernel.plain_calls)
+        got = dec.lane_major(llr)
+        assert interp_kernel.launches["interp_decoder"] == before + 1
+        assert interp_kernel.plain_calls == plain
+        want = dec.lane_major(llr.cpu())
+        ssa = make_kernel_decoder(c, output=output).lane_major(llr)
+        got, want, ssa = ((x,) if output != "both" else x
+                          for x in (got, want, ssa))
+        for a, b, s in zip(got, want, ssa, strict=True):
+            assert torch.equal(a.cpu(), b), output
+            assert torch.equal(a, s), output
+
+
+@pytest.mark.parametrize("m", [3, 8, 12])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_interp_decode_count_matches_plain(dev, m, batch):
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    llr = _llrs(dev, c.N, max(batch, 2), batch)[:, :batch].contiguous()
+    msg, _ = _inject(dev, c.K, batch, m)
+    cw = pt.encode_systematic(c, msg.t()).t().contiguous()
+    count = interp_kernel.make_interp_decode_count(c, subtree_level=5)
+    before = interp_kernel.launches["interp_decode_count"]
+    got = count(llr, cw)
+    assert interp_kernel.launches["interp_decode_count"] == before + 1
+    assert torch.equal(got.cpu(), count(llr.cpu(), cw.cpu()))
+    assert torch.equal(got, step_kernel.decode_count(pt.compile_program(c),
+                                                     c.frozen, llr, cw))
+
+
+@pytest.mark.parametrize("level", [4, 7, 11])
+@pytest.mark.parametrize("batch", [1, 63, 4099])
+def test_interp_subtree_matches_plain(dev, level, batch):
+    from polar_tpu_torch.ops.cuda import interp_kernel, subtree_kernel
+
+    for node in _subtree_nodes(12, level):
+        n = 1 << node.level
+        slot = _llrs(dev, n, max(batch, 2), level)[:, :batch].contiguous()
+        for emit_u, emit_cw in ((True, False), (True, True), (False, True)):
+            for kl in (3, 10):
+                fn = interp_kernel.make_interp_subtree(
+                    node, emit_u=emit_u, emit_cw=emit_cw, subtree_level=kl)
+                before = interp_kernel.launches["interp_subtree"]
+                got = fn(slot)
+                assert interp_kernel.launches["interp_subtree"] == before + 1
+                want = fn(slot.cpu())
+                ssa = subtree_kernel.make_subtree_decoder(
+                    node, emit_u=emit_u, emit_cw=emit_cw)(slot)
+                for a, b, s in zip(got, want, ssa, strict=True):
+                    assert torch.equal(a.cpu(), b), (node.kind, emit_u, kl)
+                    assert torch.equal(a, s)
+
+
+@pytest.mark.parametrize("style", ["scratch", "interp"])
+def test_hybrid_styles_match_the_ssa_hybrid(dev, style):
+    c = pt.make_code(12, rate=0.5)
+    llr = _llrs(dev, c.N, 1000, 12)
+    for mode in ("u", "systematic", "codeword", "both"):
+        want = pt.make_fastssc_decoder(c, output=mode, output_dtype=torch.int8,
+                                       kernel_level=9).lane_major(llr)
+        dec = pt.make_fastssc_decoder(c, output=mode, output_dtype=torch.int8,
+                                      kernel_level=9, kernel_style=style)
+        got, frame = dec.lane_major(llr), dec(llr.t().contiguous())
+        if mode != "both":
+            got, frame, want = (got,), (frame,), (want,)
+        for a, f, b in zip(got, frame, want, strict=True):
+            assert torch.equal(a, b), mode
+            assert torch.equal(f.t(), b), mode
+
+
+@pytest.mark.parametrize("m", [4, 10, 13])
+def test_block_interp_chain_counts_what_the_fused_step_counts(dev, m):
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    kw = dict(seeds=(m, 6), call=0, batch=2000, device=dev)
+    want = step_kernel.step(pt.compile_program(c), c.frozen, snr_params(0.0),
+                            True, **kw)
+    before = interp_kernel.launches["interp_decode_count"]
+    got = pt.ber.make_front_chain(c, branch="block-interp")(snr_params(0.0),
+                                                            **kw)
+    assert interp_kernel.launches["interp_decode_count"] == before + 1
+    assert torch.equal(got, want)

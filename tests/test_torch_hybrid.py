@@ -154,9 +154,12 @@ def test_subtree_decoder_fused_bodies_match_unfused():
 
 def test_hybrid_rejects_what_is_not_ported():
     code = pt.make_code(8, rate=0.5)
-    for style in ("scratch", "interp"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            pt.make_fastssc_decoder(code, kernel_level=5, kernel_style=style)
+    # every kernel style is ported; what no style has still raises
+    with pytest.raises(ValueError, match="fusion"):
+        pt.make_fastssc_decoder(code, kernel_level=5, kernel_style="interp",
+                                kernel_fuse=True)
+    with pytest.raises(ValueError, match="style"):
+        pt.make_fastssc_decoder(code, kernel_level=5, kernel_style="unrolled")
     dec = pt.make_fastssc_decoder(code, kernel_level=5, compute="float32")
     with pytest.raises(ValueError, match="int8"):
         dec.lane_major(torch.zeros(code.N, 4, dtype=torch.int8))
