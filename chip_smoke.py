@@ -24,8 +24,15 @@ the scratch and interpreter subtree kernels in every distinct kernel node
 of the hybrid at Polar(131072, 65536); the hybrid in each style and the
 interpreter decoder against the SSA decoders; interpreter decode+count
 against its plain version and the block-interp front chain against
-block-hybrid; the slice's main path through run_point; timings (14). Last,
-each kernel's bound (13). Phases print one line each; any failure raises,
+block-hybrid; the slice's main path through run_point; timings (14). Then
+the parallel layer over a mesh of 8 positions on the one card: the
+ring-shift kernel against its plain version; the sharded encoder; the
+element-sharded decoder at Polar(131072, 65536) against the local decoder
+over both transports, its ring-kernel run the slice's main path; the
+frame-sharded step and a sharded point against the JAX package's result;
+dryrun_multichip(8); the multihost CLI as two processes on the card and
+resumed from its checkpoint; timings (15). Last, each kernel's bound (13).
+Phases print one line each; any failure raises,
 so the script exits non-zero and prints no result. The last three lines
 are the card, the kernel table and the device line.
 
@@ -55,6 +62,7 @@ SIGMAS = 4.0  # width of the statistical bounds
 CAMPAIGNS = ((10, (-1.0, 0.0), 0.2), (13, (-1.5, -1.2), 0.1),
              (14, (-1.6, -1.2), 0.2))
 FRONT_PATH_M = 9
+PAR_SHARDS = 8   # phase 15: mesh positions on the one card
 
 # The least time the card could take for a kernel's work ("bound_ms"): the
 # larger of its bytes (each input read once, each output written once) over
@@ -1103,6 +1111,293 @@ def style_phases(dev, card, ms) -> dict:
             "launched": {name: launched[name] for name in new}}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multihost_pair(m: int, checkpoint: Path, device: str = "cuda:0") -> list:
+    """The multihost CLI as two processes over gloo, both on ``device``
+    with two mesh positions each; returns each process's points (its last
+    stdout line). One retry on a fresh port: the port found free may be
+    taken before the lead binds it."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for attempt in range(2):
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "polar_tpu_torch.parallel.multihost",
+             "--m", str(m), "--per-device-batch", "4096",
+             "--max-global-frames", "65536", "--target-errors", "1000",
+             "--snr-min", "-0.4", "--snr-max", "0.0", "--snr-step", "0.2",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(r), "--device", device, "--positions",
+             "2", "--checkpoint", str(checkpoint)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        outs = []
+        for proc in procs:
+            try:
+                out, errs = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for other in procs:
+                    other.kill()
+                    other.communicate()
+                raise
+            outs.append((proc.returncode, out, errs))
+        if all(rc == 0 for rc, _, _ in outs):
+            return [json.loads(out.strip().splitlines()[-1])["points"]
+                    for _, out, _ in outs]
+        if attempt:
+            raise AssertionError("multihost pair failed twice: " + " | ".join(
+                f"rc={rc} {errs[-1500:]}" for rc, _, errs in outs))
+
+
+def parallel_phases(dev, card, ms) -> dict:
+    """Phase 15: the parallel layer, driven from one process over a mesh of
+    8 positions on one card. The ring-shift kernel against its plain
+    version (2, 4, 8 positions; offsets +-1, +-2, 4; int8 (16384, 4096),
+    stacked (2, 16384, 4096), (1, 4096), f32 (512, 64)); the sharded
+    encoder at m = 17; the element-sharded decoder at Polar(131072, 65536),
+    S = 16384, B = 4096, against the local auto decoder over both
+    transports, with and without batch_split, both outputs, its rdma run
+    the slice's main path (counts reset just before); the frame-sharded
+    step at Polar(1024, 512) against the unsharded steps and a sharded
+    point against results/n1024_sys_int8.json; dryrun_multichip(8); the
+    multihost CLI as two processes on the card, then resumed from its
+    checkpoint; timings."""
+    import numpy as np
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.ops.cuda import (channel_kernel, count_kernel,
+                                          decoder_kernel, encode_kernel,
+                                          front_kernel, interp_kernel,
+                                          ring_kernel, step_kernel,
+                                          subtree_kernel)
+    from polar_tpu_torch.parallel.campaign import (device_seeds,
+                                                   make_sharded_step,
+                                                   run_sharded_point)
+    from polar_tpu_torch.parallel.dryrun import dryrun_multichip
+    from polar_tpu_torch.parallel.mesh import frame_mesh
+    from polar_tpu_torch.parallel.seqpar import (element_mesh,
+                                                 make_sharded_encoder)
+    from polar_tpu_torch.parallel.seqpar_decode import make_seqpar_decoder
+
+    err = {"ring_shift": 0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    code = pt.make_code(LARGE_M, rate=0.5)
+    n, k, b = code.N, code.K, LARGE_BATCH
+    shard = n // PAR_SHARDS
+
+    def rand_i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    # -- the ring-shift kernel against its plain version --------------------
+    payloads = {
+        f"int8 ({shard}, {b})": lambda: rand_i8(shard, b),
+        f"stacked (2, {shard}, {b})": lambda: rand_i8(2, shard, b),
+        f"(1, {b})": lambda: rand_i8(1, b),
+        "f32 (512, 64)": lambda: torch.randn((512, 64), generator=gen,
+                                             device=dev),
+    }
+    offsets = (1, -1, 2, -2, 4)
+    for n_pos in (2, 4, PAR_SHARDS):
+        for name, make in payloads.items():
+            blocks = [make() for _ in range(n_pos)]
+            for off in offsets:
+                got = ring_kernel.ring_shift(blocks, off)
+                want = ring_kernel.ring_shift_plain(blocks, off)
+                e = max(float((g.double() - w.double()).abs().max())
+                        for g, w in zip(got, want))
+                err["ring_shift"] = max(err["ring_shift"], e)
+                if e or not all(torch.equal(g, blocks[(d + off) % n_pos])
+                                for d, g in enumerate(got)):
+                    raise AssertionError(f"ring shift differs: {n_pos} "
+                                         f"positions, {name}, offset {off}")
+                del got, want
+            del blocks
+    phase("15", f"ring-shift kernel == plain == the shifted blocks at 2, 4, "
+          f"{PAR_SHARDS} positions, offsets {list(offsets)}, payloads "
+          f"{list(payloads)} (max abs err 0)")
+
+    # -- the sharded encoder -------------------------------------------------
+    mesh = element_mesh([dev] * PAR_SHARDS)
+    msg = (1 - 2 * torch.randint(0, 2, (64, k), generator=gen, device=dev)
+           ).to(torch.int8)
+    for systematic, enc in ((True, pt.encode_systematic), (False, pt.encode)):
+        got = make_sharded_encoder(code, mesh, systematic=systematic)(msg)
+        if not torch.equal(got, enc(code, msg)):
+            raise AssertionError(f"sharded encoder differs, "
+                                 f"systematic={systematic}")
+    phase("15", f"sharded encoder (systematic and plain) == local at "
+          f"Polar({n}, {k}) over {PAR_SHARDS} positions, B=64")
+
+    # -- the main path: the element-sharded decode over the ring kernel ----
+    llr_t = rand_i8(n, b)
+    assert bool((llr_t == -128).any()) and bool((llr_t == 0).any())
+    local = pt.make_auto_decoder(code, output="u", device=dev)[0].lane_major
+    want = local(llr_t)
+    counts = (decoder_kernel.launches, subtree_kernel.launches,
+              interp_kernel.launches, step_kernel.launches,
+              front_kernel.launches, count_kernel.launches,
+              channel_kernel.launches, encode_kernel.launches,
+              ring_kernel.launches)
+    plains = (decoder_kernel.plain_calls, subtree_kernel.plain_calls,
+              interp_kernel.plain_calls, step_kernel.plain_calls,
+              front_kernel.plain_calls, count_kernel.plain_calls,
+              channel_kernel.plain_calls, encode_kernel.plain_calls,
+              ring_kernel.plain_calls)
+    llrs = llr_t.t().contiguous()
+    decode = make_seqpar_decoder(code, mesh, output="u", comm="rdma")
+    _reset(*counts, *plains)
+    t0 = time.perf_counter()
+    got = decode(llrs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: v for c in counts for name, v in c.items()}
+    plain = {name: v for c in plains for name, v in c.items()}
+    if (launched["ring_shift"] == 0 or launched["subtree_decoder"] == 0
+            or max(plain.values()) != 0):
+        raise AssertionError(f"sharded decode launches {launched}, plain "
+                             f"calls {plain}")
+    if not torch.equal(got.t(), want):
+        raise AssertionError("rdma sharded decode differs from the local "
+                             "decoder")
+    del llrs, got
+    phase("15", f"main path: rdma sharded decode (frame-major entry) == local "
+          f"auto decoder at Polar({n}, {k}) over {PAR_SHARDS} positions on "
+          f"one card, B={b}, in {wall:.2f} s; launches "
+          f"{ {name: v for name, v in launched.items() if v} }; plain calls "
+          f"{plain}")
+
+    frozen = torch.as_tensor(code.frozen.astype(bool), device=dev)
+    info = torch.as_tensor(code.info_indices, device=dev)
+    decoders = {}
+    for comm in ("ppermute", "rdma"):
+        for split in (False, True):
+            for output in ("u", "u_full"):
+                dec = make_seqpar_decoder(code, mesh, output=output,
+                                          comm=comm, batch_split=split)
+                out = dec.lane_major(llr_t)
+                ok = (torch.equal(out, want) if output == "u" else
+                      torch.equal(out[info], want)
+                      and bool((out[frozen] == 1).all()))
+                if not ok:
+                    raise AssertionError(f"sharded decode differs: comm="
+                                         f"{comm} batch_split={split} "
+                                         f"output={output}")
+                del out
+                if output == "u":
+                    decoders[(comm, split)] = dec
+    phase("15", "sharded decode == local auto decoder bit for bit: comm "
+          "ppermute/rdma x batch_split off/on x output u/u_full (frozen "
+          "slots +1)")
+
+    # -- the frame-sharded step and a sharded point ----------------------
+    c10 = pt.make_code(10, rate=0.5)
+    fmesh = frame_mesh([dev] * PAR_SHARDS)
+    step, _ = make_sharded_step(c10, fmesh)
+    sharded = {key: int(v) for key, v in
+               step(device_seeds(15, fmesh), -1.0, 4096).items()}
+    body = pt.make_step(c10, device=dev)
+    alone = dict.fromkeys(sharded, 0)
+    for g in device_seeds(15, fmesh):
+        for key, v in body(g, -1.0, 4096).items():
+            alone[key] += int(v)
+    if sharded != alone or sharded["uncorrected_errors"] == 0:
+        raise AssertionError(f"sharded step {sharded} != unsharded {alone}")
+    phase("15", f"frame-sharded step at Polar(1024, 512), {PAR_SHARDS} "
+          f"positions x 4096 frames, -1.0 dB: {sharded} == the sum of the "
+          "unsharded steps")
+    ref = {round(p["snr_db"], 1): p for p in json.loads(
+        (ROOT / "results" / "n1024_sys_int8.json").read_text())["points"]}[0.0]
+    tot = run_sharded_point(c10, 0.0, seed=15, mesh=fmesh,
+                            per_device_batch=4096, max_global_frames=1 << 18,
+                            target_bit_errors=4000)
+    frames = tot["frames"]
+    ok_b, sd_b = ber_ok(tot["uncorrected_errors"], frames, ref["bit_errors"],
+                        ref["frames"], c10.K)
+    ok_f, sd_f = bounds_ok(tot["frame_errors"], frames,
+                           ref["fer"] * ref["frames"], ref["frames"])
+    ber = tot["uncorrected_errors"] / (frames * c10.K)
+    phase("15", f"run_sharded_point at 0.0 dB: BER {ber:.4g} FER "
+          f"{tot['frame_errors'] / frames:.4g} ({frames} frames) vs "
+          f"n1024_sys_int8.json BER {ref['ber']:.4g} FER {ref['fer']:.4g}, "
+          f"{SIGMAS:g}-sigma bounds {SIGMAS * sd_b:.3g} / {SIGMAS * sd_f:.3g}"
+          f": {'ok' if ok_b and ok_f else 'OUTSIDE'}")
+    if not (ok_b and ok_f):
+        raise AssertionError("sharded point outside the bounds")
+
+    # -- the dry run and the multihost CLI -----------------------------------
+    dryrun_multichip(PAR_SHARDS, dev)
+    phase("15", f"dryrun_multichip({PAR_SHARDS}, {dev}): six checks passed")
+    work_dir = ROOT / "build" / "multihost"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = work_dir / "checkpoint.json"
+    ckpt.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    first = _multihost_pair(10, ckpt)
+    t_first = time.perf_counter() - t0
+    if first[0] != first[1] or len(first[0]) < 2:
+        raise AssertionError(f"multihost processes disagree: {first}")
+    t0 = time.perf_counter()
+    second = _multihost_pair(10, ckpt)
+    t_second = time.perf_counter() - t0
+    if second != first:
+        raise AssertionError(f"resumed multihost run differs: {second}")
+    phase("15", f"multihost CLI, 2 processes x 2 positions on one card over "
+          f"gloo, Polar(1024, 512): both print the same "
+          f"{len(first[0])} points (BER "
+          f"{[round(p['ber'], 6) for p in first[0]]}) in {t_first:.1f} s; "
+          f"resumed from the lead's checkpoint: the same points in "
+          f"{t_second:.1f} s")
+
+    # -- timings ------------------------------------------------------------
+    blocks = [rand_i8(shard, b) for _ in range(PAR_SHARDS)]
+    outs = [torch.empty_like(x) for x in blocks]
+
+    def library():
+        for d in range(PAR_SHARDS):
+            outs[d].copy_(blocks[(d + 1) % PAR_SHARDS])
+
+    def kernel():     # outputs dropped at once, as the decoder drops them
+        ring_kernel.ring_shift(blocks, 1)
+
+    def plain_shift():
+        ring_kernel.ring_shift_plain(blocks, 1)
+
+    t_k, t_p, t_l = [], [], []
+    for _ in range(2):   # in turns: kernel, plain, library, then again
+        t_k.append(ms(kernel, 20))
+        t_p.append(ms(plain_shift, 20))
+        t_l.append(ms(library, 20))
+    times = {"ring_shift": (min(t_k), min(t_p))}
+    nbytes = 2 * PAR_SHARDS * shard * b
+    phase("15", f"ring shift {PAR_SHARDS} x ({shard}, {b}) int8: kernel "
+          f"{t_k} ms, plain {t_p} ms, {PAR_SHARDS} Tensor.copy_ {t_l} ms "
+          f"({card})")
+    del blocks, outs
+    t_local = ms(lambda: local(llr_t), 3)
+    dec_ms = {key: ms(lambda: d.lane_major(llr_t), 2)
+              for key, d in decoders.items()}
+    phase("15", f"decode at Polar({n}, {k}) B={b}: local auto {t_local:.1f} "
+          "ms; sharded over " + f"{PAR_SHARDS} positions on one card: " +
+          ", ".join(f"{comm}{' batch_split' if split else ''} {v:.1f} ms "
+                    f"({v / t_local:.2f}x)"
+                    for (comm, split), v in dec_ms.items()) + f" ({card})")
+    return {"err": err, "times": times,
+            "work": {"ring_shift": (nbytes, 0)},
+            "launched": {"ring_shift": launched["ring_shift"]},
+            "library": {"ring_shift": min(t_l)}}
+
+
 def main() -> int:
     import torch
 
@@ -1299,12 +1594,15 @@ def main() -> int:
                                (decode_ops(n) + transform_ops(n)) * BATCH),
         "mc_step": (0, (front_ops(n, k) + decode_count_ops(n)) * BATCH),
     }
-    for more in (large_n_phases(dev, card, ms), draw_phases(dev, card, ms),
-                 front_step_phases(dev, card, ms), style_phases(dev, card, ms)):
+    library = {}
+    for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
+                parallel_phases):
+        more = run(dev, card, ms)
         err.update(more["err"])
         times.update(more["times"])
         work.update(more["work"])
         launched.update(more["launched"])
+        library.update(more.get("library", {}))
 
     replaces = {
         "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",
@@ -1343,6 +1641,8 @@ def main() -> int:
                                 "polar_tpu/ops/pallas/interp_kernel.py:569"),
         "interp_subtree": ("polar_tpu_torch/csrc/interp.cu",
                            "polar_tpu/ops/pallas/interp_kernel.py:687"),
+        "ring_shift": ("polar_tpu_torch/csrc/ring.cu",
+                       "polar_tpu/parallel/rdma.py:61"),
     }
     rows = []
     for name, (src, rep) in replaces.items():
@@ -1352,10 +1652,11 @@ def main() -> int:
             "launches": launched[name], "max_abs_err": err[name],
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes any of these functions: the
+            # no single PyTorch call computes the other functions: the
             # decoders, the Philox draws and the counters have none, and a
-            # polar butterfly over +-1 is no one library call
-            "library_ms": None})
+            # polar butterfly over +-1 is no one library call; the ring
+            # shift's is Tensor.copy_ per position
+            "library_ms": library.get(name)})
         phase("13", f"{name}: {times[name][0]:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {launched[name]} launches on the main path")
     print(card, flush=True)

@@ -222,6 +222,42 @@ def _resolve_arith(compute, dtype):
     return compute, getattr(compute, "dtype", None)
 
 
+def make_kernel_for(kernel_level: int, *, style: str = "ssa",
+                    boundary_fusion: bool = False, emit_u: bool = True,
+                    emit_cw: bool = False):
+    """The hybrid's router to the subtree kernels, for
+    :class:`_TreeDecoder`'s ``subtree_kernel_for``: ``kernel_for(node,
+    fuse=None)`` returns the subtree decoder of a composite node at or
+    below ``kernel_level`` that emits message bits (the CUDA kernel of
+    ``style`` for CUDA blocks, its plain version for CPU ones), else None.
+    One decoder per distinct node pattern, keyed by ``emit_program(node,
+    node.level)`` and the fuse mode; ``boundary_fusion`` allows the fused
+    modes (SSA style only). ``emit_u`` / ``emit_cw``: the blocks the
+    kernels return beside the node's hard block."""
+    from ..ops.cuda.interp_kernel import make_interp_subtree
+    from ..ops.cuda.subtree_kernel import make_subtree_decoder
+
+    cache: dict = {}
+
+    def kernel_for(node: Node, fuse: str | None = None):
+        if node.level > kernel_level or node.mesg_bits < 1:
+            return None
+        if fuse and not (boundary_fusion and style == "ssa"):
+            return None
+        key = (emit_program(node, node.level).tobytes(), fuse)
+        if key not in cache:
+            if style == "interp":
+                cache[key] = make_interp_subtree(node, emit_u=emit_u,
+                                                 emit_cw=emit_cw)
+            else:
+                cache[key] = make_subtree_decoder(
+                    node, emit_u=emit_u, emit_cw=emit_cw, fuse=fuse,
+                    style=style)
+        return cache[key]
+
+    return kernel_for
+
+
 def make_fastssc_decoder(
     code: PolarCode,
     tree: Node | None = None,
@@ -293,28 +329,10 @@ def make_fastssc_decoder(
     # the subtrees skip them
     use_fused_cw = hybrid and output != "u" and kernel_style != "scratch"
     kernel_emit_u = not use_fused_cw or output == "both"
-    kernel_for = None
-    if hybrid:
-        from ..ops.cuda.interp_kernel import make_interp_subtree
-        from ..ops.cuda.subtree_kernel import make_subtree_decoder
-
-        cache: dict = {}
-
-        def kernel_for(node: Node, fuse: str | None = None):
-            if node.level > kernel_level or node.mesg_bits < 1:
-                return None
-            if fuse and not (kernel_fuse and kernel_style == "ssa"):
-                return None
-            key = (emit_program(node, node.level).tobytes(), fuse)
-            if key not in cache:
-                if kernel_style == "interp":
-                    cache[key] = make_interp_subtree(
-                        node, emit_u=kernel_emit_u, emit_cw=use_fused_cw)
-                else:
-                    cache[key] = make_subtree_decoder(
-                        node, emit_u=kernel_emit_u, emit_cw=use_fused_cw,
-                        fuse=fuse, style=kernel_style)
-            return cache[key]
+    kernel_for = (make_kernel_for(kernel_level, style=kernel_style,
+                                  boundary_fusion=kernel_fuse,
+                                  emit_u=kernel_emit_u, emit_cw=use_fused_cw)
+                  if hybrid else None)
 
     def run(x, axis):
         ph, work_dtype = _resolve_arith(compute, x.dtype)

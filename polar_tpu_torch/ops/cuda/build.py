@@ -16,7 +16,9 @@ to ``build/polar_tpu_torch/`` under the repository root, named by a hash of
 the sources and the flags, and is built at first use: a process that finds
 the library for its hash loads it, any other builds it. There is no
 fallback: if nvcc is missing or the build fails, :func:`load_library`
-raises.
+raises. The library links the CUDA runtime statically, so it keeps its own
+current device: a wrapper takes its launch stream from :func:`stream`,
+which first makes its tensors' device current there.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (see the .cu files)
 SIGNATURES = {
     "polar_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -68,6 +71,10 @@ SIGNATURES = {
                              _P, _P, _I, _P),
     "polar_interp_decode_count": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                   _P, _P, _P, _P, _I, _P),
+    "polar_set_device": (_I,),
+    "polar_get_device": (_P,),
+    "polar_ring_shift": (_P, _P, _I, _L, _I, _P),
+    "polar_enable_peer": (_I, _I),
 }
 
 _lib = None
@@ -158,6 +165,32 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def stream(device) -> int:
+    """Make ``device`` (a CUDA ``torch.device``; without an index, torch's
+    current device) the library's current device and return the handle of
+    its current torch stream, for a launch on that device.
+
+    The library links the CUDA runtime statically and keeps its own current
+    device (``csrc/device.cu``), which no torch call moves: every wrapper
+    calls this right before its launch, so its kernel runs on the device
+    that holds its tensors."""
+    import torch
+
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    check(load_library().polar_set_device(index), "polar_set_device")
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def current_device() -> int:
+    """The library's current device (the one its next launch runs on
+    unless :func:`stream` moves it)."""
+    out = ctypes.c_int(-1)
+    check(load_library().polar_get_device(ctypes.byref(out)),
+          "polar_get_device")
+    return out.value
 
 
 def check(err: int, what: str) -> None:

@@ -92,10 +92,10 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
     out = torch.empty((rows, cols), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
+    stream = build.stream(dev)
     err = build.load_library().polar_symbols(
         rows, cols, words.data_ptr() if words is not None else None, s0, s1,
-        call & 0xFFFFFFFF, out.data_ptr(), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        call & 0xFFFFFFFF, out.data_ptr(), THREADS, stream)
     build.check(err, "polar_symbols")
     launches["channel_symbols"] += 1
     return out
@@ -147,12 +147,12 @@ def awgn(codeword, params, *, words=None, seeds=None,
     llr = torch.empty(shape, dtype=torch.int8, device=dev)
     if llr.numel() == 0:
         return llr
+    stream = build.stream(dev)
     sigma, scale = params
     err = build.load_library().polar_awgn(
         shape[0], shape[1], sigma, scale, codeword.data_ptr(),
         *((w.data_ptr() for w in words) if words is not None else (None, None)),
-        s0, s1, call & 0xFFFFFFFF, llr.data_ptr(), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        s0, s1, call & 0xFFFFFFFF, llr.data_ptr(), THREADS, stream)
     build.check(err, "polar_awgn")
     launches["channel_awgn"] += 1
     return llr

@@ -51,12 +51,13 @@ def count(frozen, llr_t, cw_t, hat_t) -> torch.Tensor:
                              f"int8 on {dev}, got {tuple(t.shape)} {t.dtype}")
     if batch == 0:
         return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+    stream = build.stream(dev)
     blocks = -(-batch // FRAMES_PER_BLOCK)
     out = torch.empty((blocks, len(COUNTERS)), dtype=torch.int32, device=dev)
     err = build.load_library().polar_count(
         llr_t.data_ptr(), cw_t.data_ptr(), hat_t.data_ptr(),
         device_mask(frozen, dev).data_ptr(), n, batch, LANES, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream)
     build.check(err, "polar_count")
     launches["count"] += 1
     return out.sum(dim=0, dtype=torch.int64)

@@ -136,9 +136,9 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa"):
     cw = torch.empty((n, b), dtype=torch.int8, device=dev) if want_cw else None
     if b == 0:
         return mesg, cw
+    stream = build.stream(dev)
     prog_d, frozen_d = device_tables(np.asarray(program, np.uint8),
                                      np.asarray(frozen, np.uint8), dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if style == "scratch":
         err = build.load_library().polar_scratch_decode(
             prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), frames,

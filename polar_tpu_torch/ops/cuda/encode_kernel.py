@@ -91,6 +91,7 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int):
     out = torch.empty((batch, n), dtype=torch.int8, device=dev)
     if batch == 0:
         return out
+    stream = build.stream(dev)
     whole = blk == n
     x = None if whole else polar_transform_stages(
         _scatter_message(code, message), blk, n).contiguous()
@@ -101,8 +102,7 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int):
         message.data_ptr(), k, info.data_ptr(), kstart.data_ptr(), int(whole),
         x.data_ptr() if x is not None else None,
         device_mask(code.frozen, dev).data_ptr(), n, batch, blk,
-        int(systematic), out.data_ptr(), threads,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(systematic), out.data_ptr(), threads, stream)
     build.check(err, "polar_encode")
     launches["block_encoder"] += 1
     if systematic and not whole:

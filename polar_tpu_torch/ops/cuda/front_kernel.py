@@ -105,11 +105,11 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     out = torch.empty((n, batch), dtype=torch.int8, device=dev)
     if batch == 0:
         return out
+    stream = build.stream(dev)
     err = build.load_library().polar_front_msg(
         device_mask(frozen, dev).data_ptr(), n, batch, blk, int(butterfly),
         msg_t.data_ptr() if msg_t is not None else None, s0, s1,
-        call & 0xFFFFFFFF, out.data_ptr(), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        call & 0xFFFFFFFF, out.data_ptr(), THREADS, stream)
     build.check(err, "polar_front_msg")
     launches["front_blocks_a"] += 1
     return out
@@ -152,12 +152,12 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
     cw = torch.empty((n, batch), dtype=torch.int8, device=dev)
     if batch == 0:
         return llr, cw
+    stream = build.stream(dev)
     sigma, scale = params
     err = build.load_library().polar_front_chan(
         n, batch, blk, sigma, scale, y.data_ptr(),
         normals_t.data_ptr() if normals_t is not None else None, s0, s1,
-        call & 0xFFFFFFFF, llr.data_ptr(), cw.data_ptr(), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        call & 0xFFFFFFFF, llr.data_ptr(), cw.data_ptr(), THREADS, stream)
     build.check(err, "polar_front_chan")
     launches["front_blocks_b"] += 1
     return llr, cw
@@ -241,10 +241,10 @@ def middle_kernel(x, frozen, blk_a: int, blk_b: int, systematic: bool):
     passes = middle_passes(n, blk_a, blk_b, systematic)
     if not passes or batch == 0:
         return x
+    stream = build.stream(x.device)
     out = torch.empty_like(x)
     words = int(batch % 4 == 0 and x.data_ptr() % 4 == 0)
     lib = build.load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     src = x
     for lo, glog, s1, refreeze, s2 in passes:
         frz = _frozen_words(frozen, lo, glog, x.device) if refreeze else None

@@ -326,14 +326,14 @@ def _run(c: _Compiled, llr_t, *, want_cw: bool, want_u: bool, prefill: bool,
                    if on else None for on in (True, want_cw, want_u))
     if b == 0:
         return hard, cw, u
+    stream = build.stream(dev)
     pyr = torch.empty((n, b), dtype=torch.int8, device=dev)
     words, desc, table, mask = c.device_args(dev)
     err = getattr(build.load_library(), entry)(
         words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
         mask.data_ptr(), c.level, c.kl, b, int(prefill), llr_t.data_ptr(),
         pyr.data_ptr(), hard.data_ptr(), cw.data_ptr() if want_cw else None,
-        u.data_ptr() if want_u else None,
-        THREADS, torch.cuda.current_stream(dev).cuda_stream)
+        u.data_ptr() if want_u else None, THREADS, stream)
     build.check(err, entry)
     launches[what] += 1
     return hard, cw, u
@@ -435,6 +435,7 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
             raise ValueError(f"no interp decode+count for device {dev}")
         if b == 0:
             return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+        stream = build.stream(dev)
         out = torch.empty((-(-b // THREADS), len(COUNTERS)), dtype=torch.int32,
                           device=dev)
         pyr, hard, cw = (torch.empty((n, b), dtype=torch.int8, device=dev)
@@ -444,8 +445,7 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
             words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
             mask.data_ptr(), c.level, c.kl, b, int(c.ones_init),
             llr_t.data_ptr(), cw_t.data_ptr(), pyr.data_ptr(),
-            hard.data_ptr(), cw.data_ptr(), out.data_ptr(), THREADS,
-            torch.cuda.current_stream(dev).cuda_stream)
+            hard.data_ptr(), cw.data_ptr(), out.data_ptr(), THREADS, stream)
         build.check(err, "polar_interp_decode_count")
         launches["interp_decode_count"] += 1
         return out.sum(dim=0, dtype=torch.int64)

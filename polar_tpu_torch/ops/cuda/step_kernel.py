@@ -133,13 +133,13 @@ def front(frozen, params, *, msg_t=None, normals_t=None, seeds=None,
     cw = torch.empty((n, batch), dtype=torch.int8, device=dev)
     if batch == 0:
         return llr, cw
+    stream = build.stream(dev)
     sigma, scale = params
     err = build.load_library().polar_front_whole(
         device_mask(frozen, dev).data_ptr(), n, batch, sigma, scale,
         msg_t.data_ptr() if inject else None,
         normals_t.data_ptr() if inject else None, s0, s1, call & 0xFFFFFFFF,
-        llr.data_ptr(), cw.data_ptr(), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        llr.data_ptr(), cw.data_ptr(), THREADS, stream)
     build.check(err, "polar_front_whole")
     launches["front_whole"] += 1
     return llr, cw
@@ -178,6 +178,7 @@ def decode_count(program, frozen, llr_t, cw_t) -> torch.Tensor:
                              f"int8 on {dev}, got {tuple(t.shape)} {t.dtype}")
     if batch == 0:
         return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+    stream = build.stream(dev)
     out = torch.empty((-(-batch // THREADS), len(COUNTERS)), dtype=torch.int32,
                       device=dev)
     prog_d, frozen_d = device_tables(np.asarray(program, np.uint8), frozen,
@@ -188,7 +189,7 @@ def decode_count(program, frozen, llr_t, cw_t) -> torch.Tensor:
     err = build.load_library().polar_decode_count(
         prog_d.data_ptr(), frozen_d.data_ptr(), n, batch, llr_t.data_ptr(),
         cw_t.data_ptr(), soft.data_ptr(), hard.data_ptr(), mesg.data_ptr(),
-        out.data_ptr(), THREADS, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), THREADS, stream)
     build.check(err, "polar_decode_count")
     launches["decode_count"] += 1
     return out.sum(dim=0, dtype=torch.int64)
@@ -230,6 +231,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
     k = n - int(np.count_nonzero(frozen))
     if batch == 0:
         return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+    stream = build.stream(dev)
     blocks = -(-batch // THREADS)
     out = torch.empty((blocks, len(COUNTERS)), dtype=torch.int32, device=dev)
     prog_d, frozen_d = device_tables(np.asarray(program, np.uint8), frozen,
@@ -245,8 +247,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
         msg_t.data_ptr() if inject else None,
         normals_t.data_ptr() if inject else None,
         s0, s1, call & 0xFFFFFFFF, *(s.data_ptr() for s in scratch),
-        mesg.data_ptr(), out.data_ptr(), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        mesg.data_ptr(), out.data_ptr(), THREADS, stream)
     build.check(err, "polar_step")
     launches["mc_step"] += 1
     return out.sum(dim=0, dtype=torch.int64)

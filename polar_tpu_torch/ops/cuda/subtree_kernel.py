@@ -112,8 +112,8 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
         outs = ((mesg,) if emit_u else ()) + (hard,) + ((cw,) if emit_cw else ())
         if b == 0:
             return outs
+        stream = build.stream(dev)
         prog_d, frozen_d = device_tables(program, frozen, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         lib = build.load_library()
         if style == "scratch":
             err = lib.polar_scratch_subtree(

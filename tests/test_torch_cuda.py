@@ -632,3 +632,76 @@ def test_block_interp_chain_counts_what_the_fused_step_counts(dev, m):
                                                             **kw)
     assert interp_kernel.launches["interp_decode_count"] == before + 1
     assert torch.equal(got, want)
+
+
+def test_torch_launch_sets_the_library_device(dev):
+    """A launch on ``cuda:i`` leaves the library's own runtime on device i
+    (it links the runtime statically and keeps its own current device)."""
+    from polar_tpu_torch.ops.cuda import build
+
+    c = pt.make_code(6, rate=0.5)
+    program = pt.compile_program(c)
+    for i in range(torch.cuda.device_count()):
+        d = torch.device("cuda", i)
+        decoder_kernel.decode(program, c.frozen, _llrs(d, c.N, 8, i), False)
+        torch.cuda.synchronize(d)
+        assert build.current_device() == i
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("offset", [1, -1, 2, -2, 4])
+def test_torch_ring_kernel_matches_plain(dev, n, offset):
+    from polar_tpu_torch.ops.cuda import ring_kernel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n * 10 + offset)
+    payloads = [
+        lambda: torch.randint(-128, 128, (64, 4099), generator=g, device=dev,
+                              dtype=torch.int8),
+        lambda: torch.randint(-128, 128, (2, 64, 33), generator=g, device=dev,
+                              dtype=torch.int8),
+        lambda: torch.randint(-128, 128, (1, 7), generator=g, device=dev,
+                              dtype=torch.int8),
+        lambda: torch.randn((512, 64), generator=g, device=dev),
+        # unaligned views: the byte path
+        lambda: torch.randint(-128, 128, (1001,), generator=g, device=dev,
+                              dtype=torch.int8)[1:],
+    ]
+    for make in payloads:
+        blocks = [make() for _ in range(n)]
+        before = ring_kernel.launches["ring_shift"]
+        plain_before = dict(ring_kernel.plain_calls)
+        got = ring_kernel.ring_shift(blocks, offset)
+        assert ring_kernel.launches["ring_shift"] == before + 1
+        assert ring_kernel.plain_calls == plain_before
+        want = ring_kernel.ring_shift_plain(blocks, offset)
+        torch.cuda.synchronize()
+        for d in range(n):
+            assert got[d].device == blocks[d].device
+            assert torch.equal(got[d], want[d])
+            assert torch.equal(got[d], blocks[(d + offset) % n])
+
+
+@pytest.mark.parametrize("batch_split", [False, True])
+def test_torch_rdma_decode_matches_local_on_one_card(dev, batch_split):
+    """The element-sharded decoder at Polar(4096, 2048) over 8 positions
+    of one card, through the ring-shift kernel, equals the local decoder;
+    its exchanges all run as kernel launches."""
+    from polar_tpu_torch.ops.cuda import ring_kernel
+    from polar_tpu_torch.parallel.seqpar import element_mesh
+    from polar_tpu_torch.parallel.seqpar_decode import make_seqpar_decoder
+
+    c = pt.make_code(12, rate=0.5)
+    llr = _llrs(dev, c.N, 256, 12).t().contiguous()
+    want = pt.make_auto_decoder(c, device=dev)[0](llr)
+    mesh = element_mesh([dev] * 8)
+    before = ring_kernel.launches["ring_shift"]
+    plain_before = dict(ring_kernel.plain_calls)
+    got = make_seqpar_decoder(c, mesh, output="u", comm="rdma",
+                              batch_split=batch_split)(llr)
+    assert ring_kernel.launches["ring_shift"] > before
+    assert ring_kernel.plain_calls == plain_before
+    assert torch.equal(got, want)
+    full = make_seqpar_decoder(c, mesh, batch_split=batch_split)(llr)
+    assert torch.equal(full[:, c.info_indices], want)
+    assert bool((full[:, c.frozen.astype(bool)] == 1).all())
