@@ -1,9 +1,11 @@
 """Smoke run of polar_tpu_torch on one NVIDIA GPU.
 
-Builds the CUDA kernels from ``polar_tpu_torch/csrc``, holds each against
-its plain PyTorch version, drives the port's main path at Polar(1024, 512)
-int8 through them (the decode benchmark at batch 32768, then a BER
-campaign), and times kernel against plain version (phases 1-6). Then the
+Builds the CUDA kernels from ``polar_tpu_torch/csrc``, checks the tile
+decoder's packed byte functions against the scalar ones, holds each kernel
+against its plain PyTorch version, drives the port's main path at
+Polar(1024, 512) int8 through them (the decode benchmark at batch 32768,
+then a BER campaign), and times kernel against plain version, the tile
+decoder against the walk it replaced (phases 1-6). Then the
 large-N path at Polar(131072, 65536) systematic int8: the subtree decoder
 and the hybrid against the whole-code kernel (7), the block front and the
 counter kernel (8), the large-N step against the fused step and a BER
@@ -16,7 +18,7 @@ against the torch draws, and the SC decoder on the card (11). Then the
 element-major front step: the whole-block front, decode+count and the
 middle-stages kernel against their plain versions, the front chains
 against the fused step at every level 2..16, chained campaigns through
-make_step's default path at Polar(8192, 4096) and Polar(16384, 8192)
+make_step's default path at Polar(1024, 512) up to Polar(16384, 8192)
 against the JAX package's results, and timings (12). Then the decoder's
 scratch (shared-memory) and interpreter styles: the scratch whole-code
 kernel against the golden vectors, its plain version and the SSA kernel;
@@ -58,10 +60,12 @@ LARGE_M = 17          # Polar(131072, 65536), results/n131072_sys_int8.json
 LARGE_BATCH = 4096
 SIGMAS = 4.0  # width of the statistical bounds
 # phase 12: (m, SNR range, step) of the chained campaigns against
-# results/n<N>_sys_int8.json, and the code of the front path's own run
-CAMPAIGNS = ((10, (-1.0, 0.0), 0.2), (13, (-1.5, -1.2), 0.1),
-             (14, (-1.6, -1.2), 0.2))
-FRONT_PATH_M = 9
+# results/n<N>_sys_int8.json. The front path's own run takes the largest
+# level of the whole-front branch (ber.FRONT_WHOLE_MAX_LEVEL) at BATCH, and
+# the campaigns whose make_step path is the block front launch the middle
+# kernel; the kernels are checked and timed at those shapes.
+CAMPAIGNS = ((10, (-1.0, 0.0), 0.2), (12, (-1.6, -1.2), 0.2),
+             (13, (-1.5, -1.2), 0.1), (14, (-1.6, -1.2), 0.2))
 PAR_SHARDS = 8   # phase 15: mesh positions on the one card
 
 # The least time the card could take for a kernel's work ("bound_ms"): the
@@ -631,10 +635,11 @@ def front_step_phases(dev, card, ms) -> dict:
     decode+count and the middle-stages kernel against their plain
     versions; the front chains against the fused step on the same seeds at
     every level 2..16; the large-N step with either middle; chained
-    campaigns through make_step's default path at B = 4096 (the fused
-    step, the front path, the kernel draws) at Polar(1024, 512),
+    campaigns through make_step's default path at B = 4096 (the kernel
+    draws, the block front) at Polar(1024, 512), Polar(4096, 2048),
     Polar(8192, 4096) and Polar(16384, 8192) against the JAX package's
-    results; timings."""
+    results, and the whole-front path's own run; timings at the shapes
+    those runs launch."""
     import torch
 
     import polar_tpu_torch as pt
@@ -665,9 +670,10 @@ def front_step_phases(dev, card, ms) -> dict:
 
     # -- the whole-block front and decode+count against their plain versions
     params = snr_params(-1.5)
-    # FRONT_PATH_M at BATCH is the shape the main path runs and the timings
-    # below take
-    for m, b in ((FRONT_PATH_M, BATCH), (10, BATCH), (13, LARGE_BATCH),
+    # front_m at BATCH is the shape the front path's run below launches and
+    # the timings take
+    front_m = pt.ber.FRONT_WHOLE_MAX_LEVEL
+    for m, b in ((front_m, BATCH), (10, BATCH), (13, LARGE_BATCH),
                  (14, LARGE_BATCH)):
         code = pt.make_code(m, rate=0.5)
         program = pt.compile_program(code)
@@ -717,15 +723,24 @@ def front_step_phases(dev, card, ms) -> dict:
           f"{pt.ber.STEP_KERNEL_MIN_LEVEL}..{pt.ber.STEP_KERNEL_MAX_LEVEL}, "
           "B=1024")
 
-    # -- the middle kernel at the shape of the front path's campaign below
-    # and at the large code, and the large-N step with it
+    # -- the middle kernel at the shape of each campaign below that takes the
+    # block front (systematic, blocks blk/blk) and at the large code, and
+    # the large-N step with it
     blk = 1 << front_kernel.BLOCK_LEVEL
-    for m, pairs in ((13, ((blk, blk),)),
-                     (LARGE_M, ((1 << 10, 1 << 10), (1 << 10, 1 << 8),
-                                (1 << 6, 1 << 12)))):
+    paths = {m: pt.ber._step_path(pt.make_code(m, rate=0.5), torch.int8, None,
+                                  None, "auto", dev, batch=LARGE_BATCH)
+             for m, _, _ in CAMPAIGNS}
+    middle_ms = [m for m, path in paths.items() if path == "front"]
+    if not middle_ms:
+        raise AssertionError(f"no campaign takes the block front: {paths}")
+    for m, pairs in ([(m, ((blk, blk),)) for m in middle_ms]
+                     + [(LARGE_M, ((1 << 10, 1 << 10), (1 << 10, 1 << 8),
+                                   (1 << 6, 1 << 12)))]):
         code = pt.make_code(m, rate=0.5)
         n, b = code.N, LARGE_BATCH
         x = symbols(n, b)
+        if m == middle_ms[0]:
+            middle_x = x    # the shape the timings below take
         for systematic in (True, False):
             for ba, bb in pairs:
                 got = front_kernel.middle_kernel(x, code.frozen, ba, bb,
@@ -766,7 +781,7 @@ def front_step_phases(dev, card, ms) -> dict:
             max_frames_per_point=4 * LARGE_BATCH, measure_throughput=False))
     gen_front = torch.Generator()
     gen_front.manual_seed(10)
-    front_code = pt.make_code(FRONT_PATH_M, rate=0.5)
+    front_code = pt.make_code(pt.ber.FRONT_WHOLE_MAX_LEVEL, rate=0.5)
     front_res = pt.run_point(
         front_code, -1.0, gen=gen_front, batch=BATCH, steps_per_call=4,
         max_frames=8 * BATCH, device=dev, step=pt.ber.chain_steps(
@@ -779,18 +794,18 @@ def front_step_phases(dev, card, ms) -> dict:
         raise AssertionError(f"front-step campaigns launches {launched}, "
                              f"plain calls {plain}")
     phase("12", f"campaigns at m = {[m for m, _, _ in CAMPAIGNS]} through "
-          f"make_step (paths {[pt.ber._step_path(pt.make_code(m, rate=0.5), torch.int8, None, None, 'auto', dev, batch=LARGE_BATCH) for m, _, _ in CAMPAIGNS]}), "
-          f"and the front path (make_step_body rng='kernel', "
-          f"{pt.ber.front_branch(front_code, True)}) at Polar({front_code.N}, "
-          f"{front_code.K}): {front_res.frames} frames, BER {front_res.ber:.4g}; "
-          f"{wall:.1f} s; launches {launched}; plain calls {plain}")
+          f"make_step (paths {paths}), and the front path (make_step_body "
+          f"rng='kernel', {pt.ber.front_branch(front_code, True)}) at "
+          f"Polar({front_code.N}, {front_code.K}) B={BATCH}: "
+          f"{front_res.frames} frames, BER {front_res.ber:.4g}; {wall:.1f} s; "
+          f"launches {launched}; plain calls {plain}")
     for (m, _, _), res in zip(CAMPAIGNS, results):
         campaign_vs_reference("12", res, f"n{1 << m}_sys_int8.json",
                               1 << (m - 1), len(res.points))
 
     # -- timings at the shapes of the path
     times, work = {}, {}
-    code = pt.make_code(FRONT_PATH_M, rate=0.5)
+    code = pt.make_code(front_m, rate=0.5)
     program = pt.compile_program(code)
     kw = dict(seeds=(9, 9), call=0, batch=BATCH, device=dev)
     times["front_whole"] = (
@@ -803,15 +818,19 @@ def front_step_phases(dev, card, ms) -> dict:
                                                   cw), 3))
     work["front_whole"] = (2 * code.N * BATCH, front_ops(code.N, code.K) * BATCH)
     work["decode_count"] = (2 * code.N * BATCH, decode_count_ops(code.N) * BATCH)
-    lc = pt.make_code(LARGE_M, rate=0.5)
+    mc = pt.make_code(middle_ms[0], rate=0.5)
+    n, b = middle_x.shape
     times["front_middle"] = (
-        ms(lambda: front_kernel.middle_kernel(x, lc.frozen, blk, blk, True), 20),
-        ms(lambda: front_kernel.middle_plain(x, lc.frozen, blk, blk, True), 3))
-    work["front_middle"] = (2 * n * b, (LARGE_M - front_kernel.BLOCK_LEVEL)
+        ms(lambda: front_kernel.middle_kernel(middle_x, mc.frozen, blk, blk,
+                                              True), 20),
+        ms(lambda: front_kernel.middle_plain(middle_x, mc.frozen, blk, blk,
+                                             True), 3))
+    work["front_middle"] = (2 * n * b, (mc.level - front_kernel.BLOCK_LEVEL)
                             * n * b)
     for name, shape in (("front_whole", f"Polar({code.N}, {code.K}) B={BATCH}"),
                         ("decode_count", f"Polar({code.N}, {code.K}) B={BATCH}"),
-                        ("front_middle", f"({n}, {b}) systematic")):
+                        ("front_middle", f"({n}, {b}) systematic, blocks "
+                                         f"{blk}/{blk}")):
         t_k, t_p = times[name]
         phase("12", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
               f"{shape} ({card})")
@@ -1437,10 +1456,16 @@ def main() -> int:
     n, k = code.N, code.K
     err = {"fastssc_decoder_u": 0, "fastssc_decoder_cw": 0, "mc_step": 0}
 
-    # -- 2. decoder kernel: golden vectors, then the plain version ---------
+    # -- 2. decoder kernel: packed functions, golden vectors, plain --------
+    bad = decoder_kernel.simd_selftest(dev)
+    if any(bad.values()):
+        raise AssertionError(f"packed functions differ from scalar: {bad}")
+    phase("2", f"packed functions == scalar functions on all 65536 int8 "
+          f"pairs (madd under h = -1, 0, +1): mismatches {bad}")
     with np.load(ROOT / "tests" / "vectors" / "golden.npz") as z:
         vec = dict(z.items())
     batches = 0
+    _reset(decoder_kernel.launches)
     for key in sorted(vec):
         if not key.startswith("mask_"):
             continue
@@ -1454,7 +1479,12 @@ def main() -> int:
                 raise AssertionError(f"golden decode mismatch m={m} rate={rk} batch={i}")
             batches += 1
             i += 1
-    phase("2", f"decoder kernel equals {batches} golden dec_* batches (m=2..14)")
+    routes = {name: v for name, v in decoder_kernel.launches.items() if v}
+    if set(routes) != {"fastssc_decoder_u", "walk_decoder_u"}:
+        raise AssertionError(f"golden decodes launched {routes}")
+    phase("2", f"decoder kernel equals {batches} golden dec_* batches (m=2..14; "
+          f"the tile kernel to m={decoder_kernel.WHOLE_MAX_LEVEL}, the walk "
+          f"above): launches {routes}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -1537,8 +1567,8 @@ def main() -> int:
     rng = np.random.default_rng(42)
     llrs = torch.from_numpy(
         rng.integers(-128, 128, (BATCH, n)).astype(np.int8)).to(dev)
-    # the auto decoder is the hybrid at this code (decode/auto.py); the
-    # whole-code kernel is asked for by name
+    # at this code and batch the auto decoder (decode/auto.py) is the
+    # whole-code tile kernel, the same decoder as the one asked for by name
     for dec, desc in (pt.make_auto_decoder(code, output="u", device=dev),
                       (make_kernel_decoder(code, output="u"), "whole-code")):
         fps = measure_decode_fps(dec, llrs, iters=64)
@@ -1548,7 +1578,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the fused step and the whole-code decoder's gauge asked for by name:
     # make_step's default at this code and batch is the kernel draws around
-    # the hybrid (phase 11), at B = 4096 the fused step (phase 12)
+    # the auto decoder (phase 11), at B = 4096 the fused step (phase 12)
     res = pt.run_campaign(code, device=dev, seed=5, batch=BATCH,
                           snr_range=(-1.0, 1.0), snr_step=0.2,
                           max_frames_per_point=1 << 17, fused=True,
@@ -1559,10 +1589,12 @@ def main() -> int:
                 for name, v in c.items()
                 if name in ("fastssc_decoder_u", "fastssc_decoder_cw", "mc_step")}
     plain = {**decoder_kernel.plain_calls, **step_kernel.plain_calls}
-    if min(launched.values()) == 0 or max(plain.values()) != 0:
+    walked = decoder_kernel.launches["walk_decoder_u"] + \
+        decoder_kernel.launches["walk_decoder_cw"]
+    if min(launched.values()) == 0 or max(plain.values()) != 0 or walked:
         raise AssertionError(f"main path launches {launched}, plain calls {plain}")
     phase("5", f"campaign {len(res.points)} points in {wall:.1f} s; launches "
-          f"{launched}; plain calls {plain}; decode gauge "
+          f"{launched} (walk {walked}); plain calls {plain}; decode gauge "
           f"{res.peak_mbps:.1f} info Mbit/s")
     campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
 
@@ -1573,11 +1605,22 @@ def main() -> int:
         return elapsed_seconds(lambda: [fn() for _ in range(reps)], dev) / reps * 1e3
 
     frozen = code.frozen
-    times = {}
+    times, earlier = {}, {}
     for name, want_cw in (("fastssc_decoder_u", False), ("fastssc_decoder_cw", True)):
+        # the tile kernel and the walk it replaces at this code, in turns
+        tile = lambda: decoder_kernel.decode(program, frozen, llr_t, want_cw)  # noqa: E731
+        walk = lambda: decoder_kernel.decode(program, frozen, llr_t, want_cw,  # noqa: E731
+                                             "walk")
+        t = [ms(tile, 20)]
+        w = [ms(walk, 20), ms(walk, 20)]
+        t.append(ms(tile, 20))
         times[name] = (
-            ms(lambda: decoder_kernel.decode(program, frozen, llr_t, want_cw), 20),
+            sum(t) / 2,
             ms(lambda: decoder_kernel.decode_plain(program, frozen, llr_t, want_cw), 3))
+        earlier[name] = sum(w) / 2
+        phase("6", f"{name}: tile kernel {t[0]:.3f}, {t[1]:.3f} ms; walk "
+              f"{w[0]:.3f}, {w[1]:.3f} ms ({earlier[name] / times[name][0]:.2f}x) "
+              f"at Polar({n}, {k}) B={BATCH} ({card})")
     kw = dict(seeds=(99, 98), call=1, batch=BATCH, device=dev)
     times["mc_step"] = (
         ms(lambda: step_kernel.step(program, frozen, snr_params(1.0), True, **kw), 20),
@@ -1605,7 +1648,7 @@ def main() -> int:
         library.update(more.get("library", {}))
 
     replaces = {
-        "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",
+        "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",   # + fastssc_simd.cuh
                               "polar_tpu/ops/pallas/decoder_kernel.py:404"),
         "fastssc_decoder_cw": ("polar_tpu_torch/csrc/decoder.cu",
                                "polar_tpu/ops/pallas/decoder_kernel.py:410"),
@@ -1657,6 +1700,8 @@ def main() -> int:
             # polar butterfly over +-1 is no one library call; the ring
             # shift's is Tensor.copy_ per position
             "library_ms": library.get(name)})
+        if name in earlier:    # the design this run replaced, same inputs
+            rows[-1]["earlier_ms"] = earlier[name]
         phase("13", f"{name}: {times[name][0]:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {launched[name]} launches on the main path")
     print(card, flush=True)

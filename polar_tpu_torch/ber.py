@@ -89,14 +89,28 @@ STEP_KERNEL_MAX_LEVEL = 16
 # decode.auto.AUTO_DECODERS (--levels 9-12, 13-17; same card) moved plain
 # m = 9, 10 below AUTO_BIG_BATCH to the draws around the scratch u decoder
 # (10.42M, 5.27M frames/s against the fused step's 7.39M, 2.74M); it left
-# every other cell where it was.
+# every other cell where it was. With the tile kernel as the whole-code
+# decoder (step_ab --levels 6-13, then 8-9 and 13 after decode.auto's table
+# moved; same card) three cells moved by the same rule and one moved back:
+# - systematic m = 9 to the front, now block-whole (FRONT_WHOLE_MAX_LEVEL):
+#   6.84M / 35.33M against the fused step's 4.96M / 24.72M (the first call:
+#   6.76M / 35.51M against 5.00M / 24.49M);
+# - systematic m = 10 below AUTO_BIG_BATCH to the draws: 3.57M against the
+#   fused step's 1.94M;
+# - systematic m = 13 below AUTO_BIG_BATCH to the draws: 741.0k against the
+#   front's 673.1k (at 32768 the front, 852.8k, came within 1.1 % of
+#   block-hybrid's 861.7k, which front_branch gives only from m = 14);
+# - plain m = 9 below AUTO_BIG_BATCH back to the fused step: 7.39M against
+#   the draws' 4.87M (the first call: 7.46M against 4.98M).
+# Systematic m = 8 stayed fused: block-whole led at 32768 in one call
+# (74.06M against 68.21M) and trailed in the other (49.18M against 68.46M).
 AUTO_BIG_BATCH = 16384
 AUTO_STEP_PATH = {
     **{(m, s): ("fused", "fused") for m in range(2, 10) for s in (True, False)},
-    (9, False): ("draws", "fused"),
-    (10, True): ("fused", "draws"), (10, False): ("draws", "draws"),
+    (9, True): ("front", "front"),
+    (10, True): ("draws", "draws"), (10, False): ("draws", "draws"),
     (11, True): ("front", "draws"), (12, True): ("front", "draws"),
-    (13, True): ("front", "front"), (14, True): ("draws", "front"),
+    (13, True): ("draws", "front"), (14, True): ("draws", "front"),
     (15, True): ("draws", "draws"),
     **{(m, False): ("draws", "draws") for m in range(11, 18)}}
 
@@ -104,20 +118,24 @@ AUTO_STEP_PATH = {
 # package's thresholds are VMEM facts about the TPU. Systematic codes at
 # m <= FRONT_WHOLE_MAX_LEVEL take the whole-block front + decode+count, the
 # best front at m = 6..9 in the same A/B (frames/s at B = 4096 / 32768;
-# m = 9: 4.56M / 24.3M against block + whole-code 4.35M / 23.0M); above it
-# the whole front's per-thread transforms slow down (11.0 ms at m = 12
-# against the block front's 1.15 ms, B = 4096). Every other code takes the
+# m = 9: 4.56M / 24.3M against block + whole-code 4.35M / 23.0M) until the
+# tile kernel took m = 9 (block + whole-code 6.84M / 35.33M against 4.49M /
+# 24.18M); above it the whole front's per-thread transforms slow down
+# (11.0 ms at m = 12 against the block front's 1.15 ms, B = 4096). Every
+# other code takes the
 # block front, then the whole-code decoder below
 # decode.auto.HYBRID_MIN_LEVEL and the hybrid from it (the best front arm
 # at every level, both modes: m = 10 systematic 1.98M / 6.53M against
 # 1.91M / 5.79M, plain 1.58M / 6.85M against 1.49M / 6.34M), with
 # the counter kernel when systematic (2.26 ms against its plain version's
-# 19.2 ms at Polar(131072, 65536), B = 4096). The block front +
-# decode+count won at no level (m = 10: 1.72M / 5.12M); it and the
-# systematic whole-code branch run only when asked for by name, as does the
-# block front + interpreter decode+count ("block-interp", JAX's
-# _INTERP_COUNT_LEVELS branch, empty by measurement there too).
-FRONT_WHOLE_MAX_LEVEL = 9
+# 19.2 ms at Polar(131072, 65536), B = 4096). With the tile kernel as the
+# whole-code decoder (HYBRID_MIN_LEVEL 14) block-whole is the front below
+# m = 14 (systematic m = 13, B = 4096: 673.1k against block-hybrid's
+# 361.0k). The block front + decode+count won at no level (m = 10: 1.72M /
+# 5.12M); it runs only when asked for by name, as does the block front +
+# interpreter decode+count ("block-interp", JAX's _INTERP_COUNT_LEVELS
+# branch, empty by measurement there too).
+FRONT_WHOLE_MAX_LEVEL = 8
 FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid",
                   "block-interp")
 SYSTEMATIC_BRANCHES = ("whole", "block-count", "block-interp")

@@ -1,24 +1,42 @@
-// Whole-code Fast-SSC decoder kernel, with an optional codeword-estimate
-// track.
+// Whole-code Fast-SSC decoder kernels, each with an optional
+// codeword-estimate track: the tile kernel and the walk.
 //
-// Replaces polar_tpu/ops/pallas/decoder_kernel.py:_ssa_decoder_kernel (u
-// output, make_pallas_decoder(style="ssa", output="u")) and
-// _ssa_decoder_kernel_cw (output in {systematic, codeword, both}).
+// Both replace polar_tpu/ops/pallas/decoder_kernel.py:_ssa_decoder_kernel
+// (u output, make_pallas_decoder(style="ssa", output="u"), :404) and
+// _ssa_decoder_kernel_cw (output in {systematic, codeword, both}, :410).
 //
-// One thread decodes one frame (the reference's one frame per SIMD lane);
-// frames stay element-major (N, B) int8, so each row access of a warp is one
-// coalesced 32-byte sector. What bounds it on the card: the latency of the
-// per-row byte loads and stores to the soft pyramid and hard stack in device
-// memory, and at B = 32768 one thread per frame fills only a fraction of the
-// card's thread slots. The design keeps the kernel one fixed source that
-// walks the code's byte program, so it builds once, in seconds, for every
-// code. With cw != nullptr the same thread then re-encodes its message into
-// the (N, B) codeword estimate; the systematic output is cw at the info rows.
-// The last block is masked, so any B works without padding.
+// The tile kernel (fastssc_simd.cuh): one warp decodes a tile of 4 WR
+// frames (8), four frames to a 32-bit word, with the byte-SIMD intrinsics;
+// its lanes split every node's rows, and the tile's soft pyramid, hard
+// stack and codeword stack lie in shared memory. The cw track is built per
+// node, with no re-encode at the end. What bounds it: each op's latency,
+// with the warps that shared memory lets an SM hold (2 n (u) or 3 n (cw)
+// bytes a frame); above WHOLE_MAX_LEVEL (the wrapper,
+// ops/cuda/decoder_kernel.py) one cw tile no longer fits a block's shared
+// memory, and the codes go to the walk. A block holds `warps` tiles, each
+// warp on its own (no block barrier). The tail of the last tile is masked in the kernel:
+// frames past the batch read as 0 and are never stored, so any B works
+// without padding; where B is not a multiple of 16 (or an array starts off
+// a 16-byte boundary) every row access to device memory goes a byte at a
+// time.
+//
+// The walk (fastssc.cuh): one thread decodes one frame, the soft pyramid
+// and hard stack in (N, B) int8 scratch in device memory, each row access
+// of a warp one 32-byte sector; with cw != nullptr the same thread then
+// re-encodes its message into the (N, B) codeword estimate. What bounds it:
+// the latency of those dependent byte accesses, and at B = 32768 one thread
+// a frame fills a fraction of the card's thread slots. It serves the codes
+// above WHOLE_MAX_LEVEL and is reachable by name (style="walk") for the
+// A/B. The last block is masked.
+//
+// Both read the code's byte program at run time, so one build serves every
+// code. polar_simd_selftest holds every packed function of
+// fastssc_simd.cuh against its scalar namesake in fastssc.cuh.
 
 #include <cuda_runtime.h>
 
 #include "fastssc.cuh"
+#include "fastssc_simd.cuh"
 
 namespace {
 
@@ -39,11 +57,106 @@ __global__ void fastssc_decoder_kernel(const uint8_t* __restrict__ prog,
   if (cw != nullptr) polar::reencode(frozen, n, m, polar::Col{cw + f, b});
 }
 
+template <int WR, int VW, bool CW>
+__global__ void tile_decoder_kernel(const uint8_t* __restrict__ prog,
+                                    const int8_t* llr, int8_t* mesg,
+                                    int8_t* cw, int n, int batch,
+                                    int aligned) {
+  extern __shared__ uint32_t smem[];
+  using T = polar::simd::Tile<WR, VW, CW>;
+  constexpr int kFrames = 4 * WR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (tile * kFrames >= batch) return;  // a whole warp: no barrier below
+  uint32_t* base = smem + (size_t)warp * (CW ? 3 : 2) * n * WR;
+  T t;
+  t.soft = base;
+  t.hard = base + n * WR;
+  t.cw = CW ? base + 2 * n * WR : nullptr;
+  t.llr = llr;
+  t.mesg = mesg;
+  t.batch = batch;
+  t.w = lane % T::kLanesRow * VW;
+  t.r0 = lane / T::kLanesRow;
+  t.f = (int)(tile * kFrames) + 4 * t.w;
+  t.aligned = aligned != 0;
+  t.decode(prog, n);
+  if (CW)
+    for (int r = t.r0; r < n; r += T::kPass) t.store(cw, r, t.at(t.cw, r));
+}
+
+template <int WR, int VW, bool CW>
+int launch_tile(const void* prog, const void* llr, void* mesg, void* cw,
+                int n, int batch, int warps, int aligned,
+                cudaStream_t stream) {
+  const int bytes = warps * (CW ? 3 : 2) * n * WR * 4;
+  // above 48 KB a block's dynamic shared memory must be granted first
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_decoder_kernel<WR, VW, CW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((long long)batch + 4 * WR - 1) / (4 * WR);
+  const int blocks = (int)((tiles + warps - 1) / warps);
+  tile_decoder_kernel<WR, VW, CW><<<blocks, 32 * warps, bytes, stream>>>(
+      (const uint8_t*)prog, (const int8_t*)llr, (int8_t*)mesg, (int8_t*)cw, n,
+      batch, aligned);
+  return (int)cudaGetLastError();
+}
+
+// Each thread packs four (a, b) pairs of the 65,536 into words and checks
+// every packed function's four bytes against the scalar function.
+enum : int {
+  kSatAdd = 0, kQabs, kSignum, kDecide, kProd, kMadd, kHmul, kSpcFlip,
+  kChecks
+};
+
+__global__ void simd_selftest_kernel(int* bad) {
+  namespace s = polar::simd;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 65536 / 4) return;
+  int a[4], b[4];
+  uint32_t A = 0, B = 0, HA = 0, HB = 0;
+  for (int j = 0; j < 4; ++j) {
+    const int p = 4 * i + j;
+    a[j] = (int8_t)(p >> 8);
+    b[j] = (int8_t)(p & 255);
+    A |= (uint32_t)(uint8_t)a[j] << (8 * j);
+    B |= (uint32_t)(uint8_t)b[j] << (8 * j);
+    // {-1, 0, +1} operands for hmul: every pair of them occurs
+    HA |= (uint32_t)(uint8_t)polar::signum(a[j]) << (8 * j);
+    HB |= (uint32_t)(uint8_t)polar::signum(b[j]) << (8 * j);
+  }
+  int cnt[kChecks] = {};
+  const uint32_t got[] = {s::sat_add(A, B), s::qabs(A), s::signum(A),
+                          s::decide(A), s::prod(A, B), 0u, s::hmul(HA, HB),
+                          s::spc_flip(A, s::qabs(B), s::neg_mask(B))};
+  for (int j = 0; j < 4; ++j) {
+    auto byte = [&](uint32_t v) { return (int)(int8_t)(v >> (8 * j)); };
+    const int x = a[j], y = b[j];
+    const int want[] = {
+        polar::sat8(x + y), polar::qabs(x), polar::signum(x),
+        polar::decide(x), polar::prod(x, y), 0,
+        polar::signum(x) * polar::signum(y),
+        polar::decide(x) *
+            (polar::qabs(x) == polar::qabs(y) ? polar::decide(y) : 1)};
+    for (int k = 0; k < kChecks; ++k)
+      if (k != kMadd) cnt[k] += byte(got[k]) != want[k];
+  }
+  for (int h = -1; h <= 1; ++h) {  // madd: every pair under each hard value
+    const uint32_t H = (uint32_t)(uint8_t)h * 0x01010101u;
+    const uint32_t v = s::madd(H, A, B);
+    for (int j = 0; j < 4; ++j)
+      cnt[kMadd] += (int)(int8_t)(v >> (8 * j)) != polar::madd(h, a[j], b[j]);
+  }
+  for (int k = 0; k < kChecks; ++k)
+    if (cnt[k]) atomicAdd(bad + k, cnt[k]);
+}
+
 }  // namespace
 
-// Launch on `stream`. llr (n, batch), soft and hard (n, batch) scratch, mesg
-// (k, batch) and, when not null, cw (n, batch): all int8, element-major.
-// Returns cudaGetLastError() after the launch.
+// The walk on `stream`. llr (n, batch), soft and hard (n, batch) scratch,
+// mesg (k, batch) and, when not null, cw (n, batch): all int8,
+// element-major. Returns cudaGetLastError() after the launch.
 extern "C" int polar_decode(const void* prog, const void* frozen,
                             const void* llr, void* soft, void* hard,
                             void* mesg, void* cw, int n, int batch,
@@ -52,5 +165,34 @@ extern "C" int polar_decode(const void* prog, const void* frozen,
   fastssc_decoder_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)prog, (const uint8_t*)frozen, (const int8_t*)llr,
       (int8_t*)soft, (int8_t*)hard, (int8_t*)mesg, (int8_t*)cw, n, batch);
+  return (int)cudaGetLastError();
+}
+
+// The tile kernel on `stream`: tiles of 8 frames, two words a lane
+// (WHOLE_FRAMES in the wrapper), `warps` tiles a block, warps * 8 * n * (2,
+// or 3 with cw) bytes of shared memory. llr (n, batch) in; mesg (k, batch)
+// and, when not null, cw (n, batch) out; all int8, element-major.
+// aligned != 0: batch % 16 == 0 and every array starts on a 16-byte
+// boundary. Returns the CUDA error of the attribute call or of the launch.
+extern "C" int polar_tile_decode(const void* prog, const void* llr,
+                                 void* mesg, void* cw, int n, int batch,
+                                 int warps, int aligned, void* stream) {
+  // The one tile shape built: a row of a tile is 2 words (8 frames), both
+  // on one lane. Why this shape: WHOLE_FRAMES in the wrapper.
+  constexpr int kWR = 2, kVW = 2;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return cw != nullptr
+             ? launch_tile<kWR, kVW, true>(prog, llr, mesg, cw, n, batch,
+                                           warps, aligned, s)
+             : launch_tile<kWR, kVW, false>(prog, llr, mesg, cw, n, batch,
+                                            warps, aligned, s);
+}
+
+// The packed-primitive self-test on `stream`: bad (8) int32, zeroed by the
+// caller, receives the mismatches of sat_add, qabs, signum, decide, prod,
+// madd (h in {-1, 0, +1}), hmul and spc_flip over all 65,536 int8 pairs.
+extern "C" int polar_simd_selftest(void* bad, void* stream) {
+  simd_selftest_kernel<<<65536 / 4 / 256, 256, 0, (cudaStream_t)stream>>>(
+      (int*)bad);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,399 @@
+// Fast-SSC decode of a tile of frames by one warp, four frames to a 32-bit
+// word: the device core of the whole-code tile decoder (decoder.cu).
+//
+// Replaces the body of polar_tpu/ops/pallas/decoder_kernel.py:_SsaBuilder
+// (_ssa_decoder_kernel :404 and _ssa_decoder_kernel_cw :410), as
+// fastssc.cuh does for one frame a thread. The reference (SURVEY.md) runs
+// one frame per int8 lane of an AVX2 register; here a 32-bit register holds
+// four frames, and the byte-SIMD intrinsics (__vaddss4, __vabsss4,
+// __vminu4, __vmaxs4, __vcmplts4, ...) do the arithmetic of all four.
+//
+// Layout. Frames f..f+3 of one row are four neighbouring bytes of the
+// element-major (rows, B) int8 arrays, so a word is read and written as it
+// lies, with no transpose. A tile is WR words (4 WR frames) wide, and a
+// lane holds VW of them (a Vec, one 4 VW-byte access). The tile's soft
+// pyramid and hard stack (and, on the cw track, the codeword stack) sit in
+// shared memory, n rows of WR words each, row r at [r * WR + w]; only the
+// root LLRs, the message and the codeword touch device memory. WR / VW
+// lanes share a row, so a warp covers 32 VW / WR rows a pass with
+// consecutive accesses, free of bank conflicts, and a node of len rows
+// takes len WR / (32 VW) passes. Nodes of fewer rows than a pass leave
+// lanes idle. Every op ends with __syncwarp, since the next one reads rows
+// other lanes wrote. The wrapper's shape, 8 frames a tile and a lane (WR =
+// VW = 2, 32 rows a pass), was chosen over six others on an H100: a lane's
+// two words are two independent chains, and the small tile keeps more
+// warps on an SM. Unrolling a lane's rows four at a time, all loads before
+// any store, ran slower there.
+//
+// The program: the code's byte program (code/compiler.py emit_program), the
+// same for every lane, read with one broadcast load per opcode; the walk
+// follows fastssc.cuh:fastssc_decode opcode for opcode.
+//
+// The cw track is built per node, as _SsaBuilder.node(need_cw=True) and
+// interp.cu build it: rate-0 +1, rate-1 T(T(hard)), REP the bit broadcast,
+// SPC T([+1, v_1..v_{len-1}]), and cw = [cw_l * cw_r, cw_r] at every
+// combine. It is not the hard stack, which holds zeros after signum(0).
+//
+// Exactness: each packed function below equals its scalar namesake in
+// fastssc.cuh byte for byte (decoder.cu's polar_simd_selftest checks all
+// 65,536 int8 pairs on the card):
+//   sat8 add  -> __vaddss4 (signed saturating);
+//   qabs      -> __vabsss4 (-128 -> 127, as abs(max(x, -127)));
+//   madd      -> h * __vmaxs4(a, -127) by sign masks, h = 0 a zero term,
+//                then __vaddss4;
+//   prod      -> sign(a) xor sign(b) on min(qabs a, qabs b): a zero operand
+//                makes the minimum 0, so signum(0) = 0 needs no mask;
+//   decide    -> -1 where x < 0, else +1 (decide(0) = +1);
+//   hard and cw products of {-1, 0, +1} by bit masks.
+// SPC flips every position whose qabs equals the minimum (every tie); REP
+// folds in halves in fastssc_decode's order.
+//
+// What bounds it on the card: the latency of each op's dependent chain
+// (shared-memory loads, the emulated byte-SIMD arithmetic, a warp barrier)
+// with the few warps an SM can hold: a tile takes 2 n (u) or 3 n (cw) bytes
+// a frame, so an SM holds about 114 KB / n frames on the u track. The
+// wrapper (ops/cuda/decoder_kernel.py) sizes the tile and sends codes above
+// WHOLE_MAX_LEVEL to the one-thread-a-frame walk.
+#pragma once
+
+#include <cstdint>
+
+#include "fastssc.cuh"
+
+namespace polar {
+namespace simd {
+
+constexpr uint32_t kOnes = 0x01010101u;   // +1 in every byte
+constexpr uint32_t kM127 = 0x81818181u;   // -127 in every byte
+
+__device__ __forceinline__ uint32_t sat_add(uint32_t a, uint32_t b) {
+  return __vaddss4(a, b);
+}
+__device__ __forceinline__ uint32_t qabs(uint32_t x) { return __vabsss4(x); }
+// 0xFF in every byte that is negative
+__device__ __forceinline__ uint32_t neg_mask(uint32_t x) {
+  return __vcmplts4(x, 0u);
+}
+// -x where the byte mask s is 0xFF, else x (x > -128)
+__device__ __forceinline__ uint32_t cond_neg(uint32_t x, uint32_t s) {
+  return __vsub4(x ^ s, s);
+}
+__device__ __forceinline__ uint32_t signum(uint32_t x) {
+  return __vmins4(__vmaxs4(x, 0xFFFFFFFFu), kOnes);
+}
+__device__ __forceinline__ uint32_t decide(uint32_t x) {
+  return neg_mask(x) | kOnes;
+}
+__device__ __forceinline__ uint32_t prod(uint32_t a, uint32_t b) {
+  return cond_neg(__vminu4(qabs(a), qabs(b)), neg_mask(a ^ b));
+}
+// h in {-1, 0, +1} per byte
+__device__ __forceinline__ uint32_t madd(uint32_t h, uint32_t a, uint32_t b) {
+  const uint32_t t = cond_neg(__vmaxs4(a, kM127), neg_mask(h));
+  return __vaddss4(t & __vcmpne4(h, 0u), b);
+}
+// product of two {-1, 0, +1} bytes: 1 in bit 0 where both are non-zero,
+// 0xFF where their signs differ as well
+__device__ __forceinline__ uint32_t hmul(uint32_t x, uint32_t y) {
+  const uint32_t nz = x & y & kOnes;
+  return nz | (neg_mask(x ^ y) & (nz * 0xFFu));
+}
+// SPC's decision: decide(x), flipped where qabs(x) equals the minimum
+// `weak` and the parity mask `odd` (0xFF: an odd count of negatives) is set
+__device__ __forceinline__ uint32_t spc_flip(uint32_t x, uint32_t weak,
+                                             uint32_t odd) {
+  return decide(x) ^ (__vcmpeq4(qabs(x), weak) & odd & 0xFEFEFEFEu);
+}
+
+// VW words (4 VW frames of one row) that one lane holds, moved as one
+// 4 VW-byte access; the packed functions apply to each word.
+template <int VW>
+struct alignas(4 * VW) Vec {
+  uint32_t x[VW];
+};
+
+template <int VW>
+__device__ __forceinline__ Vec<VW> splat(uint32_t v) {
+  Vec<VW> o;
+#pragma unroll
+  for (int k = 0; k < VW; ++k) o.x[k] = v;
+  return o;
+}
+
+#define POLAR_SIMD_LIFT1(fn)                                          \
+  template <int VW>                                                   \
+  __device__ __forceinline__ Vec<VW> fn(const Vec<VW>& a) {           \
+    Vec<VW> o;                                                        \
+    _Pragma("unroll") for (int k = 0; k < VW; ++k) o.x[k] = fn(a.x[k]); \
+    return o;                                                         \
+  }
+#define POLAR_SIMD_LIFT2(fn)                                            \
+  template <int VW>                                                     \
+  __device__ __forceinline__ Vec<VW> fn(const Vec<VW>& a,               \
+                                        const Vec<VW>& b) {             \
+    Vec<VW> o;                                                          \
+    _Pragma("unroll") for (int k = 0; k < VW; ++k) o.x[k] =             \
+        fn(a.x[k], b.x[k]);                                             \
+    return o;                                                           \
+  }
+#define POLAR_SIMD_LIFT3(fn)                                            \
+  template <int VW>                                                     \
+  __device__ __forceinline__ Vec<VW> fn(                                \
+      const Vec<VW>& a, const Vec<VW>& b, const Vec<VW>& c) {           \
+    Vec<VW> o;                                                          \
+    _Pragma("unroll") for (int k = 0; k < VW; ++k) o.x[k] =             \
+        fn(a.x[k], b.x[k], c.x[k]);                                     \
+    return o;                                                           \
+  }
+POLAR_SIMD_LIFT1(signum)
+POLAR_SIMD_LIFT2(sat_add)
+POLAR_SIMD_LIFT2(prod)
+POLAR_SIMD_LIFT2(hmul)
+POLAR_SIMD_LIFT3(madd)
+POLAR_SIMD_LIFT3(spc_flip)
+#undef POLAR_SIMD_LIFT1
+#undef POLAR_SIMD_LIFT2
+#undef POLAR_SIMD_LIFT3
+
+// One warp's tile: WR words a row, VW of them a lane; CW: the codeword
+// track is on.
+template <int WR, int VW, bool CW>
+struct Tile {
+  using V = Vec<VW>;
+  static constexpr int kLanesRow = WR / VW;   // lanes that share a row
+  static constexpr int kPass = 32 / kLanesRow;  // rows a warp covers a pass
+  uint32_t* soft;   // n rows: a node of len < n reads rows [len, 2 len)
+  uint32_t* hard;   // n rows: the hard-decision stack
+  uint32_t* cw;     // n rows: the codeword stack (CW only)
+  const int8_t* llr;   // the root LLRs (n, batch), device memory
+  int8_t* mesg;        // the message (k, batch)
+  long long batch;
+  int f;               // this lane's first frame
+  int r0;              // this lane's first row of a pass
+  int w;               // this lane's first word of a row
+  bool aligned;        // batch % 16 == 0 and the arrays start on 16 bytes:
+                       // every lane's bytes of every row do
+
+  // A lane's words of a device row. The tail of the last tile is masked
+  // explicitly: frames at or past `batch` read as 0 and are never stored.
+  __device__ __forceinline__ V load(const int8_t* base, int r) const {
+    const int8_t* p = base + (long long)r * batch + f;
+    if (aligned && f < batch) return *reinterpret_cast<const V*>(p);
+    V v = splat<VW>(0u);
+    for (int j = 0; j < 4 * VW; ++j)
+      if (f + j < batch) v.x[j / 4] |= (uint32_t)(uint8_t)p[j] << (8 * (j % 4));
+    return v;
+  }
+  __device__ __forceinline__ void store(int8_t* base, int r, V v) const {
+    int8_t* p = base + (long long)r * batch + f;
+    if (aligned && f < batch) {
+      *reinterpret_cast<V*>(p) = v;
+      return;
+    }
+    for (int j = 0; j < 4 * VW; ++j)
+      if (f + j < batch) p[j] = (int8_t)(v.x[j / 4] >> (8 * (j % 4)));
+  }
+  __device__ __forceinline__ V& at(uint32_t* a, int r) const {
+    return *reinterpret_cast<V*>(a + r * WR + w);
+  }
+  // row r of the input of a node whose input starts at pyramid row `base`
+  // (0: the root, in device memory)
+  __device__ __forceinline__ V in(int base, int r) const {
+    return base == 0 ? load(llr, r) : at(soft, base + r);
+  }
+
+  // In-place polar transform of rows [0, len) of t: every stage's pairs
+  // spread over the lanes.
+  __device__ __forceinline__ void transform(uint32_t* t, int len) const {
+    for (int s = 0; (1 << s) < len; ++s) {
+      const int h = 1 << s;
+      for (int i = r0; i < len / 2; i += kPass) {
+        const int j = ((i >> s) << (s + 1)) | (i & (h - 1));  // lower row
+        at(t, j) = hmul(at(t, j), at(t, j + h));
+      }
+      __syncwarp();
+    }
+  }
+
+  // Rows [from, len) of the scratch `t` to the message rows from moff on
+  __device__ __forceinline__ void emit(uint32_t* t, int from, int len,
+                                       int moff) const {
+    for (int i = r0 + from; i < len; i += kPass)
+      store(mesg, moff + i - from, at(t, i));
+  }
+
+  // Rows [o, o + len) of `a`, all `v`
+  __device__ __forceinline__ void fill(uint32_t* a, int o, int len,
+                                       V v) const {
+    for (int i = r0; i < len; i += kPass) at(a, o + i) = v;
+  }
+
+  __device__ void decode(const uint8_t* __restrict__ prog, int n) {
+    const V ones = splat<VW>(kOnes);
+    int lvl = __ldg(prog);
+    int hoff = 0, moff = 0;
+    for (int pc = 1;; ++pc) {
+      const int op = __ldg(prog + pc);
+      if (op == OP_END) break;
+      const int len = 1 << lvl;
+      const int xb = len == n ? 0 : len;   // this node's input
+      switch (op) {
+        case OP_LEFT: {
+          const int half = len >> 1;
+          for (int i = r0; i < half; i += kPass)
+            at(soft, half + i) = prod(in(xb, i), in(xb, half + i));
+          --lvl;
+          break;
+        }
+        case OP_RIGHT: {
+          const int half = len;
+          const int pb = 2 * half == n ? 0 : 2 * half;
+          for (int i = r0; i < half; i += kPass)
+            at(soft, half + i) =
+                madd(at(hard, hoff + i), in(pb, i), in(pb, half + i));
+          hoff += half;
+          break;
+        }
+        case OP_COMB: {
+          const int half = len;
+          hoff -= half;
+          for (int i = r0; i < half; i += kPass) {
+            at(hard, hoff + i) = hmul(at(hard, hoff + i),
+                                      at(hard, hoff + half + i));
+            if (CW)
+              at(cw, hoff + i) = hmul(at(cw, hoff + i), at(cw, hoff + half + i));
+          }
+          ++lvl;
+          break;
+        }
+        case OP_RATE0:
+          fill(hard, hoff, len, ones);
+          if (CW) fill(cw, hoff, len, ones);
+          break;
+        case OP_RATE1: {  // hard = signum(x), message = T(hard)
+          for (int i = r0; i < len; i += kPass) {
+            const V h = signum(in(xb, i));
+            at(hard, hoff + i) = h;
+            at(soft, i) = h;
+          }
+          __syncwarp();
+          transform(soft, len);
+          emit(soft, 0, len, moff);
+          moff += len;
+          if (CW) {  // cw = T(T(hard))
+            __syncwarp();
+            transform(soft, len);
+            for (int i = r0; i < len; i += kPass)
+              at(cw, hoff + i) = at(soft, i);
+          }
+          break;
+        }
+        case OP_REP: {  // saturating fold in halves, in that order
+          int h = len >> 1;
+          for (int i = r0; i < h; i += kPass)
+            at(soft, i) = sat_add(in(xb, i), in(xb, h + i));
+          __syncwarp();
+          while (h > 1) {
+            h >>= 1;
+            for (int i = r0; i < h; i += kPass)
+              at(soft, i) = sat_add(at(soft, i), at(soft, h + i));
+            __syncwarp();
+          }
+          const V bit = signum(at(soft, 0));
+          fill(hard, hoff, len, bit);
+          if (CW) fill(cw, hoff, len, bit);
+          if (r0 == 0) store(mesg, moff, bit);
+          ++moff;
+          break;
+        }
+        case OP_SPC: {  // Wagner: decide, parity, flip every weakest row
+          V odd = splat<VW>(0u), weak = splat<VW>(0x7F7F7F7Fu);
+          for (int i = r0; i < len; i += kPass) {
+            const V s = in(xb, i);
+#pragma unroll
+            for (int k = 0; k < VW; ++k) {
+              odd.x[k] ^= neg_mask(s.x[k]);
+              weak.x[k] = __vminu4(weak.x[k], qabs(s.x[k]));
+            }
+          }
+          for (int o = kLanesRow; o < 32; o <<= 1) {  // across the rows' lanes
+#pragma unroll
+            for (int k = 0; k < VW; ++k) {
+              odd.x[k] ^= __shfl_xor_sync(0xFFFFFFFFu, odd.x[k], o);
+              weak.x[k] = __vminu4(
+                  weak.x[k], __shfl_xor_sync(0xFFFFFFFFu, weak.x[k], o));
+            }
+          }
+          for (int i = r0; i < len; i += kPass) {
+            const V h = spc_flip(in(xb, i), weak, odd);
+            at(hard, hoff + i) = h;
+            at(soft, i) = h;
+          }
+          __syncwarp();
+          transform(soft, len);
+          emit(soft, 1, len, moff);
+          moff += len - 1;
+          if (CW) {  // cw = T([+1, v_1..v_{len-1}])
+            __syncwarp();
+            if (r0 == 0) at(soft, 0) = ones;
+            __syncwarp();
+            transform(soft, len);
+            for (int i = r0; i < len; i += kPass)
+              at(cw, hoff + i) = at(soft, i);
+          }
+          break;
+        }
+        case OP_RATE0_RIGHT: {  // all-frozen left half: g is a plain sat add
+          const int half = len >> 1;
+          for (int i = r0; i < half; i += kPass)
+            at(soft, half + i) = sat_add(in(xb, i), in(xb, half + i));
+          hoff += half;
+          --lvl;
+          break;
+        }
+        case OP_RATE0_COMB: {  // hard = [hard_r, hard_r], ascend
+          const int half = len;
+          hoff -= half;
+          for (int i = r0; i < half; i += kPass) {
+            at(hard, hoff + i) = at(hard, hoff + half + i);
+            if (CW) at(cw, hoff + i) = at(cw, hoff + half + i);
+          }
+          ++lvl;
+          break;
+        }
+        case OP_RATE1_COMB: {  // at the left child: g, sign, comb, T
+          const int half = len;
+          const int pb = 2 * half == n ? 0 : 2 * half;
+          for (int i = r0; i < half; i += kPass) {
+            const V hl = at(hard, hoff + i);
+            const V hr = signum(madd(hl, in(pb, i), in(pb, half + i)));
+            at(hard, hoff + half + i) = hr;
+            at(hard, hoff + i) = hmul(hl, hr);
+            at(soft, i) = hr;
+          }
+          __syncwarp();
+          transform(soft, half);
+          emit(soft, 0, half, moff);
+          moff += half;
+          if (CW) {  // cw_r = T(T(hr)), cw = [cw_l * cw_r, cw_r]
+            __syncwarp();
+            transform(soft, half);
+            for (int i = r0; i < half; i += kPass) {
+              const V c = at(soft, i);
+              at(cw, hoff + half + i) = c;
+              at(cw, hoff + i) = hmul(at(cw, hoff + i), c);
+            }
+          }
+          ++lvl;
+          break;
+        }
+        default:
+          break;
+      }
+      __syncwarp();
+    }
+  }
+};
+
+}  // namespace simd
+}  // namespace polar

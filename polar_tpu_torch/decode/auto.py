@@ -1,7 +1,8 @@
 """Decoder selection by device, code size, output track and batch.
 
 * CUDA — the hand-written whole-code Fast-SSC kernel
-  (:mod:`polar_tpu_torch.ops.cuda.decoder_kernel`), one launch per call,
+  (:mod:`polar_tpu_torch.ops.cuda.decoder_kernel`: the tile kernel up to
+  its ``WHOLE_MAX_LEVEL``, the walk above), one launch per call,
   for every output mode; from ``HYBRID_MIN_LEVEL`` up, the hybrid decoder
   (eager top levels, subtree kernels at and below ``HYBRID_KERNEL_LEVEL``)
   where the H100 timings in PERF.md put it ahead, for the frame-major
@@ -31,18 +32,19 @@ from .fastssc import OUTPUTS, make_fastssc_decoder
 
 # Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): at
 # Polar(131072, 65536), B = 4096, the hybrid at kernel level 9 took 106 ms
-# (u) and 141 ms (cw) per decode, the whole-code kernel 567 and 1060 ms;
-# kernel levels 8 and 10 came within 50 %, 6 and 12-16 lost. At levels
-# 13-16 it won as well (2.5-6.8x). Below, one decode of full-range LLRs
-# (python -m polar_tpu_torch.utils.step_ab --decoders-only), whole-code
-# against hybrid, u / cw, frame-major entry: m = 9 0.73 / 1.00 against
-# 0.89 / 1.01 ms at B = 32768, 0.39 / 0.49 against 0.86 / 0.89 at B = 4096;
-# m = 10 2.09 / 3.21 against 1.99 / 2.63 at B = 32768, 0.77 / 1.16 against
-# 0.71 / 1.11 at B = 4096; m = 11, 12 the hybrid by 1.1-2.6x. The
-# lane-major entry (the front path's) ranks them alike, but for m = 9 cw
-# at B = 32768 (0.82 against 0.78 ms). The front path's branches follow
-# this threshold too (polar_tpu_torch.ber.front_branch).
-HYBRID_MIN_LEVEL = 10
+# (u) and 141 ms (cw) per decode, the whole-code kernel (then the walk) 567
+# and 1060 ms; kernel levels 8 and 10 came within 50 %, 6 and 12-16 lost.
+# The whole-code kernel is the tile kernel up to
+# decoder_kernel.WHOLE_MAX_LEVEL. In the decoder A/B below it beat the
+# hybrid at m = 10, 11 and 12 in both tracks, at both batches and in both
+# entries (lane-major ms, B = 4096 / 32768, u then cw: m = 10 0.118 / 0.447
+# and 0.150 / 0.712 against the hybrid's 0.828 / 1.670 and 1.060 / 2.218;
+# m = 12 0.751 / 4.293 and 1.001 / 7.821 against 4.185 / 10.210 and
+# 4.472 / 12.496), and at m = 13 on the u track (2.958 / 22.916 against the
+# scratch hybrid's 7.500 and the hybrid's 23.581), so the hybrid starts at
+# m = 14 (m = 13 cw from BIG_BATCH: AUTO_DECODERS). The front path's
+# branches follow this threshold too (polar_tpu_torch.ber.front_branch).
+HYBRID_MIN_LEVEL = 14
 HYBRID_KERNEL_LEVEL = 9
 
 # The decoder by (level, codeword track): below BIG_BATCH frames a call, then
@@ -50,16 +52,27 @@ HYBRID_KERNEL_LEVEL = 9
 # (the interpreter at INTERP_SUBTREE_LEVEL), "hybrid[-style]" the hybrid at
 # hybrid_kernel_level. Pairs not listed take "ssa" below HYBRID_MIN_LEVEL and
 # "hybrid" from it. From the decoder A/B (python -m
-# polar_tpu_torch.utils.step_ab --decoders-only --levels 6-17; NVIDIA H100
-# 80GB HBM3, 700 W; PERF.md §6): a style moves in where it beat the current
-# decoder, mean of two readings, by more than either's spread and by more
-# than 1 %, in one entry (frame- or lane-major) and by the mean in the other.
-# Lane-major ms, B = 4096 / 32768, new against old:
-# - u, m = 6..9: scratch 0.041 / 0.042 against 0.057 / 0.056 (m = 6) ...
-#   0.218 / 0.482 against 0.273 / 0.563 (m = 9);
-# - u, m = 10, 11 below BIG_BATCH: scratch 0.518, 1.076 against the hybrid's
-#   0.688, 1.457 (at 32768 the hybrid stays: 1.65 against 1.88 at m = 10);
-# - cw, m = 9 from BIG_BATCH: the interpreter, 0.755 against 0.812;
+# polar_tpu_torch.utils.step_ab --decoders-only; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6): a style moves in where it beat the current decoder,
+# mean of two readings, by more than either's spread and by more than 1 %,
+# in one entry (frame- or lane-major) and by the mean in the other.
+# Lane-major ms, B = 4096 / 32768, new against old. The tile kernel ("ssa",
+# --levels 6-12, then with every arm run once before its readings --levels
+# 6-13) moved in for
+# - u, m = 7 below BIG_BATCH: 0.037 against the scratch kernel's 0.062;
+# - u, m = 8, 9 from BIG_BATCH: 0.093, 0.195 against scratch's 0.138, 0.488;
+# - cw, m = 9 from BIG_BATCH: 0.282 against the interpreter's 0.777;
+# - m = 10, 11 below BIG_BATCH (u; scratch before): 0.118, 0.220 against
+#   0.514, 1.079;
+# - u, m = 8, 9 below BIG_BATCH (6-13): 0.056, 0.070 against scratch's
+#   0.113, 0.231; frame-major 0.085, 0.118 against 0.145, 0.274 (in 6-12 it
+#   trailed frame-major by the mean, its first reading 2.3-6.4x its second);
+# - m = 13 (6-13), u: above; cw below BIG_BATCH: 3.708 against the scratch
+#   hybrid's 10.738;
+# and stayed out of u m = 6 (scratch 0.046 / 0.048 against 0.099 / 0.053),
+# u m = 7 from BIG_BATCH (0.074 against 0.090) and cw m = 13 from BIG_BATCH
+# (28.649 against the interp hybrid's 28.520).
+# From the earlier A/B (--levels 6-17, the walk as "ssa"):
 # - below BIG_BATCH, the hybrid in the scratch style: u m = 13, 15, 16, 17
 #   (7.83, 23.91, 49.98, 101.47 against 8.26, 25.78, 54.84, 109.89; m = 14
 #   tied), cw m = 13..17 (7.35, 15.05, 33.05, 64.90, 134.62 against 9.03,
@@ -69,11 +82,8 @@ HYBRID_KERNEL_LEVEL = 9
 BIG_BATCH = 16384
 INTERP_SUBTREE_LEVEL = 5
 AUTO_DECODERS = {
-    **{(m, False): ("scratch", "scratch") for m in range(6, 10)},
-    (9, True): ("ssa", "interp"),
-    (10, False): ("scratch", "hybrid"), (11, False): ("scratch", "hybrid"),
-    (13, False): ("hybrid-scratch", "hybrid"),
-    (13, True): ("hybrid-scratch", "hybrid-interp"),
+    (6, False): ("scratch", "scratch"), (7, False): ("ssa", "scratch"),
+    (13, True): ("ssa", "hybrid-interp"),
     (14, True): ("hybrid-scratch", "hybrid-interp"),
     **{(m, cw): ("hybrid-scratch", "hybrid")
        for m in (15, 16, 17) for cw in (False, True)},
@@ -92,9 +102,9 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
     ``decode(llrs)`` on frame-major ``(B, N)`` int8 LLRs and
     ``decode.lane_major(llr_t)`` on element-major ``(N, B)`` ones (no
     transposes). The kernel always runs element-major; the frame-major
-    entry transposes in and out. ``style``: ``"ssa"`` or ``"scratch"``
-    (the shared-memory kernel: u output only, N <= 2^11; it raises
-    ``ValueError`` otherwise, as ``make_pallas_decoder`` does)."""
+    entry transposes in and out. ``style``: ``"ssa"``, ``"walk"`` or
+    ``"scratch"`` (the shared-memory kernel: u output only, N <= 2^11; it
+    raises ``ValueError`` otherwise, as ``make_pallas_decoder`` does)."""
     if output not in OUTPUTS:
         raise ValueError(f"unknown output mode {output!r}")
     if style not in decoder_kernel.STYLES:

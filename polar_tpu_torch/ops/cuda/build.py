@@ -46,6 +46,8 @@ _L = ctypes.c_longlong
 # C entry points and their argument types (see the .cu files)
 SIGNATURES = {
     "polar_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "polar_tile_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "polar_simd_selftest": (_P, _P),
     "polar_step": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _U, _U, _U,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "polar_subtree": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,22 +1,32 @@
 """Whole-code Fast-SSC decoder on the card: wrapper and plain version.
 
-Two kernels, two styles of ``polar_tpu/ops/pallas/decoder_kernel.py``'s
+Three kernels, two styles of ``polar_tpu/ops/pallas/decoder_kernel.py``'s
 ``make_pallas_decoder``:
 
-* ``"ssa"`` (``csrc/decoder.cu`` over ``csrc/fastssc.cuh``) replaces
-  ``_ssa_decoder_kernel`` (u track) and ``_ssa_decoder_kernel_cw``
-  (codeword-estimate track): one thread per frame walks the code's byte
-  program over element-major ``(N, B)`` int8 LLRs and writes û ``(K, B)``
-  and, on the cw track, the codeword estimate ``(N, B)`` =
-  ``encode(code, û)``; its pyramid and hard stack lie in device memory;
+* ``"ssa"`` replaces ``_ssa_decoder_kernel`` (u track, ``:404``) and
+  ``_ssa_decoder_kernel_cw`` (codeword-estimate track, ``:410``): û
+  ``(K, B)`` and, on the cw track, the codeword estimate ``(N, B)`` =
+  ``encode(code, û)`` from element-major ``(N, B)`` int8 LLRs. Up to
+  level :data:`WHOLE_MAX_LEVEL` it is the tile kernel (``csrc/decoder.cu``
+  over ``csrc/fastssc_simd.cuh``): a warp decodes :data:`WHOLE_FRAMES`
+  frames, four to a 32-bit word, its lanes splitting each node's rows, the
+  pyramid and stacks in shared memory, the cw track built per node. Above
+  it, where one tile's 3N bytes a frame no longer fit a block, it is the
+  walk;
+* ``"walk"`` (``csrc/decoder.cu`` over ``csrc/fastssc.cuh``), the same
+  function by one thread a frame over device-memory scratch, the cw track
+  a re-encode at the end: the codes above :data:`WHOLE_MAX_LEVEL`, and by
+  name for the A/B;
 * ``"scratch"`` (``csrc/scratch.cu``) replaces ``_decoder_kernel``
-  (``:541``), u track only: the same walk with the pyramid and the hard
-  stack of a block's frames in shared memory, 2N bytes a frame, so N is at
-  most 2^:data:`SCRATCH_MAX_LEVEL` (:func:`scratch_frames` raises above).
+  (``:541``), u track only: the walk with the pyramid and the hard stack
+  of a block's frames in shared memory, 2N bytes a frame, so N is at most
+  2^:data:`SCRATCH_MAX_LEVEL` (:func:`scratch_frames` raises above).
 
 :func:`decode` launches the kernel for a CUDA tensor and runs
 :func:`decode_plain` (the eager decoder) only for a CPU tensor; it keeps
-a count of its launches per kernel in :data:`launches`.
+a count of its launches per kernel and track in :data:`launches`.
+:func:`simd_selftest` holds the tile kernel's packed functions against
+the walk's scalar ones on the card.
 """
 
 from __future__ import annotations
@@ -29,18 +39,37 @@ from ...code.construction import PolarCode
 from ...decode.fastssc import make_fastssc_decoder
 from . import build
 
-# Frames (threads) per block for both kernels. On an H100 at Polar(1024, 512)
-# 128 was as fast as or faster than 64 at B = 4096, 32768 and 131072; 256
-# was faster still at B = 32768 but a third slower at B = 4096 (PERF.md).
+# Frames (threads) per block of the walk and the scratch kernel. On an H100
+# at Polar(1024, 512) 128 was as fast as or faster than 64 at B = 4096,
+# 32768 and 131072; 256 was faster still at B = 32768 but a third slower at
+# B = 4096 (PERF.md).
 THREADS = 128
-STYLES = ("ssa", "scratch")
-# The scratch style's shared memory: a block may take 227 KB on an H100, and
+STYLES = ("ssa", "walk", "scratch")
+# The shared memory a block may take on an H100 (227 KB). The scratch style
 # holds a multiple of 32 frames (at most 128), 2N bytes each.
 SCRATCH_SMEM_BYTES = 232448
 SCRATCH_MAX_FRAMES = 128
 SCRATCH_MAX_LEVEL = (SCRATCH_SMEM_BYTES // (2 * 32)).bit_length() - 1   # 11
+# The tile kernel: frames a tile (one warp), the one shape csrc/decoder.cu
+# builds (all 8 of a row on one lane). It was picked on an H100 for
+# Polar(1024, 512), the main path's code, by a design probe the repo does
+# not keep: there it led at B = 4096 and came within a few per cent of
+# 16-frame tiles at B = 32768; it tied 4-frame tiles at level 12 and lost
+# to them at level 13 (a tile shape by level is queued in ROADMAP.md as an
+# A/B). A block holds as many tiles as fit WHOLE_BLOCK_BYTES (at least one,
+# at most WHOLE_MAX_WARPS). A tile takes 2N (u) or 3N (cw) bytes a frame;
+# WHOLE_MAX_LEVEL is the largest level at which one tile on the cw track
+# fits a block's shared memory (13). Above it "ssa" runs the walk. One tile
+# an SM is enough: at level 13 it still beat the walk (step_ab
+# --decoders-only, lane-major), 22.9 / 28.6 against 27.1 / 51.5 ms (u / cw)
+# at B = 32768 and 2.96 / 3.71 against 16.8 / 31.5 at B = 4096.
+WHOLE_FRAMES = 8
+WHOLE_BLOCK_BYTES = 16384
+WHOLE_MAX_WARPS = 8
+SIMD_PRIMITIVES = ("sat_add", "qabs", "signum", "decide", "prod", "madd",
+                   "hmul", "spc_flip")
 launches = {"fastssc_decoder_u": 0, "fastssc_decoder_cw": 0,
-            "scratch_decoder": 0}
+            "walk_decoder_u": 0, "walk_decoder_cw": 0, "scratch_decoder": 0}
 plain_calls = {"decode_plain": 0}
 _tables: dict = {}
 
@@ -106,14 +135,41 @@ def scratch_frames(n: int) -> int:
     return frames
 
 
+def tile_bytes(n: int, want_cw: bool) -> int:
+    """Shared memory of one tile of the tile kernel at code length ``n``:
+    soft pyramid and hard stack, and the codeword stack on the cw track,
+    n bytes a frame each."""
+    return (3 if want_cw else 2) * n * WHOLE_FRAMES
+
+
+def tile_warps(n: int, want_cw: bool) -> int:
+    """Tiles (warps) a block of the tile kernel: as many as fit
+    :data:`WHOLE_BLOCK_BYTES`, at least one, at most
+    :data:`WHOLE_MAX_WARPS`; small codes so fill an SM's warps before its
+    limit of 32 blocks."""
+    return max(1, min(WHOLE_MAX_WARPS,
+                      WHOLE_BLOCK_BYTES // tile_bytes(n, want_cw)))
+
+
+WHOLE_MAX_LEVEL = max(m for m in range(1, 20)
+                      if tile_bytes(1 << m, True) <= SCRATCH_SMEM_BYTES)
+
+
+def ssa_kernel(n: int) -> str:
+    """The kernel of style ``"ssa"`` at code length ``n``: ``"tile"`` up to
+    level :data:`WHOLE_MAX_LEVEL`, ``"walk"`` above it."""
+    return "tile" if n <= 1 << WHOLE_MAX_LEVEL else "walk"
+
+
 def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa"):
     """Decode element-major ``(N, B)`` int8 LLRs: the kernel of ``style``
     for a CUDA tensor, :func:`decode_plain` for a CPU one.
 
     ``program`` is ``compile_program(code)`` and ``frozen`` the code's
     mask, both numpy uint8. Returns ``(u (K, B), cw (N, B) or None)``.
-    ``style="scratch"`` takes the u track only and N <= 2^11, on every
-    device."""
+    ``style="ssa"`` takes the tile kernel or the walk by
+    :func:`ssa_kernel`; ``"walk"`` the walk at every level;
+    ``"scratch"`` the u track only and N <= 2^11, on every device."""
     n = int(np.asarray(frozen).size)
     if style not in STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
@@ -146,13 +202,41 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa"):
         build.check(err, "polar_scratch_decode")
         launches["scratch_decoder"] += 1
         return mesg, None
+    track = "cw" if want_cw else "u"
+    if style == "ssa" and ssa_kernel(n) == "tile":
+        outs = (llr_t, mesg) + ((cw,) if want_cw else ())
+        aligned = b % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in outs)
+        err = build.load_library().polar_tile_decode(
+            prog_d.data_ptr(), llr_t.data_ptr(), mesg.data_ptr(),
+            cw.data_ptr() if want_cw else None, n, b, tile_warps(n, want_cw),
+            int(aligned), stream)
+        build.check(err, "polar_tile_decode")
+        launches[f"fastssc_decoder_{track}"] += 1
+        return mesg, cw
     soft = torch.empty((n, b), dtype=torch.int8, device=dev)
     hard = torch.empty((n, b), dtype=torch.int8, device=dev)
-    lib = build.load_library()
-    err = lib.polar_decode(
+    err = build.load_library().polar_decode(
         prog_d.data_ptr(), frozen_d.data_ptr(), llr_t.data_ptr(),
         soft.data_ptr(), hard.data_ptr(), mesg.data_ptr(),
         cw.data_ptr() if want_cw else None, n, b, THREADS, stream)
     build.check(err, "polar_decode")
-    launches["fastssc_decoder_cw" if want_cw else "fastssc_decoder_u"] += 1
+    launches[f"walk_decoder_{track}"] += 1
     return mesg, cw
+
+
+def simd_selftest(device) -> dict:
+    """Mismatches of each packed function of ``csrc/fastssc_simd.cuh``
+    against its scalar namesake in ``csrc/fastssc.cuh``, over all 65,536
+    int8 pairs (``madd`` under each hard value -1, 0, +1), by name of
+    :data:`SIMD_PRIMITIVES`: all 0 on a sound card. It tests the card's
+    intrinsics, so it has no plain version and needs a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the packed-function self-test runs on a CUDA "
+                         f"device, not {device}")
+    bad = torch.zeros(len(SIMD_PRIMITIVES), dtype=torch.int32, device=device)
+    stream = build.stream(device)
+    build.check(build.load_library().polar_simd_selftest(bad.data_ptr(),
+                                                         stream),
+                "polar_simd_selftest")
+    return dict(zip(SIMD_PRIMITIVES, bad.tolist()))

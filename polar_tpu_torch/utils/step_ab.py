@@ -34,7 +34,9 @@ torch middle, and each middle by itself. Before the steps, the decoders alone, t
 choice of :data:`~polar_tpu_torch.decode.auto.HYBRID_MIN_LEVEL` and of a
 kernel style: one decode of full-range int8 LLRs, u and codeword outputs,
 frame-major and lane-major entries, at both batches, in mirrored order, by
-the whole-code kernel (m <= 14), the hybrid at
+the whole-code kernel (m <= 14: the tile kernel up to
+``decoder_kernel.WHOLE_MAX_LEVEL``, the walk above), the walk by name (m <=
+``WHOLE_MAX_LEVEL``), the hybrid at
 :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`, the scratch
 whole-code kernel (u, m <= 11), the interpreter at subtree levels 5 and 10
 (m = 9..13) and the hybrid at kernel level 9 in the scratch and
@@ -171,6 +173,8 @@ def decoders(code, output: str) -> dict:
     out = {}
     if level <= WHOLE_DECODER_MAX_LEVEL:
         out["whole-code"] = make_kernel_decoder(code, output=output)
+    if level <= decoder_kernel.WHOLE_MAX_LEVEL:   # whole-code is the tile kernel
+        out["walk"] = make_kernel_decoder(code, output=output, style="walk")
     if output == "u" and level <= decoder_kernel.SCRATCH_MAX_LEVEL:
         out["scratch"] = make_kernel_decoder(code, style="scratch")
     if INTERP_LEVELS[0] <= level <= INTERP_LEVELS[1]:
@@ -188,8 +192,8 @@ def decoders(code, output: str) -> dict:
 
 
 def decoder_times(code, device, ms) -> list[dict]:
-    """ms of one decode by each of :func:`decoders`, timed in order, then in
-    reverse order."""
+    """ms of one decode by each of :func:`decoders`, each run once first,
+    then timed in order and in reverse order."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -207,6 +211,9 @@ def decoder_times(code, device, ms) -> list[dict]:
                        for name, d in decs.items()}
                 names = list(fns)
                 got = {name: [] for name in names}
+                for fn in fns.values():   # every arm once before any reading
+                    fn()
+                torch.cuda.synchronize()
                 for name in names + names[::-1]:
                     got[name].append(ms(fns[name]))
                 for name in names:

@@ -37,10 +37,13 @@ def _llrs(dev, n, b, seed):
     return x
 
 
-@pytest.mark.parametrize("m", [2, 5, 10, 13])
-@pytest.mark.parametrize("batch", [1, 63, 4099])
+@pytest.mark.parametrize("m", [2, 5, 9, 10, decoder_kernel.WHOLE_MAX_LEVEL])
+@pytest.mark.parametrize("batch", [1, 3, 63, 4099, 32768])
 def test_decoder_kernel_matches_plain(dev, m, batch):
+    """The tile kernel, both tracks, up to its limit; column 0 all -128,
+    column 1 all zero."""
     c = pt.make_code(m, rate=0.5)
+    assert decoder_kernel.ssa_kernel(c.N) == "tile"
     llr = _llrs(dev, c.N, max(batch, 2), m)[:, :batch].contiguous()
     program = pt.compile_program(c)
     for want_cw in (False, True):
@@ -48,27 +51,81 @@ def test_decoder_kernel_matches_plain(dev, m, batch):
         got = decoder_kernel.decode(program, c.frozen, llr, want_cw)
         want = decoder_kernel.decode_plain(program, c.frozen, llr, want_cw)
         track = "fastssc_decoder_cw" if want_cw else "fastssc_decoder_u"
-        assert decoder_kernel.launches[track] == before[track] + 1
+        assert decoder_kernel.launches == {**before, track: before[track] + 1}
         assert torch.equal(got[0], want[0])
         if want_cw:
             assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("batch", [63, 4099])
+def test_walk_above_the_limit_and_by_name(dev, batch):
+    """Above WHOLE_MAX_LEVEL style "ssa" runs the walk; "walk" runs it at
+    any level; both equal the plain version and the tile kernel."""
+    for m, style in ((decoder_kernel.WHOLE_MAX_LEVEL + 1, "ssa"),
+                     (10, "walk")):
+        c = pt.make_code(m, rate=0.5)
+        llr = _llrs(dev, c.N, batch, m)
+        program = pt.compile_program(c)
+        for want_cw in (False, True):
+            before = dict(decoder_kernel.launches)
+            got = decoder_kernel.decode(program, c.frozen, llr, want_cw, style)
+            track = "walk_decoder_cw" if want_cw else "walk_decoder_u"
+            assert decoder_kernel.launches == {**before,
+                                               track: before[track] + 1}
+            want = decoder_kernel.decode_plain(program, c.frozen, llr, want_cw)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
+            if m <= decoder_kernel.WHOLE_MAX_LEVEL:
+                tile = decoder_kernel.decode(program, c.frozen, llr, want_cw)
+                for g, t in zip(got, tile):
+                    assert (g is None and t is None) or torch.equal(g, t)
+
+
+def test_tile_kernel_rows_off_the_word(dev):
+    """B % 16 != 0, or arrays that start off a 16-byte boundary, take the
+    byte-wise row accesses."""
+    c = pt.make_code(8, rate=0.5)
+    program = pt.compile_program(c)
+    for batch, shift in ((4096, 1), (4096, 4), (4097, 0), (4100, 0)):
+        buf = torch.empty(c.N * batch + shift, dtype=torch.int8, device=dev)
+        llr = buf[shift:].view(c.N, batch)
+        llr.copy_(_llrs(dev, c.N, batch, batch))
+        assert (llr.data_ptr() % 16 == 0) == (shift == 0)
+        for want_cw in (False, True):
+            got = decoder_kernel.decode(program, c.frozen, llr, want_cw)
+            want = decoder_kernel.decode_plain(program, c.frozen, llr, want_cw)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
+
+
+def test_simd_primitives_match_the_scalar_functions(dev):
+    bad = decoder_kernel.simd_selftest(dev)
+    assert set(bad) == set(decoder_kernel.SIMD_PRIMITIVES)
+    assert all(v == 0 for v in bad.values()), bad
+
+
 def test_kernel_decoder_output_modes(dev):
     c = pt.make_code(9, rate=0.25)
     llr = _llrs(dev, c.N, 777, 3).t().contiguous()       # (B, N)
-    for mode in ("u", "systematic", "codeword", "both"):
-        got = make_kernel_decoder(c, output=mode)(llr)
-        want = pt.make_fastssc_decoder(c, output=mode, output_dtype=torch.int8)(llr)
-        for a, b in zip(*((got, want) if mode == "both" else ((got,), (want,)))):
-            assert torch.equal(a, b)
+    for style in ("ssa", "walk"):
+        route = "fastssc_decoder" if style == "ssa" else "walk_decoder"
+        for mode in ("u", "systematic", "codeword", "both"):
+            before = dict(decoder_kernel.launches)
+            got = make_kernel_decoder(c, output=mode, style=style)(llr)
+            track = f"{route}_{'u' if mode == 'u' else 'cw'}"
+            assert decoder_kernel.launches == {**before,
+                                               track: before[track] + 1}
+            want = pt.make_fastssc_decoder(c, output=mode,
+                                           output_dtype=torch.int8)(llr)
+            for a, b in zip(*((got, want) if mode == "both"
+                              else ((got,), (want,)))):
+                assert torch.equal(a, b)
     from polar_tpu_torch.decode import auto
 
     _, desc = pt.make_auto_decoder(c, output="codeword", device=dev)
-    assert desc == (f"cuda-fastssc below {auto.BIG_BATCH} frames, "
-                    f"cuda-interp-sl{auto.INTERP_SUBTREE_LEVEL} from it")
-    _, desc = pt.make_auto_decoder(c, device=dev)          # u: shared memory
-    assert desc == "cuda-scratch"
+    assert desc == "cuda-fastssc"                            # the tile kernel
+    _, desc = pt.make_auto_decoder(c, device=dev)            # u: the same
+    assert desc == "cuda-fastssc"
 
 
 def test_decoder_rejects_bad_input(dev):
@@ -173,23 +230,28 @@ def test_subtree_kernel_matches_plain(dev, level, batch):
 def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
     from polar_tpu_torch.decode import auto
 
-    for m in (auto.HYBRID_MIN_LEVEL - 2, auto.HYBRID_MIN_LEVEL, 12):
+    kl, big = auto.HYBRID_KERNEL_LEVEL, auto.BIG_BATCH
+    for m, want in (
+            (auto.HYBRID_MIN_LEVEL - 2, "cuda-fastssc"),
+            (13, f"cuda-fastssc below {big} frames, cuda-hybrid-kl{kl}-interp"
+                 " from it"),
+            (auto.HYBRID_MIN_LEVEL + 2, f"cuda-hybrid-kl{kl}-scratch below "
+                                        f"{big} frames, cuda-hybrid-kl{kl} from it")):
         _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5),
                                        output="codeword", device=dev)
-        assert desc == ("cuda-fastssc" if m < auto.HYBRID_MIN_LEVEL
-                        else f"cuda-hybrid-kl{auto.HYBRID_KERNEL_LEVEL}")
-    # the u track of m = 10 by batch: the scratch kernel, then the hybrid
-    c = pt.make_code(10, rate=0.5)
+        assert desc == want
+    # the u track of m = 7 by batch: the tile kernel, then the scratch kernel
+    c = pt.make_code(7, rate=0.5)
     dec, desc = pt.make_auto_decoder(c, device=dev)
-    assert desc == (f"cuda-scratch below {auto.BIG_BATCH} frames, "
-                    f"cuda-hybrid-kl{auto.HYBRID_KERNEL_LEVEL} from it")
+    assert desc == f"cuda-fastssc below {big} frames, cuda-scratch from it"
     want = pt.make_fastssc_decoder(c, output_dtype=torch.int8)
     for batch in (100, auto.BIG_BATCH):
         llr = _llrs(dev, c.N, batch, batch).t().contiguous()
-        before = (decoder_kernel.launches["scratch_decoder"],)
+        before = dict(decoder_kernel.launches)
         assert torch.equal(dec(llr).cpu(), want(llr.cpu()))
-        moved = decoder_kernel.launches["scratch_decoder"] - before[0]
-        assert moved == (batch < auto.BIG_BATCH)
+        name = ("fastssc_decoder_u" if batch < auto.BIG_BATCH
+                else "scratch_decoder")
+        assert decoder_kernel.launches == {**before, name: before[name] + 1}
 
 
 @pytest.mark.parametrize("fuse", [False, True])
@@ -381,8 +443,9 @@ def test_profile_step_reports_device_time(dev):
     lines = profile_steps(multi, gen, 512, 2)
     assert "kernels, device busy" in lines[0] and "% idle" in lines[0]
     report = "\n".join(lines)
-    # the decoder takes most of the step; only the top rows are listed
-    assert "fastssc_decoder_kernel" in lines[2] and "aten::" in report
+    # the decoder (the tile kernel) takes most of the step; only the top
+    # rows are listed
+    assert "tile_decoder_kernel" in lines[2] and "aten::" in report
 
 
 def _inject(dev, n, batch, seed):

@@ -57,6 +57,10 @@ def _calls():
             program, frozen, _i8(N, B), True),
         "fastssc_decoder_u": lambda: decoder_kernel.decode(
             program, frozen, _i8(N, B), False),
+        "walk_decoder_cw": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), True, "walk"),
+        "walk_decoder_u": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), False, "walk"),
         "scratch_decoder": lambda: decoder_kernel.decode(
             program, frozen, _i8(N, B), False, "scratch"),
         "mc_step": lambda: step_kernel.step(program, frozen, params, True,

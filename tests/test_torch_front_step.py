@@ -141,12 +141,13 @@ def _jax_whole_count_chain(jc):
 
 
 @pytest.mark.parametrize("m", [7, 9])
-def test_front_chain_inject_matches_pallas_whole_front_chain(monkeypatch, m):
+def test_front_chain_inject_matches_pallas_whole_front_chain(m):
     """The port's front chain on injected inputs counts what JAX's
     ``make_pallas_front`` → ``make_pallas_decode_count`` counts; at m = 9
     the block-front branches too: block + decode+count by name (no level
-    takes it by default) and block + whole-code decoder + counter kernel
-    by moving the threshold, as ``tests/test_step_kernel.py`` moves JAX's."""
+    takes it by default) and block + whole-code decoder + counter kernel,
+    the default there (JAX's by moving its threshold, as
+    ``tests/test_step_kernel.py`` does)."""
     jc = jpt.make_code(m, rate=0.5)
     code = pt.code_from_jax(jc)
     jchain = _jax_whole_count_chain(jc)
@@ -155,11 +156,10 @@ def test_front_chain_inject_matches_pallas_whole_front_chain(monkeypatch, m):
     wants = [_counts(jchain(jnp.asarray(msg), jnp.asarray(nrm), jnp.float32(snr)))
              for snr, msg, nrm in inputs]
     assert wants[0][0] > 0
-    assert ber.front_branch(code, True) == "whole"
+    assert ber.front_branch(code, True) == (
+        "whole" if m <= ber.FRONT_WHOLE_MAX_LEVEL else "block-whole")
     branches = ["whole"]
-    if m == 9:                             # None: the default, now block-whole
-        monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", m - 4)
-        assert ber.front_branch(code, True) == "block-whole"
+    if m == 9:                             # None: the default, block-whole
         branches += [None, "block-count"]
     for branch in branches:
         chain = ber.make_front_chain(code, systematic=True, branch=branch)
@@ -170,19 +170,23 @@ def test_front_chain_inject_matches_pallas_whole_front_chain(monkeypatch, m):
 
 
 def test_front_branch_follows_the_thresholds(monkeypatch):
-    for m, sys_branch, plain_branch in ((9, "whole", "block-whole"),
-                                        (10, "block-hybrid", "block-hybrid"),
+    for m, sys_branch, plain_branch in ((8, "whole", "block-whole"),
+                                        (9, "block-whole", "block-whole"),
+                                        (10, "block-whole", "block-whole"),
+                                        (12, "block-whole", "block-whole"),
+                                        (13, "block-whole", "block-whole"),
+                                        (14, "block-hybrid", "block-hybrid"),
                                         (17, "block-hybrid", "block-hybrid")):
         c = pt.make_code(m, rate=0.5)
         assert ber.front_branch(c, True) == sys_branch
         assert ber.front_branch(c, False) == plain_branch
     # one owner for the decoder: the front follows decode.auto's threshold
-    assert decode_auto.HYBRID_MIN_LEVEL == ber.FRONT_WHOLE_MAX_LEVEL + 1 == 10
+    assert decode_auto.HYBRID_MIN_LEVEL == 14 and ber.FRONT_WHOLE_MAX_LEVEL == 8
     c = pt.make_code(9, rate=0.5)
-    monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", 8)
-    assert ber.front_branch(c, True) == "block-whole"
     monkeypatch.setattr(decode_auto, "HYBRID_MIN_LEVEL", 9)
     assert ber.front_branch(c, True) == ber.front_branch(c, False) == "block-hybrid"
+    monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", 9)
+    assert ber.front_branch(c, True) == "whole"
     with pytest.raises(ValueError, match="branch"):
         ber.make_front_chain(c, systematic=False, branch="whole")
     with pytest.raises(ValueError, match="branch"):

@@ -163,14 +163,19 @@ def test_auto_decoders_follow_the_measured_table():
         if "scratch" in pair:     # the whole-code scratch kernel: u, N <= 2^11
             assert not cw and level <= decoder_kernel.SCRATCH_MAX_LEVEL
     assert auto.decoder_names(5, False) == ("ssa", "ssa")
-    assert auto.decoder_names(12, True) == ("hybrid", "hybrid")
+    assert auto.decoder_names(12, True) == ("ssa", "ssa")
+    assert auto.decoder_names(13, False) == ("ssa", "ssa")
+    assert auto.decoder_names(13, True) == ("ssa", "hybrid-interp")
+    assert auto.decoder_names(14, False) == ("hybrid", "hybrid")
     small, big = auto.BIG_BATCH - 1, auto.BIG_BATCH
-    assert [auto.kernel_style(13, True, b, True) for b in (small, big)] == [
+    assert [auto.kernel_style(14, True, b, True) for b in (small, big)] == [
         "scratch", "interp"]
-    assert [auto.kernel_style(10, False, b, False) for b in (small, big)] == [
-        "scratch", "ssa"]
-    assert auto.kernel_style(10, False, small, True) == "ssa"
-    assert auto.kernel_style(9, True, big, False) == "ssa"   # no interp there
+    assert [auto.kernel_style(7, False, b, False) for b in (small, big)] == [
+        "ssa", "scratch"]
+    assert auto.kernel_style(7, False, big, True) == "ssa"
+    # the whole-code decoder takes none of the hybrid's styles
+    assert auto.kernel_style(13, True, big, False) == "ssa"
+    assert auto.kernel_style(9, True, big, False) == "ssa"   # the tile kernel
     assert pt.make_auto_decoder(pt.make_code(10, rate=0.5),
                                 device="cpu")[1] == "eager"
 
