@@ -5,11 +5,17 @@ decoder's packed byte functions against the scalar ones, holds each kernel
 against its plain PyTorch version, drives the port's main path at
 Polar(1024, 512) int8 through them (the decode benchmark at batch 32768,
 then a BER campaign), and times kernel against plain version, the tile
-decoder against the walk it replaced (phases 1-6). Then the
-large-N path at Polar(131072, 65536) systematic int8: the subtree decoder
-and the hybrid against the whole-code kernel (7), the block front and the
-counter kernel (8), the large-N step against the fused step and a BER
-campaign against the JAX package's result, with timings (9). Then the
+decoder against the walk it replaced (phases 1-6). The fused step: the
+tile step against the plain chain on injected inputs at every level and
+against the walk it replaced on the same seeds (3, 4), a campaign through
+make_step's default path where that path is the fused step (5), the tile
+step against the walk in turns at that shape and at Polar(1024, 512) (6).
+Then the large-N path at Polar(131072, 65536) systematic int8: the tile
+subtree decoder against its plain version and the walk in every body at
+levels 1-9, and the hybrid against the whole-code kernel (7), the block
+front and the counter kernel (8), the large-N step against the fused step
+and a BER campaign against the JAX package's result, with timings, the
+tile subtree against the walk in turns (9). Then the
 caller's-decoder path: the symbols, AWGN and block-encoder kernels
 against their plain versions, with timings (10), and the pinned-decoder
 step with the kernel draws at both codes: exact counters on injected
@@ -138,13 +144,14 @@ def _reset(*counts) -> None:
             c[name] = 0
 
 
-def _subtree_nodes(tree, levels):
-    """One kernel-eligible composite node of each kind at each level."""
+def _subtree_nodes(tree, levels, kinds=("branch", "rate0_right",
+                                         "rate1_comb")):
+    """One node of each kind at each level that emits message bits: by
+    default the composite kinds the hybrid sends to a subtree kernel."""
     out, stack = {}, [tree]
     while stack:
         node = stack.pop()
-        if node.level in levels and node.mesg_bits >= 1 and node.kind in (
-                "branch", "rate0_right", "rate1_comb"):
+        if node.level in levels and node.mesg_bits >= 1 and node.kind in kinds:
             out.setdefault((node.level, node.kind), node)
         stack.extend(c for c in (node.left, node.right) if c is not None)
     return [out[k] for k in sorted(out)]
@@ -207,42 +214,61 @@ def large_n_phases(dev, card, ms) -> dict:
         return max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
 
     # -- 7. subtree decoder: every body, then the hybrid at full width -----
+    # the tile subtree against its plain version and the walk it replaced,
+    # bit for bit, at every level the hybrid launches, at the batches of
+    # both campaigns and one off the 16-byte word; column 0 of each slot is
+    # all -128, column 1 all zero, the left hard blocks hold zeros
     tree = pt.compile_code(code)
-    nodes = _subtree_nodes(tree, (6, kl))
+    nodes = _subtree_nodes(tree, range(1, kl + 1),
+                           ("branch", "rate0_right", "rate1_comb", "rate1",
+                            "rep", "spc"))
     bodies = 0
-    for node in nodes:
-        m_n = 1 << node.level
-        slot = rand_i8(2 * m_n, 2048)
-        assert bool((slot == -128).any()), "slots must include -128"
-        hl, cwl = rand_i8(m_n, 2048, -1, 2), rand_i8(m_n, 2048, -1, 2)
-        for fuse in (None, "f", "g"):
-            for emit_u, emit_cw in ((True, False), (True, True), (False, True)):
-                fn = subtree_kernel.make_subtree_decoder(
-                    node, emit_u=emit_u, emit_cw=emit_cw, fuse=fuse)
-                args = ((slot[:m_n],) if fuse is None else (slot,)
-                        if fuse == "f" else (slot, hl) + ((cwl,) if emit_cw else ()))
-                got = fn(*args)
-                want = subtree_kernel.decode_plain(node, args, fuse=fuse,
-                                                   emit_u=emit_u, emit_cw=emit_cw)
-                e = max_err(got, want)
-                err["subtree_decoder"] = max(err["subtree_decoder"], e)
-                if e or len(got) != len(want):
-                    raise AssertionError(f"subtree body differs: {node.kind} "
-                                         f"level {node.level} fuse={fuse} "
-                                         f"u={emit_u} cw={emit_cw}")
-                bodies += 1
-    phase("7", f"subtree decoder == plain in {bodies} bodies (nodes "
+    for batch in (b, auto.BIG_BATCH, b + 3):
+        for node in nodes:
+            m_n = 1 << node.level
+            slot = rand_i8(2 * m_n, batch)
+            slot[:, 0], slot[:, 1] = -128, 0
+            hl, cwl = rand_i8(m_n, batch, -1, 2), rand_i8(m_n, batch, -1, 2)
+            for fuse in (None, "f", "g"):
+                for emit_u, emit_cw in ((True, False), (True, True),
+                                        (False, True)):
+                    kw = dict(emit_u=emit_u, emit_cw=emit_cw, fuse=fuse)
+                    args = ((slot[:m_n],) if fuse is None else (slot,)
+                            if fuse == "f" else
+                            (slot, hl) + ((cwl,) if emit_cw else ()))
+                    before = dict(subtree_kernel.launches)
+                    got = subtree_kernel.make_subtree_decoder(node, **kw)(*args)
+                    walk = subtree_kernel.make_subtree_decoder(
+                        node, style="walk", **kw)(*args)
+                    if subtree_kernel.launches != {
+                            **before,
+                            "subtree_decoder": before["subtree_decoder"] + 1,
+                            "walk_subtree": before["walk_subtree"] + 1}:
+                        raise AssertionError(f"subtree launches "
+                                             f"{subtree_kernel.launches}")
+                    want = subtree_kernel.decode_plain(node, args, **kw)
+                    e = max(max_err(got, want), max_err(got, walk))
+                    err["subtree_decoder"] = max(err["subtree_decoder"], e)
+                    if e or not len(got) == len(want) == len(walk):
+                        raise AssertionError(
+                            f"subtree body differs: {node.kind} level "
+                            f"{node.level} B={batch} fuse={fuse} u={emit_u} "
+                            f"cw={emit_cw}")
+                    bodies += 1
+    phase("7", f"tile subtree == plain == walk in {bodies} bodies (nodes "
           f"{[(nd.kind, nd.level) for nd in nodes]}, fuse none/f/g, u, u+cw, "
-          "cw) on full-range int8 slots, B=2048 (max abs err 0)")
+          f"cw, B = {b}, {auto.BIG_BATCH}, {b + 3}) on full-range int8 slots "
+          "with a -128 and a zero column (max abs err 0)")
 
     llr_t = rand_i8(n, b)
     for mode in ("u", "systematic", "codeword", "both"):
         whole = make_kernel_decoder(code, output=mode).lane_major(llr_t)
         whole = whole if mode == "both" else (whole,)
-        for fuse in (False, True):
+        for fuse, style in ((False, "ssa"), (True, "ssa"), (True, "walk")):
             hyb = pt.make_fastssc_decoder(code, output=mode,
                                           output_dtype=torch.int8,
-                                          kernel_level=kl, kernel_fuse=fuse)
+                                          kernel_level=kl, kernel_fuse=fuse,
+                                          kernel_style=style)
             lane = hyb.lane_major(llr_t)
             lane = lane if mode == "both" else (lane,)
             e = max_err(lane, whole)
@@ -252,11 +278,12 @@ def large_n_phases(dev, card, ms) -> dict:
                 e = max(e, max_err([f.t() for f in frame], whole))
             if e:
                 raise AssertionError(f"hybrid differs from the whole-code "
-                                     f"kernel, output={mode} fuse={fuse}")
+                                     f"kernel, output={mode} fuse={fuse} "
+                                     f"style={style}")
         del whole, lane
     phase("7", f"hybrid kl{kl} == whole-code kernel at Polar({n}, {k}) B={b}, "
           "u/systematic/codeword/both, lane entry with and without fusion, "
-          "frame entry (max abs err 0)")
+          "frame entry, and in the walk style (max abs err 0)")
 
     # -- 8. block front and counter kernel ----------------------------------
     msg = (1 - 2 * rand_i8(n, b, 0, 2)).to(torch.int8)
@@ -342,7 +369,8 @@ def large_n_phases(dev, card, ms) -> dict:
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
     new = ("subtree_decoder", "front_blocks_a", "front_blocks_b", "count")
-    if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
+    if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
+            or launched["walk_subtree"]):
         raise AssertionError(f"large-N campaign launches {launched}, plain "
                              f"calls {plain}")
     phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
@@ -350,15 +378,31 @@ def large_n_phases(dev, card, ms) -> dict:
           f"{plain}")
     campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
 
-    # timings at Polar(131072, 65536), B = 4096
-    times = {}
+    # timings at Polar(131072, 65536): the subtree kernel at the largest
+    # level-kl node, at the campaign's batch (its launches) and at B = 4096,
+    # the tile kernel against the walk in turns; a small node too
+    times, earlier = {}, {}
     node = max(_subtree_nodes(tree, (kl,)), key=lambda nd: nd.mesg_bits)
-    slot = rand_i8(1 << node.level, b)
-    fn = subtree_kernel.make_subtree_decoder(node, emit_u=False, emit_cw=True)
-    times["subtree_decoder"] = (
-        ms(lambda: fn(slot), 10),
-        ms(lambda: subtree_kernel.decode_plain(node, (slot,), emit_u=False,
-                                               emit_cw=True), 2))
+    small = max(_subtree_nodes(tree, (4,)), key=lambda nd: nd.mesg_bits)
+    for nd, batch in ((node, cb), (node, b), (small, cb)):
+        sl = rand_i8(1 << nd.level, batch)
+        tile = subtree_kernel.make_subtree_decoder(nd, emit_u=False,
+                                                   emit_cw=True)
+        walk = subtree_kernel.make_subtree_decoder(nd, emit_u=False,
+                                                   emit_cw=True, style="walk")
+        t = [ms(lambda: tile(sl), 10)]
+        w = [ms(lambda: walk(sl), 10), ms(lambda: walk(sl), 10)]
+        t.append(ms(lambda: tile(sl), 10))
+        phase("9", f"subtree cw, {nd.kind} level {nd.level} node, B={batch}: "
+              f"tile kernel {t[0]:.4f}, {t[1]:.4f} ms; walk {w[0]:.4f}, "
+              f"{w[1]:.4f} ms ({sum(w) / sum(t):.2f}x) ({card})")
+        if nd is node and batch == cb:
+            slot = sl
+            times["subtree_decoder"] = (
+                sum(t) / 2,
+                ms(lambda: subtree_kernel.decode_plain(
+                    node, (slot,), emit_u=False, emit_cw=True), 2))
+            earlier["subtree_decoder"] = sum(w) / 2
     kw = dict(seeds=(5, 6), call=0)
     times["front_blocks_a"] = (
         ms(lambda: front_kernel.msg_blocks(frozen, blk_a, True, batch=b,
@@ -372,12 +416,13 @@ def large_n_phases(dev, card, ms) -> dict:
     times["count"] = (
         ms(lambda: count_kernel.count(frozen, llr_c, cw_c, hat), 10),
         ms(lambda: count_kernel.count_plain(frozen, llr_c, cw_c, hat), 2))
-    out = fn(slot)
+    out = subtree_kernel.make_subtree_decoder(node, emit_u=False,
+                                              emit_cw=True)(slot)
     level_a, level_b = blk_a.bit_length() - 1, blk_b.bit_length() - 1
     work = {
         "subtree_decoder": (slot.numel() + sum(o.numel() for o in out),
                             (decode_ops(slot.shape[0])
-                             + transform_ops(slot.shape[0])) * b),
+                             + transform_ops(slot.shape[0])) * cb),
         "front_blocks_a": (n * b, (k * PHILOX_OPS
                                    + transform_ops(n, level_a)) * b),
         "front_blocks_b": (3 * n * b, (n * (PHILOX_OPS + NORMAL_OPS + QUANT_OPS)
@@ -385,8 +430,10 @@ def large_n_phases(dev, card, ms) -> dict:
         "count": (3 * n * b, 5 * n * b),
     }
     for name, (t_k, t_p) in times.items():
+        where = (f"the level-{kl} node B={cb}" if name == "subtree_decoder"
+                 else f"Polar({n}, {k}) B={b}")
         phase("9", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
-              f"Polar({n}, {k}) B={b} ({card})")
+              f"{where} ({card})")
     program = pt.compile_program(code)
     for want_cw in (False, True):
         track = "cw" if want_cw else "u"
@@ -405,7 +452,7 @@ def large_n_phases(dev, card, ms) -> dict:
                               batch=b, device=dev), 2)
     phase("9", f"large-N step (systematic, kl{kl}): {t_step:.1f} ms per "
           f"{b} frames, {b / t_step * 1e3:.1f} frames/s ({card})")
-    return {"err": err, "times": times, "work": work,
+    return {"err": err, "times": times, "work": work, "earlier": earlier,
             "launched": {name: launched[name] for name in new}}
 
 
@@ -635,11 +682,11 @@ def front_step_phases(dev, card, ms) -> dict:
     decode+count and the middle-stages kernel against their plain
     versions; the front chains against the fused step on the same seeds at
     every level 2..16; the large-N step with either middle; chained
-    campaigns through make_step's default path at B = 4096 (the kernel
-    draws, the block front) at Polar(1024, 512), Polar(4096, 2048),
-    Polar(8192, 4096) and Polar(16384, 8192) against the JAX package's
-    results, and the whole-front path's own run; timings at the shapes
-    those runs launch."""
+    campaigns through make_step's default path at B = 4096 at
+    Polar(1024, 512) (the fused step), Polar(4096, 2048) and
+    Polar(8192, 4096) (the kernel draws) and Polar(16384, 8192) (the block
+    front) against the JAX package's results, and the whole-front path's
+    own run; timings at the shapes those runs launch."""
     import torch
 
     import polar_tpu_torch as pt
@@ -1525,6 +1572,8 @@ def main() -> int:
             phase("3", f"inject sys={systematic} snr={snr}: counters "
                   f"{a.tolist()} equal the plain chain")
     levels = range(pt.ber.STEP_KERNEL_MIN_LEVEL, pt.ber.STEP_KERNEL_MAX_LEVEL + 1)
+    top = step_kernel.STEP_TILE_MAX_LEVEL
+    _reset(step_kernel.launches)
     for level in levels:
         lc = pt.make_code(level, rate=0.5)
         for systematic in (True, False):
@@ -1532,8 +1581,13 @@ def main() -> int:
             if not torch.equal(a, b):
                 raise AssertionError(f"inject step differs at m={level} "
                                      f"sys={systematic}")
+    tiled = 2 * sum(level <= top for level in levels)
+    if (step_kernel.launches["mc_step"], step_kernel.launches["walk_step"]) != (
+            tiled, 2 * len(levels) - tiled):
+        raise AssertionError(f"inject steps launched {step_kernel.launches}")
     phase("3", f"inject step == plain chain at every level {levels.start}.."
-          f"{levels.stop - 1}, both modes, B=512")
+          f"{levels.stop - 1}, both modes, B=512: the tile step to m={top}, "
+          f"the walk above (launches {dict(step_kernel.launches)})")
 
     # -- 4. step kernel, native mode ---------------------------------------
     args = (program, code.frozen)
@@ -1558,6 +1612,22 @@ def main() -> int:
         err["mc_step"] = max(err["mc_step"], max(d))
         phase("4", f"native sys={systematic} 1 dB: kernel {a.tolist()} plain "
               f"{b.tolist()} (|diff| {d})")
+    # the tile step against the walk it replaced, on the same Philox words:
+    # equal integers at every level of the tile, both modes
+    for level, batch in [(lv, 4096) for lv in range(2, top + 1)] + [(10, 999)]:
+        lc = pt.make_code(level, rate=0.5)
+        for systematic in (True, False):
+            kw = dict(seeds=(level, batch), call=4, batch=batch, device=dev)
+            run = (pt.compile_program(lc), lc.frozen, snr_params(-1.0),
+                   systematic)
+            a = step_kernel.step(*run, **kw)
+            b = step_kernel.step(*run, style="walk", **kw)
+            if not torch.equal(a, b):
+                raise AssertionError(f"tile step {a.tolist()} vs walk "
+                                     f"{b.tolist()} at m={level} "
+                                     f"sys={systematic} B={batch}")
+    phase("4", f"native tile step == walk (mc_step_kernel) on the same seeds "
+          f"at every level 2..{top}, both modes, B=4096, and m=10 B=999")
 
     # -- 5. the main path: decode benchmark and BER campaign ---------------
     for counts in (decoder_kernel.launches, step_kernel.launches,
@@ -1576,9 +1646,9 @@ def main() -> int:
               f"Polar({n}, {k}) B={BATCH}, vs_baseline "
               f"{fps / AVX2_REFERENCE_FPS_N1024:.3f} ({card})")
     t0 = time.perf_counter()
-    # the fused step and the whole-code decoder's gauge asked for by name:
-    # make_step's default at this code and batch is the kernel draws around
-    # the auto decoder (phase 11), at B = 4096 the fused step (phase 12)
+    # the fused step and the whole-code decoder's gauge asked for by name;
+    # the run through make_step's default path (the fused step too, by
+    # ber.AUTO_STEP_PATH, with no decoder pinned) follows
     res = pt.run_campaign(code, device=dev, seed=5, batch=BATCH,
                           snr_range=(-1.0, 1.0), snr_step=0.2,
                           max_frames_per_point=1 << 17, fused=True,
@@ -1596,6 +1666,32 @@ def main() -> int:
     phase("5", f"campaign {len(res.points)} points in {wall:.1f} s; launches "
           f"{launched} (walk {walked}); plain calls {plain}; decode gauge "
           f"{res.peak_mbps:.1f} info Mbit/s")
+    campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
+    # the fused step's main path: a campaign through make_step's default
+    # path at this code and batch, which ber.AUTO_STEP_PATH sends to the
+    # fused step (the tile step); its launches are row 5's
+    path = pt.ber._step_path(code, torch.int8, None, None, "auto", dev,
+                             True, BATCH)
+    if path != "fused":
+        raise AssertionError(f"make_step's default at Polar({n}, {k}) "
+                             f"B={BATCH} is {path!r}, not the fused step")
+    _reset(step_kernel.launches, step_kernel.plain_calls)
+    t0 = time.perf_counter()
+    res = pt.run_campaign(code, device=dev, seed=8, batch=BATCH,
+                          snr_range=(-1.0, 0.0), snr_step=0.2,
+                          max_frames_per_point=2 * BATCH,
+                          measure_throughput=False)
+    wall = time.perf_counter() - t0
+    step_launches = dict(step_kernel.launches)
+    if (step_launches["mc_step"] == 0 or step_launches["walk_step"]
+            or max(step_kernel.plain_calls.values())):
+        raise AssertionError(f"default-path campaign launches {step_launches},"
+                             f" plain calls {step_kernel.plain_calls}")
+    launched["mc_step"] = step_launches["mc_step"]
+    phase("5", f"campaign through make_step's default path at "
+          f"Polar({n}, {k}) B={BATCH}: {len(res.points)} "
+          f"points in {wall:.1f} s; step launches {step_launches}; plain calls "
+          f"{step_kernel.plain_calls}")
     campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
 
     # -- 6. timings, kernel against plain version --------------------------
@@ -1621,11 +1717,23 @@ def main() -> int:
         phase("6", f"{name}: tile kernel {t[0]:.3f}, {t[1]:.3f} ms; walk "
               f"{w[0]:.3f}, {w[1]:.3f} ms ({earlier[name] / times[name][0]:.2f}x) "
               f"at Polar({n}, {k}) B={BATCH} ({card})")
-    kw = dict(seeds=(99, 98), call=1, batch=BATCH, device=dev)
+    # the fused step: the tile step and the walk it replaces in turns, at
+    # the default path's shape (B = BATCH, the kernels line) and at
+    # B = 4096, the batch of phase 12's campaign at this code
+    for b_t in (4096, BATCH):
+        kw = dict(seeds=(99, 98), call=1, batch=b_t, device=dev)
+        run = (program, frozen, snr_params(1.0), True)
+        tile = lambda: step_kernel.step(*run, **kw)  # noqa: E731
+        walk = lambda: step_kernel.step(*run, style="walk", **kw)  # noqa: E731
+        t = [ms(tile, 20)]
+        w = [ms(walk, 20), ms(walk, 20)]
+        t.append(ms(tile, 20))
+        phase("6", f"mc_step: tile step {t[0]:.3f}, {t[1]:.3f} ms; walk "
+              f"{w[0]:.3f}, {w[1]:.3f} ms ({sum(w) / sum(t):.2f}x) at "
+              f"Polar({n}, {k}) B={b_t} systematic ({card})")
     times["mc_step"] = (
-        ms(lambda: step_kernel.step(program, frozen, snr_params(1.0), True, **kw), 20),
-        ms(lambda: step_kernel.step_plain(program, frozen, snr_params(1.0), True,
-                                          **kw), 3))
+        sum(t) / 2, ms(lambda: step_kernel.step_plain(*run, **kw), 3))
+    earlier["mc_step"] = sum(w) / 2
     for name, (t_k, t_p) in times.items():
         phase("6", f"{name}: kernel {t_k:.3f} ms ({BATCH / t_k * 1e3:.4g} frames/s), "
               f"plain {t_p:.3f} ms ({BATCH / t_p * 1e3:.4g} frames/s) at "
@@ -1646,6 +1754,7 @@ def main() -> int:
         work.update(more["work"])
         launched.update(more["launched"])
         library.update(more.get("library", {}))
+        earlier.update(more.get("earlier", {}))
 
     replaces = {
         "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",   # + fastssc_simd.cuh

@@ -54,8 +54,9 @@ from .ops.cuda import (channel_kernel, count_kernel, encode_kernel,
                        front_kernel, interp_kernel, step_kernel)
 from .utils.benchmark import measure_decode_fps
 
-# Levels at which make_step runs the fused step kernel for int8 codes. The
-# kernel keeps every frame's columns in device memory, so no level is
+# Levels at which make_step runs the fused step kernel for int8 codes. Up to
+# step_kernel.STEP_TILE_MAX_LEVEL that is the tile step; above it the walk,
+# which keeps every frame's columns in device memory, so no level is
 # excluded by on-chip memory; the ceiling is the largest level checked on
 # the card against the plain chain (chip_smoke.py, phase 3).
 STEP_KERNEL_MIN_LEVEL = 2
@@ -102,17 +103,45 @@ STEP_KERNEL_MAX_LEVEL = 16
 #   block-hybrid's 861.7k, which front_branch gives only from m = 14);
 # - plain m = 9 below AUTO_BIG_BATCH back to the fused step: 7.39M against
 #   the draws' 4.87M (the first call: 7.46M against 4.98M).
-# Systematic m = 8 stayed fused: block-whole led at 32768 in one call
-# (74.06M against 68.21M) and trailed in the other (49.18M against 68.46M).
+# With the tile step as the fused step (step_ab --levels 6-14, the walk an
+# arm, "fused walk"; same card) the fused step took every cell from m = 6 to
+# 11 and plain m = 12 below AUTO_BIG_BATCH, by 5-266 % (frames/s, B = 4096
+# / 32768):
+# - systematic m = 9: 24.98M / 71.79M against block-whole's 6.82M / 34.87M
+#   (the walk 4.95M / 24.47M);
+# - m = 10: systematic 15.94M / 21.93M against the draws' 4.96M / 12.95M,
+#   plain 16.75M / 33.62M against 4.79M / 15.94M (the walk 1.93M / 5.28M,
+#   2.70M / 8.56M);
+# - m = 11: systematic 4.32M / 6.38M against the draws' 3.87M / 5.81M, plain
+#   9.59M / 9.85M against 5.29M / 7.29M;
+# - plain m = 12 below AUTO_BIG_BATCH: 2.61M against the draws' 2.50M.
+# At m = 12 one systematic tile fills an SM's shared memory and the tile
+# step trailed: systematic m = 12 went to the draws (2.12M / 2.27M against
+# block-whole's 1.88M / 2.20M and the fused step's 1.18M / 1.19M), plain
+# m = 12 from AUTO_BIG_BATCH stayed with them (3.13M against 2.66M). A
+# second call (--levels 13-17, with decode.auto's table moved to the tile
+# hybrid; a path moves where another leads it by more than 1 %; where both
+# calls ran the same arms, their mean):
+# - systematic m = 13 from AUTO_BIG_BATCH to the draws: 925.5k against the
+#   front's (block-whole) 851.4k; block-hybrid read 1023.9k, but
+#   front_branch gives the hybrid only from HYBRID_MIN_LEVEL;
+# - systematic m = 14 below AUTO_BIG_BATCH to the front (block-hybrid):
+#   252.0k against the draws' 242.1k (245.6-235.5k / 205.8-190.9k in the
+#   second call, 279-248k / 321-252k in the first);
+# - systematic m = 16 to the draws: 66.6k against the front's 59.4k;
+# - plain m = 16 to the front: 82.7k against the draws' 73.4k;
+# and left plain m = 14 below AUTO_BIG_BATCH with the draws (288.3k against
+# the front's 267.8k over both calls; the second alone 213.6k against
+# 225.5k), systematic m = 15 (the front 127.0k against 126.5k, 0.4 %) and
+# plain m = 15, 17 (the front 133.0k against 135.0k; 39.4k against 39.6k).
 AUTO_BIG_BATCH = 16384
 AUTO_STEP_PATH = {
-    **{(m, s): ("fused", "fused") for m in range(2, 10) for s in (True, False)},
-    (9, True): ("front", "front"),
-    (10, True): ("draws", "draws"), (10, False): ("draws", "draws"),
-    (11, True): ("front", "draws"), (12, True): ("front", "draws"),
-    (13, True): ("draws", "front"), (14, True): ("draws", "front"),
-    (15, True): ("draws", "draws"),
-    **{(m, False): ("draws", "draws") for m in range(11, 18)}}
+    **{(m, s): ("fused", "fused") for m in range(2, 12) for s in (True, False)},
+    (12, True): ("draws", "draws"), (12, False): ("fused", "draws"),
+    (13, True): ("draws", "draws"), (14, True): ("front", "front"),
+    (15, True): ("draws", "draws"), (16, True): ("draws", "draws"),
+    **{(m, False): ("draws", "draws") for m in (13, 14, 15, 17)},
+    (16, False): ("front", "front")}
 
 # The front path's branches (polar_tpu/ber.py:193-279), by level; the JAX
 # package's thresholds are VMEM facts about the TPU. Systematic codes at
@@ -462,7 +491,8 @@ def make_front_step(code: PolarCode, *, systematic: bool = True,
 
 def make_step(code: PolarCode, *, systematic: bool = True, dtype=torch.int8,
               decoder=None, compute=None, fused: str | bool = "auto",
-              front_decode_cfg: int | None = None, device):
+              front_decode_cfg: int | None = None, step_style: str = "ssa",
+              device):
     """Build the Monte-Carlo step: ``step(gen, snr_db, batch)`` → the
     counter dict (0-d int64 tensors on ``device``).
 
@@ -484,7 +514,13 @@ def make_step(code: PolarCode, *, systematic: bool = True, dtype=torch.int8,
     of the default (``polar_tpu/ber.py:167-176``); a measurement hook.
     It raises ``ValueError`` when the configuration does not take the
     front path's hybrid branch at every batch, where it would be
-    ignored."""
+    ignored.
+
+    ``step_style``: the fused step's kernel style
+    (``step_kernel.STEP_STYLES``: ``"ssa"``, the tile step where it fits,
+    or ``"walk"``); a measurement hook for the step A/B."""
+    if step_style not in step_kernel.STEP_STYLES:
+        raise ValueError(f"unknown step style {step_style!r}")
     if fused is True and not step_kernel_eligible(code, dtype, compute):
         raise ValueError(
             f"fused step supports int8 codes (no compute override) at levels "
@@ -505,7 +541,8 @@ def make_step(code: PolarCode, *, systematic: bool = True, dtype=torch.int8,
                 "ignored")
     steps = {path: _path_step(code, path, systematic=systematic, dtype=dtype,
                               decoder=decoder, compute=compute,
-                              kernel_level=front_decode_cfg, device=device)
+                              kernel_level=front_decode_cfg,
+                              step_style=step_style, device=device)
              for path in set(paths)}
     if len(steps) == 1:
         return steps[paths[0]]
@@ -517,7 +554,7 @@ def make_step(code: PolarCode, *, systematic: bool = True, dtype=torch.int8,
 
 
 def _path_step(code: PolarCode, path: str, *, systematic: bool, dtype,
-               decoder, compute, kernel_level, device):
+               decoder, compute, kernel_level, step_style, device):
     """:func:`make_step`'s step on one of :func:`_step_path`'s paths."""
     if path == "draws" and decoder is None:
         decoder = _default_decoder(code, systematic, dtype, compute, device)
@@ -534,7 +571,7 @@ def _path_step(code: PolarCode, path: str, *, systematic: bool, dtype,
     def fused_step(gen, snr_db, batch: int):
         t = step_kernel.step(program, code.frozen, snr_params(snr_db),
                              systematic, seeds=_philox_seeds(gen), call=0,
-                             batch=batch, device=device)
+                             batch=batch, device=device, style=step_style)
         return dict(zip(step_kernel.COUNTERS, t))
 
     return fused_step

@@ -57,50 +57,23 @@ __global__ void fastssc_decoder_kernel(const uint8_t* __restrict__ prog,
   if (cw != nullptr) polar::reencode(frozen, n, m, polar::Col{cw + f, b});
 }
 
-template <int WR, int VW, bool CW>
+template <bool CW>
+using DecoderTile = polar::simd::Tile<polar::simd::kTileWR,
+                                      polar::simd::kTileVW, CW>;
+
+template <bool CW>
 __global__ void tile_decoder_kernel(const uint8_t* __restrict__ prog,
                                     const int8_t* llr, int8_t* mesg,
                                     int8_t* cw, int n, int batch,
                                     int aligned) {
   extern __shared__ uint32_t smem[];
-  using T = polar::simd::Tile<WR, VW, CW>;
-  constexpr int kFrames = 4 * WR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (tile * kFrames >= batch) return;  // a whole warp: no barrier below
-  uint32_t* base = smem + (size_t)warp * (CW ? 3 : 2) * n * WR;
+  using T = DecoderTile<CW>;
   T t;
-  t.soft = base;
-  t.hard = base + n * WR;
-  t.cw = CW ? base + 2 * n * WR : nullptr;
-  t.llr = llr;
-  t.mesg = mesg;
-  t.batch = batch;
-  t.w = lane % T::kLanesRow * VW;
-  t.r0 = lane / T::kLanesRow;
-  t.f = (int)(tile * kFrames) + 4 * t.w;
-  t.aligned = aligned != 0;
+  // a whole warp returns: no barrier below
+  if (!t.bind(smem, n, llr, mesg, batch, aligned)) return;
   t.decode(prog, n);
   if (CW)
     for (int r = t.r0; r < n; r += T::kPass) t.store(cw, r, t.at(t.cw, r));
-}
-
-template <int WR, int VW, bool CW>
-int launch_tile(const void* prog, const void* llr, void* mesg, void* cw,
-                int n, int batch, int warps, int aligned,
-                cudaStream_t stream) {
-  const int bytes = warps * (CW ? 3 : 2) * n * WR * 4;
-  // above 48 KB a block's dynamic shared memory must be granted first
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_decoder_kernel<WR, VW, CW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = ((long long)batch + 4 * WR - 1) / (4 * WR);
-  const int blocks = (int)((tiles + warps - 1) / warps);
-  tile_decoder_kernel<WR, VW, CW><<<blocks, 32 * warps, bytes, stream>>>(
-      (const uint8_t*)prog, (const int8_t*)llr, (int8_t*)mesg, (int8_t*)cw, n,
-      batch, aligned);
-  return (int)cudaGetLastError();
 }
 
 // Each thread packs four (a, b) pairs of the 65,536 into words and checks
@@ -169,23 +142,24 @@ extern "C" int polar_decode(const void* prog, const void* frozen,
 }
 
 // The tile kernel on `stream`: tiles of 8 frames, two words a lane
-// (WHOLE_FRAMES in the wrapper), `warps` tiles a block, warps * 8 * n * (2,
-// or 3 with cw) bytes of shared memory. llr (n, batch) in; mesg (k, batch)
-// and, when not null, cw (n, batch) out; all int8, element-major.
+// (polar::simd::kTileWR / kTileVW), `warps` tiles a block,
+// warps * 8 * n * (2, or 3 with cw) bytes of shared memory. llr (n, batch)
+// in; mesg (k, batch) and, when not null, cw (n, batch) out; all int8,
+// element-major.
 // aligned != 0: batch % 16 == 0 and every array starts on a 16-byte
 // boundary. Returns the CUDA error of the attribute call or of the launch.
 extern "C" int polar_tile_decode(const void* prog, const void* llr,
                                  void* mesg, void* cw, int n, int batch,
                                  int warps, int aligned, void* stream) {
-  // The one tile shape built: a row of a tile is 2 words (8 frames), both
-  // on one lane. Why this shape: WHOLE_FRAMES in the wrapper.
-  constexpr int kWR = 2, kVW = 2;
-  const cudaStream_t s = (cudaStream_t)stream;
+  namespace s = polar::simd;
+  const cudaStream_t st = (cudaStream_t)stream;
   return cw != nullptr
-             ? launch_tile<kWR, kVW, true>(prog, llr, mesg, cw, n, batch,
-                                           warps, aligned, s)
-             : launch_tile<kWR, kVW, false>(prog, llr, mesg, cw, n, batch,
-                                            warps, aligned, s);
+             ? s::launch_tiles<DecoderTile<true>>(
+                   tile_decoder_kernel<true>, n, batch, warps, st, prog, llr,
+                   mesg, cw, n, batch, aligned)
+             : s::launch_tiles<DecoderTile<false>>(
+                   tile_decoder_kernel<false>, n, batch, warps, st, prog, llr,
+                   mesg, cw, n, batch, aligned);
 }
 
 // The packed-primitive self-test on `stream`: bad (8) int32, zeroed by the

@@ -1,5 +1,6 @@
 // Fast-SSC decode of a tile of frames by one warp, four frames to a 32-bit
-// word: the device core of the whole-code tile decoder (decoder.cu).
+// word: the device core of the whole-code tile decoder (decoder.cu), the
+// tile subtree decoder (subtree.cu) and the tile Monte-Carlo step (step.cu).
 //
 // Replaces the body of polar_tpu/ops/pallas/decoder_kernel.py:_SsaBuilder
 // (_ssa_decoder_kernel :404 and _ssa_decoder_kernel_cw :410), as
@@ -48,6 +49,13 @@
 // SPC flips every position whose qabs equals the minimum (every tie); REP
 // folds in halves in fastssc_decode's order.
 //
+// Two callers need more than the whole-code decoder, each a template flag
+// that leaves the decoder's instance as it was: ROOT_SMEM takes the root
+// input from n on-chip rows (`root`) that the caller fills first (a fused
+// parent f or g, or the step's quantized LLRs) in place of device memory;
+// EMIT_U = false emits no message rows (a node or step that needs the cw
+// track alone).
+//
 // What bounds it on the card: the latency of each op's dependent chain
 // (shared-memory loads, the emulated byte-SIMD arithmetic, a warp barrier)
 // with the few warps an SM can hold: a tile takes 2 n (u) or 3 n (cw) bytes
@@ -55,6 +63,8 @@
 // wrapper (ops/cuda/decoder_kernel.py) sizes the tile and sends codes above
 // WHOLE_MAX_LEVEL to the one-thread-a-frame walk.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -155,17 +165,27 @@ POLAR_SIMD_LIFT3(spc_flip)
 #undef POLAR_SIMD_LIFT2
 #undef POLAR_SIMD_LIFT3
 
+// The one tile shape the kernels build: a row of a tile is 2 words (8
+// frames), both on one lane. Why this shape: WHOLE_FRAMES in
+// ops/cuda/decoder_kernel.py.
+constexpr int kTileWR = 2, kTileVW = 2;
+
 // One warp's tile: WR words a row, VW of them a lane; CW: the codeword
-// track is on.
-template <int WR, int VW, bool CW>
+// track is on; ROOT_SMEM: the root input is on chip; EMIT_U: the message
+// rows are stored.
+template <int WR, int VW, bool CW, bool ROOT_SMEM = false, bool EMIT_U = true>
 struct Tile {
   using V = Vec<VW>;
-  static constexpr int kLanesRow = WR / VW;   // lanes that share a row
+  static constexpr int kFrames = 4 * WR;        // frames a tile
+  static constexpr int kLanesRow = WR / VW;     // lanes that share a row
   static constexpr int kPass = 32 / kLanesRow;  // rows a warp covers a pass
+  // shared regions of n rows a warp: soft, hard, cw (CW), root (ROOT_SMEM)
+  static constexpr int kRegions = 2 + CW + ROOT_SMEM;
   uint32_t* soft;   // n rows: a node of len < n reads rows [len, 2 len)
   uint32_t* hard;   // n rows: the hard-decision stack
   uint32_t* cw;     // n rows: the codeword stack (CW only)
-  const int8_t* llr;   // the root LLRs (n, batch), device memory
+  uint32_t* root;   // n rows: the root input (ROOT_SMEM only)
+  const int8_t* llr;   // the root LLRs (n, batch), device memory (else)
   int8_t* mesg;        // the message (k, batch)
   long long batch;
   int f;               // this lane's first frame
@@ -173,6 +193,33 @@ struct Tile {
   int w;               // this lane's first word of a row
   bool aligned;        // batch % 16 == 0 and the arrays start on 16 bytes:
                        // every lane's bytes of every row do
+
+  // Binds this lane to its warp's tile of the block: tile blockIdx.x *
+  // warps + warp, its regions at kRegions * n * WR words a warp of the
+  // block's dynamic shared memory `smem`, in the order of kRegions. False
+  // when the whole tile lies past the batch (the warp has no frame).
+  __device__ __forceinline__ bool bind(uint32_t* smem, int n,
+                                       const int8_t* llr_, int8_t* mesg_,
+                                       int batch_, int aligned_) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+    if (tile * kFrames >= batch_) return false;
+    uint32_t* base = smem + (size_t)warp * kRegions * n * WR;
+    soft = base;
+    hard = base + n * WR;
+    cw = CW ? base + 2 * n * WR : nullptr;
+    root = ROOT_SMEM ? base + (kRegions - 1) * n * WR : nullptr;
+    llr = llr_;
+    mesg = mesg_;
+    batch = batch_;
+    w = lane % kLanesRow * VW;
+    r0 = lane / kLanesRow;
+    f = (int)(tile * kFrames) + 4 * w;
+    aligned = aligned_ != 0;
+    return true;
+  }
+  // the tile's first frame
+  __device__ __forceinline__ int first() const { return f - 4 * w; }
 
   // A lane's words of a device row. The tail of the last tile is masked
   // explicitly: frames at or past `batch` read as 0 and are never stored.
@@ -197,9 +244,12 @@ struct Tile {
     return *reinterpret_cast<V*>(a + r * WR + w);
   }
   // row r of the input of a node whose input starts at pyramid row `base`
-  // (0: the root, in device memory)
+  // (0: the root, on chip or in device memory)
   __device__ __forceinline__ V in(int base, int r) const {
-    return base == 0 ? load(llr, r) : at(soft, base + r);
+    if constexpr (ROOT_SMEM)
+      return base == 0 ? at(root, r) : at(soft, base + r);
+    else
+      return base == 0 ? load(llr, r) : at(soft, base + r);
   }
 
   // In-place polar transform of rows [0, len) of t: every stage's pairs
@@ -218,8 +268,9 @@ struct Tile {
   // Rows [from, len) of the scratch `t` to the message rows from moff on
   __device__ __forceinline__ void emit(uint32_t* t, int from, int len,
                                        int moff) const {
-    for (int i = r0 + from; i < len; i += kPass)
-      store(mesg, moff + i - from, at(t, i));
+    if constexpr (EMIT_U)
+      for (int i = r0 + from; i < len; i += kPass)
+        store(mesg, moff + i - from, at(t, i));
   }
 
   // Rows [o, o + len) of `a`, all `v`
@@ -302,7 +353,7 @@ struct Tile {
           const V bit = signum(at(soft, 0));
           fill(hard, hoff, len, bit);
           if (CW) fill(cw, hoff, len, bit);
-          if (r0 == 0) store(mesg, moff, bit);
+          if (EMIT_U && r0 == 0) store(mesg, moff, bit);
           ++moff;
           break;
         }
@@ -394,6 +445,26 @@ struct Tile {
     }
   }
 };
+
+// Launches `kernel` over the tiles of `batch` frames on `stream`, `warps`
+// tiles a block, each warp T::kRegions regions of n rows of T's words in
+// dynamic shared memory; `args` go to the kernel as its parameters. Returns
+// the CUDA error of the attribute call or of the launch.
+template <typename T, typename... P, typename... A>
+int launch_tiles(void (*kernel)(P...), int n, int batch, int warps,
+                 cudaStream_t stream, A... args) {
+  static_assert(sizeof...(P) == sizeof...(A), "one argument a parameter");
+  // a row of a region: one byte a frame of the tile
+  const int bytes = warps * T::kRegions * n * T::kFrames;
+  // above 48 KB a block's dynamic shared memory must be granted first
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((long long)batch + T::kFrames - 1) / T::kFrames;
+  const int blocks = (int)((tiles + warps - 1) / warps);
+  kernel<<<blocks, 32 * warps, bytes, stream>>>((P)args...);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace simd
 }  // namespace polar

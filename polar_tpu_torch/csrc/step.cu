@@ -1,11 +1,15 @@
-// Monte-Carlo BER step kernels, one thread per frame, over the two halves
-// in mc.cuh:
+// Monte-Carlo BER step kernels:
 //
-//   mc_step_kernel — the fused step: message -> encode -> AWGN -> quantize
-//     -> Fast-SSC decode -> the five testbench counters. Replaces
+//   tile_step_kernel — the fused step on the tile core (fastssc_simd.cuh):
+//     message -> encode -> AWGN -> quantize -> Fast-SSC decode -> the five
+//     testbench counters, a warp a tile of 8 frames. Replaces
 //     polar_tpu/ops/pallas/step_kernel.py:make_pallas_step
-//     (_step_kernel_native / _step_kernel_inject, _chain, _front,
-//     _count_and_store).
+//     (_step_kernel_native :302 / _step_kernel_inject :315, _chain :248,
+//     _front :225, _count_and_store :182) up to the wrapper's
+//     STEP_TILE_MAX_LEVEL;
+//   mc_step_kernel — the same function one thread a frame over the two
+//     halves in mc.cuh (the walk): the levels above the tile's, and by name
+//     (style="walk") for the A/B;
 //   front_whole_kernel — the front half alone, systematic: (llr, cw) out.
 //     Replaces step_kernel.py:make_pallas_front (:632),
 //     _front_kernel_native (:611) / _front_kernel_inject (:623) over _front
@@ -33,8 +37,29 @@
 // The front kernel draws the fused step's words, so the front plus
 // decode+count counts what the fused step counts on the same seeds.
 //
-// What bounds them on the card: like the decoder, the latency of per-row
-// byte accesses to the frame's columns in device memory; the front half adds
+// The tile step. A warp's lanes draw its 8 frames, each lane whole Philox
+// blocks of one frame (4 consecutive message rows; 4 radius rows and their
+// Box-Muller partners at N/2 + i), so each block is computed once; they
+// write the symbols, then the quantized LLRs, byte by byte into shared rows
+// of four frames a word. The encode is Tile::transform on those packed +-1
+// words, the decode Tile::decode from the on-chip root, on the cw track in
+// systematic mode, where the cw stack's rows are the estimate (no
+// re-encode), and on the u track in plain mode, whose message rows go to
+// device scratch. The transmitted codeword (systematic) or u0 (plain) goes
+// to device scratch (n, B) for the count. Counters are packed: per-byte
+// error and zero masks at the info rows (the `info` table), __popc of their
+// byte flags, a per-byte OR of the error masks across the lanes
+// (shuffles) for the frame errors; the channel counters are counted where
+// each LLR is made. Frames past the batch are drawn and decoded but never
+// counted or stored. Shared memory: soft pyramid, hard stack, root and, in
+// systematic mode, the cw stack, n bytes a frame each. What bounds it: the
+// decode's op latency with the warps that leaves an SM, and the draws'
+// Philox and Box-Muller work; above the tile's level limit the step runs
+// mc_step_kernel.
+//
+// What bounds the other kernels on the card: like the walk, the latency of
+// per-row byte accesses to the frame's columns in device memory; the front
+// half adds
 // two Philox blocks and one Box-Muller per row pair, the split adds one
 // write and one read of llr and cw, (N, B) bytes each. The design keeps
 // every stage in the one thread that owns the frame, so nothing crosses
@@ -44,9 +69,15 @@
 
 #include <cuda_runtime.h>
 
+#include "fastssc_simd.cuh"
 #include "mc.cuh"
 
 namespace {
+
+// the cw track in systematic mode, the message rows in plain mode
+template <bool SYS>
+using StepTile = polar::simd::Tile<polar::simd::kTileWR,
+                                   polar::simd::kTileVW, SYS, true, !SYS>;
 
 __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
                                const uint8_t* __restrict__ frozen, int n,
@@ -83,6 +114,132 @@ __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
         frame_err |= e;
       }
       cnt[1] = frame_err;
+    }
+  }
+  polar::store_block_counts(cnt, out);
+}
+
+template <bool SYS>
+__global__ void tile_step_kernel(
+    const uint8_t* __restrict__ prog, const uint8_t* __restrict__ frozen,
+    const int* __restrict__ info, int n, int k, int batch, float sigma,
+    float scale, const int8_t* __restrict__ msg_in,
+    const float* __restrict__ normals_in, uint32_t seed0, uint32_t seed1,
+    uint32_t call, int8_t* tx, int8_t* mesg, int aligned, int* out) {
+  extern __shared__ uint32_t smem[];
+  using T = StepTile<SYS>;
+  using V = typename T::V;
+  namespace s = polar::simd;
+  constexpr int kVW = polar::simd::kTileVW;
+  int cnt[polar::kCounters] = {0, 0, 0, 0, 0};
+  T t;
+  // soft, hard, (cw,) root; a whole warp skips, and every warp counts below
+  if (t.bind(smem, n, nullptr, mesg, batch, aligned)) {
+    // the draws: frame `fl` of the tile, blocks q, q + 4, ... of its rows
+    const int lane = threadIdx.x & 31;
+    const int fl = lane % T::kFrames, q = lane / T::kFrames;
+    constexpr int kStep = 32 / T::kFrames;
+    const int f = t.first() + fl;
+    const bool live = f < batch;
+    const long long b = batch;
+    const bool inject = msg_in != nullptr;
+    const uint2 key = make_uint2(seed0, seed1);
+    int8_t* soft_b = reinterpret_cast<int8_t*>(t.soft) + fl;
+    int8_t* root_b = reinterpret_cast<int8_t*>(t.root) + fl;
+    constexpr int kRowBytes = T::kFrames;  // a byte a frame
+    // 1. u0 = frozen ? +1 : the symbol of word N + i (rows 4j..4j+3 are one
+    // Philox block, n >= 4)
+    for (int j = q; 4 * j < n; j += kStep) {
+      polar::PhiloxStream words(key, (uint32_t)f, call);
+      for (int i = 4 * j; i < 4 * j + 4; ++i) {
+        int8_t sym = 1;
+        if (!__ldg(frozen + i))
+          sym = inject ? (live ? msg_in[(long long)i * b + f] : (int8_t)1)
+                       : (int8_t)(1 - 2 * (int)(words.word(n + i) & 1u));
+        soft_b[i * kRowBytes] = sym;
+      }
+    }
+    __syncwarp();
+    // 2. cw = T(u0); systematic: refreeze, T again. The count's reference
+    // (u0 or cw) to device scratch.
+    if (!SYS) {
+      for (int r = t.r0; r < n; r += T::kPass) t.store(tx, r, t.at(t.soft, r));
+      __syncwarp();
+    }
+    t.transform(t.soft, n);
+    if (SYS) {
+      for (int r = t.r0; r < n; r += T::kPass)
+        if (__ldg(frozen + r)) t.at(t.soft, r) = s::splat<kVW>(s::kOnes);
+      __syncwarp();
+      t.transform(t.soft, n);
+      for (int r = t.r0; r < n; r += T::kPass) t.store(tx, r, t.at(t.soft, r));
+    }
+    // 3. llr = quantize(cw + sigma * normal): rows i (radius word i) and
+    // N/2 + i (angle word N/2 + i) of Box-Muller pair i, into the root rows;
+    // the channel counters of each live LLR
+    const int h = n >> 1;
+    for (int j = q; 4 * j < h; j += kStep) {
+      polar::PhiloxStream radius_words(key, (uint32_t)f, call);
+      polar::PhiloxStream angle_words(key, (uint32_t)f, call);
+      for (int i = 4 * j; i < min(4 * j + 4, h); ++i) {
+        float n0 = 0.0f, n1 = 0.0f;
+        if (!inject) {
+          polar::box_muller(radius_words.word(i), angle_words.word(h + i),
+                            &n0, &n1);
+        } else if (live) {
+          n0 = normals_in[(long long)i * b + f];
+          n1 = normals_in[(long long)(h + i) * b + f];
+        }
+        const int rows[2] = {i, h + i};
+        const float nz[2] = {n0, n1};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cwv = soft_b[rows[e] * kRowBytes];
+          const int8_t l = polar::quantize((float)cwv, nz[e], sigma, scale);
+          root_b[rows[e] * kRowBytes] = l;
+          if (live) {
+            cnt[3] += (l != 0) & ((l < 0) != (cwv < 0));
+            cnt[4] += l == 0;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    // 4. decode (every op ends with a warp barrier)
+    t.decode(prog, n);
+    // 5. at info row info[m] (the m-th message row): the estimate (the cw
+    // stack, or message row m) against the reference, byte masks of the
+    // live frames
+    uint32_t live_mask[kVW], frame_err[kVW];
+#pragma unroll
+    for (int v = 0; v < kVW; ++v) {
+      live_mask[v] = 0;
+      frame_err[v] = 0;
+      for (int j = 0; j < 4; ++j)
+        if (t.f + 4 * v + j < batch) live_mask[v] |= 0xFFu << (8 * j);
+    }
+    for (int m = t.r0; m < k; m += T::kPass) {
+      const int i = __ldg(info + m);
+      const V hat = SYS ? t.at(t.cw, i) : t.load(mesg, m);
+      const V ref = t.load(tx, i);
+#pragma unroll
+      for (int v = 0; v < kVW; ++v) {
+        const uint32_t e = __vcmpne4(hat.x[v], ref.x[v]) & live_mask[v];
+        const uint32_t z = __vcmpeq4(hat.x[v], 0u) & live_mask[v];
+        cnt[0] += __popc(e & s::kOnes);
+        cnt[2] += __popc(z & s::kOnes);
+        frame_err[v] |= e;
+      }
+    }
+    // a frame's errors over every lane that holds its word
+    for (int o = T::kLanesRow; o < 32; o <<= 1) {
+#pragma unroll
+      for (int v = 0; v < kVW; ++v)
+        frame_err[v] |= __shfl_xor_sync(0xFFFFFFFFu, frame_err[v], o);
+    }
+    if (t.r0 == 0) {
+#pragma unroll
+      for (int v = 0; v < kVW; ++v) cnt[1] += __popc(frame_err[v] & s::kOnes);
     }
   }
   polar::store_block_counts(cnt, out);
@@ -132,7 +289,36 @@ __global__ void decode_count_kernel(const uint8_t* __restrict__ prog,
 
 }  // namespace
 
-// Launch on `stream`. Inject mode: msg (n, batch) int8 ±1 and normals
+// The tile step on `stream`: tiles of 8 frames, `warps` tiles a block,
+// warps * 8 * n * (4 systematic, 3 plain) bytes of shared memory; n >= 4.
+// info: the k info rows (int32, increasing). Inject and native modes as
+// polar_step's. Scratch: tx (n, batch) int8, the transmitted codeword
+// (systematic) or u0 (plain); mesg (k, batch) int8 (plain mode only). out
+// (blocks, 5) int32, blocks = ceil(ceil(batch / 8) / warps). aligned != 0:
+// batch % 16 == 0 and tx and mesg start on 16-byte boundaries. Returns the
+// CUDA error of the attribute call or of the launch.
+extern "C" int polar_tile_step(const void* prog, const void* frozen,
+                               const void* info, int n, int k, int batch,
+                               int systematic, float sigma, float scale,
+                               const void* msg, const void* normals,
+                               unsigned int seed0, unsigned int seed1,
+                               unsigned int call, void* tx, void* mesg,
+                               void* out, int warps, int aligned,
+                               void* stream) {
+  namespace s = polar::simd;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return systematic
+             ? s::launch_tiles<StepTile<true>>(
+                   tile_step_kernel<true>, n, batch, warps, st, prog, frozen,
+                   info, n, k, batch, sigma, scale, msg, normals, seed0,
+                   seed1, call, tx, mesg, aligned, out)
+             : s::launch_tiles<StepTile<false>>(
+                   tile_step_kernel<false>, n, batch, warps, st, prog, frozen,
+                   info, n, k, batch, sigma, scale, msg, normals, seed0,
+                   seed1, call, tx, mesg, aligned, out);
+}
+
+// The walk on `stream`. Inject mode: msg (n, batch) int8 ±1 and normals
 // (n, batch) float32; native mode: msg and normals null, words from Philox
 // keyed by (seed0, seed1) with counter word 2 = call. Scratch u, c, llr,
 // soft, hard (n, batch) and mesg (k, batch) int8; out (blocks, 5) int32.

@@ -72,21 +72,36 @@ HYBRID_KERNEL_LEVEL = 9
 # and stayed out of u m = 6 (scratch 0.046 / 0.048 against 0.099 / 0.053),
 # u m = 7 from BIG_BATCH (0.074 against 0.090) and cw m = 13 from BIG_BATCH
 # (28.649 against the interp hybrid's 28.520).
-# From the earlier A/B (--levels 6-17, the walk as "ssa"):
-# - below BIG_BATCH, the hybrid in the scratch style: u m = 13, 15, 16, 17
-#   (7.83, 23.91, 49.98, 101.47 against 8.26, 25.78, 54.84, 109.89; m = 14
-#   tied), cw m = 13..17 (7.35, 15.05, 33.05, 64.90, 134.62 against 9.03,
-#   17.20, 35.98, 70.39, 140.90);
-# - cw, m = 13, 14 from BIG_BATCH: the hybrid in the interp style, 28.49,
-#   63.49 against 28.99, 64.31.
+# From the earlier A/B (--levels 6-17, the walk as "ssa", the walk as the
+# SSA hybrid's subtree kernel): the scratch hybrid below BIG_BATCH at u
+# m = 13, 15, 16, 17 and cw m = 13..17; the interp hybrid for cw m = 13, 14
+# from BIG_BATCH. With the tile kernel as the SSA hybrid's subtree kernel
+# (--levels 13-17, the walk hybrid an arm; frame- / lane-major ms, tile
+# hybrid against the style it replaced) the SSA hybrid moved in for
+# - u and cw, m = 13 from BIG_BATCH: u 23.316 / 19.239 against the
+#   whole-code kernel's 25.764 / 22.898; cw 25.885 / 22.118 against the
+#   interp hybrid's 32.128 / 28.272 (and the whole-code kernel's 28.665);
+# - cw, m = 14 (B = 4096 / 32768, lane-major): 13.961 / 52.760 against the
+#   scratch hybrid's 14.932 and the interp hybrid's 63.168; frame-major
+#   14.205 against 15.997;
+# - cw m = 15, 16, 17 below BIG_BATCH: 30.205 / 28.088, 55.224 / 56.791,
+#   102.632 / 111.002 against the scratch hybrid's 33.014 / 31.240,
+#   69.881 / 65.821, 140.835 / 132.603;
+# - u m = 16, 17 below BIG_BATCH: 46.923 / 42.591, 99.547 / 91.799 against
+#   the scratch hybrid's 50.596 / 47.514 and 102.922 / 97.123;
+# and stayed out of u m = 15 below BIG_BATCH (24.541 / 20.664 against the
+# scratch hybrid's 24.250 / 23.702: behind frame-major by the mean, ahead
+# lane-major by less than its own spread, 16.967-24.362) and m = 13 below
+# BIG_BATCH (the whole-code kernel's 2.926 / 3.660, u / cw lane-major,
+# against 5.031 / 5.870). At u m = 14 below BIG_BATCH it stays the default:
+# the scratch hybrid led frame-major (11.803 against 12.730) and trailed
+# lane-major (11.596 against 11.338). The walk hybrid led no cell.
 BIG_BATCH = 16384
 INTERP_SUBTREE_LEVEL = 5
 AUTO_DECODERS = {
     (6, False): ("scratch", "scratch"), (7, False): ("ssa", "scratch"),
-    (13, True): ("ssa", "hybrid-interp"),
-    (14, True): ("hybrid-scratch", "hybrid-interp"),
-    **{(m, cw): ("hybrid-scratch", "hybrid")
-       for m in (15, 16, 17) for cw in (False, True)},
+    (13, False): ("ssa", "hybrid"), (13, True): ("ssa", "hybrid"),
+    (15, False): ("hybrid-scratch", "hybrid"),
 }
 
 

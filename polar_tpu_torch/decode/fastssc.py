@@ -38,7 +38,7 @@ from ..ops.arith import FloatArith, Int8Arith, QuantFloatArith, arith_for
 from ..ops.transform import polar_transform
 
 OUTPUTS = ("u", "systematic", "codeword", "both")
-KERNEL_STYLES = ("ssa", "scratch", "interp")
+KERNEL_STYLES = ("ssa", "walk", "scratch", "interp")
 
 
 class _TreeDecoder:
@@ -232,7 +232,7 @@ def make_kernel_for(kernel_level: int, *, style: str = "ssa",
     ``style`` for CUDA blocks, its plain version for CPU ones), else None.
     One decoder per distinct node pattern, keyed by ``emit_program(node,
     node.level)`` and the fuse mode; ``boundary_fusion`` allows the fused
-    modes (SSA style only). ``emit_u`` / ``emit_cw``: the blocks the
+    modes (SSA and walk styles only). ``emit_u`` / ``emit_cw``: the blocks the
     kernels return beside the node's hard block."""
     from ..ops.cuda.interp_kernel import make_interp_subtree
     from ..ops.cuda.subtree_kernel import make_subtree_decoder
@@ -242,7 +242,7 @@ def make_kernel_for(kernel_level: int, *, style: str = "ssa",
     def kernel_for(node: Node, fuse: str | None = None):
         if node.level > kernel_level or node.mesg_bits < 1:
             return None
-        if fuse and not (boundary_fusion and style == "ssa"):
+        if fuse and not (boundary_fusion and style in ("ssa", "walk")):
             return None
         key = (emit_program(node, node.level).tobytes(), fuse)
         if key not in cache:
@@ -297,10 +297,12 @@ def make_fastssc_decoder(
     ``"systematic"`` and ``"codeword"`` then skip the subtrees' u blocks.
     ``kernel_fuse``: boundary fusion — a kernel-eligible left child runs
     its parent's f, a kernel-eligible right child of a branch its
-    parent's g and combine (the SSA style only; ``"interp"`` raises,
+    parent's g and combine (the SSA and walk styles only; ``"interp"`` raises,
     ``"scratch"`` ignores it, as in JAX). ``kernel_style`` picks the
     subtree kernel (``polar_tpu/decode/fastssc.py:328-394``): ``"ssa"``
-    (:mod:`~polar_tpu_torch.ops.cuda.subtree_kernel`), ``"scratch"`` (its
+    (:mod:`~polar_tpu_torch.ops.cuda.subtree_kernel`: the tile kernel up to
+    its ``TILE_SUBTREE_MAX_LEVEL``, the walk above), ``"walk"`` (the
+    one-thread-a-frame walk at every level, for the A/B), ``"scratch"`` (its
     shared-memory twin: u blocks only, so non-u outputs re-encode û, and
     nodes at most ``decoder_kernel.SCRATCH_MAX_LEVEL``) or ``"interp"``
     (:func:`~polar_tpu_torch.ops.cuda.interp_kernel.make_interp_subtree`

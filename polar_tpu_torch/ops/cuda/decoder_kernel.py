@@ -97,6 +97,17 @@ def device_mask(frozen: np.ndarray, device):
     return _tables[key]
 
 
+def device_info(frozen: np.ndarray, device):
+    """Device copy (int32) of a frozen mask's info rows in increasing
+    order, the message's emission order, made once per mask and device."""
+    frozen = np.asarray(frozen, dtype=np.uint8)
+    key = ("info", frozen.tobytes(), str(device))
+    if key not in _tables:
+        _tables[key] = torch.tensor(np.flatnonzero(frozen == 0),
+                                    dtype=torch.int32, device=device)
+    return _tables[key]
+
+
 def _code(program, frozen):
     """The code and node tree that ``program`` was emitted from."""
     program = np.asarray(program, dtype=np.uint8)
@@ -135,24 +146,31 @@ def scratch_frames(n: int) -> int:
     return frames
 
 
-def tile_bytes(n: int, want_cw: bool) -> int:
-    """Shared memory of one tile of the tile kernel at code length ``n``:
-    soft pyramid and hard stack, and the codeword stack on the cw track,
-    n bytes a frame each."""
-    return (3 if want_cw else 2) * n * WHOLE_FRAMES
+def tile_bytes(n: int, want_cw: bool, root: bool = False) -> int:
+    """Shared memory of one tile of the tile core at code (or node) length
+    ``n``: soft pyramid and hard stack, the codeword stack on the cw track
+    and, with ``root``, the root input on chip (the tile subtree decoder and
+    the tile step), n bytes a frame each."""
+    return (2 + want_cw + root) * n * WHOLE_FRAMES
 
 
-def tile_warps(n: int, want_cw: bool) -> int:
-    """Tiles (warps) a block of the tile kernel: as many as fit
+def tile_warps(n: int, want_cw: bool, root: bool = False) -> int:
+    """Tiles (warps) a block of a tile kernel: as many as fit
     :data:`WHOLE_BLOCK_BYTES`, at least one, at most
     :data:`WHOLE_MAX_WARPS`; small codes so fill an SM's warps before its
     limit of 32 blocks."""
     return max(1, min(WHOLE_MAX_WARPS,
-                      WHOLE_BLOCK_BYTES // tile_bytes(n, want_cw)))
+                      WHOLE_BLOCK_BYTES // tile_bytes(n, want_cw, root)))
 
 
-WHOLE_MAX_LEVEL = max(m for m in range(1, 20)
-                      if tile_bytes(1 << m, True) <= SCRATCH_SMEM_BYTES)
+def tile_max_level(root: bool) -> int:
+    """The largest level at which one tile on the cw track (with the root
+    on chip, or not) fits a block's shared memory."""
+    return max(m for m in range(1, 20)
+               if tile_bytes(1 << m, True, root) <= SCRATCH_SMEM_BYTES)
+
+
+WHOLE_MAX_LEVEL = tile_max_level(root=False)
 
 
 def ssa_kernel(n: int) -> str:

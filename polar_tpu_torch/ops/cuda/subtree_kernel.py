@@ -1,10 +1,10 @@
 """Subtree Fast-SSC decoder on the card: wrapper and plain version.
 
-The kernel (``csrc/subtree.cu`` over ``csrc/fastssc.cuh``) replaces
-``polar_tpu/ops/pallas/decoder_kernel.py:make_subtree_decoder`` (``:562``)
-in its SSA bodies and ``"lane"`` layout: it decodes one pruned-tree node
-for the hybrid decoder (:mod:`polar_tpu_torch.decode.fastssc`), one
-thread per frame, over element-major ``(rows, B)`` int8 blocks.
+The kernels replace ``polar_tpu/ops/pallas/decoder_kernel.py:
+make_subtree_decoder`` (``:562``) in its SSA bodies and ``"lane"`` layout:
+each decodes one pruned-tree node for the hybrid decoder
+(:mod:`polar_tpu_torch.decode.fastssc`) over element-major ``(rows, B)``
+int8 blocks.
 
 ``make_subtree_decoder(node, ...)`` returns ``fn(*blocks)``:
 
@@ -16,15 +16,27 @@ thread per frame, over element-major ``(rows, B)`` int8 blocks.
   the node's ``(2^l, B)`` blocks, or under ``fuse="g"`` the parent's
   combined ``[hl·hr, hr]`` / ``[cwl·cwr, cwr]`` ``(2^{l+1}, B)`` blocks.
 
-``style="scratch"`` (``csrc/scratch.cu``) replaces the scratch body
-``_subtree_kernel`` (``:550``): u and hard only, no fusion, the node's
-pyramid and hard stack in shared memory (level at most
-``decoder_kernel.SCRATCH_MAX_LEVEL``; above it, as the other refusals,
-``ValueError`` when the decoder is made).
+Styles:
+
+* ``"ssa"`` — up to level :data:`TILE_SUBTREE_MAX_LEVEL` the tile kernel
+  (``csrc/subtree.cu`` over ``csrc/fastssc_simd.cuh``): a warp decodes
+  ``decoder_kernel.WHOLE_FRAMES`` frames, four to a 32-bit word, the
+  node's root rows, pyramid and stacks in shared memory, the cw track
+  built per node. Above it, where one tile no longer fits a block, the
+  walk;
+* ``"walk"`` — the same function by one thread a frame over device-memory
+  scratch (``csrc/subtree.cu`` over ``csrc/fastssc.cuh``), the cw block a
+  re-encode at the end: the nodes above the tile's limit, and by name for
+  the A/B;
+* ``"scratch"`` (``csrc/scratch.cu``) replaces the scratch body
+  ``_subtree_kernel`` (``:550``): u and hard only, no fusion, the node's
+  pyramid and hard stack in shared memory (level at most
+  ``decoder_kernel.SCRATCH_MAX_LEVEL``; above it, as the other refusals,
+  ``ValueError`` when the decoder is made).
 
 The function launches the kernel for CUDA tensors and runs
 :func:`decode_plain` (the eager recursion over the node) only for CPU
-tensors; :data:`launches` counts the launches.
+tensors; :data:`launches` counts the launches per kernel.
 """
 
 from __future__ import annotations
@@ -35,11 +47,26 @@ from ...code.compiler import Node, emit_program, node_frozen
 from ...decode.fastssc import _TreeDecoder
 from ...ops.arith import Int8Arith
 from . import build
-from .decoder_kernel import STYLES, THREADS, device_tables, scratch_frames
+from .decoder_kernel import (STYLES, THREADS, device_tables, scratch_frames,
+                             tile_max_level, tile_warps)
 
 FUSE_CODES = {None: 0, "f": 1, "g": 2}
-launches = {"subtree_decoder": 0, "scratch_subtree": 0}
+# The tile subtree keeps the node's root rows on chip beside the soft
+# pyramid, the hard stack and the cw stack: n bytes a frame each
+# (decoder_kernel.tile_bytes with root=True). Its limit is the largest level
+# at which one such tile on the cw track fits a block's shared memory (12);
+# every node of the hybrid at its default kernel level (9) fits, and nodes
+# above the limit go to the walk.
+TILE_SUBTREE_MAX_LEVEL = tile_max_level(root=True)
+# "subtree_decoder": the tile kernel, "walk_subtree": the walk
+launches = {"subtree_decoder": 0, "walk_subtree": 0, "scratch_subtree": 0}
 plain_calls = {"subtree_plain": 0}
+
+
+def ssa_kernel(level: int) -> str:
+    """The kernel of style ``"ssa"`` for a node of this level: ``"tile"``
+    up to :data:`TILE_SUBTREE_MAX_LEVEL`, ``"walk"`` above it."""
+    return "tile" if level <= TILE_SUBTREE_MAX_LEVEL else "walk"
 
 
 def decode_plain(node: Node, blocks, *, fuse=None, emit_u=True,
@@ -122,17 +149,28 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
             build.check(err, "polar_scratch_subtree")
             launches["scratch_subtree"] += 1
             return outs
+        ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
+        if style == "ssa" and ssa_kernel(node.level) == "tile":
+            aligned = b % 16 == 0 and all(
+                t.data_ptr() % 16 == 0 for t in blocks + outs)
+            err = lib.polar_tile_subtree(
+                prog_d.data_ptr(), n, b, FUSE_CODES[fuse], *ptr,
+                mesg.data_ptr() if emit_u else None, hard.data_ptr(),
+                cw.data_ptr() if emit_cw else None,
+                tile_warps(n, emit_cw, root=True), int(aligned), stream)
+            build.check(err, "polar_tile_subtree")
+            launches["subtree_decoder"] += 1
+            return outs
         soft = torch.empty((n, b), dtype=torch.int8, device=dev)
         child = (torch.empty((n, b), dtype=torch.int8, device=dev)
                  if fuse else None)
-        ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
         err = lib.polar_subtree(
             prog_d.data_ptr(), frozen_d.data_ptr(), n, b, FUSE_CODES[fuse],
             *ptr, child.data_ptr() if fuse else None, soft.data_ptr(),
             mesg.data_ptr(), hard.data_ptr(),
             cw.data_ptr() if emit_cw else None, THREADS, stream)
         build.check(err, "polar_subtree")
-        launches["subtree_decoder"] += 1
+        launches["walk_subtree"] += 1
         return outs
 
     return run

@@ -8,7 +8,9 @@ each: the caller's-decoder path with
 :func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder pinned,
 once with the kernel draws (``make_step(code, decoder=dec)``) and once
 with the torch draws (``fused=False``), then the element-major front step
-(:func:`~polar_tpu_torch.ber.make_front_step`, its default branch).
+(:func:`~polar_tpu_torch.ber.make_front_step`, its default branch); at
+levels the fused step covers, the fused step too (``fused=True``, the tile
+step up to ``step_kernel.STEP_TILE_MAX_LEVEL``).
 
 For each run it prints the host's wall time, the number of device
 kernels, the device's busy time over the span from the first kernel's
@@ -88,7 +90,8 @@ def main() -> int:
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     import polar_tpu_torch as pt
-    from polar_tpu_torch.ber import chain_steps, front_branch, make_front_step
+    from polar_tpu_torch.ber import (STEP_KERNEL_MAX_LEVEL, chain_steps,
+                                     front_branch, make_front_step)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -104,6 +107,9 @@ def main() -> int:
                                      ("torch draws", False))]
         runs.append((f"front step, {front_branch(code, True)} branch",
                      make_front_step(code, device=dev)))
+        if level <= STEP_KERNEL_MAX_LEVEL:
+            runs.append(("fused step", pt.make_step(code, fused=True,
+                                                    device=dev)))
         for label, step in runs:
             gen = torch.Generator()
             gen.manual_seed(level)

@@ -7,7 +7,10 @@ For Polar(2^m, 2^(m-1)) int8 at ``SNR_DB``, systematic and plain, m in
 steps, at B = 32768 for m <= 14 and B = 4096 at every level, of each arm
 that applies:
 
-* ``fused`` — the fused step kernel (m <= 16);
+* ``fused`` — the fused step kernel (m <= 16: the tile step up to
+  ``step_kernel.STEP_TILE_MAX_LEVEL``, the walk above);
+* ``fused walk`` — the fused step's walk by name, where ``fused`` is the
+  tile step (the design the tile step replaced);
 * ``whole+count`` — the whole-block front, then decode+count (systematic);
 * ``block+count`` — the block front with the kernel middle, then
   decode+count (systematic);
@@ -39,8 +42,9 @@ the whole-code kernel (m <= 14: the tile kernel up to
 ``WHOLE_MAX_LEVEL``), the hybrid at
 :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`, the scratch
 whole-code kernel (u, m <= 11), the interpreter at subtree levels 5 and 10
-(m = 9..13) and the hybrid at kernel level 9 in the scratch and
-interpreter styles (m = 13..17). Every line names the card and its power
+(m = 9..13) and the hybrid at kernel level 9 in the walk, scratch and
+interpreter styles (m = 13..17; the SSA style's subtree kernel is the tile
+kernel, the walk the one it replaced). Every line names the card and its power
 limit; ``--out`` also writes the readings as JSON lines.
 
     python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
@@ -61,7 +65,7 @@ BIG_BATCH_MAX_LEVEL = 14
 BATCH = 4096
 WHOLE_DECODER_MAX_LEVEL = 14
 INTERP_LEVELS = (9, 13)          # the whole-code interpreter's arms
-STYLE_HYBRID_MIN_LEVEL = 13      # the hybrid's scratch and interp arms
+STYLE_HYBRID_MIN_LEVEL = 13      # the hybrid's walk, scratch and interp arms
 
 
 def _levels(text: str) -> list[int]:
@@ -74,12 +78,17 @@ def arms(code, systematic: bool, device) -> dict:
     import polar_tpu_torch as pt
     from polar_tpu_torch import ber
     from polar_tpu_torch.decode import auto as decode_auto
+    from polar_tpu_torch.ops.cuda import step_kernel
 
     level = code.level
     out = {}
     if level <= ber.STEP_KERNEL_MAX_LEVEL:
         out["fused"] = ber.make_step(code, systematic=systematic, fused=True,
                                      device=device)
+    if step_kernel.step_kernel_name(code.N) == "tile":
+        out["fused walk"] = ber.make_step(code, systematic=systematic,
+                                          fused=True, step_style="walk",
+                                          device=device)
     branches = ["block-hybrid"]
     if level <= WHOLE_DECODER_MAX_LEVEL:
         branches.insert(0, "block-whole")
@@ -181,7 +190,7 @@ def decoders(code, output: str) -> dict:
         for sl in (5, 10):
             out[f"interp sl{sl}"] = make_interp_decoder(
                 code, subtree_level=sl, output=output)
-    styles = (("ssa", "scratch", "interp")
+    styles = (("ssa", "walk", "scratch", "interp")
               if level >= STYLE_HYBRID_MIN_LEVEL else ("ssa",))
     for style in styles:
         name = f"hybrid kl{kl}" + ("" if style == "ssa" else f" {style}")

@@ -231,14 +231,15 @@ def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
     from polar_tpu_torch.decode import auto
 
     kl, big = auto.HYBRID_KERNEL_LEVEL, auto.BIG_BATCH
-    for m, want in (
-            (auto.HYBRID_MIN_LEVEL - 2, "cuda-fastssc"),
-            (13, f"cuda-fastssc below {big} frames, cuda-hybrid-kl{kl}-interp"
-                 " from it"),
-            (auto.HYBRID_MIN_LEVEL + 2, f"cuda-hybrid-kl{kl}-scratch below "
-                                        f"{big} frames, cuda-hybrid-kl{kl} from it")):
+    for m, output, want in (
+            (auto.HYBRID_MIN_LEVEL - 2, "codeword", "cuda-fastssc"),
+            (13, "codeword", f"cuda-fastssc below {big} frames, "
+                             f"cuda-hybrid-kl{kl} from it"),
+            (auto.HYBRID_MIN_LEVEL + 2, "codeword", f"cuda-hybrid-kl{kl}"),
+            (15, "u", f"cuda-hybrid-kl{kl}-scratch below {big} frames, "
+                      f"cuda-hybrid-kl{kl} from it")):
         _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5),
-                                       output="codeword", device=dev)
+                                       output=output, device=dev)
         assert desc == want
     # the u track of m = 7 by batch: the tile kernel, then the scratch kernel
     c = pt.make_code(7, rate=0.5)
@@ -768,3 +769,141 @@ def test_torch_rdma_decode_matches_local_on_one_card(dev, batch_split):
     full = make_seqpar_decoder(c, mesh, batch_split=batch_split)(llr)
     assert torch.equal(full[:, c.info_indices], want)
     assert bool((full[:, c.frozen.astype(bool)] == 1).all())
+
+
+# -- the tile subtree decoder and the tile step (the tile core) -------------
+
+def _nodes_at(level):
+    """One node of each kind at this level that emits message bits (leaves
+    included: a kernel takes any such node), from rate-1/4, 1/2 and 3/4
+    codes a few levels up."""
+    out = {}
+    for m in range(level + 2, level + 5):
+        for rate in (0.25, 0.5, 0.75):
+            stack = [pt.compile_code(pt.make_code(m, rate=rate))]
+            while stack:
+                node = stack.pop()
+                if node.level == level and node.mesg_bits >= 1:
+                    out.setdefault(node.kind, node)
+                stack.extend(c for c in (node.left, node.right)
+                             if c is not None)
+    return [out[k] for k in sorted(out)]
+
+
+def _subtree_args(dev, n, batch, fuse, emit_cw, seed):
+    slot = _llrs(dev, 2 * n, max(batch, 2), seed)[:, :batch]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    hl, cwl = (torch.randint(-1, 2, (n, batch), generator=g, device=dev,
+                             dtype=torch.int8) for _ in range(2))
+    if fuse is None:
+        return (slot[:n].contiguous(),)
+    if fuse == "f":
+        return (slot.contiguous(),)
+    return (slot.contiguous(), hl) + ((cwl,) if emit_cw else ())
+
+
+SUBTREE_OUTPUTS = ((True, False), (True, True), (False, True))
+
+
+@pytest.mark.parametrize("level", [1, 4, 7, 9, 12])
+@pytest.mark.parametrize("batch", [1, 63, 4099, 16384])
+def test_tile_subtree_matches_plain_and_the_walk(dev, level, batch):
+    """Every fuse mode and output set, in every node kind at the level; the
+    slot's column 0 is all -128 and column 1 all zero (B >= 2), the left
+    hard block holds zeros."""
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    assert level <= subtree_kernel.TILE_SUBTREE_MAX_LEVEL
+    nodes = _nodes_at(level)
+    assert nodes
+    for node in nodes:
+        n = 1 << node.level
+        for fuse in (None, "f", "g"):
+            for emit_u, emit_cw in SUBTREE_OUTPUTS:
+                args = _subtree_args(dev, n, batch, fuse, emit_cw, level)
+                kw = dict(emit_u=emit_u, emit_cw=emit_cw, fuse=fuse)
+                before = dict(subtree_kernel.launches)
+                got = subtree_kernel.make_subtree_decoder(node, **kw)(*args)
+                walk = subtree_kernel.make_subtree_decoder(
+                    node, style="walk", **kw)(*args)
+                assert subtree_kernel.launches == {
+                    **before,
+                    "subtree_decoder": before["subtree_decoder"] + 1,
+                    "walk_subtree": before["walk_subtree"] + 1}
+                want = subtree_kernel.decode_plain(node, args, **kw)
+                assert len(got) == len(want) == len(walk)
+                for a, b, c in zip(got, want, walk):
+                    assert torch.equal(a, b), (node.kind, fuse, emit_u)
+                    assert torch.equal(a, c), (node.kind, fuse, emit_u)
+
+
+@pytest.mark.parametrize("style,level", [("ssa", 13), ("walk", 9)])
+def test_walk_subtree_above_the_limit_and_by_name(dev, style, level):
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    node = _nodes_at(level)[0]
+    n = 1 << node.level
+    for fuse in (None, "g"):
+        args = _subtree_args(dev, n, 999, fuse, True, level)
+        before = dict(subtree_kernel.launches)
+        got = subtree_kernel.make_subtree_decoder(
+            node, emit_cw=True, fuse=fuse, style=style)(*args)
+        assert subtree_kernel.launches == {
+            **before, "walk_subtree": before["walk_subtree"] + 1}
+        want = subtree_kernel.decode_plain(node, args, fuse=fuse, emit_cw=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_tile_subtree_rows_off_the_word(dev):
+    """Blocks that start off a 16-byte boundary take the byte-wise path."""
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    node = _nodes_at(7)[0]
+    n = 1 << node.level
+    big = _llrs(dev, 2 * n + 1, 4096, 7)
+    slot = big.view(-1)[3:3 + 2 * n * 4093].view(2 * n, 4093)
+    assert slot.data_ptr() % 16 and slot.is_contiguous()
+    fn = subtree_kernel.make_subtree_decoder(node, emit_cw=True, fuse="f")
+    want = subtree_kernel.decode_plain(node, (slot,), fuse="f", emit_cw=True)
+    assert all(torch.equal(a, b) for a, b in zip(fn(slot), want))
+
+
+@pytest.mark.parametrize("m", [2, 3, 8, 10, 12, 13])
+@pytest.mark.parametrize("batch", [1, 999, 32768])
+def test_tile_step_matches_plain_and_the_walk(dev, m, batch):
+    """Inject mode against the plain chain; native mode against the walk
+    (mc_step_kernel) on the same seeds; both modes. Above the tile's limit
+    (m = 13) style "ssa" runs the walk."""
+    c = pt.make_code(m, rate=0.5)
+    tile = m <= step_kernel.STEP_TILE_MAX_LEVEL
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    msg = (1 - 2 * torch.randint(0, 2, (c.N, batch), generator=g,
+                                 device=dev)).to(torch.int8)
+    nrm = torch.randn((c.N, batch), generator=g, device=dev)
+    program = pt.compile_program(c)
+    for systematic in (True, False):
+        args = (program, c.frozen, snr_params(0.0), systematic)
+        before = dict(step_kernel.launches)
+        got = step_kernel.step(*args, msg_t=msg, normals_t=nrm)
+        name = "mc_step" if tile else "walk_step"
+        assert step_kernel.launches == {**before, name: before[name] + 1}
+        assert torch.equal(got, step_kernel.step_plain(*args, msg_t=msg,
+                                                       normals_t=nrm))
+        kw = dict(seeds=(m, batch), call=2, batch=batch, device=dev)
+        a = step_kernel.step(*args, **kw)
+        b = step_kernel.step(*args, style="walk", **kw)
+        assert torch.equal(a, b), (a.tolist(), b.tolist())
+
+
+def test_tile_step_counts_errors_and_rows_off_the_word(dev):
+    """At a low SNR every counter moves; a batch off the 16-byte word
+    still equals the walk."""
+    c = pt.make_code(9, rate=0.5)
+    for systematic in (True, False):
+        args = (pt.compile_program(c), c.frozen, snr_params(-2.0), systematic)
+        kw = dict(seeds=(5, 6), call=0, batch=4099, device=dev)
+        a = step_kernel.step(*args, **kw)
+        assert torch.equal(a, step_kernel.step(*args, style="walk", **kw))
+        assert min(a.tolist()) > 0

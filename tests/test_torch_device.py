@@ -65,6 +65,9 @@ def _calls():
             program, frozen, _i8(N, B), False, "scratch"),
         "mc_step": lambda: step_kernel.step(program, frozen, params, True,
                                             msg_t=_i8(N, B), normals_t=f32()),
+        "walk_step": lambda: step_kernel.step(program, frozen, params, True,
+                                              msg_t=_i8(N, B),
+                                              normals_t=f32(), style="walk"),
         "front_whole": lambda: step_kernel.front(frozen, params,
                                                  msg_t=_i8(N, B),
                                                  normals_t=f32()),
@@ -72,6 +75,8 @@ def _calls():
             program, frozen, _i8(N, B), _i8(N, B)),
         "subtree_decoder": lambda: subtree_kernel.make_subtree_decoder(node)(
             slot()),
+        "walk_subtree": lambda: subtree_kernel.make_subtree_decoder(
+            node, style="walk")(slot()),
         "scratch_subtree": lambda: subtree_kernel.make_subtree_decoder(
             node, style="scratch")(slot()),
         "front_blocks_a": lambda: front_kernel.msg_blocks(frozen, 16, True,

@@ -164,12 +164,14 @@ def test_auto_decoders_follow_the_measured_table():
             assert not cw and level <= decoder_kernel.SCRATCH_MAX_LEVEL
     assert auto.decoder_names(5, False) == ("ssa", "ssa")
     assert auto.decoder_names(12, True) == ("ssa", "ssa")
-    assert auto.decoder_names(13, False) == ("ssa", "ssa")
-    assert auto.decoder_names(13, True) == ("ssa", "hybrid-interp")
+    assert auto.decoder_names(13, False) == ("ssa", "hybrid")
+    assert auto.decoder_names(13, True) == ("ssa", "hybrid")
     assert auto.decoder_names(14, False) == ("hybrid", "hybrid")
     small, big = auto.BIG_BATCH - 1, auto.BIG_BATCH
+    assert [auto.kernel_style(15, False, b, True) for b in (small, big)] == [
+        "scratch", "ssa"]
     assert [auto.kernel_style(14, True, b, True) for b in (small, big)] == [
-        "scratch", "interp"]
+        "ssa", "ssa"]
     assert [auto.kernel_style(7, False, b, False) for b in (small, big)] == [
         "ssa", "scratch"]
     assert auto.kernel_style(7, False, big, True) == "ssa"
