@@ -16,12 +16,15 @@ levels 1-9, and the hybrid against the whole-code kernel (7), the block
 front and the counter kernel (8), the large-N step against the fused step
 and a BER campaign against the JAX package's result, with timings, the
 tile subtree against the walk in turns (9). Then the
-caller's-decoder path: the symbols, AWGN and block-encoder kernels
-against their plain versions, with timings (10), and the pinned-decoder
-step with the kernel draws at both codes: exact counters on injected
-words, chained campaigns against the JAX package's results, step rates
-against the torch draws, and the SC decoder on the card (11). Then the
-element-major front step: the whole-block front, decode+count and the
+caller's-decoder path at both shapes of its campaigns: the symbols, AWGN
+and block-encoder kernels against their plain versions, AWGN and the
+encoder also against the kernels they replaced (style "grid", "bytes"),
+and timed, those two in turns with the replaced ones (10); the
+pinned-decoder step with the kernel draws at both codes: exact counters
+on injected words, one chained campaign a shape (its launches and steps
+counted alone, no old-style launch) against the JAX package's results,
+step rates against the torch draws, and the SC decoder on the card (11).
+Then the element-major front step: the whole-block front, decode+count and the
 middle-stages kernel against their plain versions, the front chains
 against the fused step at every level 2..16, chained campaigns through
 make_step's default path at Polar(1024, 512) up to Polar(16384, 8192)
@@ -39,7 +42,9 @@ element-sharded decoder at Polar(131072, 65536) against the local decoder
 over both transports, its ring-kernel run the slice's main path; the
 frame-sharded step and a sharded point against the JAX package's result;
 dryrun_multichip(8); the multihost CLI as two processes on the card and
-resumed from its checkpoint; timings (15). Last, each kernel's bound (13).
+resumed from its checkpoint; timings (15). Last, each kernel's bound (13);
+the rows of the draws and front kernels carry the steps that made their
+launches, rows 10-12 their numbers at each shape ("by_shape") too.
 Phases print one line each; any failure raises,
 so the script exits non-zero and prints no result. The last three lines
 are the card, the kernel table and the device line.
@@ -52,6 +57,7 @@ non-zero.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -73,6 +79,9 @@ SIGMAS = 4.0  # width of the statistical bounds
 CAMPAIGNS = ((10, (-1.0, 0.0), 0.2), (12, (-1.6, -1.2), 0.2),
              (13, (-1.5, -1.2), 0.1), (14, (-1.6, -1.2), 0.2))
 PAR_SHARDS = 8   # phase 15: mesh positions on the one card
+# phases 10-11: (m, batch) of the pinned-decoder campaigns, the shapes at
+# which the symbols, AWGN and encoder kernels are checked, timed and counted
+DRAW_SHAPES = ((10, BATCH), (LARGE_M, LARGE_BATCH))
 
 # The least time the card could take for a kernel's work ("bound_ms"): the
 # larger of its bytes (each input read once, each output written once) over
@@ -373,9 +382,10 @@ def large_n_phases(dev, card, ms) -> dict:
             or launched["walk_subtree"]):
         raise AssertionError(f"large-N campaign launches {launched}, plain "
                              f"calls {plain}")
+    steps = sum(p.frames for p in res.points) // cb
     phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
-          f"{cb} frames in {wall:.1f} s; launches {launched}; plain calls "
-          f"{plain}")
+          f"{cb} frames ({steps} steps) in {wall:.1f} s; launches {launched}; "
+          f"plain calls {plain}")
     campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
 
     # timings at Polar(131072, 65536): the subtree kernel at the largest
@@ -453,6 +463,7 @@ def large_n_phases(dev, card, ms) -> dict:
     phase("9", f"large-N step (systematic, kl{kl}): {t_step:.1f} ms per "
           f"{b} frames, {b / t_step * 1e3:.1f} frames/s ({card})")
     return {"err": err, "times": times, "work": work, "earlier": earlier,
+            "steps": {name: steps for name in new},
             "launched": {name: launched[name] for name in new}}
 
 
@@ -472,7 +483,7 @@ def draw_phases(dev, card, ms) -> dict:
 
     new = ("channel_symbols", "channel_awgn", "block_encoder")
     err = dict.fromkeys(new, 0)
-    times = {}
+    by_shape = {name: {} for name in new}   # name -> shape -> numbers
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
 
@@ -483,51 +494,114 @@ def draw_phases(dev, card, ms) -> dict:
     def max_err(got, want):
         return int((got.int() - want.int()).abs().max())
 
-    # -- 10. each kernel against its plain version, at the shapes that both
-    # configurations give it; the large one last, whose codeword the noise
-    # moments and the timings below use ------------------------------------
-    for m, b in ((10, BATCH), (LARGE_M, LARGE_BATCH)):
-        shape = (b, 1 << (m - 1))
+    def in_turns(new_fn, old_fn, reps):
+        """The new design and the one it replaced, timed new, old, old,
+        new on the same inputs."""
+        t = [ms(new_fn, reps)]
+        o = [ms(old_fn, reps), ms(old_fn, reps)]
+        t.append(ms(new_fn, reps))
+        return {"ms": sum(t) / 2, "earlier_ms": sum(o) / 2,
+                "turns": f"new {t[0]:.4f}, {t[1]:.4f}; old {o[0]:.4f}, "
+                         f"{o[1]:.4f}"}
+
+    # -- 10. each kernel against its plain version (and rows 11 and 12
+    # against the designs they replaced), then timed, at the shapes that
+    # both configurations of phase 11 give them; the large one last, whose
+    # codeword the noise moments below use ---------------------------------
+    shapes = []
+    for m, b in DRAW_SHAPES:
+        code = pt.make_code(m, rate=0.5)
+        n, k = code.N, code.K
+        where = f"Polar({n}, {k}) B={b}"
+        shapes.append(where)
         kw = dict(seeds=(101, 202), call=0, device=dev)
-        w = words(*shape)
+        w = words(b, k)
         for mode, a, p in (
-                ("native", lambda: channel_kernel.symbols(shape, **kw),
-                 lambda: channel_kernel.symbols_plain(shape, **kw)),
+                ("native", lambda: channel_kernel.symbols((b, k), **kw),
+                 lambda: channel_kernel.symbols_plain((b, k), **kw)),
                 ("bits", lambda: channel_kernel.symbols(words=w),
                  lambda: channel_kernel.symbols_plain(words=w))):
             e = max_err(a(), p())
             err["channel_symbols"] = max(err["channel_symbols"], e)
-            phase("10", f"symbols {mode} {shape}: max abs err {e}")
+            phase("10", f"symbols {mode} {(b, k)}: max abs err {e}")
             if e:
                 raise AssertionError(f"symbols kernel ({mode}) differs from "
-                                     f"plain at {shape}")
-        if m == LARGE_M:
-            times["channel_symbols"] = (
-                ms(lambda: channel_kernel.symbols(shape, **kw), 10),
-                ms(lambda: channel_kernel.symbols_plain(shape, **kw), 2))
+                                     f"plain at {(b, k)}")
         del w
+        by_shape["channel_symbols"][where] = {
+            "ms": ms(lambda: channel_kernel.symbols((b, k), **kw), 10),
+            "plain_ms": ms(lambda: channel_kernel.symbols_plain((b, k), **kw),
+                           2),
+            "work": (k * b, k * b * PHILOX_OPS)}
 
-        shape = (b, 1 << m)
-        cw = (1 - 2 * torch.randint(0, 2, shape, generator=gen,
+        cw = (1 - 2 * torch.randint(0, 2, (b, n), generator=gen,
                                     device=dev)).to(torch.int8)
-        w1, w2 = words(*shape), words(*shape)
+        w1, w2 = words(b, n), words(b, n)
         for snr in (-1.5, 3.0):
             params = snr_params(snr)
             for mode, kw in (("native", dict(seeds=(303, 404), call=1)),
                              ("bits", dict(words=(w1, w2)))):
                 got = channel_kernel.awgn(cw, params, **kw)
                 want = channel_kernel.awgn_plain(cw, params, **kw)
-                e = max_err(got, want)
+                grid = channel_kernel.awgn(cw, params, style="grid", **kw)
+                e = max(max_err(got, want), max_err(got, grid))
                 moved = int((got != want).sum())
                 err["channel_awgn"] = max(err["channel_awgn"], e)
-                phase("10", f"awgn {mode} {shape} at {snr:+.1f} dB: max abs "
-                      f"err {e} ({moved} of {got.numel()} LLRs moved), "
+                phase("10", f"awgn {mode} {(b, n)} at {snr:+.1f} dB: max abs "
+                      f"err {e} against plain and the grid kernel ({moved} "
+                      f"of {got.numel()} LLRs moved), "
                       f"{int((got == 0).sum())} zero LLRs")
                 if e:
                     raise AssertionError(f"AWGN kernel ({mode}) differs from "
-                                         f"plain at {shape}")
-                del got, want
+                                         f"plain or the grid kernel at "
+                                         f"{(b, n)}")
+                del got, want, grid
         del w1, w2
+        params = snr_params(-1.5)
+        kw = dict(seeds=(7, 8), call=0)
+        t = in_turns(lambda: channel_kernel.awgn(cw, params, **kw),
+                     lambda: channel_kernel.awgn(cw, params, style="grid",
+                                                 **kw), 20)
+        by_shape["channel_awgn"][where] = {
+            **t, "plain_ms": ms(lambda: channel_kernel.awgn_plain(
+                cw, params, **kw), 2),
+            "work": (2 * n * b,
+                     n * b * (2 * PHILOX_OPS + 2 * NORMAL_OPS + QUANT_OPS))}
+
+        msg = channel_kernel.symbols((b, k), seeds=(m, 1), device=dev)
+        for systematic in (True, False):
+            ref = (pt.encode_systematic if systematic else pt.encode)(code, msg)
+            levels = sorted({2, m - 7, encode_kernel.BLOCK_LEVEL, m}
+                            & set(range(1, m + 1)))
+            for bl in levels:
+                enc = functools.partial(encode_kernel.make_encoder, code,
+                                        systematic=systematic, block_level=bl)
+                got = enc()(msg)
+                plain = encode_kernel.encode_plain(code, msg, systematic, 1 << bl)
+                e = max(max_err(got, plain), max_err(got, ref),
+                        max_err(got, enc(style="bytes")(msg)))
+                err["block_encoder"] = max(err["block_encoder"], e)
+                if e:
+                    raise AssertionError(f"encoder differs at m={m} block "
+                                         f"level {bl} sys={systematic}")
+            phase("10", f"block encoder {where} sys={systematic}: == plain, "
+                  f"== encode{'_systematic' if systematic else ''} and == "
+                  f"the bytes kernel at block levels {levels} (max abs err 0)")
+        blk = 1 << min(encode_kernel.BLOCK_LEVEL, m)
+        enc, old = (encode_kernel.make_encoder(code, style=st)
+                    for st in ("bits", "bytes"))
+        by_shape["block_encoder"][where] = {
+            **in_turns(lambda: enc(msg), lambda: old(msg), 20),
+            "plain_ms": ms(lambda: encode_kernel.encode_plain(
+                code, msg, True, blk), 2),
+            "work": ((k + n) * b, 2 * transform_ops(n) * b)}
+        del msg, ref, got, plain
+        for name in new:
+            t = by_shape[name][where]
+            old_ms = (f", earlier {t['earlier_ms']:.4f} ms ({t['turns']})"
+                      if "earlier_ms" in t else "")
+            phase("10", f"{name}: kernel {t['ms']:.4f} ms{old_ms}, plain "
+                  f"{t['plain_ms']:.3f} ms at {where} ({card})")
     # native normals through the kernel itself: cw = 0, sigma = 1, scale 16
     q = channel_kernel.awgn(torch.zeros_like(cw), (1.0, 16.0), seeds=(5, 5))
     z = q.double() / 16.0
@@ -545,59 +619,11 @@ def draw_phases(dev, card, ms) -> dict:
             and abs(kurt - 3) < se * math.sqrt(96) + 0.003
             and abs(tail - p_tail) < se * math.sqrt(p_tail)):
         raise AssertionError("native AWGN normals off their moments")
-    del q, z
-    params = snr_params(-1.5)
-    kw = dict(seeds=(7, 8), call=0)
-    times["channel_awgn"] = (ms(lambda: channel_kernel.awgn(cw, params, **kw), 10),
-                             ms(lambda: channel_kernel.awgn_plain(cw, params, **kw), 2))
-    del cw
-
-    for m, b in ((10, BATCH), (LARGE_M, LARGE_BATCH)):
-        code = pt.make_code(m, rate=0.5)
-        msg = channel_kernel.symbols((b, code.K), seeds=(m, 1), device=dev)
-        for systematic in (True, False):
-            ref = (pt.encode_systematic if systematic else pt.encode)(code, msg)
-            levels = sorted({2, m - 7, encode_kernel.BLOCK_LEVEL, m}
-                            & set(range(1, m + 1)))
-            for bl in levels:
-                got = encode_kernel.make_encoder(code, systematic=systematic,
-                                                 block_level=bl)(msg)
-                plain = encode_kernel.encode_plain(code, msg, systematic, 1 << bl)
-                e = max(max_err(got, plain), max_err(got, ref))
-                err["block_encoder"] = max(err["block_encoder"], e)
-                if e:
-                    raise AssertionError(f"encoder differs at m={m} block "
-                                         f"level {bl} sys={systematic}")
-            phase("10", f"block encoder Polar({code.N}, {code.K}) B={b} "
-                  f"sys={systematic}: == plain and == encode"
-                  f"{'_systematic' if systematic else ''} at block levels "
-                  f"{levels} (max abs err 0)")
-        enc = encode_kernel.make_encoder(code)
-        blk = 1 << min(encode_kernel.BLOCK_LEVEL, m)
-        t_enc = (ms(lambda: enc(msg), 10),
-                 ms(lambda: encode_kernel.encode_plain(code, msg, True, blk), 2))
-        phase("10", f"block encoder Polar({code.N}, {code.K}) B={b} systematic, "
-              f"block level {blk.bit_length() - 1}: kernel {t_enc[0]:.3f} ms, "
-              f"plain {t_enc[1]:.3f} ms ({card})")
-        if m == LARGE_M:
-            times["block_encoder"] = t_enc
-        del msg, ref, got, plain
-    n, k, b = 1 << LARGE_M, 1 << (LARGE_M - 1), LARGE_BATCH
-    work = {
-        "channel_symbols": (k * b, k * b * PHILOX_OPS),
-        "channel_awgn": (2 * n * b,
-                         n * b * (2 * PHILOX_OPS + 2 * NORMAL_OPS + QUANT_OPS)),
-        "block_encoder": ((k + n) * b, 2 * transform_ops(n) * b),
-    }
-    for name in new:
-        t_k, t_p = times[name]
-        phase("10", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
-              f"B={LARGE_BATCH}, Polar({1 << LARGE_M}, {1 << (LARGE_M - 1)}) "
-              f"shapes ({card})")
+    del q, z, cw
 
     # -- 11. the path: pinned decoders with the kernel draws -----------------
     configs = []
-    for m, b in ((10, BATCH), (LARGE_M, LARGE_BATCH)):
+    for m, b in DRAW_SHAPES:
         code = pt.make_code(m, rate=0.5)
         dec, desc = pt.make_auto_decoder(code, output="systematic", device=dev)
         configs.append((code, b, dec, desc))
@@ -619,30 +645,44 @@ def draw_phases(dev, card, ms) -> dict:
               f"{list(got.values())}")
         del ws, msg, cw, llr
 
+    # the main path, one campaign per shape, each with its counts reset
+    # just before it: the launches of rows 10-12 by shape, and the steps
+    # that made them
     counts = (channel_kernel.launches, encode_kernel.launches,
               decoder_kernel.launches, subtree_kernel.launches,
               step_kernel.launches, front_kernel.launches,
               count_kernel.launches)
     plains = (channel_kernel.plain_calls, encode_kernel.plain_calls,
               decoder_kernel.plain_calls, subtree_kernel.plain_calls)
-    _reset(*counts, *plains)
-    results = []
-    t0 = time.perf_counter()
-    for (code, b, dec, _), snr_range in zip(configs, ((-1.0, 0.0), (-1.7, -1.4))):
-        results.append(pt.run_campaign(
+    olds = (channel_kernel.earlier_launches, encode_kernel.earlier_launches)
+    results, launched, wall = [], dict.fromkeys(new, 0), 0.0
+    for (code, b, dec, _), snr_range, where in zip(
+            configs, ((-1.0, 0.0), (-1.7, -1.4)), shapes):
+        _reset(*counts, *plains, *olds)
+        t0 = time.perf_counter()
+        res = pt.run_campaign(
             code, device=dev, decoder=dec, seed=11, batch=b, steps_per_call=4,
             snr_range=snr_range, snr_step=0.2 if code.level == 10 else 0.1,
-            max_frames_per_point=4 * b, measure_throughput=False))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = {name: v for c in counts for name, v in c.items()}
-    plain = {name: v for c in plains for name, v in c.items()}
-    if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
-        raise AssertionError(f"pinned-decoder campaigns launches {launched}, "
-                             f"plain calls {plain}")
-    phase("11", f"campaigns with pinned decoders, 4 steps per call, "
-          f"{sum(len(r.points) for r in results)} points in {wall:.1f} s; "
-          f"launches {launched}; plain calls {plain}")
+            max_frames_per_point=4 * b, measure_throughput=False)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        results.append(res)
+        here = {name: v for c in counts for name, v in c.items()}
+        plain = {name: v for c in plains for name, v in c.items()}
+        old = {name: v for c in olds for name, v in c.items()}
+        if (min(here[name] for name in new) == 0 or max(plain.values())
+                or max(old.values())):
+            raise AssertionError(f"pinned-decoder campaign at {where}: "
+                                 f"launches {here}, plain calls {plain}, "
+                                 f"old-style launches {old}")
+        steps = sum(p.frames for p in res.points) // b
+        for name in new:
+            by_shape[name][where].update(launches=here[name], steps=steps)
+            launched[name] += here[name]
+        phase("11", f"campaign with a pinned decoder at {where}, 4 steps per "
+              f"call: {len(res.points)} points, {steps} steps; launches "
+              f"{here}; plain calls {plain}; old-style launches {old}")
+    phase("11", f"campaigns with pinned decoders in {wall:.1f} s")
     campaign_vs_reference("11", results[0], "n1024_sys_int8.json", 512,
                           len(results[0].points))
     campaign_vs_reference("11", results[1], "n131072_sys_int8.json",
@@ -673,8 +713,17 @@ def draw_phases(dev, card, ms) -> dict:
         raise AssertionError("SC decoder on the card differs from the CPU")
     phase("11", f"SC decoder Polar({code.N}, {code.K}) B=256 full-range "
           "int8: u and codeword on the card == on the CPU")
-    return {"err": err, "times": times, "work": work,
-            "launched": {name: launched[name] for name in new}}
+    return {"err": err,
+            "times": {name: (by_shape[name][shapes[-1]]["ms"],
+                             by_shape[name][shapes[-1]]["plain_ms"])
+                      for name in new},
+            "work": {name: by_shape[name][shapes[-1]]["work"] for name in new},
+            "earlier": {name: by_shape[name][shapes[-1]]["earlier_ms"]
+                        for name in new
+                        if "earlier_ms" in by_shape[name][shapes[-1]]},
+            "steps": {name: sum(t["steps"] for t in by_shape[name].values())
+                      for name in new},
+            "by_shape": by_shape, "launched": launched}
 
 
 def front_step_phases(dev, card, ms) -> dict:
@@ -849,6 +898,9 @@ def front_step_phases(dev, card, ms) -> dict:
     for (m, _, _), res in zip(CAMPAIGNS, results):
         campaign_vs_reference("12", res, f"n{1 << m}_sys_int8.json",
                               1 << (m - 1), len(res.points))
+    # the middle kernel's launches come from the campaigns on the block front
+    front_steps = sum(p.frames for (m, _, _), res in zip(CAMPAIGNS, results)
+                      if paths[m] == "front" for p in res.points) // LARGE_BATCH
 
     # -- timings at the shapes of the path
     times, work = {}, {}
@@ -882,6 +934,7 @@ def front_step_phases(dev, card, ms) -> dict:
         phase("12", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
               f"{shape} ({card})")
     return {"err": err, "times": times, "work": work,
+            "steps": {"front_middle": front_steps},
             "launched": {name: launched[name] for name in new}}
 
 
@@ -1745,7 +1798,7 @@ def main() -> int:
                                (decode_ops(n) + transform_ops(n)) * BATCH),
         "mc_step": (0, (front_ops(n, k) + decode_count_ops(n)) * BATCH),
     }
-    library = {}
+    library, steps, by_shape = {}, {}, {}
     for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
                 parallel_phases):
         more = run(dev, card, ms)
@@ -1755,6 +1808,8 @@ def main() -> int:
         launched.update(more["launched"])
         library.update(more.get("library", {}))
         earlier.update(more.get("earlier", {}))
+        steps.update(more.get("steps", {}))
+        by_shape.update(more.get("by_shape", {}))
 
     replaces = {
         "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",   # + fastssc_simd.cuh
@@ -1811,6 +1866,22 @@ def main() -> int:
             "library_ms": library.get(name)})
         if name in earlier:    # the design this run replaced, same inputs
             rows[-1]["earlier_ms"] = earlier[name]
+        if name in steps:      # the main-path steps that made the launches
+            rows[-1]["steps"] = steps[name]
+        if name in by_shape:   # the same numbers at each shape that launches it
+            rows[-1]["by_shape"] = []
+            for where, t in by_shape[name].items():
+                b_ms, b_by = bound(*t["work"])
+                rows[-1]["by_shape"].append({
+                    "shape": where, "launches": t["launches"],
+                    "steps": t["steps"], "ms": t["ms"],
+                    **({"earlier_ms": t["earlier_ms"]}
+                       if "earlier_ms" in t else {}),
+                    "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+                    "bound_by": b_by})
+                phase("13", f"{name} at {where}: {t['ms']:.4f} ms, bound "
+                      f"{b_ms:.4f} ms ({b_by}), {t['launches']} launches in "
+                      f"{t['steps']} steps")
         phase("13", f"{name}: {times[name][0]:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {launched[name]} launches on the main path")
     print(card, flush=True)

@@ -5,9 +5,11 @@
 // Replaces polar_tpu/ops/pallas/channel_kernel.py:
 //   symbols_kernel: make_pallas_symbols (:120), _sym_kernel_native /
 //     _sym_kernel_bits (:77-86): symbol = 1 - 2 (word & 1);
-//   awgn_kernel: make_pallas_awgn (:146), _awgn_body and _normals (:47-65):
-//     llr = quant(2/sigma^2 (cw + sigma n)), n by the cosine-only
-//     Box-Muller on two independent words per element.
+//   awgn_lines_kernel (the default) and awgn_kernel (style "grid", the
+//     design it replaced, kept for timing in turns): make_pallas_awgn
+//     (:146), _awgn_body and _normals (:47-65): llr = quant(2/sigma^2 (cw +
+//     sigma n)), n by the cosine-only Box-Muller on two independent words
+//     per element.
 //
 // Row f of a grid is frame f. Native mode reads word c of frame f's Philox
 // stream (philox.cuh, counter (f, c / 4, call, 0)): symbol c from word c of
@@ -16,14 +18,35 @@
 // mode reads the same words from int64 tensors in [0, 2^32), so the kernels
 // can be held against their plain versions on any words.
 //
-// One thread per four neighbouring elements of a row: one Philox block
-// feeds them all (the angle words may straddle two blocks when cols is not
-// a multiple of 4), and when cols is a multiple of 4 the int8 loads and
-// stores are one aligned 32-bit word each. What bounds it on the card:
-// symbols is a byte-store stream plus one Philox block per 4 bytes; AWGN is
-// compute-bound on two Philox blocks, a logf, a sqrtf and the cosine
-// polynomial per 4 elements. The channel math is channel.cuh's, built with
-// -fmad=false, so it rounds as the plain version does.
+// symbols_kernel and awgn_kernel: one thread per four neighbouring elements
+// of a row (a 64-bit division finds its frame); one Philox block feeds
+// them all, and when cols is a multiple of 4 the int8 loads and stores are
+// one aligned 32-bit word each. symbols is a byte-store stream plus one
+// Philox block per 4 bytes.
+//
+// What bounds AWGN on this card: instruction throughput. Each element
+// needs two Philox words (half a block each), two unit maps, a logf, a
+// sqrtf, the cosine polynomial and the quantize, about 100 instructions,
+// against 2 bytes of device memory; and -fmad=false (the plain version's
+// rounding) keeps every product and sum a single-rate instruction, so the
+// rate is 132 SMs x 128 lanes x 1.98 GHz = 33.5 T/s, half the FMA-counted
+// 67 T/s of the bound. awgn_kernel spent instructions it need not: a 64-bit
+// division per thread, a runtime element loop whose Philox reader
+// re-checks its cache and selects a lane per word, both polynomials of
+// sincos_2pi per element, and round keys added anew in every block.
+// awgn_lines_kernel keeps only the needed ones:
+//   - a 2-D grid, column groups on x and frames on y (a frame loop past
+//     65535 rows), so no thread divides;
+//   - 16 elements a thread in straight-line code when cols % 16 == 0 and
+//     the tensors are 16-byte aligned: four radius and four angle Philox
+//     blocks (PhiloxFrame: round keys and the first round once per thread
+//     and frame, one wide multiply per product), one 16-byte load of cw
+//     and one 16-byte store of llr, all lane indices compile-time;
+//   - one polynomial per normal (philox.cuh:cos_2pi), which rounds as
+//     sincos_2pi's cosine does.
+// Ragged rows (cols % 16 != 0, or unaligned tensors) take the same kernel
+// with a bound check per element and byte accesses. logf, sqrtf, rintf and
+// -fmad=false stay: they are what the plain version computes on the card.
 
 #include <cuda_runtime.h>
 
@@ -114,6 +137,108 @@ __global__ void awgn_kernel(int rows, int cols, float sigma, float scale,
   if (vec) *reinterpret_cast<uint32_t*>(llr + q.base) = out;
 }
 
+// The AWGN pass in straight-line code: a thread takes 16 neighbouring
+// elements of a row (column group blockIdx.x * blockDim.x + threadIdx.x)
+// in every frame blockIdx.y * blockDim.y + threadIdx.y + k gridDim.y
+// blockDim.y. STRAIGHT: cols % 16 == 0 and every tensor 16-byte aligned,
+// so the radius words c0 .. c0 + 15 are four whole Philox blocks, the
+// angle words cols + c0 .. cols + c0 + 15 four more, and the accesses are
+// 16 bytes wide; else a bound check per element and byte accesses.
+template <bool BITS, bool STRAIGHT>
+__global__ void __launch_bounds__(256) awgn_lines_kernel(
+    int rows, int cols, float sigma, float scale,
+    const int8_t* __restrict__ cw, const long long* __restrict__ w1,
+    const long long* __restrict__ w2, uint32_t seed0, uint32_t seed1,
+    uint32_t call, int8_t* __restrict__ llr) {
+  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * 16;
+  if (c0 >= cols) return;
+  polar::PhiloxFrame ph(make_uint2(seed0, seed1));
+  for (int f = blockIdx.y * blockDim.y + threadIdx.y; f < rows;
+       f += gridDim.y * blockDim.y) {
+    const long long base = (long long)f * cols + c0;
+    uint32_t a[16], b[16];
+    int8_t x[16];
+    if (STRAIGHT) {
+      const uint4 v = *reinterpret_cast<const uint4*>(cw + base);
+      const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) x[i] = (int8_t)(vw[i >> 2] >> (8 * (i & 3)));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) x[i] = c0 + i < cols ? cw[base + i] : 0;
+    }
+    if (BITS) {
+      if (STRAIGHT) {
+        const longlong2* p1 = reinterpret_cast<const longlong2*>(w1 + base);
+        const longlong2* p2 = reinterpret_cast<const longlong2*>(w2 + base);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const longlong2 u = p1[i], v = p2[i];
+          a[2 * i] = (uint32_t)u.x;
+          a[2 * i + 1] = (uint32_t)u.y;
+          b[2 * i] = (uint32_t)v.x;
+          b[2 * i + 1] = (uint32_t)v.y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const bool in = c0 + i < cols;
+          a[i] = in ? (uint32_t)w1[base + i] : 0u;
+          b[i] = in ? (uint32_t)w2[base + i] : 0u;
+        }
+      }
+    } else {
+      ph.start((uint32_t)f, call);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (STRAIGHT || c0 + 4 * q < cols)
+          v = ph.block((uint32_t)((c0 >> 2) + q));
+        a[4 * q] = v.x;
+        a[4 * q + 1] = v.y;
+        a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+      if (STRAIGHT) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint4 v = ph.block((uint32_t)(((cols + c0) >> 2) + q));
+          b[4 * q] = v.x;
+          b[4 * q + 1] = v.y;
+          b[4 * q + 2] = v.z;
+          b[4 * q + 3] = v.w;
+        }
+      } else {  // angle words may straddle five blocks
+        int blk = -1;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int w = cols + c0 + i;
+          if (c0 + i < cols && (w >> 2) != blk) {
+            blk = w >> 2;
+            v = ph.block((uint32_t)blk);
+          }
+          b[i] = lane_of(v, w & 3);
+        }
+      }
+    }
+    uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float r = sqrtf(-2.0f * logf(polar::bits_to_unit(a[i])));
+      const float n = r * polar::cos_2pi(polar::bits_to_unit(b[i]));
+      const int8_t q = polar::quantize((float)x[i], n, sigma, scale);
+      if (STRAIGHT)
+        out[i >> 2] |= (uint32_t)(uint8_t)q << (8 * (i & 3));
+      else if (c0 + i < cols)
+        llr[base + i] = q;
+    }
+    if (STRAIGHT)
+      *reinterpret_cast<uint4*>(llr + base) =
+          make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
 unsigned int grid_of(int rows, int cols, int threads) {
   const long long quads = (long long)rows * ((cols + 3) / 4);
   return (unsigned int)((quads + threads - 1) / threads);
@@ -147,5 +272,44 @@ extern "C" int polar_awgn(int rows, int cols, float sigma, float scale,
                 (cudaStream_t)stream>>>(
       rows, cols, sigma, scale, (const int8_t*)cw, (const long long*)w1,
       (const long long*)w2, seed0, seed1, call, (int8_t*)llr);
+  return (int)cudaGetLastError();
+}
+
+// The straight-line AWGN pass (awgn_lines_kernel) on `stream`: the same
+// arguments as polar_awgn; straight != 0 only when cols % 16 == 0 and cw,
+// llr (and w1, w2 in bits mode) are 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int polar_awgn_lines(int rows, int cols, float sigma, float scale,
+                                const void* cw, const void* w1,
+                                const void* w2, unsigned int seed0,
+                                unsigned int seed1, unsigned int call,
+                                void* llr, int straight, void* stream) {
+  const int groups = (cols + 15) / 16;
+  const int gx = groups < 256 ? groups : 256;
+  const int gy = 256 / gx;
+  const long long fy = ((long long)rows + gy - 1) / gy;
+  const dim3 grid((groups + gx - 1) / gx,
+                  (unsigned int)(fy < 65535 ? fy : 65535));
+  const dim3 block(gx, gy);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int8_t* c = (const int8_t*)cw;
+  const long long* a = (const long long*)w1;
+  const long long* b = (const long long*)w2;
+  int8_t* out = (int8_t*)llr;
+  if (w1 != nullptr) {
+    if (straight)
+      awgn_lines_kernel<true, true><<<grid, block, 0, s>>>(
+          rows, cols, sigma, scale, c, a, b, seed0, seed1, call, out);
+    else
+      awgn_lines_kernel<true, false><<<grid, block, 0, s>>>(
+          rows, cols, sigma, scale, c, a, b, seed0, seed1, call, out);
+  } else {
+    if (straight)
+      awgn_lines_kernel<false, true><<<grid, block, 0, s>>>(
+          rows, cols, sigma, scale, c, a, b, seed0, seed1, call, out);
+    else
+      awgn_lines_kernel<false, false><<<grid, block, 0, s>>>(
+          rows, cols, sigma, scale, c, a, b, seed0, seed1, call, out);
+  }
   return (int)cudaGetLastError();
 }

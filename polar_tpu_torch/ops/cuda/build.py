@@ -67,8 +67,12 @@ SIGNATURES = {
     "polar_count": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "polar_symbols": (_I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_awgn": (_I, _I, _F, _F, _P, _P, _P, _U, _U, _U, _P, _I, _P),
+    "polar_awgn_lines": (_I, _I, _F, _F, _P, _P, _P, _U, _U, _U, _P, _I,
+                         _P),
     "polar_encode": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I,
                      _P),
+    "polar_encode_bits": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                          _P),
     "polar_scratch_decode": (_P, _I, _I, _P, _P, _I, _P),
     "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _P),
     "polar_interp_decode": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,

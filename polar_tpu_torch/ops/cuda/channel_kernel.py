@@ -8,6 +8,16 @@ The kernels (``csrc/channel_grid.cu``) replace
 ``:47``), ``quant(2/σ²·(cw + σ·n))`` with cosine-only Box-Muller normals.
 Both work on frame-major ``(rows, cols)`` grids, as the JAX kernels do.
 
+AWGN is bound by instruction throughput on the card (about 100
+instructions an element against 2 bytes of device memory, with
+``-fmad=false`` keeping the plain version's rounding). Its default style,
+``"lines"`` (``awgn_lines_kernel``), takes 16 elements a thread in
+straight-line code on a 2-D grid with no division, computes the Philox
+round keys and first round once per frame and one polynomial per normal;
+``style="grid"`` runs the four-elements-a-thread kernel it replaced
+(``awgn_kernel``), kept so that the two can be timed in turns. Both give
+the same LLRs bit for bit.
+
 Two modes, as the JAX kernels' ``native`` and ``bits``:
 
 * native — words from Philox (``csrc/philox.cuh``): word c of row f is
@@ -30,6 +40,8 @@ only on its frame and column, so chunks are exact.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ...channel import channel_llrs
@@ -37,7 +49,11 @@ from . import build, philox
 
 THREADS = 256
 PLAIN_CHUNK = 1 << 24   # grid elements per chunk of a plain version
+AWGN_STYLES = ("lines", "grid")
 launches = {"channel_symbols": 0, "channel_awgn": 0}
+# launches of the replaced AWGN kernel (style "grid"), apart from the
+# default's, so that a run can show it took the new kernel
+earlier_launches = {"channel_awgn_grid": 0}
 plain_calls = {"symbols_plain": 0, "awgn_plain": 0}
 
 
@@ -101,6 +117,32 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
     return out
 
 
+def cos_2pi_one_poly(u: torch.Tensor) -> torch.Tensor:
+    """The straight-line kernel's cosine (``philox.cuh:cos_2pi``) in torch:
+    the quadrant picks the cosine or the sine coefficients of
+    :func:`~.philox.sincos_2pi`, one polynomial is evaluated, and the
+    sine's factor φ is a product by φ or by 1 (exact). It writes out the
+    kernel's arithmetic so that the CPU tests can hold it equal, bit for
+    bit, to ``philox.sincos_2pi(u)[0]``; the plain version does not use
+    it."""
+    f = philox._f32
+    t = 4.0 * u
+    k = torch.round(t)
+    phi = (t - k) * f(math.pi / 2.0)
+    x2 = phi * phi
+    ki = k.to(torch.int32)
+    swap = (ki & 1) == 1
+
+    def pick(sin_c, cos_c):
+        return torch.where(swap, f(sin_c), f(cos_c))
+
+    p = 1.0 + x2 * (pick(-1 / 6, -1 / 2) + x2 * (
+        pick(1 / 120, 1 / 24) + x2 * (pick(-1 / 5040, -1 / 720)
+                                      + x2 * pick(1 / 362880, 1 / 40320))))
+    sign = (1 - ((ki + 1) & 2)).to(torch.float32)
+    return sign * (p * torch.where(swap, phi, torch.ones_like(phi)))
+
+
 def awgn_plain(codeword, params, *, words=None, seeds=None,
                call: int = 0) -> torch.Tensor:
     """The AWGN kernel's plain version: ``(rows, cols)`` int8 LLRs."""
@@ -121,12 +163,16 @@ def awgn_plain(codeword, params, *, words=None, seeds=None,
     return torch.cat(parts) if parts else torch.empty_like(codeword)
 
 
-def awgn(codeword, params, *, words=None, seeds=None,
-         call: int = 0) -> torch.Tensor:
+def awgn(codeword, params, *, words=None, seeds=None, call: int = 0,
+         style: str = "lines") -> torch.Tensor:
     """AWGN and quantization of ``codeword`` ``(rows, cols)`` int8 (±1):
     ``quant(scale · (cw + σ·n))`` with ``params`` = (σ, 2/σ²) as float32
     values. Bits mode with ``words`` = (radius, angle), both (rows, cols)
-    int64; native mode with ``seeds`` (two words) and ``call``."""
+    int64; native mode with ``seeds`` (two words) and ``call``. ``style``
+    picks the CUDA kernel (:data:`AWGN_STYLES`); both compute the same
+    LLRs, and a CPU tensor runs the plain version whatever the style."""
+    if style not in AWGN_STYLES:
+        raise ValueError(f"AWGN style {style!r} not in {AWGN_STYLES}")
     dev = codeword.device
     if dev.type == "cpu":
         return awgn_plain(codeword, params, words=words, seeds=seeds,
@@ -147,12 +193,22 @@ def awgn(codeword, params, *, words=None, seeds=None,
     llr = torch.empty(shape, dtype=torch.int8, device=dev)
     if llr.numel() == 0:
         return llr
+    ptrs = [codeword.data_ptr(), llr.data_ptr()]
+    wptrs = [w.data_ptr() for w in words] if words is not None else [None, None]
     stream = build.stream(dev)
     sigma, scale = params
-    err = build.load_library().polar_awgn(
-        shape[0], shape[1], sigma, scale, codeword.data_ptr(),
-        *((w.data_ptr() for w in words) if words is not None else (None, None)),
-        s0, s1, call & 0xFFFFFFFF, llr.data_ptr(), THREADS, stream)
-    build.check(err, "polar_awgn")
+    if style == "grid":
+        err = build.load_library().polar_awgn(
+            shape[0], shape[1], sigma, scale, ptrs[0], *wptrs, s0, s1,
+            call & 0xFFFFFFFF, ptrs[1], THREADS, stream)
+        build.check(err, "polar_awgn")
+        earlier_launches["channel_awgn_grid"] += 1
+        return llr
+    straight = shape[1] % 16 == 0 and all(
+        p % 16 == 0 for p in ptrs + [w for w in wptrs if w is not None])
+    err = build.load_library().polar_awgn_lines(
+        shape[0], shape[1], sigma, scale, ptrs[0], *wptrs, s0, s1,
+        call & 0xFFFFFFFF, ptrs[1], int(straight), stream)
+    build.check(err, "polar_awgn_lines")
     launches["channel_awgn"] += 1
     return llr

@@ -10,11 +10,20 @@ block transforms. The stages commute, so with the top stages P outside
     encode(u)            = B(P(scatter(u)))
     encode_systematic(u) = P(B(mask · B(P(scatter(u)))))
 
-On the card a frame's 2^l-row block is 2^l contiguous bytes of the
-frame-major ``(B, N)`` layout and sits in shared memory; when the block is
-the whole code the kernel scatters the message too, and the encode is one
-launch with no torch stages. The JAX block level (13) and frame tile (128)
-are VMEM facts and do not carry over; the port takes any batch.
+On the card the kernel is bound by device memory: the message in once,
+the codeword out once. Its default style, ``"bits"``
+(``encode_bits_kernel``), holds one bit a row (+1 → 0, −1 → 1, so the
+butterfly's product is XOR), 32 rows a word: a frame's 2^l-row block is
+spread over up to 256 threads, the stages run inside words, across lanes
+(shuffles), across registers and, only across warps, through shared
+memory; rows are packed on load and unpacked on store 32 bytes a thread.
+When the block is the whole code the kernel scatters the message too,
+each word from its run of message bytes by the host tables of
+:func:`bit_tables`, and the encode is one launch with no torch stages.
+``style="bytes"`` runs the kernel it replaced (``encode_kernel``: one byte
+a row in shared memory), kept so that the two can be timed in turns; both
+give the same codeword. The JAX block level (13) and frame tile (128) are
+VMEM facts and do not carry over; the port takes any batch.
 
 :func:`make_encoder` returns ``enc(message)``, which launches the kernel
 for a CUDA tensor and runs :func:`encode_plain` (the same algebra in
@@ -35,10 +44,16 @@ from . import build
 from .decoder_kernel import device_mask
 
 # Row-block level of the kernel, cut to the code's level, and the largest
-# it takes: 2^17 bytes is the largest power of two that fits the 227 KB of
-# shared memory a block may take, and on an H100 the fastest (PERF.md).
+# it takes: the bytes style holds 2^17 bytes, the largest power of two
+# within the 227 KB of shared memory a block may take; the bits style
+# holds a 2^17-row block as 16 words a thread over 256 threads.
 BLOCK_LEVEL = 17
+STYLES = ("bits", "bytes")
+BIT_THREADS = 256   # threads of a bits-style thread block (encode.cu)
 launches = {"block_encoder": 0}
+# launches of the replaced kernel (style "bytes"), apart from the
+# default's, so that a run can show it took the new kernel
+earlier_launches = {"block_encoder_bytes": 0}
 plain_calls = {"encode_plain": 0}
 _tables: dict = {}
 
@@ -79,22 +94,71 @@ def _device_tables(code: PolarCode, blk: int, dev):
     return _tables[key]
 
 
-def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int):
+def bit_layout(blk: int) -> tuple[int, int, int, int]:
+    """(u, words, threads, regs) of the bits style for a ``blk``-row block:
+    u rows a word (32, or the block when smaller), ``words`` = blk / u
+    words a frame block, spread over ``threads`` (a power of two, at most
+    :data:`BIT_THREADS`) holding ``regs`` words each, word i·threads + t
+    in thread t's register i."""
+    u = min(32, blk)
+    words = blk // u
+    threads = min(words, BIT_THREADS)
+    return u, words, threads, words // threads
+
+
+def bit_tables(code: PolarCode, blk: int) -> tuple[np.ndarray, np.ndarray]:
+    """The bits style's host tables for row blocks of ``blk`` rows, one
+    entry per u-row word of the code (u = min(32, blk)): ``imask``
+    (uint32), bit j set when row u·w + j is an info row (the scatter's
+    deposit mask and the refreeze's AND), and ``kfirst`` (int32), the index
+    of the word's first message symbol (the info rows below it)."""
+    u = min(32, blk)
+    info = ~np.asarray(code.frozen, bool).reshape(-1, u)
+    imask = (info.astype(np.uint64) << np.arange(u, dtype=np.uint64)).sum(
+        axis=1).astype(np.uint32)
+    kfirst = np.concatenate([[0], np.cumsum(info.sum(axis=1))[:-1]])
+    return imask, kfirst.astype(np.int32)
+
+
+def _device_bit_tables(code: PolarCode, blk: int, dev):
+    key = ("bits", code.frozen.tobytes(), min(32, blk), str(dev))
+    if key not in _tables:
+        imask, kfirst = bit_tables(code, blk)
+        _tables[key] = (torch.tensor(imask.view(np.int32), device=dev),
+                        torch.tensor(kfirst, device=dev))
+    return _tables[key]
+
+
+def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
+                 style: str = "bits"):
     n, k, dev = code.N, code.K, message.device
     batch = message.shape[0] if message.ndim == 2 else -1
     if (message.dtype != torch.int8 or tuple(message.shape) != (batch, k)
             or not message.is_contiguous()):
         raise ValueError(f"message: expected contiguous (B, {k}) int8, got "
                          f"{tuple(message.shape)} {message.dtype}")
-    if n // blk > 65535:
+    if style == "bytes" and n // blk > 65535:
         raise ValueError(f"{n // blk} row blocks of {blk}: more than 65535")
     out = torch.empty((batch, n), dtype=torch.int8, device=dev)
     if batch == 0:
         return out
-    stream = build.stream(dev)
     whole = blk == n
     x = None if whole else polar_transform_stages(
         _scatter_message(code, message), blk, n).contiguous()
+    stream = build.stream(dev)
+    if style == "bits":
+        imask, kfirst = _device_bit_tables(code, blk, dev)
+        vec = all(t.data_ptr() % 16 == 0
+                  for t in (out, x) if t is not None)
+        err = build.load_library().polar_encode_bits(
+            message.data_ptr(), k, imask.data_ptr(), kfirst.data_ptr(),
+            int(whole), x.data_ptr() if x is not None else None, n, batch,
+            blk, int(systematic), int(vec), out.data_ptr(), stream)
+        build.check(err, "polar_encode_bits")
+        launches["block_encoder"] += 1
+        if systematic and not whole:
+            out = polar_transform_stages(out, blk, n)
+        return out
     info, kstart = _device_tables(code, blk, dev)
     words = max(blk // 4, 1)
     threads = min(1024, max(32, -(-words // 2 // 32) * 32))
@@ -104,18 +168,21 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int):
         device_mask(code.frozen, dev).data_ptr(), n, batch, blk,
         int(systematic), out.data_ptr(), threads, stream)
     build.check(err, "polar_encode")
-    launches["block_encoder"] += 1
+    earlier_launches["block_encoder_bytes"] += 1
     if systematic and not whole:
         out = polar_transform_stages(out, blk, n)
     return out
 
 
 def make_encoder(code: PolarCode, *, systematic: bool = True,
-                 block_level: int | None = None):
+                 block_level: int | None = None, style: str = "bits"):
     """``enc(message)``: ``(B, K)`` ±1 int8 → ``(B, N)`` int8 codeword,
     equal to ``encode`` / ``encode_systematic``. ``block_level``: the
     kernel's row-block level, by default :data:`BLOCK_LEVEL`, cut to the
-    code's level."""
+    code's level. ``style`` picks the CUDA kernel (:data:`STYLES`); a CPU
+    message runs the plain version whatever the style."""
+    if style not in STYLES:
+        raise ValueError(f"encoder style {style!r} not in {STYLES}")
     blk = _block(code, block_level)
 
     def enc(message):
@@ -124,6 +191,6 @@ def make_encoder(code: PolarCode, *, systematic: bool = True,
             return encode_plain(code, message, systematic, blk)
         if dev.type != "cuda":
             raise ValueError(f"no encoder kernel for device {dev}")
-        return _encode_cuda(code, message, systematic, blk)
+        return _encode_cuda(code, message, systematic, blk, style)
 
     return enc

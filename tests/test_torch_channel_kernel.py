@@ -115,3 +115,29 @@ def test_frame_words_offsets_and_plain_counts():
     with pytest.raises(ValueError, match="no AWGN kernel"):
         channel_kernel.awgn(torch.zeros(2, 4, dtype=torch.int8, device="meta"),
                             params=(1.0, 2.0), seeds=(1, 2))
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_one_polynomial_cosine_equals_sincos_bit_for_bit(chunk):
+    """The straight-line AWGN kernel's cosine (one polynomial, picked by
+    the quadrant) rounds as ``sincos_2pi``'s cosine on every value that
+    ``bits_to_unit`` can produce: all 2^24, in chunks of 2^22."""
+    top = torch.arange(chunk << 22, (chunk + 1) << 22, dtype=torch.int64)
+    u = philox.bits_to_unit(top << 8)
+    got = channel_kernel.cos_2pi_one_poly(u)
+    want = philox.sincos_2pi(u)[0]
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_awgn_styles_on_the_cpu():
+    """A CPU tensor runs the plain version in either style; an unknown
+    style is refused."""
+    cw = (1 - 2 * (torch.arange(6 * 32).reshape(6, 32) % 5 == 0)).to(torch.int8)
+    params = snr_params(0.0)
+    want = channel_kernel.awgn(cw, params, seeds=(1, 2), call=3)
+    assert torch.equal(want, channel_kernel.awgn(cw, params, seeds=(1, 2),
+                                                 call=3, style="grid"))
+    with pytest.raises(ValueError, match="style"):
+        channel_kernel.awgn(cw, params, seeds=(1, 2), style="rows")
+    assert channel_kernel.earlier_launches == {"channel_awgn_grid": 0}

@@ -907,3 +907,133 @@ def test_tile_step_counts_errors_and_rows_off_the_word(dev):
         a = step_kernel.step(*args, **kw)
         assert torch.equal(a, step_kernel.step(*args, style="walk", **kw))
         assert min(a.tolist()) > 0
+
+
+# -- rows 11 and 12 redesigned: the straight-line AWGN pass and the
+# bit-packed encoder, against the kernels they replaced and the plain
+# versions
+
+
+@pytest.mark.parametrize("cols", [2, 6, 1024, 131072])
+@pytest.mark.parametrize("rows", [1, 4099])
+@pytest.mark.parametrize("snr_db", [-1.5, 3.0])
+def test_awgn_lines_matches_grid_and_plain(dev, cols, rows, snr_db):
+    from polar_tpu_torch.ops.cuda import channel_kernel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(cols + rows)
+    cw = (1 - 2 * torch.randint(0, 2, (rows, cols), generator=g,
+                                device=dev)).to(torch.int8)
+    words = tuple(torch.randint(0, 2**32, (rows, cols), generator=g,
+                                dtype=torch.int64, device=dev)
+                  for _ in range(2))
+    params = snr_params(snr_db)
+    for kw in (dict(words=words), dict(seeds=(7, 9), call=3)):
+        before = (channel_kernel.launches["channel_awgn"],
+                  channel_kernel.earlier_launches["channel_awgn_grid"])
+        got = channel_kernel.awgn(cw, params, **kw)
+        grid = channel_kernel.awgn(cw, params, style="grid", **kw)
+        assert (channel_kernel.launches["channel_awgn"],
+                channel_kernel.earlier_launches["channel_awgn_grid"]) == (
+                    before[0] + 1, before[1] + 1)
+        assert torch.equal(got, grid)
+        want = channel_kernel.awgn_plain(cw, params, **kw)
+        # the same words; an ulp of log/sqrt between the card and torch
+        # may move an LLR by one step
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and int((d != 0).sum()) <= 3
+
+
+def test_awgn_lines_takes_unaligned_tensors(dev):
+    """A tensor off the 16-byte grid takes the kernel's per-element path
+    with the same LLRs."""
+    from polar_tpu_torch.ops.cuda import channel_kernel
+
+    rows, cols = 37, 512
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    buf = torch.empty(rows * cols + 16, dtype=torch.int8, device=dev)
+    cw = buf[4:4 + rows * cols].view(rows, cols)
+    cw.copy_((1 - 2 * torch.randint(0, 2, (rows, cols), generator=g,
+                                    device=dev)).to(torch.int8))
+    assert cw.data_ptr() % 16 == 4
+    params = snr_params(0.5)
+    got = channel_kernel.awgn(cw, params, seeds=(5, 6), call=1)
+    assert torch.equal(got, channel_kernel.awgn(cw.clone(), params,
+                                                seeds=(5, 6), call=1))
+    assert torch.equal(got, channel_kernel.awgn(cw, params, seeds=(5, 6),
+                                                call=1, style="grid"))
+
+
+@pytest.mark.parametrize("m", range(1, 18))
+def test_bits_encoder_matches_bytes_plain_and_encode(dev, m):
+    from polar_tpu_torch.ops.cuda import encode_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    levels = sorted({1, 2, 5, max(1, m - 3), m} & set(range(1, m + 1)))
+    for batch in (1, 33, 4099):
+        msg = (1 - 2 * torch.randint(0, 2, (batch, c.K), generator=g,
+                                     device=dev)).to(torch.int8)
+        for systematic in (True, False):
+            want = (pt.encode_systematic if systematic else pt.encode)(c, msg)
+            for bl in levels:
+                before = encode_kernel.launches["block_encoder"]
+                got = encode_kernel.make_encoder(
+                    c, systematic=systematic, block_level=bl)(msg)
+                assert encode_kernel.launches["block_encoder"] == before + 1
+                assert torch.equal(got, want), (batch, systematic, bl)
+                assert torch.equal(got, encode_kernel.encode_plain(
+                    c, msg, systematic, 1 << bl))
+                if c.N >> bl <= 65535:     # the bytes kernel's grid limit
+                    assert torch.equal(got, encode_kernel.make_encoder(
+                        c, systematic=systematic, block_level=bl,
+                        style="bytes")(msg))
+
+
+def test_bits_encoder_takes_a_message_off_the_word(dev):
+    """A message row that starts off a 4-byte boundary (K odd, a slice of
+    rows) is read through the aligned words around it."""
+    from polar_tpu_torch.ops.cuda import encode_kernel
+
+    c = pt.PolarCode(9, np.arange(512) % 3 == 0)     # K = 341, odd
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    full = (1 - 2 * torch.randint(0, 2, (34, c.K), generator=g,
+                                  device=dev)).to(torch.int8)
+    msg = full[1:]
+    assert msg.data_ptr() % 4 == 1
+    for systematic in (True, False):
+        want = (pt.encode_systematic if systematic else pt.encode)(c, msg)
+        got = encode_kernel.make_encoder(c, systematic=systematic)(msg)
+        assert torch.equal(got, want)
+
+
+def test_draw_campaign_launches_the_redesigned_kernels(dev):
+    """The pinned-decoder campaign (chip_smoke.py phase 11) runs the
+    straight-line AWGN pass and the bits encoder: no old-style launch, no
+    plain call."""
+    from polar_tpu_torch.ops.cuda import channel_kernel, encode_kernel
+
+    c = pt.make_code(10, rate=0.5)
+    dec, _ = pt.make_auto_decoder(c, output="systematic", device=dev)
+    counts = (channel_kernel.launches, encode_kernel.launches,
+              channel_kernel.earlier_launches, encode_kernel.earlier_launches,
+              channel_kernel.plain_calls, encode_kernel.plain_calls)
+    for count in counts:
+        for k in count:
+            count[k] = 0
+    res = pt.run_campaign(c, device=dev, decoder=dec, seed=11, batch=2048,
+                          steps_per_call=4, snr_range=(-1.0, -0.8),
+                          snr_step=0.2, max_frames_per_point=4 * 2048,
+                          measure_throughput=False)
+    steps = sum(p.frames for p in res.points) // 2048
+    assert steps == 8
+    assert channel_kernel.launches == {"channel_symbols": steps,
+                                       "channel_awgn": steps}
+    assert encode_kernel.launches == {"block_encoder": steps}
+    assert channel_kernel.earlier_launches == {"channel_awgn_grid": 0}
+    assert encode_kernel.earlier_launches == {"block_encoder_bytes": 0}
+    assert max(channel_kernel.plain_calls.values()) == 0
+    assert encode_kernel.plain_calls["encode_plain"] == 0
