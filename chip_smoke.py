@@ -13,9 +13,14 @@ step against the walk in turns at that shape and at Polar(1024, 512) (6).
 Then the large-N path at Polar(131072, 65536) systematic int8: the tile
 subtree decoder against its plain version and the walk in every body at
 levels 1-9, and the hybrid against the whole-code kernel (7), the block
-front and the counter kernel (8), the large-N step against the fused step
-and a BER campaign against the JAX package's result, with timings, the
-tile subtree against the walk in turns (9). Then the
+front's kernels A and B in both styles (the row-word kernels and the frame
+kernels they replaced, style "frame") against the plain versions and each
+other, and the counter kernel (8), the large-N step against the fused step
+and a BER campaign against the JAX package's result (its launches: the
+row-word kernels, no frame kernel), with timings, the tile subtree against
+the walk and kernels A and B against the frame kernels in turns at
+B = 4096 and the campaign's batch, and the frame kernel A timed three ways
+(9). Then the
 caller's-decoder path at both shapes of its campaigns: the symbols, AWGN
 and block-encoder kernels against their plain versions, AWGN and the
 encoder also against the kernels they replaced (style "grid", "bytes"),
@@ -28,7 +33,9 @@ Then the element-major front step: the whole-block front, decode+count and the
 middle-stages kernel against their plain versions, the front chains
 against the fused step at every level 2..16, chained campaigns through
 make_step's default path at Polar(1024, 512) up to Polar(16384, 8192)
-against the JAX package's results, and timings (12). Then the decoder's
+against the JAX package's results, and timings, kernels A and B in turns
+with the frame kernels at the shape of the campaign on the block front
+(12). Then the decoder's
 scratch (shared-memory) and interpreter styles: the scratch whole-code
 kernel against the golden vectors, its plain version and the SSA kernel;
 the scratch and interpreter subtree kernels in every distinct kernel node
@@ -44,7 +51,8 @@ frame-sharded step and a sharded point against the JAX package's result;
 dryrun_multichip(8); the multihost CLI as two processes on the card and
 resumed from its checkpoint; timings (15). Last, each kernel's bound (13);
 the rows of the draws and front kernels carry the steps that made their
-launches, rows 10-12 their numbers at each shape ("by_shape") too.
+launches, rows 9 A, 9 B and 10-12 their numbers at each shape
+("by_shape") too.
 Phases print one line each; any failure raises,
 so the script exits non-zero and prints no result. The last three lines
 are the card, the kernel table and the device line.
@@ -145,6 +153,83 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def front_work(name: str, code, b: int) -> tuple[int, int]:
+    """(bytes, operations) of kernel A ("front_blocks_a": K Philox words,
+    the block's bottom stages, N bytes out a frame) or kernel B
+    ("front_blocks_b": N words, normals and LLRs, the bottom stages, y in
+    and cw, LLR out) at ``code`` and ``b`` frames, blocks as the front's."""
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    n, k = code.N, code.K
+    if name == "front_blocks_a":
+        level = min(front_kernel.BLOCK_LEVEL, code.level)
+        return n * b, (k * PHILOX_OPS + transform_ops(n, level)) * b
+    level = min(front_kernel.CHAN_BLOCK_LEVEL, code.level)
+    return 3 * n * b, (n * (PHILOX_OPS + NORMAL_OPS + QUANT_OPS)
+                       + transform_ops(n, level)) * b
+
+
+def ms_dropped(fn, reps: int) -> float:
+    """ms a call of ``fn`` on the card: CUDA events around ``reps`` calls,
+    each result dropped as the next call starts, so every launch gets the
+    block its predecessor freed from the caching allocator."""
+    import torch
+
+    from polar_tpu_torch.utils.benchmark import elapsed_seconds
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    fn()
+    torch.cuda.synchronize()
+    return elapsed_seconds(run, "cuda") / reps * 1e3
+
+
+def in_turns(new_fn, old_fn, reps: int) -> dict:
+    """The new design and the one it replaced, timed new, old, old, new by
+    :func:`ms_dropped` on the same inputs."""
+    t = [ms_dropped(new_fn, reps)]
+    o = [ms_dropped(old_fn, reps), ms_dropped(old_fn, reps)]
+    t.append(ms_dropped(new_fn, reps))
+    return {"ms": sum(t) / 2, "earlier_ms": sum(o) / 2,
+            "turns": f"new {t[0]:.4f}, {t[1]:.4f}; old {o[0]:.4f}, "
+                     f"{o[1]:.4f}"}
+
+
+def ms_kept(fn, reps: int) -> float:
+    """ms a call of ``fn``, as phases 6-14 time a kernel against its plain
+    version: CUDA events around ``reps`` calls whose results stay alive
+    until the last ends."""
+    import torch
+
+    from polar_tpu_torch.utils.benchmark import elapsed_seconds
+
+    fn()
+    torch.cuda.synchronize()
+    return elapsed_seconds(lambda: [fn() for _ in range(reps)],
+                           "cuda") / reps * 1e3
+
+
+def profiled_ms(fn, reps: int) -> float:
+    """Device ms a call of ``fn`` by torch.profiler: the device time of
+    the kernels ``reps`` calls launch, over ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(e.device_time_total for e in kernels) / 1e3 / reps
 
 
 def _reset(*counts) -> None:
@@ -295,40 +380,62 @@ def large_n_phases(dev, card, ms) -> dict:
           "frame entry, and in the walk style (max abs err 0)")
 
     # -- 8. block front and counter kernel ----------------------------------
+    # kernels A and B in both styles (the row-word kernels and the frame
+    # kernels they replaced) against the plain versions and each other
     msg = (1 - 2 * rand_i8(n, b, 0, 2)).to(torch.int8)
     nrm = torch.randn((n, b), generator=gen, device=dev)
     params = snr_params(-1.5)
     blk_a = 1 << min(front_kernel.BLOCK_LEVEL, LARGE_M)
     blk_b = 1 << min(front_kernel.CHAN_BLOCK_LEVEL, LARGE_M)
+    styles = front_kernel.FRONT_STYLES
     for systematic in (True, False):
         kw = dict(msg_t=msg, normals_t=nrm)
-        got = front_kernel.front_blocks(frozen, params, systematic, **kw)
         x = front_kernel.msg_blocks_plain(frozen, blk_a, systematic, msg_t=msg)
         want = front_kernel.chan_blocks_plain(
             front_kernel.middle_plain(x, frozen, blk_a, blk_b, systematic), blk_b,
             params, normals_t=nrm) + (() if systematic else (x,))
-        e = max_err(got, want)
-        err["front_blocks_a"] = max(err["front_blocks_a"], e)
-        err["front_blocks_b"] = max(err["front_blocks_b"], e)
-        if e:
-            raise AssertionError(f"inject front differs, sys={systematic}")
-    phase("8", f"inject front == plain at Polar({n}, {k}) B={b}, both modes, "
-          f"blocks 2^{front_kernel.BLOCK_LEVEL}/2^{front_kernel.CHAN_BLOCK_LEVEL}")
+        for style in styles:
+            got = front_kernel.front_blocks(frozen, params, systematic,
+                                            front_style=style, **kw)
+            e = max_err(got, want)
+            err["front_blocks_a"] = max(err["front_blocks_a"], e)
+            err["front_blocks_b"] = max(err["front_blocks_b"], e)
+            if e:
+                raise AssertionError(f"inject front ({style}) differs, "
+                                     f"sys={systematic}")
+        del got, want, x
+    phase("8", f"inject front == plain in both styles {styles} at "
+          f"Polar({n}, {k}) B={b}, both modes, blocks "
+          f"2^{front_kernel.BLOCK_LEVEL}/2^{front_kernel.CHAN_BLOCK_LEVEL}")
     kw = dict(seeds=(2024, 8), call=1)
+    for systematic in (True, False):
+        xp = front_kernel.msg_blocks_plain(frozen, blk_a, systematic, batch=b,
+                                           device=dev, **kw)
+        xs = [front_kernel.msg_blocks(frozen, blk_a, systematic, batch=b,
+                                      device=dev, style=style, **kw)
+              for style in styles]
+        e_a = max(max_err([xa], [xp]) for xa in xs)
+        err["front_blocks_a"] = max(err["front_blocks_a"], e_a)
+        phase("8", f"native kernel A sys={systematic}, styles {styles}: max "
+              f"abs err {e_a} against plain and each other")
+        if e_a:
+            raise AssertionError(f"native kernel A differs, sys={systematic}")
+        del xs, xp
     xa = front_kernel.msg_blocks(frozen, blk_a, True, batch=b, device=dev, **kw)
-    xp = front_kernel.msg_blocks_plain(frozen, blk_a, True, batch=b, device=dev,
-                                       **kw)
-    e_a = max_err([xa], [xp])
     y = front_kernel.middle_plain(xa, frozen, blk_a, blk_b, True)
-    got = front_kernel.chan_blocks(y, blk_b, params, **kw)
     want = front_kernel.chan_blocks_plain(y, blk_b, params, **kw)
-    e_b = max_err(got, want)
+    frame = front_kernel.chan_blocks(y, blk_b, params, style="frame", **kw)
+    got = front_kernel.chan_blocks(y, blk_b, params, **kw)
+    e_b = max(max_err(got, want), max_err(got, frame))
+    err["front_blocks_b"] = max(err["front_blocks_b"], e_b)
     moved = int((got[0] != want[0]).sum())
-    phase("8", f"native front on the same Philox words: kernel A max abs err "
-          f"{e_a}, kernel B max abs err {e_b} ({moved} of {n * b} LLRs moved)")
-    if e_a or e_b:
-        raise AssertionError("native front differs from plain")
-    del xa, xp, y, want
+    phase("8", f"native kernel B on the same Philox words: max abs err {e_b} "
+          f"against plain and the frame kernel ({moved} of {n * b} LLRs "
+          "moved)")
+    if e_b:
+        raise AssertionError("native kernel B differs from plain or the "
+                             "frame kernel")
+    del xa, y, want, frame
     llr_c, cw_c = got
     hat = cw_c.clone()
     hat[rand_i8(n, b, 0, 100) == 0] = 0
@@ -368,7 +475,7 @@ def large_n_phases(dev, card, ms) -> dict:
     # steps of auto.BIG_BATCH frames, where the path's hybrid runs the SSA
     # subtree kernel (below it the scratch style runs, phase 14)
     cb = auto.BIG_BATCH
-    _reset(*counts, *plains)
+    _reset(*counts, *plains, front_kernel.earlier_launches)
     t0 = time.perf_counter()
     res = pt.run_campaign(code, device=dev, seed=3, batch=cb,
                           snr_range=(-1.7, -1.4), snr_step=0.1,
@@ -378,14 +485,15 @@ def large_n_phases(dev, card, ms) -> dict:
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
     new = ("subtree_decoder", "front_blocks_a", "front_blocks_b", "count")
+    old = dict(front_kernel.earlier_launches)
     if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
-            or launched["walk_subtree"]):
+            or launched["walk_subtree"] or max(old.values())):
         raise AssertionError(f"large-N campaign launches {launched}, plain "
-                             f"calls {plain}")
+                             f"calls {plain}, old-style launches {old}")
     steps = sum(p.frames for p in res.points) // cb
     phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
           f"{cb} frames ({steps} steps) in {wall:.1f} s; launches {launched}; "
-          f"plain calls {plain}")
+          f"plain calls {plain}; old-style launches {old}")
     campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
 
     # timings at Polar(131072, 65536): the subtree kernel at the largest
@@ -413,30 +521,65 @@ def large_n_phases(dev, card, ms) -> dict:
                 ms(lambda: subtree_kernel.decode_plain(
                     node, (slot,), emit_u=False, emit_cw=True), 2))
             earlier["subtree_decoder"] = sum(w) / 2
+    # kernels A and B against the frame kernels they replaced, in turns
+    # (new, old, old, new) with each output dropped as the next launch
+    # starts, at B = 4096 and at the campaign's batch; plain at B = 4096
     kw = dict(seeds=(5, 6), call=0)
+    y = front_kernel.middle_plain(msg, frozen, blk_a, blk_b, True)
+    by_shape = {"front_blocks_a": {}, "front_blocks_b": {}}
+    for batch in (b, cb):
+        yb = y if batch == b else (1 - 2 * rand_i8(n, batch, 0, 2)).to(
+            torch.int8)
+        where = f"Polar({n}, {k}) B={batch}"
+        for name, fn in (
+                ("front_blocks_a", lambda st: front_kernel.msg_blocks(
+                    frozen, blk_a, True, batch=batch, device=dev, style=st,
+                    **kw)),
+                ("front_blocks_b", lambda st: front_kernel.chan_blocks(
+                    yb, blk_b, params, style=st, **kw))):
+            t = in_turns(lambda: fn("rows"), lambda: fn("frame"), 10)
+            by_shape[name][where] = t
+            phase("9", f"{name} at {where}: kernel {t['ms']:.4f} ms, "
+                  f"earlier (style frame) {t['earlier_ms']:.4f} ms "
+                  f"({t['turns']}; {t['earlier_ms'] / t['ms']:.2f}x) ({card})")
+        del yb
     times["front_blocks_a"] = (
-        ms(lambda: front_kernel.msg_blocks(frozen, blk_a, True, batch=b,
-                                           device=dev, **kw), 10),
+        by_shape["front_blocks_a"][f"Polar({n}, {k}) B={b}"]["ms"],
         ms(lambda: front_kernel.msg_blocks_plain(frozen, blk_a, True, batch=b,
                                                  device=dev, **kw), 2))
-    y = front_kernel.middle_plain(msg, frozen, blk_a, blk_b, True)
     times["front_blocks_b"] = (
-        ms(lambda: front_kernel.chan_blocks(y, blk_b, params, **kw), 10),
+        by_shape["front_blocks_b"][f"Polar({n}, {k}) B={b}"]["ms"],
         ms(lambda: front_kernel.chan_blocks_plain(y, blk_b, params, **kw), 2))
+    for name in by_shape:
+        earlier[name] = by_shape[name][f"Polar({n}, {k}) B={b}"]["earlier_ms"]
+        t = by_shape[name].pop(f"Polar({n}, {k}) B={b}")
+        by_shape[name][f"Polar({n}, {k}) B={cb}"].update(
+            launches=launched[name], steps=steps, plain_ms=None,
+            work=front_work(name, code, cb))
+    # the frame kernel A read three ways: as phases 6-14 time a kernel (ten
+    # launches whose outputs stay alive, each a new allocator block after
+    # the cache is emptied), with each output dropped, and its device time
+    # in the profiler
+    frame_a = lambda: front_kernel.msg_blocks(  # noqa: E731
+        frozen, blk_a, True, batch=b, device=dev, style="frame", **kw)
+    torch.cuda.empty_cache()
+    kept = ms_kept(frame_a, 10)
+    prof = profiled_ms(frame_a, 3)
+    phase("9", f"front_blocks_a style frame at Polar({n}, {k}) B={b}: "
+          f"{kept:.4f} ms a launch with the ten outputs kept alive, "
+          f"{earlier['front_blocks_a']:.4f} ms with each dropped, "
+          f"{prof:.4f} ms device time in the profiler ({card})")
     times["count"] = (
         ms(lambda: count_kernel.count(frozen, llr_c, cw_c, hat), 10),
         ms(lambda: count_kernel.count_plain(frozen, llr_c, cw_c, hat), 2))
     out = subtree_kernel.make_subtree_decoder(node, emit_u=False,
                                               emit_cw=True)(slot)
-    level_a, level_b = blk_a.bit_length() - 1, blk_b.bit_length() - 1
     work = {
         "subtree_decoder": (slot.numel() + sum(o.numel() for o in out),
                             (decode_ops(slot.shape[0])
                              + transform_ops(slot.shape[0])) * cb),
-        "front_blocks_a": (n * b, (k * PHILOX_OPS
-                                   + transform_ops(n, level_a)) * b),
-        "front_blocks_b": (3 * n * b, (n * (PHILOX_OPS + NORMAL_OPS + QUANT_OPS)
-                                       + transform_ops(n, level_b)) * b),
+        "front_blocks_a": front_work("front_blocks_a", code, b),
+        "front_blocks_b": front_work("front_blocks_b", code, b),
         "count": (3 * n * b, 5 * n * b),
     }
     for name, (t_k, t_p) in times.items():
@@ -463,7 +606,7 @@ def large_n_phases(dev, card, ms) -> dict:
     phase("9", f"large-N step (systematic, kl{kl}): {t_step:.1f} ms per "
           f"{b} frames, {b / t_step * 1e3:.1f} frames/s ({card})")
     return {"err": err, "times": times, "work": work, "earlier": earlier,
-            "steps": {name: steps for name in new},
+            "steps": {name: steps for name in new}, "by_shape": by_shape,
             "launched": {name: launched[name] for name in new}}
 
 
@@ -493,16 +636,6 @@ def draw_phases(dev, card, ms) -> dict:
 
     def max_err(got, want):
         return int((got.int() - want.int()).abs().max())
-
-    def in_turns(new_fn, old_fn, reps):
-        """The new design and the one it replaced, timed new, old, old,
-        new on the same inputs."""
-        t = [ms(new_fn, reps)]
-        o = [ms(old_fn, reps), ms(old_fn, reps)]
-        t.append(ms(new_fn, reps))
-        return {"ms": sum(t) / 2, "earlier_ms": sum(o) / 2,
-                "turns": f"new {t[0]:.4f}, {t[1]:.4f}; old {o[0]:.4f}, "
-                         f"{o[1]:.4f}"}
 
     # -- 10. each kernel against its plain version (and rows 11 and 12
     # against the designs they replaced), then timed, at the shapes that
@@ -867,14 +1000,17 @@ def front_step_phases(dev, card, ms) -> dict:
               decoder_kernel.plain_calls, subtree_kernel.plain_calls,
               count_kernel.plain_calls, channel_kernel.plain_calls,
               encode_kernel.plain_calls)
-    _reset(*counts, *plains)
+    _reset(*counts, *plains, front_kernel.earlier_launches)
     t0 = time.perf_counter()
-    results = []
+    results, front_launches = [], {}
     for m, snr_range, step in CAMPAIGNS:
+        before = dict(front_kernel.launches)
         results.append(pt.run_campaign(
             pt.make_code(m, rate=0.5), device=dev, seed=m, batch=LARGE_BATCH,
             steps_per_call=4, snr_range=snr_range, snr_step=step,
             max_frames_per_point=4 * LARGE_BATCH, measure_throughput=False))
+        front_launches[m] = {name: front_kernel.launches[name] - before[name]
+                             for name in ("front_blocks_a", "front_blocks_b")}
     gen_front = torch.Generator()
     gen_front.manual_seed(10)
     front_code = pt.make_code(pt.ber.FRONT_WHOLE_MAX_LEVEL, rate=0.5)
@@ -886,15 +1022,19 @@ def front_step_phases(dev, card, ms) -> dict:
     wall = time.perf_counter() - t0
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
-    if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
+    old = dict(front_kernel.earlier_launches)
+    if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
+            or max(old.values()) or not all(
+                min(front_launches[m].values()) > 0 for m in middle_ms)):
         raise AssertionError(f"front-step campaigns launches {launched}, "
-                             f"plain calls {plain}")
+                             f"plain calls {plain}, old-style launches {old}")
     phase("12", f"campaigns at m = {[m for m, _, _ in CAMPAIGNS]} through "
           f"make_step (paths {paths}), and the front path (make_step_body "
           f"rng='kernel', {pt.ber.front_branch(front_code, True)}) at "
           f"Polar({front_code.N}, {front_code.K}) B={BATCH}: "
           f"{front_res.frames} frames, BER {front_res.ber:.4g}; {wall:.1f} s; "
-          f"launches {launched}; plain calls {plain}")
+          f"launches {launched}; plain calls {plain}; old-style launches "
+          f"{old}")
     for (m, _, _), res in zip(CAMPAIGNS, results):
         campaign_vs_reference("12", res, f"n{1 << m}_sys_int8.json",
                               1 << (m - 1), len(res.points))
@@ -926,6 +1066,43 @@ def front_step_phases(dev, card, ms) -> dict:
                                              True), 3))
     work["front_middle"] = (2 * n * b, (mc.level - front_kernel.BLOCK_LEVEL)
                             * n * b)
+    # kernels A and B at the shape of each campaign on the block front, in
+    # turns with the frame kernels they replaced, and their launches there
+    by_shape = {"front_blocks_a": {}, "front_blocks_b": {}}
+    for m in middle_ms:
+        fc = pt.make_code(m, rate=0.5)
+        where = f"Polar({fc.N}, {fc.K}) B={LARGE_BATCH}"
+        steps_m = sum(p.frames for p in results[[c[0] for c in CAMPAIGNS]
+                                                .index(m)].points) // LARGE_BATCH
+        kw = dict(seeds=(m, 5), call=0)
+        blk_a = 1 << min(front_kernel.BLOCK_LEVEL, m)
+        blk_b = 1 << min(front_kernel.CHAN_BLOCK_LEVEL, m)
+        x = front_kernel.msg_blocks(fc.frozen, blk_a, True, batch=LARGE_BATCH,
+                                    device=dev, **kw)
+        y = front_kernel.middle_kernel(x, fc.frozen, blk_a, blk_b, True)
+        for name, fn, plain_fn in (
+                ("front_blocks_a", lambda st: front_kernel.msg_blocks(
+                    fc.frozen, blk_a, True, batch=LARGE_BATCH, device=dev,
+                    style=st, **kw),
+                 lambda: front_kernel.msg_blocks_plain(
+                     fc.frozen, blk_a, True, batch=LARGE_BATCH, device=dev,
+                     **kw)),
+                ("front_blocks_b", lambda st: front_kernel.chan_blocks(
+                    y, blk_b, params, style=st, **kw),
+                 lambda: front_kernel.chan_blocks_plain(y, blk_b, params,
+                                                        **kw))):
+            t = in_turns(lambda: fn("rows"), lambda: fn("frame"), 20)
+            by_shape[name][where] = {
+                **t, "plain_ms": ms(plain_fn, 2),
+                "launches": front_launches[m][name], "steps": steps_m,
+                "work": front_work(name, fc, LARGE_BATCH)}
+            phase("12", f"{name} at {where}: kernel {t['ms']:.4f} ms, "
+                  f"earlier (style frame) {t['earlier_ms']:.4f} ms "
+                  f"({t['turns']}), plain "
+                  f"{by_shape[name][where]['plain_ms']:.3f} ms; "
+                  f"{front_launches[m][name]} launches in {steps_m} steps "
+                  f"({card})")
+        del x, y
     for name, shape in (("front_whole", f"Polar({code.N}, {code.K}) B={BATCH}"),
                         ("decode_count", f"Polar({code.N}, {code.K}) B={BATCH}"),
                         ("front_middle", f"({n}, {b}) systematic, blocks "
@@ -933,7 +1110,7 @@ def front_step_phases(dev, card, ms) -> dict:
         t_k, t_p = times[name]
         phase("12", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
               f"{shape} ({card})")
-    return {"err": err, "times": times, "work": work,
+    return {"err": err, "times": times, "work": work, "by_shape": by_shape,
             "steps": {"front_middle": front_steps},
             "launched": {name: launched[name] for name in new}}
 
@@ -1531,8 +1708,7 @@ def main() -> int:
     from polar_tpu_torch.ops.cuda import (build, count_kernel, decoder_kernel,
                                           front_kernel, step_kernel,
                                           subtree_kernel)
-    from polar_tpu_torch.utils.benchmark import (elapsed_seconds,
-                                                 measure_decode_fps)
+    from polar_tpu_torch.utils.benchmark import measure_decode_fps
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -1748,11 +1924,7 @@ def main() -> int:
     campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
 
     # -- 6. timings, kernel against plain version --------------------------
-    def ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        return elapsed_seconds(lambda: [fn() for _ in range(reps)], dev) / reps * 1e3
-
+    ms = ms_kept
     frozen = code.frozen
     times, earlier = {}, {}
     for name, want_cw in (("fastssc_decoder_u", False), ("fastssc_decoder_cw", True)):
@@ -1809,7 +1981,8 @@ def main() -> int:
         library.update(more.get("library", {}))
         earlier.update(more.get("earlier", {}))
         steps.update(more.get("steps", {}))
-        by_shape.update(more.get("by_shape", {}))
+        for name, shapes in more.get("by_shape", {}).items():
+            by_shape.setdefault(name, {}).update(shapes)
 
     replaces = {
         "fastssc_decoder_u": ("polar_tpu_torch/csrc/decoder.cu",   # + fastssc_simd.cuh

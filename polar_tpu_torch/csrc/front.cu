@@ -4,13 +4,13 @@
 //
 // Replaces polar_tpu/ops/pallas/step_kernel.py:make_pallas_front_blocks
 // (:831):
-//   kernel A (front_msg_kernel): _msg_block_kernel_native / _inject
+//   kernel A (front_msg_rows_kernel): _msg_block_kernel_native / _inject
 //     (:713-734): +-1 message symbols, frozen rows pinned to +1, then the
 //     block's bottom butterfly stages (systematic); _msg_u0_kernel_native /
 //     _inject (:737-759): the same draw and pin without the butterfly (the
 //     non-systematic u0);
-//   kernel B (front_chan_kernel): _chan_block_kernel_native / _inject and
-//     _chan_block_body (:762-778): the block's bottom butterfly stages,
+//   kernel B (front_chan_rows_kernel): _chan_block_kernel_native / _inject
+//     and _chan_block_body (:762-778): the block's bottom butterfly stages,
 //     AWGN and quantization;
 //   the middle (front_middle_kernel): _stages_kernel (:800) over
 //     _stages_rows (:781), with the systematic refreeze that the JAX
@@ -19,18 +19,50 @@
 // Native mode draws the words of the fused step kernel (step.cu): row r's
 // message symbol from word N + r of the frame's Philox stream, row r's
 // normal from radius word r mod N/2 and angle word N/2 + r mod N/2 (the cos
-// output for r < N/2, the sin output above), through channel.cuh. A kernel-B
-// thread therefore computes its rows' normals from both words, whichever
-// block holds the partner row, and the large-N step reproduces the fused
-// step's LLRs and counters on the same seeds.
+// output for r < N/2, the sin output above), through channel.cuh's
+// box_muller and quantize, so the large-N step reproduces the fused step's
+// LLRs and counters on the same seeds.
 //
-// Grid of A and B: x over frames (one thread per frame, masked tail), y over
-// row blocks; every array is element-major (N, B) int8 (normals float32), so
-// a warp's row accesses are neighbouring bytes. What bounds them on the
-// card: kernel A is a byte-store stream plus one Philox block per four rows;
-// kernel B is compute-bound on two Philox blocks, a logf, a sqrtf and the
-// sin/cos polynomial per four rows, over a butterfly whose in-place passes
-// stay in L1/L2 for the block sizes used (2^8 .. 2^12 rows).
+// Kernels A and B: 32 frames a row word. A CTA owns the 32 frames of one
+// warp's width (lane l is frame 32 blockIdx.x + l) and S rows: kernel A one
+// row block (S = blk), kernel B row block R below N/2 and its partner
+// R + N/(2 blk) above it (S = 2 blk; where blk = N one block holds both
+// halves, S = N). A row's +-1 values for the 32 frames are one 32-bit word
+// made by __ballot_sync (bit l set for -1: kernel A from the Philox word's
+// low bit, or the injected symbol's sign; kernel B from y < 0), and the S
+// words sit in shared memory. With +1 as bit 0 and -1 as bit 1 the
+// butterfly's product is an XOR: stage h is word[j] ^= word[j + h], spread
+// over the CTA's threads with a barrier between stages, and no stage
+// touches device memory. Frozen rows are words of 0; frozen is per row, so
+// the test is uniform across a warp. Rows leave as +-1 bytes (0x01 / 0xFF):
+// where batch % 4 == 0 and the row arrays are 4-byte aligned a lane moves
+// four frames as one 32-bit word (a warp four rows an instruction), else
+// its frame's byte. At the ragged edge the tail lanes vote 0 and store
+// nothing. Each lane keeps its frame's Philox round keys and first round
+// (PhiloxFrame) for the whole CTA.
+//
+// What bounds them on this card (the H100's 33.5 T lane instructions/s and
+// 3.35 TB/s; PERF.md section 6 has the times): kernel A moves one byte an
+// element (0.16 ms at m = 17, B = 4096) and issues a Philox block of nine
+// rounds per four rows with an info row; a warp takes its chunks 32 at a
+// time, lane l reading chunk k + l's frozen nibble, zeroes the all-frozen
+// ones without drawing and draws the live ones two at a time, so two
+// independent Philox chains are in flight. Kernel B moves three bytes an
+// element (y in, cw and the LLR out, 0.48 ms) and is bound by issued
+// instructions and the conversion pipe: a lane takes the radius block of
+// words j..j+3 and the angle block of words N/2 + j .. N/2 + j + 3,
+// computes four Box-Muller pairs once each and writes n0 into rows j..j+3
+// and n1 into rows N/2 + j ..: per element a quarter Philox block, half a
+// logf and a sqrtf, one of the two polynomials and one quantize. Its row
+// loads (a lane keeps kLoads in flight) and the draw do not overlap within
+// a CTA. channel.cuh's instruction sequence is kept as it is (-fmad=false),
+// so the LLRs equal the fused step's.
+//
+// style "frame" (front_msg_kernel, front_chan_kernel): the kernels these
+// replaced, kept by name so that the two can be timed in turns: one thread
+// a frame walking its rows, the butterfly in place in device memory, and
+// in kernel B each Box-Muller pair computed twice, once for each of its
+// rows.
 //
 // The middle is bound by device memory: it has to read and write the (N, B)
 // +-1 array once, 2^30 bytes at m = 17, B = 4096 (0.32 ms at 3.35 TB/s).
@@ -52,6 +84,273 @@
 #include "fastssc.cuh"
 
 namespace {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Word k (0..3) of a Philox block.
+__device__ __forceinline__ uint32_t pick(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Bit t of an 8-bit x to bit 4 t.
+__device__ __forceinline__ uint32_t spread8(uint32_t x) {
+  x = (x | (x << 12)) & 0x000F000Fu;
+  x = (x | (x << 6)) & 0x03030303u;
+  return (x | (x << 3)) & 0x11111111u;
+}
+
+// The CTA's rows of one 32-frame column: local row l < S at global row
+// row(l). Kernel A: a row block from r0. Kernel B: pair rows [r0, r0 + S/2)
+// below N/2 and the same rows + N/2 above (with S = N, the code in order).
+struct Rows {
+  int r0, half, h;  // half: S/2 for kernel B, 0 for kernel A
+  __device__ __forceinline__ long long row(int l) const {
+    return half == 0 ? r0 + l : l < half ? r0 + l : (long long)h + r0 + l - half;
+  }
+};
+
+// Load S rows of x (n, batch) int8 into sm as row words (bit l: x < 0 for
+// frame 32 g + l). words: four frames a lane, a warp four rows a step, a
+// lane's kLoads loads issued before their ballots (the loads' latency, not
+// the bytes, bounds this phase); else a frame a lane, a row a step.
+constexpr int kLoads = 8;
+
+__device__ __forceinline__ void load_rows(const int8_t* __restrict__ x,
+                                          const Rows& rows, int S, int batch,
+                                          int words, uint32_t* sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long b = batch;
+  const int f0 = blockIdx.x * 32;
+  if (words) {
+    const int i = lane >> 3, c = lane & 7;
+    const bool live = f0 + 4 * c < batch;
+    const int step = 4 * nwarps;
+    for (int l0 = 4 * warp + i; l0 - i < S; l0 += kLoads * step) {
+      uint32_t v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int l = l0 + u * step;
+        v[u] = live && l < S ? __ldg(reinterpret_cast<const uint32_t*>(
+                                   x + rows.row(l) * b + f0 + 4 * c))
+                             : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int l = l0 + u * step;
+        if (l - i >= S) break;  // uniform across the warp
+        uint32_t w = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t bal =
+              __ballot_sync(kFull, (v[u] >> (8 * k + 7)) & 1u);
+          w |= spread8((bal >> (8 * i)) & 0xFFu) << k;
+        }
+        if (c == 0 && l < S) sm[l] = w;
+      }
+    }
+  } else {
+    const bool live = f0 + lane < batch;
+    for (int l = warp; l < S; l += nwarps) {
+      const int8_t v = live ? x[rows.row(l) * b + f0 + lane] : (int8_t)0;
+      const uint32_t w = __ballot_sync(kFull, v < 0);
+      if (lane == 0) sm[l] = w;
+    }
+  }
+}
+
+// Store the S row words of sm as +-1 bytes (0x01 for bit 0, 0xFF for 1).
+__device__ __forceinline__ void store_rows(int8_t* out, const Rows& rows,
+                                           int S, int batch, int words,
+                                           const uint32_t* sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const long long b = batch;
+  const int f0 = blockIdx.x * 32;
+  if (words) {
+    const int i = lane >> 3, c = lane & 7;
+    if (f0 + 4 * c >= batch) return;
+    for (int l = 4 * warp + i; l < S; l += 4 * nwarps) {
+      const uint32_t q = (sm[l] >> (4 * c)) & 0xFu;
+      const uint32_t bits = (q | (q << 7) | (q << 14) | (q << 21)) & 0x01010101u;
+      *reinterpret_cast<uint32_t*>(out + rows.row(l) * b + f0 + 4 * c) =
+          0x01010101u | (bits * 0xFEu);
+    }
+  } else {
+    if (f0 + lane >= batch) return;
+    for (int l = warp; l < S; l += nwarps)
+      out[rows.row(l) * b + f0 + lane] =
+          (sm[l] >> lane) & 1u ? (int8_t)-1 : (int8_t)1;
+  }
+}
+
+// The bottom butterfly stages h < blk of every blk-row block of sm's S
+// words (blk <= S): word[j] ^= word[j + h]. Ends with a barrier.
+__device__ __forceinline__ void xor_stages(uint32_t* sm, int S, int blk) {
+  for (int h = 1; h < blk; h <<= 1) {
+    __syncthreads();
+    for (int q = threadIdx.x; q < S / 2; q += blockDim.x) {
+      const int j = ((q & ~(h - 1)) << 1) | (q & (h - 1));
+      sm[j] ^= sm[j + h];
+    }
+  }
+  __syncthreads();
+}
+
+// Frozen bits of rows r .. r + 3 (nonzero bytes) as a nibble; r a
+// multiple of 4.
+__device__ __forceinline__ uint32_t frozen_nibble(const uint8_t* frozen,
+                                                  int r) {
+  const uint32_t m =
+      __vcmpne4(__ldg(reinterpret_cast<const uint32_t*>(frozen + r)), 0u) &
+      0x01010101u;
+  return (m | (m >> 7) | (m >> 14) | (m >> 21)) & 0xFu;
+}
+
+// Kernel A: grid (ceil(batch / 32), n / blk), S = blk words of shared
+// memory. Rows in chunks of c = min(4, blk), a warp a chunk: one Philox
+// block (words N + r .. N + r + c - 1 lie in one block) unless all c rows
+// are frozen. WIDE (blk >= 4): c = 4, a chunk's words are one whole block.
+template <bool WIDE>
+__global__ void __launch_bounds__(256) front_msg_rows_kernel(
+    const uint8_t* __restrict__ frozen, int n, int batch, int blk,
+    int butterfly, const int8_t* __restrict__ msg_in, uint32_t seed0,
+    uint32_t seed1, uint32_t call, int8_t* out, int words) {
+  extern __shared__ uint32_t sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int r0 = blockIdx.y * blk;
+  const Rows rows{r0, 0, 0};
+  if (msg_in != nullptr) {
+    load_rows(msg_in, rows, blk, batch, words, sm);
+    __syncthreads();
+    for (int l = threadIdx.x; l < blk; l += blockDim.x)
+      if (__ldg(frozen + r0 + l)) sm[l] = 0u;
+  } else {
+    const int f = blockIdx.x * 32 + lane;
+    const bool live = f < batch;
+    polar::PhiloxFrame ph(make_uint2(seed0, seed1));
+    ph.start((uint32_t)f, call);
+    if (WIDE) {
+      // the warp's chunks k = 0, 1, ... start at rows 4 warp + 4 nwarps k,
+      // taken 32 at a time: lane l reads chunk k + l's frozen nibble and
+      // zeroes its rows if all four are frozen; the live ones go two at a
+      // time, their two Philox blocks independent
+      const int stride = 4 * nwarps;
+      for (int ib = 4 * warp; ib < blk; ib += 32 * stride) {
+        const int ii = ib + stride * lane;
+        const uint32_t nib = ii < blk ? frozen_nibble(frozen, r0 + ii) : 0xFu;
+        if (ii < blk && nib == 0xFu)
+          *reinterpret_cast<uint4*>(sm + ii) = make_uint4(0u, 0u, 0u, 0u);
+        uint32_t todo = __ballot_sync(kFull, nib != 0xFu);
+        while (todo) {
+          const int k0 = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int k1 = todo ? __ffs(todo) - 1 : k0;
+          todo &= todo - 1;
+          const int i0 = ib + stride * k0, i1 = ib + stride * k1;
+          const uint32_t fz0 = __shfl_sync(kFull, nib, k0);
+          const uint32_t fz1 = __shfl_sync(kFull, nib, k1);
+          const uint4 v0 = ph.block((uint32_t)((n + r0 + i0) >> 2));
+          const uint4 v1 = ph.block((uint32_t)((n + r0 + i1) >> 2));
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const uint32_t b0 = __ballot_sync(
+                kFull, live && !((fz0 >> t) & 1u) && (pick(v0, t) & 1u));
+            const uint32_t b1 = __ballot_sync(
+                kFull, live && !((fz1 >> t) & 1u) && (pick(v1, t) & 1u));
+            if (lane == t) {
+              sm[i0 + t] = b0;
+              sm[i1 + t] = b1;
+            }
+          }
+        }
+      }
+    } else {
+      const int c = min(4, blk);
+      for (int i0 = c * warp; i0 < blk; i0 += c * nwarps) {
+        uint32_t fz = 0u;  // bit t: row r0 + i0 + t frozen
+        for (int t = 0; t < c; ++t)
+          fz |= (uint32_t)(__ldg(frozen + r0 + i0 + t) != 0) << t;
+        if (fz == (1u << c) - 1u) {  // no info row: no Philox block
+          if (lane < c) sm[i0 + lane] = 0u;
+          continue;
+        }
+        const int w = n + r0 + i0;
+        const uint4 v = ph.block((uint32_t)(w >> 2));
+        for (int t = 0; t < c; ++t) {
+          const uint32_t bal = __ballot_sync(
+              kFull, live && !((fz >> t) & 1u) && (pick(v, (w & 3) + t) & 1u));
+          if (lane == t) sm[i0 + t] = bal;
+        }
+      }
+    }
+  }
+  if (butterfly) {
+    xor_stages(sm, blk, blk);
+  } else {
+    __syncthreads();
+  }
+  store_rows(out, rows, blk, batch, words, sm);
+}
+
+// Kernel B: grid (ceil(batch / 32), N / S) with P = min(blk, N/2) pair rows
+// a CTA and S = 2 P words of shared memory: pair rows [p P, p P + P) and
+// the same rows + N/2. Pair rows in chunks of c = min(4, P), a warp a
+// chunk: the radius block (words j ..) and the angle block (words N/2 + j
+// ..), one block where both lie in it (N <= 4), then c Box-Muller pairs,
+// each giving row j's normal (n0) and row N/2 + j's (n1). WIDE (P >= 4):
+// c = 4, the chunk's radius and angle words are whole blocks.
+template <bool WIDE>
+__global__ void __launch_bounds__(256) front_chan_rows_kernel(
+    int n, int batch, int blk, float sigma, float scale,
+    const int8_t* __restrict__ y, const float* __restrict__ normals_in,
+    uint32_t seed0, uint32_t seed1, uint32_t call, int8_t* llr, int8_t* cw,
+    int words) {
+  extern __shared__ uint32_t sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int h = n >> 1;
+  const int P = min(blk, h), S = 2 * P;
+  const int j0 = blockIdx.y * P;
+  const Rows rows{j0, P, h};
+  load_rows(y, rows, S, batch, words, sm);
+  xor_stages(sm, S, blk);
+  store_rows(cw, rows, S, batch, words, sm);
+  const int f = blockIdx.x * 32 + lane;
+  if (f >= batch) return;  // no barrier or ballot below
+  const long long b = batch;
+  polar::PhiloxFrame ph(make_uint2(seed0, seed1));
+  ph.start((uint32_t)f, call);
+  const int c = WIDE ? 4 : min(4, P);
+  for (int i0 = c * warp; i0 < P; i0 += c * nwarps) {
+    const int j = j0 + i0;
+    uint4 vr = make_uint4(0u, 0u, 0u, 0u), va = vr;
+    if (normals_in == nullptr) {
+      vr = ph.block((uint32_t)(j >> 2));
+      va = !WIDE && (h + j) >> 2 == j >> 2
+               ? vr
+               : ph.block((uint32_t)((h + j) >> 2));
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (t >= c) break;
+      float n0, n1;
+      if (normals_in != nullptr) {
+        n0 = normals_in[(long long)(j + t) * b + f];
+        n1 = normals_in[(long long)(h + j + t) * b + f];
+      } else {
+        polar::box_muller(pick(vr, WIDE ? t : (j + t) & 3),
+                          pick(va, WIDE ? t : (h + j + t) & 3), &n0, &n1);
+      }
+      const float c0 = (sm[i0 + t] >> lane) & 1u ? -1.0f : 1.0f;
+      const float c1 = (sm[P + i0 + t] >> lane) & 1u ? -1.0f : 1.0f;
+      llr[(long long)(j + t) * b + f] = polar::quantize(c0, n0, sigma, scale);
+      llr[(long long)(h + j + t) * b + f] =
+          polar::quantize(c1, n1, sigma, scale);
+    }
+  }
+}
 
 __global__ void front_msg_kernel(const uint8_t* __restrict__ frozen, int n,
                                  int batch, int blk, int butterfly,
@@ -222,13 +521,75 @@ int launch_middle(const void* in, void* out, const void* frz, int n,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of the row-word kernels: S words a CTA, S at most
+// 2^15 (128 KB; above 48 KB by the opt-in attribute).
+template <typename K>
+int rows_smem(K kernel, int S) {
+  const int bytes = 4 * S;
+  if (S > (1 << 15)) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// Threads of a row-word CTA of S rows: a warp per chunk of four rows, at
+// most 256.
+int rows_threads(int S) { return S >= 32 ? 256 : S <= 4 ? 32 : 8 * S; }
+
 }  // namespace
 
-// Kernel A on `stream`: out (n, batch) int8. Inject mode: msg (n, batch)
-// int8 +-1; native mode: msg null, words from Philox keyed by (seed0, seed1)
-// with counter word 2 = call. blk (a power of two dividing n) rows per
-// block; butterfly != 0 applies the block's bottom stages. Returns
-// cudaGetLastError().
+// Kernel A (front_msg_rows_kernel) on `stream`: out (n, batch) int8.
+// Inject mode: msg (n, batch) int8 +-1; native mode: msg null, words from
+// Philox keyed by (seed0, seed1) with counter word 2 = call. blk (a power
+// of two dividing n, at most 2^15) rows per block; butterfly != 0 applies
+// the block's bottom stages. words != 0: batch % 4 == 0 and out, msg are
+// 4-byte aligned. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a block above 2^15 rows.
+extern "C" int polar_front_msg_rows(const void* frozen, int n, int batch,
+                                    int blk, int butterfly, const void* msg,
+                                    unsigned int seed0, unsigned int seed1,
+                                    unsigned int call, void* out, int words,
+                                    void* stream) {
+  const auto kernel = blk >= 4 ? front_msg_rows_kernel<true>
+                               : front_msg_rows_kernel<false>;
+  const int err = rows_smem(kernel, blk);
+  if (err) return err;
+  const dim3 grid((batch + 31) / 32, n / blk);
+  kernel<<<grid, rows_threads(blk), 4 * blk, (cudaStream_t)stream>>>(
+      (const uint8_t*)frozen, n, batch, blk, butterfly, (const int8_t*)msg,
+      seed0, seed1, call, (int8_t*)out, words);
+  return (int)cudaGetLastError();
+}
+
+// Kernel B (front_chan_rows_kernel) on `stream`: y (n, batch) int8 +-1 in,
+// llr and cw (n, batch) int8 out. Inject mode: normals (n, batch) float32;
+// native mode: normals null. 2 min(blk, n / 2) at most 2^15. words != 0:
+// batch % 4 == 0 and y, cw are 4-byte aligned (the LLRs go out a byte a
+// lane). Returns cudaGetLastError(), or cudaErrorInvalidValue for too many
+// rows a CTA.
+extern "C" int polar_front_chan_rows(int n, int batch, int blk, float sigma,
+                                     float scale, const void* y,
+                                     const void* normals, unsigned int seed0,
+                                     unsigned int seed1, unsigned int call,
+                                     void* llr, void* cw, int words,
+                                     void* stream) {
+  const int S = 2 * (blk < n / 2 ? blk : n / 2);
+  const auto kernel = S >= 8 ? front_chan_rows_kernel<true>
+                             : front_chan_rows_kernel<false>;
+  const int err = rows_smem(kernel, S);
+  if (err) return err;
+  const dim3 grid((batch + 31) / 32, n / S);
+  kernel<<<grid, rows_threads(S), 4 * S, (cudaStream_t)stream>>>(
+      n, batch, blk, sigma, scale, (const int8_t*)y, (const float*)normals,
+      seed0, seed1, call, (int8_t*)llr, (int8_t*)cw, words);
+  return (int)cudaGetLastError();
+}
+
+// style "frame": kernel A (front_msg_kernel) on `stream`, arguments as
+// polar_front_msg_rows's, with threads (frames) a CTA in place of words.
 extern "C" int polar_front_msg(const void* frozen, int n, int batch, int blk,
                                int butterfly, const void* msg,
                                unsigned int seed0, unsigned int seed1,
@@ -241,9 +602,8 @@ extern "C" int polar_front_msg(const void* frozen, int n, int batch, int blk,
   return (int)cudaGetLastError();
 }
 
-// Kernel B on `stream`: y (n, batch) int8 in, llr and cw (n, batch) int8
-// out. Inject mode: normals (n, batch) float32; native mode: normals null.
-// Returns cudaGetLastError().
+// style "frame": kernel B (front_chan_kernel) on `stream`, arguments as
+// polar_front_chan_rows's, with threads (frames) a CTA in place of words.
 extern "C" int polar_front_chan(int n, int batch, int blk, float sigma,
                                 float scale, const void* y,
                                 const void* normals, unsigned int seed0,

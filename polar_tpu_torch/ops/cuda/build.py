@@ -59,6 +59,10 @@ SIGNATURES = {
     "polar_front_msg": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_front_chan": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
                          _I, _P),
+    "polar_front_msg_rows": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I,
+                             _P),
+    "polar_front_chan_rows": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P,
+                              _P, _I, _P),
     "polar_front_middle": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P),
     "polar_front_whole": (_P, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,

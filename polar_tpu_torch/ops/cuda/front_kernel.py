@@ -19,6 +19,20 @@ step's Philox words (word ``N + r`` for row r's symbol, Box-Muller over
 words ``[0, N)`` with row i paired with row N/2 + i), so the large-N step
 reproduces the fused step's counters on the same seeds.
 
+Kernels A and B hold 32 frames a row word: a row's ±1 values for a
+warp's 32 frames are one 32-bit word made by a warp ballot (bit set for
+−1), the block's butterfly runs on those words in shared memory as XORs,
+each lane keeps its frame's Philox keys for the whole CTA, kernel A draws
+no Philox block for four frozen rows, and kernel B pairs row block R
+below N/2 with its partner above, so that each Box-Muller pair is drawn
+once for both of its rows. ``style="frame"`` runs the kernels these
+replaced (one thread a frame, the butterfly in device memory), kept so
+that the two can be timed in turns; they count in
+:data:`earlier_launches`. :func:`msg_rows_twin`, :func:`chan_rows_twin`
+and the helpers above them are torch twins of the row-word kernels' data
+flow (row words, the XOR butterfly, kernel A's Philox blocks with the
+frozen skip, kernel B's pairing plan), for the CPU tests only.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version only for CPU ones; :data:`launches` counts the launches.
 """
@@ -48,7 +62,16 @@ MIDDLE_MODES = ("kernel", "torch")
 # frames as bits (csrc/front.cu takes at most 8); more stages take more
 # passes.
 MIDDLE_MAX_LOG = 8
+# Kernels A and B: "rows" (32 frames a row word, the default) or "frame"
+# (one thread a frame, the kernels it replaced).
+FRONT_STYLES = ("rows", "frame")
+# Row words a CTA of the row-word kernels holds in shared memory (128 KB):
+# kernel A's block, kernel B's two paired blocks.
+ROWS_MAX_WORDS = 1 << 15
 launches = {"front_blocks_a": 0, "front_blocks_b": 0, "front_middle": 0}
+# launches of the replaced kernels (style "frame"), apart from the
+# default's, so that a run can show it took the new kernels
+earlier_launches = {"front_blocks_a_frame": 0, "front_blocks_b_frame": 0}
 plain_calls = {"msg_blocks_plain": 0, "chan_blocks_plain": 0,
                "middle_plain": 0}
 _frozen_bits: dict = {}
@@ -57,6 +80,27 @@ _frozen_bits: dict = {}
 def _check_blk(n: int, blk: int) -> None:
     if blk < 1 or blk & (blk - 1) or n % blk or n // blk > 65535:
         raise ValueError(f"block of {blk} rows does not tile N={n}")
+
+
+def _check_style(style: str) -> None:
+    if style not in FRONT_STYLES:
+        raise ValueError(f"front style {style!r} not in {FRONT_STYLES}")
+
+
+def _rows_words(n: int, blk: int, chan: bool) -> int:
+    """Row words a CTA of the row-word kernel holds; raises above
+    :data:`ROWS_MAX_WORDS`."""
+    s = 2 * min(blk, n // 2) if chan else blk
+    if s > ROWS_MAX_WORDS:
+        raise ValueError(f"a block of {blk} rows puts {s} row words on one "
+                         f"CTA, more than {ROWS_MAX_WORDS}: style 'frame' "
+                         "takes it")
+    return s
+
+
+def _word_io(batch: int, *tensors) -> int:
+    """1 where a lane can move four frames as one 32-bit word."""
+    return int(batch % 4 == 0 and all(t.data_ptr() % 4 == 0 for t in tensors))
 
 
 def _check(t, name, shape, dtype, dev):
@@ -73,19 +117,24 @@ def msg_blocks_plain(frozen, blk: int, butterfly: bool, *, msg_t=None,
     frozen = np.asarray(frozen, dtype=np.uint8)
     n = frozen.size
     if msg_t is None:
-        msg_t = philox.bits_to_sym(philox.random_bits(
-            philox.seed_words(seeds), call, n, batch, device, first=n))
+        msg_t = philox.bits_to_sym(philox.frame_words(
+            philox.seed_words(seeds), call, batch, n, device, first=n).t()
+            .contiguous())
     frz = torch.as_tensor(frozen.astype(bool), device=msg_t.device).reshape(n, 1)
     u0 = torch.where(frz, torch.ones_like(msg_t), msg_t)
     return polar_transform_stages(u0, 1, blk, axis=0) if butterfly else u0
 
 
 def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
-               call: int = 0, batch: int = 0, device=None):
+               call: int = 0, batch: int = 0, device=None,
+               style: str = "rows"):
     """Kernel A: message symbols per ``blk``-row block, frozen rows +1,
     the block's bottom butterfly stages when ``butterfly``. Inject mode
     with ``msg_t`` (N, B) ±1 int8; native mode with ``seeds``, ``call``,
-    ``batch`` and ``device``."""
+    ``batch`` and ``device``. ``style`` picks the CUDA kernel
+    (:data:`FRONT_STYLES`); both give the same symbols, and a CPU tensor
+    runs the plain version whatever the style."""
+    _check_style(style)
     dev = msg_t.device if msg_t is not None else torch.device(device)
     if dev.type == "cpu":
         return msg_blocks_plain(frozen, blk, butterfly, msg_t=msg_t,
@@ -96,6 +145,8 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     frozen = np.asarray(frozen, dtype=np.uint8)
     n = frozen.size
     _check_blk(n, blk)
+    if style == "rows":
+        _rows_words(n, blk, chan=False)
     s0 = s1 = 0
     if msg_t is not None:
         batch = msg_t.shape[1] if msg_t.ndim == 2 else -1
@@ -106,11 +157,17 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     if batch == 0:
         return out
     stream = build.stream(dev)
-    err = build.load_library().polar_front_msg(
-        device_mask(frozen, dev).data_ptr(), n, batch, blk, int(butterfly),
-        msg_t.data_ptr() if msg_t is not None else None, s0, s1,
-        call & 0xFFFFFFFF, out.data_ptr(), THREADS, stream)
-    build.check(err, "polar_front_msg")
+    args = (device_mask(frozen, dev).data_ptr(), n, batch, blk,
+            int(butterfly), msg_t.data_ptr() if msg_t is not None else None,
+            s0, s1, call & 0xFFFFFFFF, out.data_ptr())
+    if style == "frame":
+        err = build.load_library().polar_front_msg(*args, THREADS, stream)
+        build.check(err, "polar_front_msg")
+        earlier_launches["front_blocks_a_frame"] += 1
+        return out
+    words = _word_io(batch, out, *(() if msg_t is None else (msg_t,)))
+    err = build.load_library().polar_front_msg_rows(*args, words, stream)
+    build.check(err, "polar_front_msg_rows")
     launches["front_blocks_a"] += 1
     return out
 
@@ -121,19 +178,22 @@ def chan_blocks_plain(y, blk: int, params, *, normals_t=None, seeds=None,
     plain_calls["chan_blocks_plain"] += 1
     n, batch = y.shape
     if normals_t is None:
-        normals_t = philox.bits_to_normals(philox.random_bits(
-            philox.seed_words(seeds), call, n, batch, y.device))
+        normals_t = philox.bits_to_normals(philox.frame_words(
+            philox.seed_words(seeds), call, batch, n, y.device).t()
+            .contiguous())
     cw = polar_transform_stages(y, 1, blk, axis=0)
     sigma, scale = params
     return channel_llrs(cw, normals_t, sigma, scale), cw
 
 
 def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
-                call: int = 0):
+                call: int = 0, style: str = "rows"):
     """Kernel B: the bottom butterfly stages of each ``blk``-row block of
-    ``y`` (N, B) int8, AWGN and quantization with ``params`` = (σ, 2/σ²).
-    Inject mode with ``normals_t`` (N, B) float32; native mode with
-    ``seeds`` and ``call``. Returns ``(llr_t, cw_t)``."""
+    ``y`` (N, B) int8 ±1, AWGN and quantization with ``params`` = (σ,
+    2/σ²). Inject mode with ``normals_t`` (N, B) float32; native mode with
+    ``seeds`` and ``call``. ``style`` as :func:`msg_blocks`'s. Returns
+    ``(llr_t, cw_t)``."""
+    _check_style(style)
     dev = y.device
     if dev.type == "cpu":
         return chan_blocks_plain(y, blk, params, normals_t=normals_t,
@@ -142,6 +202,8 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
         raise ValueError(f"no front kernel for device {dev}")
     n, batch = y.shape
     _check_blk(n, blk)
+    if style == "rows":
+        _rows_words(n, blk, chan=True)
     _check(y, "y", (n, batch), torch.int8, dev)
     s0 = s1 = 0
     if normals_t is not None:
@@ -154,11 +216,17 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
         return llr, cw
     stream = build.stream(dev)
     sigma, scale = params
-    err = build.load_library().polar_front_chan(
-        n, batch, blk, sigma, scale, y.data_ptr(),
-        normals_t.data_ptr() if normals_t is not None else None, s0, s1,
-        call & 0xFFFFFFFF, llr.data_ptr(), cw.data_ptr(), THREADS, stream)
-    build.check(err, "polar_front_chan")
+    args = (n, batch, blk, sigma, scale, y.data_ptr(),
+            normals_t.data_ptr() if normals_t is not None else None, s0, s1,
+            call & 0xFFFFFFFF, llr.data_ptr(), cw.data_ptr())
+    if style == "frame":
+        err = build.load_library().polar_front_chan(*args, THREADS, stream)
+        build.check(err, "polar_front_chan")
+        earlier_launches["front_blocks_b_frame"] += 1
+        return llr, cw
+    err = build.load_library().polar_front_chan_rows(
+        *args, _word_io(batch, y, cw), stream)
+    build.check(err, "polar_front_chan_rows")
     launches["front_blocks_b"] += 1
     return llr, cw
 
@@ -262,7 +330,7 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
                  normals_t=None, seeds=None, call: int = 0, batch: int = 0,
                  device=None, block_level: int | None = None,
                  chan_block_level: int | None = None,
-                 middle_mode: str = "kernel"):
+                 middle_mode: str = "kernel", front_style: str = "rows"):
     """The large-N front: message, encode, AWGN, quantize.
 
     Returns ``(llr_t, cw_t)`` when ``systematic``, else ``(llr_t, cw_t,
@@ -271,7 +339,8 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
     ``normals_t``, native mode with ``seeds``, ``call``, ``batch`` and
     ``device``. ``middle_mode``: ``"kernel"`` (:func:`middle_kernel`) or
     ``"torch"`` (:func:`middle_plain`, the JAX package's ``"xla"``); the
-    same result in either mode."""
+    same result in either mode. ``front_style`` goes to kernels A and B
+    (:data:`FRONT_STYLES`)."""
     if middle_mode not in MIDDLE_MODES:
         raise ValueError(f"unknown middle_mode {middle_mode!r}")
     frozen = np.asarray(frozen, dtype=np.uint8)
@@ -281,10 +350,156 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
                      level)
     blk_b = 1 << min(CHAN_BLOCK_LEVEL if chan_block_level is None
                      else chan_block_level, level)
-    kw = dict(seeds=seeds, call=call)
+    kw = dict(seeds=seeds, call=call, style=front_style)
     x = msg_blocks(frozen, blk_a, systematic, msg_t=msg_t, batch=batch,
                    device=device, **kw)
     mid = middle_kernel if middle_mode == "kernel" else middle_plain
     llr, cw = chan_blocks(mid(x, frozen, blk_a, blk_b, systematic), blk_b,
                           params, normals_t=normals_t, **kw)
     return (llr, cw) if systematic else (llr, cw, x)
+
+
+# -- torch twins of the row-word kernels' data flow, for the CPU tests: the
+# same row words, stages, Philox blocks and pairing as csrc/front.cu, in
+# torch, so that their index math is held against the plain versions where
+# the kernels cannot run.
+
+def row_words(x_t) -> torch.Tensor:
+    """(N, B) ±1 int8 → (N, ⌈B/32⌉) int64 row words: bit l of word g is
+    frame 32 g + l, set for −1 (a warp's ballot of ``x < 0``); the lanes
+    past B vote 0."""
+    n, b = x_t.shape
+    g = -(-b // 32)
+    bits = torch.zeros((n, 32 * g), dtype=torch.int64, device=x_t.device)
+    bits[:, :b] = (x_t < 0).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=x_t.device)
+    return (bits.view(n, g, 32) << shifts).sum(-1)
+
+
+def rows_from_words(words, batch: int) -> torch.Tensor:
+    """Row words → (N, batch) ±1 int8 (bit set → −1), as a lane stores
+    them."""
+    n = words.shape[0]
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = ((words[:, :, None] >> shifts) & 1).reshape(n, -1)[:, :batch]
+    return (1 - 2 * bits).to(torch.int8)
+
+
+def xor_stages(words, blk: int) -> torch.Tensor:
+    """The bottom butterfly stages h < ``blk`` of every ``blk``-row block
+    on row words: ``word[j] ^= word[j + h]``, the ±1 product as an XOR."""
+    n = words.shape[0]
+    w = words.clone()
+    h = 1
+    while h < blk:
+        v = w.view(n // (2 * h), 2, h, -1)
+        v[:, 0] ^= v[:, 1]
+        h *= 2
+    return w
+
+
+def _philox_blocks(seeds, call: int, batch: int, blocks, device):
+    """(len(blocks), batch, 4) int64: Philox block ``blocks[i]`` of every
+    frame's stream (the words ``4 blocks[i] ..``)."""
+    frame = torch.arange(batch, dtype=torch.int64, device=device)[None, :]
+    blk = torch.as_tensor(blocks, dtype=torch.int64, device=device)[:, None]
+    shape = (blk.shape[0], batch)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    out = philox.philox4x32_10(frame.expand(shape), blk.expand(shape),
+                               zero + (call & 0xFFFFFFFF), zero,
+                               philox.seed_words(seeds))
+    return torch.stack([w.expand(shape) for w in out], dim=2)
+
+
+def msg_rows_twin(frozen, blk: int, butterfly: bool, *, msg_t=None,
+                  seeds=None, call: int = 0, batch: int = 0, device=None):
+    """Kernel A's data flow (``front_msg_rows_kernel``): ``(out, drawn)``,
+    out (N, B) int8 ±1 and drawn the Philox blocks a frame drew. Rows go
+    in chunks of ``c = min(4, blk)`` from each block's start; a chunk draws
+    one block, words ``N + r ..`` (block ``(N + r) >> 2``, lanes from
+    ``(N + r) & 3``), unless all its rows are frozen; its row words are the
+    ballots of the words' low bits on the info rows; the block's XOR
+    stages follow when ``butterfly``."""
+    frozen = np.asarray(frozen, dtype=bool)
+    n = frozen.size
+    dev = msg_t.device if msg_t is not None else torch.device(device)
+    info = torch.as_tensor(~frozen, device=dev).reshape(n, 1)
+    drawn = 0
+    if msg_t is not None:
+        batch = msg_t.shape[1]
+        bits = (msg_t < 0) & info
+    else:
+        c = min(4, blk)
+        starts = np.arange(0, n, c)
+        live = ~frozen.reshape(-1, c).all(axis=1)
+        drawn = int(live.sum())
+        w = n + starts[live]
+        v = _philox_blocks(seeds, call, batch, w >> 2, dev)   # (L, B, 4)
+        rows = torch.as_tensor(starts[live][:, None] + np.arange(c),
+                               device=dev)                    # (L, c)
+        lanes = torch.as_tensor((w & 3)[:, None] + np.arange(c), device=dev)
+        words = torch.gather(v, 2, lanes[:, None, :].expand(-1, batch, -1))
+        bits = torch.zeros((n, batch), dtype=torch.bool, device=dev)
+        bits[rows.reshape(-1)] = (words & 1).bool().permute(0, 2, 1).reshape(
+            -1, batch)
+        bits &= info
+    sym = torch.where(bits, -1, 1).to(torch.int8)
+    words = row_words(sym)
+    if butterfly:
+        words = xor_stages(words, blk)
+    return rows_from_words(words, batch), drawn
+
+
+def chan_pair_plan(n: int, blk: int) -> torch.Tensor:
+    """Kernel B's CTAs: (N / S, S) int64, row l of CTA p at ``plan[p, l]``.
+    P = min(blk, N/2) pair rows a CTA, S = 2 P: pair rows [p P, p P + P)
+    below N/2, then the same rows + N/2 (with blk = N the code in order)."""
+    h = n // 2
+    p_rows = min(blk, h)
+    low = torch.arange(0, h, dtype=torch.int64).view(-1, p_rows)
+    return torch.cat([low, low + h], dim=1)
+
+
+def chan_rows_twin(y, blk: int, params, *, normals_t=None, seeds=None,
+                   call: int = 0):
+    """Kernel B's data flow (``front_chan_rows_kernel``): ``(llr_t,
+    cw_t)``. Each CTA of :func:`chan_pair_plan` runs the XOR stages
+    below ``blk`` on its S row words; pair rows go in chunks of ``c =
+    min(4, P)``, each drawing the radius block ``j >> 2`` and the angle
+    block ``(N/2 + j) >> 2`` (the same block where both lie in it); pair
+    j's Box-Muller gives row j's normal (n0) and row N/2 + j's (n1)."""
+    n, batch = y.shape
+    h = n // 2
+    plan = chan_pair_plan(n, blk).to(y.device)
+    c_rows, s = plan.shape
+    cta = xor_stages(row_words(y)[plan.reshape(-1)], blk)
+    words = torch.empty_like(cta)
+    words[plan.reshape(-1)] = cta
+    cw = rows_from_words(words, batch)
+    if normals_t is None:
+        p_rows = s // 2
+        c = min(4, p_rows)
+        j = plan[:, :p_rows].reshape(-1, c)[:, 0].cpu().numpy()   # chunks
+        vr = _philox_blocks(seeds, call, batch, j >> 2, y.device)
+        same = torch.as_tensor((h + j) >> 2 == j >> 2, device=y.device)
+        va = torch.where(same[:, None, None], vr, _philox_blocks(
+            seeds, call, batch, (h + j) >> 2, y.device))
+        off = np.arange(c)
+        radius = torch.gather(vr, 2, torch.as_tensor(
+            (j[:, None] + off) & 3, device=y.device)[:, None, :].expand(
+                -1, batch, -1))
+        angle = torch.gather(va, 2, torch.as_tensor(
+            (h + j[:, None] + off) & 3, device=y.device)[:, None, :].expand(
+                -1, batch, -1))
+        pair = torch.as_tensor(j[:, None] + off, device=y.device).reshape(-1)
+        rad = torch.empty((h, batch), dtype=torch.int64, device=y.device)
+        ang = torch.empty_like(rad)
+        rad[pair] = radius.permute(0, 2, 1).reshape(-1, batch)
+        ang[pair] = angle.permute(0, 2, 1).reshape(-1, batch)
+        n01 = philox.bits_to_normals(torch.cat([rad, ang]))   # n0 | n1
+        normals_t = torch.empty((n, batch), dtype=torch.float32,
+                                device=y.device)
+        normals_t[pair] = n01[pair]
+        normals_t[pair + h] = n01[pair + h]
+    sigma, scale = params
+    return channel_llrs(cw, normals_t, sigma, scale), cw

@@ -1,9 +1,10 @@
 """Where the card's time goes in a Monte-Carlo step.
 
 Profiles, with ``torch.profiler``, steps chained by
-:func:`polar_tpu_torch.ber.chain_steps` at -1.5 dB, at two configurations:
-Polar(1024, 512) systematic int8, B = 32768, 8 steps, and
-Polar(131072, 65536) systematic int8, B = 4096, 2 steps. Three steps at
+:func:`polar_tpu_torch.ber.chain_steps` at -1.5 dB, by default at two
+configurations: Polar(1024, 512) systematic int8, B = 32768, 8 steps, and
+Polar(131072, 65536) systematic int8, B = 4096, 2 steps (``--configs``
+takes others as ``level:batch:steps``, comma-separated). Three steps at
 each: the caller's-decoder path with
 :func:`~polar_tpu_torch.decode.auto.make_auto_decoder`'s decoder pinned,
 once with the kernel draws (``make_step(code, decoder=dec)``) and once
@@ -20,10 +21,13 @@ kernels are launched through ctypes and show under the first list only).
 The shares are of the device-only trace's busy time.
 
     python -m polar_tpu_torch.utils.profile_step      # one CUDA device
+    python -m polar_tpu_torch.utils.profile_step --front-only \
+        --configs 14:4096:4,17:4096:2     # the front step alone
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -83,7 +87,18 @@ def profile_steps(multi, gen, batch: int, steps: int) -> list[str]:
                "host's operators):"] + _rows(by_op, busy))
 
 
-def main() -> int:
+def _configs(text: str) -> tuple:
+    return tuple(tuple(int(x) for x in item.split(":"))
+                 for item in text.split(","))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--configs", type=_configs, default=CONFIGS,
+                    help="level:batch:steps, comma-separated")
+    ap.add_argument("--front-only", action="store_true",
+                    help="profile the front step alone")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -98,16 +113,19 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
-    for level, batch, steps in CONFIGS:
+    for level, batch, steps in args.configs:
         code = pt.make_code(level, rate=0.5)
-        dec, desc = pt.make_auto_decoder(code, output="systematic", device=dev)
-        runs = [(f"{desc}, {label}", pt.make_step(code, decoder=dec,
-                                                  fused=fused, device=dev))
-                for label, fused in (("kernel draws", "auto"),
-                                     ("torch draws", False))]
+        runs = []
+        if not args.front_only:
+            dec, desc = pt.make_auto_decoder(code, output="systematic",
+                                             device=dev)
+            runs = [(f"{desc}, {label}", pt.make_step(code, decoder=dec,
+                                                      fused=fused, device=dev))
+                    for label, fused in (("kernel draws", "auto"),
+                                         ("torch draws", False))]
         runs.append((f"front step, {front_branch(code, True)} branch",
                      make_front_step(code, device=dev)))
-        if level <= STEP_KERNEL_MAX_LEVEL:
+        if level <= STEP_KERNEL_MAX_LEVEL and not args.front_only:
             runs.append(("fused step", pt.make_step(code, fused=True,
                                                     device=dev)))
         for label, step in runs:

@@ -33,7 +33,11 @@ that applies:
 Arms run in order, then in reverse order (a drift shows as two readings
 apart). Then, at B = 4096, the fronts alone by CUDA events: the
 whole-block front, the block front with the kernel middle and with the
-torch middle, and each middle by itself. Before the steps, the decoders alone, the
+torch middle, the block front with the frame kernels A and B that the
+row-word kernels replaced (``front_style="frame"``) and with the row-word
+kernels at block levels 8 and 12 as well as the default
+(``front_kernel.BLOCK_LEVEL``), and each middle by itself
+(``--fronts-only`` for these alone). Before the steps, the decoders alone, the
 choice of :data:`~polar_tpu_torch.decode.auto.HYBRID_MIN_LEVEL` and of a
 kernel style: one decode of full-range int8 LLRs, u and codeword outputs,
 frame-major and lane-major entries, at both batches, in mirrored order, by
@@ -49,6 +53,7 @@ limit; ``--out`` also writes the readings as JSON lines.
 
     python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
     python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-17
+    python -m polar_tpu_torch.utils.step_ab --fronts-only --levels 14-17
 """
 
 from __future__ import annotations
@@ -154,6 +159,15 @@ def front_times(code, device, ms) -> dict:
         out[f"block front, {mode} middle"] = ms(
             lambda: front_kernel.front_blocks(frozen, params, True,
                                               middle_mode=mode, **kw))
+    out["block front, frame kernels"] = ms(
+        lambda: front_kernel.front_blocks(frozen, params, True,
+                                          front_style="frame", **kw))
+    for level in (8, 12):
+        if level < code.level:
+            out[f"block front, blocks 2^{level}"] = ms(
+                lambda: front_kernel.front_blocks(
+                    frozen, params, True, block_level=level,
+                    chan_block_level=level, **kw))
     blk_a = 1 << min(front_kernel.BLOCK_LEVEL, code.level)
     blk_b = 1 << min(front_kernel.CHAN_BLOCK_LEVEL, code.level)
     x = front_kernel.msg_blocks(frozen, blk_a, True, **kw)
@@ -240,6 +254,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="JSON lines to this file")
     ap.add_argument("--decoders-only", action="store_true",
                     help="time the decoders alone, no steps or fronts")
+    ap.add_argument("--fronts-only", action="store_true",
+                    help="time the fronts alone, no decoders or steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_ab: no CUDA device", file=sys.stderr)
@@ -259,9 +275,23 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return elapsed_seconds(lambda: [fn() for _ in range(reps)], dev) / reps * 1e3
 
+    def ms_dropped(fn, reps=5):
+        """As ms, each output dropped as the next call starts: a front's
+        outputs are N x B bytes each, and kept alive they would make each
+        launch wait for the allocator's new blocks."""
+        def run():
+            for _ in range(reps):
+                fn()
+
+        fn()
+        torch.cuda.synchronize()
+        return elapsed_seconds(run, dev) / reps * 1e3
+
     for level in _levels(args.levels):
         code = pt.make_code(level, rate=0.5)
-        if level <= WHOLE_DECODER_MAX_LEVEL or args.decoders_only:
+        if args.fronts_only:
+            pass
+        elif level <= WHOLE_DECODER_MAX_LEVEL or args.decoders_only:
             for row in decoder_times(code, dev, ms):
                 rows.append(dict(row, card=card))
                 print(f"m={level} B={row['batch']} decode {row['output']} "
@@ -271,7 +301,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if args.decoders_only:
             continue
-        for systematic in (True, False):
+        for systematic in (() if args.fronts_only else (True, False)):
             steps = arms(code, systematic, dev)
             for batch in _batches(level):
                 names = list(steps)
@@ -289,7 +319,7 @@ def main(argv=None) -> int:
                           f"{'  <- best' if name == best else ''}", flush=True)
             del steps
             torch.cuda.empty_cache()
-        for name, t in front_times(code, dev, ms).items():
+        for name, t in front_times(code, dev, ms_dropped).items():
             rows.append(dict(level=level, batch=BATCH, front=name, ms=t,
                              card=card))
             print(f"m={level} B={BATCH} {name}: {t:.3f} ms", flush=True)

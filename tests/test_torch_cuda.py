@@ -1037,3 +1037,128 @@ def test_draw_campaign_launches_the_redesigned_kernels(dev):
     assert encode_kernel.earlier_launches == {"block_encoder_bytes": 0}
     assert max(channel_kernel.plain_calls.values()) == 0
     assert encode_kernel.plain_calls["encode_plain"] == 0
+
+
+# -- row 9 redesigned: kernels A and B on row words of 32 frames, against
+# the frame kernels they replaced and the plain versions
+
+
+def _front_counts(front_kernel):
+    return (front_kernel.launches["front_blocks_a"],
+            front_kernel.launches["front_blocks_b"],
+            front_kernel.earlier_launches["front_blocks_a_frame"],
+            front_kernel.earlier_launches["front_blocks_b_frame"])
+
+
+@pytest.mark.parametrize("m", range(1, 13))
+def test_row_word_front_kernels_match_frame_and_plain(dev, m):
+    """Both kernels, both styles, inject and native, systematic and plain,
+    at blocks {1, 4, 16, 2^10, N}: max abs err 0 against each other and
+    the plain versions (native LLRs included: the same box_muller on the
+    same words). Batches 1, 33, 999, 4099 take the byte route, 36 and 4096
+    the word route (36 with a ragged last group of 32)."""
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    blocks = sorted({1, 4, 16, 1 << 10, c.N} & {1 << i for i in range(m + 1)})
+    params = snr_params(-1.0)
+    for batch in (1, 33, 36, 999, 4096, 4099):
+        g = torch.Generator(device=dev)
+        g.manual_seed(m * 10000 + batch)
+        msg = (1 - 2 * torch.randint(0, 2, (c.N, batch), generator=g,
+                                     device=dev)).to(torch.int8)
+        nrm = torch.randn((c.N, batch), generator=g, device=dev)
+        for blk in blocks:
+            for systematic in (True, False):
+                for kw in (dict(msg_t=msg), dict(seeds=(5, 6), call=2,
+                                                 batch=batch, device=dev)):
+                    before = _front_counts(front_kernel)
+                    got = front_kernel.msg_blocks(c.frozen, blk, systematic,
+                                                  **kw)
+                    old = front_kernel.msg_blocks(c.frozen, blk, systematic,
+                                                  style="frame", **kw)
+                    a, b_, fa, fb = before
+                    assert _front_counts(front_kernel) == (a + 1, b_, fa + 1,
+                                                           fb)
+                    want = front_kernel.msg_blocks_plain(c.frozen, blk,
+                                                         systematic, **kw)
+                    assert torch.equal(got, old), (batch, blk, systematic)
+                    assert torch.equal(got, want), (batch, blk, systematic)
+            for kw in (dict(normals_t=nrm), dict(seeds=(5, 6), call=2)):
+                got = front_kernel.chan_blocks(msg, blk, params, **kw)
+                old = front_kernel.chan_blocks(msg, blk, params,
+                                               style="frame", **kw)
+                want = front_kernel.chan_blocks_plain(msg, blk, params, **kw)
+                for a, b_ in ((got, old), (got, want)):
+                    assert torch.equal(a[1], b_[1]), (batch, blk, list(kw))
+                    assert torch.equal(a[0], b_[0]), (batch, blk, list(kw))
+
+
+def test_row_word_front_kernels_take_unaligned_tensors(dev):
+    """Rows that start off a 4-byte boundary take the byte route with the
+    same result as the frame kernels."""
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    c = pt.make_code(10, rate=0.5)
+    n, batch = c.N, 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    buf = torch.empty(n * batch + 8, dtype=torch.int8, device=dev)
+    x = buf[1:1 + n * batch].view(n, batch)
+    x.copy_((1 - 2 * torch.randint(0, 2, (n, batch), generator=g,
+                                   device=dev)).to(torch.int8))
+    assert x.data_ptr() % 4 == 1
+    for blk in (4, 1 << 10):
+        got = front_kernel.chan_blocks(x, blk, snr_params(0.0), seeds=(1, 2))
+        old = front_kernel.chan_blocks(x, blk, snr_params(0.0), seeds=(1, 2),
+                                       style="frame")
+        assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+        for systematic in (True, False):
+            got = front_kernel.msg_blocks(c.frozen, blk, systematic, msg_t=x)
+            assert torch.equal(got, front_kernel.msg_blocks(
+                c.frozen, blk, systematic, msg_t=x, style="frame"))
+            assert torch.equal(got, front_kernel.msg_blocks_plain(
+                c.frozen, blk, systematic, msg_t=x))
+
+
+@pytest.mark.parametrize("systematic", [True, False])
+def test_front_blocks_styles_agree(dev, systematic):
+    """front_blocks passes front_style through: both styles give the same
+    outputs, native, at Polar(16384, 8192)."""
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    kw = dict(seeds=(3, 4), call=1, batch=1000, device=dev)
+    got = front_kernel.front_blocks(c.frozen, snr_params(-1.2), systematic,
+                                    **kw)
+    old = front_kernel.front_blocks(c.frozen, snr_params(-1.2), systematic,
+                                    front_style="frame", **kw)
+    assert len(got) == len(old) == (2 if systematic else 3)
+    for a, b in zip(got, old):
+        assert torch.equal(a, b)
+
+
+def test_front_campaign_launches_the_row_word_kernels(dev):
+    """A campaign through make_step's default path on the block front
+    (Polar(16384, 8192), B = 4096) launches kernels A and B once a step:
+    no frame kernel, no plain call."""
+    from polar_tpu_torch.ops.cuda import front_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    assert pt.ber._step_path(c, torch.int8, None, None, "auto", dev,
+                             batch=4096) == "front"
+    for count in (front_kernel.launches, front_kernel.earlier_launches,
+                  front_kernel.plain_calls):
+        for k in count:
+            count[k] = 0
+    res = pt.run_campaign(c, device=dev, seed=14, batch=4096,
+                          steps_per_call=2, snr_range=(-1.4, -1.4),
+                          max_frames_per_point=2 * 4096,
+                          measure_throughput=False)
+    steps = sum(p.frames for p in res.points) // 4096
+    assert steps == 2
+    assert front_kernel.launches["front_blocks_a"] == steps
+    assert front_kernel.launches["front_blocks_b"] == steps
+    assert front_kernel.earlier_launches == {"front_blocks_a_frame": 0,
+                                             "front_blocks_b_frame": 0}
+    assert max(front_kernel.plain_calls.values()) == 0
