@@ -171,6 +171,30 @@ def front_work(name: str, code, b: int) -> tuple[int, int]:
                        + transform_ops(n, level)) * b
 
 
+def count_work(code, b: int) -> tuple[int, int]:
+    """(bytes, operations) of the counter at ``code`` and ``b`` frames:
+    llr and cw at every row, hat at the K info rows (the kernel never reads
+    it at a frozen row); five compares an element."""
+    return (2 * code.N + code.K) * b, 5 * code.N * b
+
+
+def count_inputs(gen, rows: int, batch: int, dev):
+    """(llr, cw, hat) for the counter: full-range int8 LLRs, ±1
+    codewords, estimates with about 1 % zeros and 1 % flipped signs."""
+    import torch
+
+    def rand_i8(lo, hi):
+        return torch.randint(lo, hi, (rows, batch), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    llr = rand_i8(-128, 128)
+    cw = (1 - 2 * rand_i8(0, 2)).to(torch.int8)
+    hat = cw.clone()
+    hat[rand_i8(0, 100) == 0] = 0
+    hat[rand_i8(0, 100) == 0] *= -1
+    return llr, cw, hat
+
+
 def ms_dropped(fn, reps: int) -> float:
     """ms a call of ``fn`` on the card: CUDA events around ``reps`` calls,
     each result dropped as the next call starts, so every launch gets the
@@ -213,23 +237,30 @@ def ms_kept(fn, reps: int) -> float:
                            "cuda") / reps * 1e3
 
 
-def profiled_ms(fn, reps: int) -> float:
-    """Device ms a call of ``fn`` by torch.profiler: the device time of
-    the kernels ``reps`` calls launch, over ``reps``."""
+def profiled_ms(fn, reps: int, tries: int = 3) -> str:
+    """Device time a call of ``fn`` by torch.profiler, as text: the device
+    time of the kernels ``reps`` calls launch, over ``reps``. The profiler
+    at times records no device activity in a session; a session that
+    records none is tried again, up to ``tries`` in all, and then the
+    reading is given as not recorded (the CUDA-event times beside it in
+    each phase line stand). It is a reading only: no check rests on it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler recorded no device time")
-    return sum(e.device_time_total for e in kernels) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            us = sum(e.device_time_total for e in kernels)
+            return f"{us / 1e3 / reps:.4f} ms"
+    return f"not recorded (no device activity in {tries} profiler sessions)"
 
 
 def _reset(*counts) -> None:
@@ -441,14 +472,17 @@ def large_n_phases(dev, card, ms) -> dict:
     hat[rand_i8(n, b, 0, 100) == 0] = 0
     hat[rand_i8(n, b, 0, 100) == 0] *= -1
     got_c = count_kernel.count(frozen, llr_c, cw_c, hat)
+    old_c = count_kernel.count(frozen, llr_c, cw_c, hat, style="bytes")
     want_c = count_kernel.count_plain(frozen, llr_c, cw_c, hat)
-    e = int((got_c - want_c).abs().max())
+    e = max(int((got_c - want_c).abs().max()),
+            int((got_c - old_c).abs().max()))
     err["count"] = e
     if e:
         raise AssertionError(f"count kernel {got_c.tolist()} vs plain "
-                             f"{want_c.tolist()}")
-    phase("8", f"count kernel == plain at Polar({n}, {k}) B={b}: "
-          f"{got_c.tolist()}")
+                             f"{want_c.tolist()} vs style bytes "
+                             f"{old_c.tolist()}")
+    phase("8", f"count kernel (rows) == plain == style bytes at "
+          f"Polar({n}, {k}) B={b}: {got_c.tolist()}")
 
     # -- 9. the large-N step and campaign -----------------------------------
     for level in (14, pt.ber.STEP_KERNEL_MAX_LEVEL, LARGE_M):
@@ -475,7 +509,8 @@ def large_n_phases(dev, card, ms) -> dict:
     # steps of auto.BIG_BATCH frames, where the path's hybrid runs the SSA
     # subtree kernel (below it the scratch style runs, phase 14)
     cb = auto.BIG_BATCH
-    _reset(*counts, *plains, front_kernel.earlier_launches)
+    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches)
+    _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     res = pt.run_campaign(code, device=dev, seed=3, batch=cb,
                           snr_range=(-1.7, -1.4), snr_step=0.1,
@@ -485,12 +520,14 @@ def large_n_phases(dev, card, ms) -> dict:
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
     new = ("subtree_decoder", "front_blocks_a", "front_blocks_b", "count")
-    old = dict(front_kernel.earlier_launches)
-    if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
-            or launched["walk_subtree"] or max(old.values())):
-        raise AssertionError(f"large-N campaign launches {launched}, plain "
-                             f"calls {plain}, old-style launches {old}")
+    old = {name: v for c in olds for name, v in c.items()}
     steps = sum(p.frames for p in res.points) // cb
+    if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
+            or launched["walk_subtree"] or max(old.values())
+            or launched["count"] != steps):
+        raise AssertionError(f"large-N campaign launches {launched} in "
+                             f"{steps} steps, plain calls {plain}, old-style "
+                             f"launches {old}")
     phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
           f"{cb} frames ({steps} steps) in {wall:.1f} s; launches {launched}; "
           f"plain calls {plain}; old-style launches {old}")
@@ -568,10 +605,50 @@ def large_n_phases(dev, card, ms) -> dict:
     phase("9", f"front_blocks_a style frame at Polar({n}, {k}) B={b}: "
           f"{kept:.4f} ms a launch with the ten outputs kept alive, "
           f"{earlier['front_blocks_a']:.4f} ms with each dropped, "
-          f"{prof:.4f} ms device time in the profiler ({card})")
-    times["count"] = (
-        ms(lambda: count_kernel.count(frozen, llr_c, cw_c, hat), 10),
-        ms(lambda: count_kernel.count_plain(frozen, llr_c, cw_c, hat), 2))
+          f"{prof} device time in the profiler ({card})")
+    # the counter against the bytes kernel it replaced, in turns, at
+    # B = 4096 and at the campaign's batch; there first on all-wrong LLRs
+    # (llr = -cw: N B = 2^31 AWGN errors, past int32), then on the inputs
+    # timed; plain at B = 4096
+    del llr_c, cw_c, hat
+    count_in = {b: count_inputs(gen, n, b, dev),
+                cb: count_inputs(gen, n, cb, dev)}
+    flip = count_in[b][1].repeat(1, cb // b)
+    for args in ((-flip, flip, flip), count_in[cb]):
+        got = count_kernel.count(frozen, *args)
+        old_c = count_kernel.count(frozen, *args, style="bytes")
+        want = count_kernel.count_plain(frozen, *args)
+        e = max(int((got - want).abs().max()), int((got - old_c).abs().max()))
+        err["count"] = max(err["count"], e)
+        phase("9", f"count kernel (rows) == plain == style bytes at "
+              f"Polar({n}, {k}) B={cb}: {got.tolist()} (max abs err {e})")
+        if e:
+            raise AssertionError(f"count kernel {got.tolist()} vs plain "
+                                 f"{want.tolist()} vs style bytes "
+                                 f"{old_c.tolist()} at B={cb}")
+    del flip, got, old_c, want
+    by_shape["count"] = {}
+    for batch in (b, cb):
+        where = f"Polar({n}, {k}) B={batch}"
+        args = count_in[batch]
+        t = in_turns(lambda: count_kernel.count(frozen, *args),
+                     lambda: count_kernel.count(frozen, *args, style="bytes"),
+                     10)
+        by_shape["count"][where] = t
+        dev_ms = profiled_ms(lambda: count_kernel.count(frozen, *args), 10)
+        phase("9", f"count at {where}: kernel {t['ms']:.4f} ms, earlier "
+              f"(style bytes) {t['earlier_ms']:.4f} ms ({t['turns']}; "
+              f"{t['earlier_ms'] / t['ms']:.2f}x), bound "
+              f"{bound(*count_work(code, batch))[0]:.4f} ms; device time "
+              f"(profiler) {dev_ms} ({card})")
+    t = by_shape["count"].pop(f"Polar({n}, {k}) B={b}")
+    times["count"] = (t["ms"], ms(lambda: count_kernel.count_plain(
+        frozen, *count_in[b]), 2))
+    earlier["count"] = t["earlier_ms"]
+    by_shape["count"][f"Polar({n}, {k}) B={cb}"].update(
+        launches=launched["count"], steps=steps, plain_ms=None,
+        work=count_work(code, cb))
+    del count_in, args
     out = subtree_kernel.make_subtree_decoder(node, emit_u=False,
                                               emit_cw=True)(slot)
     work = {
@@ -580,7 +657,7 @@ def large_n_phases(dev, card, ms) -> dict:
                              + transform_ops(slot.shape[0])) * cb),
         "front_blocks_a": front_work("front_blocks_a", code, b),
         "front_blocks_b": front_work("front_blocks_b", code, b),
-        "count": (3 * n * b, 5 * n * b),
+        "count": count_work(code, b),
     }
     for name, (t_k, t_p) in times.items():
         where = (f"the level-{kl} node B={cb}" if name == "subtree_decoder"
@@ -649,23 +726,40 @@ def draw_phases(dev, card, ms) -> dict:
         shapes.append(where)
         kw = dict(seeds=(101, 202), call=0, device=dev)
         w = words(b, k)
-        for mode, a, p in (
-                ("native", lambda: channel_kernel.symbols((b, k), **kw),
-                 lambda: channel_kernel.symbols_plain((b, k), **kw)),
-                ("bits", lambda: channel_kernel.symbols(words=w),
-                 lambda: channel_kernel.symbols_plain(words=w))):
-            e = max_err(a(), p())
+        sym = {"native": lambda st: channel_kernel.symbols((b, k), **kw,
+                                                           style=st),
+               "bits": lambda st: channel_kernel.symbols(words=w, style=st)}
+        for mode, p in (
+                ("native", lambda: channel_kernel.symbols_plain((b, k), **kw)),
+                ("bits", lambda: channel_kernel.symbols_plain(words=w))):
+            got = sym[mode]("lines")
+            e = max(max_err(got, p()), max_err(got, sym[mode]("quads")))
             err["channel_symbols"] = max(err["channel_symbols"], e)
-            phase("10", f"symbols {mode} {(b, k)}: max abs err {e}")
+            phase("10", f"symbols {mode} {(b, k)}: max abs err {e} against "
+                  f"plain and style quads")
             if e:
                 raise AssertionError(f"symbols kernel ({mode}) differs from "
-                                     f"plain at {(b, k)}")
-        del w
+                                     f"plain or style quads at {(b, k)}")
+        # bits mode is no main-path launch: timed for the record
+        t = in_turns(lambda: sym["bits"]("lines"),
+                     lambda: sym["bits"]("quads"), 20)
+        phase("10", f"symbols bits {(b, k)}: kernel {t['ms']:.4f} ms, "
+              f"earlier (style quads) {t['earlier_ms']:.4f} ms "
+              f"({t['turns']}), bound {bound(9 * k * b, 0)[0]:.4f} ms "
+              f"(bytes) ({card})")
+        del w, got
         by_shape["channel_symbols"][where] = {
-            "ms": ms(lambda: channel_kernel.symbols((b, k), **kw), 10),
+            **in_turns(lambda: sym["native"]("lines"),
+                       lambda: sym["native"]("quads"), 20),
             "plain_ms": ms(lambda: channel_kernel.symbols_plain((b, k), **kw),
                            2),
             "work": (k * b, k * b * PHILOX_OPS)}
+        # the device's own time, which the host's launch rate hides in the
+        # timing loop at the small shape
+        phase("10", f"symbols native {(b, k)} device time (profiler): "
+              f"kernel {profiled_ms(lambda: sym['native']('lines'), 20)}, "
+              f"style quads {profiled_ms(lambda: sym['native']('quads'), 20)} "
+              f"({card})")
 
         cw = (1 - 2 * torch.randint(0, 2, (b, n), generator=gen,
                                     device=dev)).to(torch.int8)
@@ -803,12 +897,12 @@ def draw_phases(dev, card, ms) -> dict:
         here = {name: v for c in counts for name, v in c.items()}
         plain = {name: v for c in plains for name, v in c.items()}
         old = {name: v for c in olds for name, v in c.items()}
-        if (min(here[name] for name in new) == 0 or max(plain.values())
-                or max(old.values())):
-            raise AssertionError(f"pinned-decoder campaign at {where}: "
-                                 f"launches {here}, plain calls {plain}, "
-                                 f"old-style launches {old}")
         steps = sum(p.frames for p in res.points) // b
+        if (min(here[name] for name in new) == 0 or max(plain.values())
+                or max(old.values()) or here["channel_symbols"] != steps):
+            raise AssertionError(f"pinned-decoder campaign at {where}: "
+                                 f"launches {here} in {steps} steps, plain "
+                                 f"calls {plain}, old-style launches {old}")
         for name in new:
             by_shape[name][where].update(launches=here[name], steps=steps)
             launched[name] += here[name]
@@ -1000,17 +1094,20 @@ def front_step_phases(dev, card, ms) -> dict:
               decoder_kernel.plain_calls, subtree_kernel.plain_calls,
               count_kernel.plain_calls, channel_kernel.plain_calls,
               encode_kernel.plain_calls)
-    _reset(*counts, *plains, front_kernel.earlier_launches)
+    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches)
+    _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     results, front_launches = [], {}
     for m, snr_range, step in CAMPAIGNS:
-        before = dict(front_kernel.launches)
+        before = {**front_kernel.launches, **count_kernel.launches}
         results.append(pt.run_campaign(
             pt.make_code(m, rate=0.5), device=dev, seed=m, batch=LARGE_BATCH,
             steps_per_call=4, snr_range=snr_range, snr_step=step,
             max_frames_per_point=4 * LARGE_BATCH, measure_throughput=False))
-        front_launches[m] = {name: front_kernel.launches[name] - before[name]
-                             for name in ("front_blocks_a", "front_blocks_b")}
+        after = {**front_kernel.launches, **count_kernel.launches}
+        front_launches[m] = {name: after[name] - before[name]
+                             for name in ("front_blocks_a", "front_blocks_b",
+                                          "count")}
     gen_front = torch.Generator()
     gen_front.manual_seed(10)
     front_code = pt.make_code(pt.ber.FRONT_WHOLE_MAX_LEVEL, rate=0.5)
@@ -1022,7 +1119,7 @@ def front_step_phases(dev, card, ms) -> dict:
     wall = time.perf_counter() - t0
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
-    old = dict(front_kernel.earlier_launches)
+    old = {name: v for c in olds for name, v in c.items()}
     if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
             or max(old.values()) or not all(
                 min(front_launches[m].values()) > 0 for m in middle_ms)):
@@ -1068,7 +1165,7 @@ def front_step_phases(dev, card, ms) -> dict:
                             * n * b)
     # kernels A and B at the shape of each campaign on the block front, in
     # turns with the frame kernels they replaced, and their launches there
-    by_shape = {"front_blocks_a": {}, "front_blocks_b": {}}
+    by_shape = {"front_blocks_a": {}, "front_blocks_b": {}, "count": {}}
     for m in middle_ms:
         fc = pt.make_code(m, rate=0.5)
         where = f"Polar({fc.N}, {fc.K}) B={LARGE_BATCH}"
@@ -1103,6 +1200,27 @@ def front_step_phases(dev, card, ms) -> dict:
                   f"{front_launches[m][name]} launches in {steps_m} steps "
                   f"({card})")
         del x, y
+        # the counter at the campaign's shape (systematic campaigns on the
+        # block front count each step), in turns with the bytes kernel
+        args = count_inputs(gen, fc.N, LARGE_BATCH, dev)
+        t = in_turns(lambda: count_kernel.count(fc.frozen, *args),
+                     lambda: count_kernel.count(fc.frozen, *args,
+                                                style="bytes"), 20)
+        by_shape["count"][where] = {
+            **t, "plain_ms": ms(lambda: count_kernel.count_plain(
+                fc.frozen, *args), 2),
+            "launches": front_launches[m]["count"], "steps": steps_m,
+            "work": count_work(fc, LARGE_BATCH)}
+        # the device's own time (the old style's with its torch sum)
+        dev_ms = [profiled_ms(lambda: count_kernel.count(
+            fc.frozen, *args, style=st), 20) for st in ("rows", "bytes")]
+        phase("12", f"count at {where}: kernel {t['ms']:.4f} ms, earlier "
+              f"(style bytes) {t['earlier_ms']:.4f} ms ({t['turns']}), plain "
+              f"{by_shape['count'][where]['plain_ms']:.3f} ms; "
+              f"{front_launches[m]['count']} launches in {steps_m} steps; "
+              f"device time (profiler) {dev_ms[0]}, style bytes "
+              f"{dev_ms[1]} ({card})")
+        del args
     for name, shape in (("front_whole", f"Polar({code.N}, {code.K}) B={BATCH}"),
                         ("decode_count", f"Polar({code.N}, {code.K}) B={BATCH}"),
                         ("front_middle", f"({n}, {b}) systematic, blocks "

@@ -3,8 +3,10 @@
 // around a caller's decoder (ops/cuda/channel_kernel.py).
 //
 // Replaces polar_tpu/ops/pallas/channel_kernel.py:
-//   symbols_kernel: make_pallas_symbols (:120), _sym_kernel_native /
-//     _sym_kernel_bits (:77-86): symbol = 1 - 2 (word & 1);
+//   symbols_lines_kernel (the default) and symbols_kernel (style "quads",
+//     the design it replaced, kept for timing in turns):
+//     make_pallas_symbols (:120), _sym_kernel_native / _sym_kernel_bits
+//     (:77-86): symbol = 1 - 2 (word & 1);
 //   awgn_lines_kernel (the default) and awgn_kernel (style "grid", the
 //     design it replaced, kept for timing in turns): make_pallas_awgn
 //     (:146), _awgn_body and _normals (:47-65): llr = quant(2/sigma^2 (cw +
@@ -47,6 +49,20 @@
 // Ragged rows (cols % 16 != 0, or unaligned tensors) take the same kernel
 // with a bound check per element and byte accesses. logf, sqrtf, rintf and
 // -fmad=false stay: they are what the plain version computes on the card.
+//
+// What bounds symbols on this card: instruction throughput. A symbol needs
+// a quarter of a Philox block (nine rounds of two wide multiplies and two
+// three-input XORs, once the frame's first round is shared) against one
+// byte of device memory. symbols_kernel spent more: a 64-bit division per
+// thread, a Philox block with its round keys added anew every round, and a
+// 4-byte store per four symbols. symbols_lines_kernel takes awgn_lines'
+// shape: the same 2-D grid and frame loop, 16 symbols a thread in
+// straight-line code when cols % 16 == 0 and the output (and the words in
+// bits mode) is 16-byte aligned: four PhiloxFrame blocks, the +-1 bytes
+// packed four to a word (0x01 | (w & 1) * 0xFE) and one 16-byte store.
+// Bits mode (int64 words in) takes the same kernel with 16-byte word loads,
+// a warp's together where its 512 columns lie in one row; it is bound by
+// its 9 bytes a symbol.
 
 #include <cuda_runtime.h>
 
@@ -239,6 +255,106 @@ __global__ void __launch_bounds__(256) awgn_lines_kernel(
   }
 }
 
+// The symbols in straight-line code: a thread takes the 16 neighbouring
+// symbols c0 .. c0 + 15 of a row (column group blockIdx.x * blockDim.x +
+// threadIdx.x) in every frame blockIdx.y * blockDim.y + threadIdx.y +
+// k gridDim.y blockDim.y. Native mode: symbol c0 + 4 q + i from lane i of
+// Philox block c0 / 4 + q of the frame's stream. STRAIGHT: cols % 16 == 0
+// and out (and words) 16-byte aligned; else a bound check per element.
+// WARP (bits mode, STRAIGHT and cols % 512 == 0, so a warp holds 512
+// neighbouring columns of one row): the warp reads its 4 KiB of words
+// coalesced, 32 lanes x 16 bytes an instruction, and hands each lane its
+// words' low bits by ballot, where a lane's own eight 16-byte loads would
+// each touch 32 lines.
+template <bool BITS, bool STRAIGHT, bool WARP = false>
+__global__ void __launch_bounds__(256) symbols_lines_kernel(
+    int rows, int cols, const long long* __restrict__ words, uint32_t seed0,
+    uint32_t seed1, uint32_t call, int8_t* __restrict__ out) {
+  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * 16;
+  if (c0 >= cols) return;
+  polar::PhiloxFrame ph(make_uint2(seed0, seed1));
+  for (int f = blockIdx.y * blockDim.y + threadIdx.y; f < rows;
+       f += gridDim.y * blockDim.y) {
+    const long long base = (long long)f * cols + c0;
+    uint32_t w[16];
+    if (BITS && WARP) {
+      const int lane = threadIdx.x & 31;
+      const longlong2* p =
+          reinterpret_cast<const longlong2*>(words + base - 16 * lane);
+      uint32_t even = 0u, odd = 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const longlong2 v = p[32 * k + lane];
+        const uint32_t e = __ballot_sync(0xFFFFFFFFu, (int)(v.x & 1));
+        const uint32_t o = __ballot_sync(0xFFFFFFFFu, (int)(v.y & 1));
+        if (k == lane >> 2) {
+          even = e;
+          odd = o;
+        }
+      }
+      // the lane's words 16 lane + 2 j and + 1 (j < 8) are pair 8 lane + j:
+      // bit 8 (lane & 3) + j of ballot lane >> 2
+      even >>= 8 * (lane & 3);
+      odd >>= 8 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        w[2 * j] = (even >> j) & 1u;
+        w[2 * j + 1] = (odd >> j) & 1u;
+      }
+    } else if (BITS) {
+      if (STRAIGHT) {
+        const longlong2* p = reinterpret_cast<const longlong2*>(words + base);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const longlong2 v = p[i];
+          w[2 * i] = (uint32_t)v.x;
+          w[2 * i + 1] = (uint32_t)v.y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          w[i] = c0 + i < cols ? (uint32_t)words[base + i] : 0u;
+      }
+    } else {
+      ph.start((uint32_t)f, call);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (STRAIGHT || c0 + 4 * q < cols)
+          v = ph.block((uint32_t)((c0 >> 2) + q));
+        w[4 * q] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+    }
+    if (STRAIGHT) {
+      uint32_t packed[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        packed[i >> 2] |= (0x01u | (w[i] & 1u) * 0xFEu) << (8 * (i & 3));
+      *reinterpret_cast<uint4*>(out + base) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (c0 + i < cols) out[base + i] = (int8_t)(1 - 2 * (int)(w[i] & 1u));
+    }
+  }
+}
+
+// The lines kernels' grid: column groups of 16 on x, frames on y, 256
+// threads a block, at most 65535 blocks on y (the frame loop takes the rest).
+void lines_grid(int rows, int cols, dim3* grid, dim3* block) {
+  const int groups = (cols + 15) / 16;
+  const int gx = groups < 256 ? groups : 256;
+  const int gy = 256 / gx;
+  const long long fy = ((long long)rows + gy - 1) / gy;
+  *grid = dim3((groups + gx - 1) / gx,
+               (unsigned int)(fy < 65535 ? fy : 65535));
+  *block = dim3(gx, gy);
+}
+
 unsigned int grid_of(int rows, int cols, int threads) {
   const long long quads = (long long)rows * ((cols + 3) / 4);
   return (unsigned int)((quads + threads - 1) / threads);
@@ -246,9 +362,10 @@ unsigned int grid_of(int rows, int cols, int threads) {
 
 }  // namespace
 
-// Symbols on `stream`: out (rows, cols) int8 +-1. Bits mode: words (rows,
-// cols) int64; native mode: words null, Philox keyed by (seed0, seed1) with
-// counter word 2 = call. Returns cudaGetLastError().
+// Symbols (symbols_kernel, style "quads") on `stream`: out (rows, cols)
+// int8 +-1. Bits mode: words (rows, cols) int64; native mode: words null,
+// Philox keyed by (seed0, seed1) with counter word 2 = call. Returns
+// cudaGetLastError().
 extern "C" int polar_symbols(int rows, int cols, const void* words,
                              unsigned int seed0, unsigned int seed1,
                              unsigned int call, void* out, int threads,
@@ -257,6 +374,41 @@ extern "C" int polar_symbols(int rows, int cols, const void* words,
                    (cudaStream_t)stream>>>(rows, cols,
                                            (const long long*)words, seed0,
                                            seed1, call, (int8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The straight-line symbols (symbols_lines_kernel) on `stream`: the same
+// arguments as polar_symbols; straight != 0 only when cols % 16 == 0 and
+// out (and words in bits mode) are 16-byte aligned, 2 when besides cols %
+// 512 == 0 (bits mode reads a warp's words together). Returns
+// cudaGetLastError().
+extern "C" int polar_symbols_lines(int rows, int cols, const void* words,
+                                   unsigned int seed0, unsigned int seed1,
+                                   unsigned int call, void* out, int straight,
+                                   void* stream) {
+  dim3 grid, block;
+  lines_grid(rows, cols, &grid, &block);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long* w = (const long long*)words;
+  int8_t* o = (int8_t*)out;
+  if (words != nullptr) {
+    if (straight == 2 && cols % 512 == 0)
+      symbols_lines_kernel<true, true, true><<<grid, block, 0, s>>>(
+          rows, cols, w, seed0, seed1, call, o);
+    else if (straight)
+      symbols_lines_kernel<true, true><<<grid, block, 0, s>>>(
+          rows, cols, w, seed0, seed1, call, o);
+    else
+      symbols_lines_kernel<true, false><<<grid, block, 0, s>>>(
+          rows, cols, w, seed0, seed1, call, o);
+  } else {
+    if (straight)
+      symbols_lines_kernel<false, true><<<grid, block, 0, s>>>(
+          rows, cols, w, seed0, seed1, call, o);
+    else
+      symbols_lines_kernel<false, false><<<grid, block, 0, s>>>(
+          rows, cols, w, seed0, seed1, call, o);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -284,13 +436,8 @@ extern "C" int polar_awgn_lines(int rows, int cols, float sigma, float scale,
                                 const void* w2, unsigned int seed0,
                                 unsigned int seed1, unsigned int call,
                                 void* llr, int straight, void* stream) {
-  const int groups = (cols + 15) / 16;
-  const int gx = groups < 256 ? groups : 256;
-  const int gy = 256 / gx;
-  const long long fy = ((long long)rows + gy - 1) / gy;
-  const dim3 grid((groups + gx - 1) / gx,
-                  (unsigned int)(fy < 65535 ? fy : 65535));
-  const dim3 block(gx, gy);
+  dim3 grid, block;
+  lines_grid(rows, cols, &grid, &block);
   const cudaStream_t s = (cudaStream_t)stream;
   const int8_t* c = (const int8_t*)cw;
   const long long* a = (const long long*)w1;

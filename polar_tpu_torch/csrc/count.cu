@@ -8,14 +8,46 @@
 // over all rows, llr != 0 with a sign other than cw's is an AWGN error and
 // llr == 0 a quantization erasure.
 //
-// One block owns 32 frames (threadIdx.x) and splits the rows among its
-// threadIdx.y lanes, so a frame never spans two blocks: its any-error flag
-// is an OR over the block's y lanes in shared memory, and no frame is
-// counted twice. Each block writes its five partial sums to its own row of
-// a (blocks, 5) int32 array that the wrapper sums: no atomics, so the counts
-// are deterministic. What bounds it on the card: the three (N, B) byte
-// streams from device memory (a warp reads one 32-byte sector per row of
-// each array); the arithmetic is a few compares per byte.
+// What bounds it on this card: device memory. It must read llr and cw at
+// every row and hat at the info rows, (2 N + K) B bytes (0.40 ms at
+// Polar(131072, 65536), B = 4096, at 3.35 TB/s); the compares are a few
+// word operations per four bytes.
+//
+// count_rows_kernel (the default): 16 frames a lane over row chunks.
+//   - A warp owns a frame group of 512 frames: lane l reads frames
+//     512 g + 16 l .. + 15 of a row as one aligned 16-byte word from each
+//     array, so a warp's load is 512 contiguous bytes. A CTA's 8 warps
+//     split the rows of one row chunk, each loading kUnroll rows of llr and
+//     cw (and hat at the info rows: frozen is per row, so the skip is
+//     uniform across the warp) before its first compare.
+//   - The grid is frame groups x row chunks, sized by the wrapper
+//     (count_kernel.count_plan) to fill the card with several CTAs an SM.
+//   - The compares run on four bytes at a time: zero80 marks the zero
+//     bytes exactly, a sign test is (l ^ c) & 0x80808080 masked by
+//     l != 0, and __popc counts the marks. A lane keeps its 16 frames'
+//     error bytes in an OR accumulator.
+//   - A frame spans the CTAs of its row chunks, so its any-error flag is an
+//     OR across chunks: each CTA writes its group's frame-error bits for its
+//     chunk as 32-bit words (bit j of word w is frame 32 w + j) into a
+//     (chunks, ceil(B / 32)) scratch array, and its four partial sums
+//     beside them. Every word is written, so the scratch needs no zeroing.
+//   - The fold is the last CTA to finish (a __threadfence, then an atomic
+//     ticket that it resets to 0 for the next launch on the stream): it ORs
+//     the words over chunks, __popc's them and sums the partials in 64
+//     bits (at m = 17, B = 16384 the totals can pass 2^31), and writes the
+//     (5,) int64 counters. Integer sums do not depend on order, so the
+//     counts are deterministic. One launch, no reduction after it.
+//   - STRAIGHT: batch % 16 == 0 and the three arrays 16-byte aligned; else
+//     the same kernel with byte loads and a bound check per frame. Frames
+//     past the batch read as bytes 0x01 in all three arrays, which count
+//     nothing: ragged lanes vote "no error".
+//
+// count_bytes_kernel (style "bytes"): the design it replaced, kept by name
+// so that the two can be timed in turns. One block owns 32 frames
+// (threadIdx.x) and splits the rows among its threadIdx.y lanes; a thread
+// reads one byte of each array a row (a warp one 32-byte sector), and each
+// block writes its five partial sums to its own row of a (blocks, 5) int32
+// array that the wrapper sums.
 
 #include <cuda_runtime.h>
 
@@ -24,14 +56,14 @@
 namespace {
 
 constexpr int kCounters = 5;
-constexpr int kFrames = 32;   // blockDim.x
-constexpr int kMaxLanes = 32; // blockDim.y at most
+constexpr int kFrames = 32;   // count_bytes_kernel: blockDim.x
+constexpr int kMaxLanes = 32; // count_bytes_kernel: blockDim.y at most
 
-__global__ void count_kernel(const int8_t* __restrict__ llr,
-                             const int8_t* __restrict__ cw,
-                             const int8_t* __restrict__ hat,
-                             const uint8_t* __restrict__ frozen, int n,
-                             int batch, int* out) {
+__global__ void count_bytes_kernel(const int8_t* __restrict__ llr,
+                                   const int8_t* __restrict__ cw,
+                                   const int8_t* __restrict__ hat,
+                                   const uint8_t* __restrict__ frozen, int n,
+                                   int batch, int* out) {
   const int f = blockIdx.x * kFrames + threadIdx.x;
   int err = 0, amb = 0, awgn = 0, qz = 0, ferr = 0;
   if (f < batch) {
@@ -81,17 +113,226 @@ __global__ void count_kernel(const int8_t* __restrict__ llr,
   }
 }
 
+constexpr int kLaneFrames = 16;                 // one 16-byte word a row
+constexpr int kGroupFrames = 32 * kLaneFrames;  // a warp's frames: 512
+constexpr int kGroupWords = kGroupFrames / 32;  // its frame-error words
+constexpr int kWarps = 8;                       // a CTA's warps
+constexpr int kUnroll = 4;                      // rows loaded per compare
+constexpr int kSums = 4;                        // err, amb, awgn, qz
+constexpr uint32_t kPad = 0x01010101u;          // frames past the batch
+
+// 0x80 in every zero byte of x, 0 elsewhere. Exact: (x & 0x7F) + 0x7F
+// sets bit 7 of a byte unless its low seven bits are 0, and never carries
+// into the next byte.
+__device__ __forceinline__ uint32_t zero80(uint32_t x) {
+  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x | 0x7F7F7F7Fu);
+}
+
+// A lane's 16 frames of one row: one 16-byte load, or (ragged) byte loads
+// with a bound check per frame; frames past the batch read as kPad.
+template <bool STRAIGHT>
+__device__ __forceinline__ uint4 load16(const int8_t* __restrict__ row,
+                                        int f0, int batch) {
+  if (STRAIGHT)
+    return f0 < batch ? __ldg(reinterpret_cast<const uint4*>(row + f0))
+                      : make_uint4(kPad, kPad, kPad, kPad);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int f = f0 + 4 * i + k;
+      const uint32_t b = f < batch ? (uint8_t)__ldg(row + f) : 1u;
+      w[i] |= b << (8 * k);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// bit k = byte k's top bit, for a word whose bytes are 0x00 or 0x80: the
+// flags moved to bits 0, 8, 16, 24 land by one product on bits 28..31.
+__device__ __forceinline__ uint32_t top_bits(uint32_t x) {
+  return (((x >> 7) & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+template <bool STRAIGHT>
+__global__ void __launch_bounds__(kWarps * 32) count_rows_kernel(
+    const int8_t* __restrict__ llr, const int8_t* __restrict__ cw,
+    const int8_t* __restrict__ hat, const uint8_t* __restrict__ frozen,
+    int n, int batch, int rows_per_chunk, int words,
+    uint32_t* scratch, unsigned int* ticket,
+    long long* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = blockIdx.x, chunk = blockIdx.y, chunks = gridDim.y;
+  const int f0 = group * kGroupFrames + lane * kLaneFrames;
+  const int r0 = chunk * rows_per_chunk;
+  const int r1 = min(n, r0 + rows_per_chunk);
+  const long long b = batch;
+  int err = 0, amb = 0, awgn = 0, qz = 0;
+  uint32_t fe[4] = {0u, 0u, 0u, 0u};
+  for (int r = r0 + warp; r < r1; r += kWarps * kUnroll) {
+    uint4 l[kUnroll], c[kUnroll], h[kUnroll];
+    bool info[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int ru = r + u * kWarps;
+      const bool in = ru < r1;
+      info[u] = in && !__ldg(frozen + ru);
+      const long long at = (long long)ru * b;
+      const uint4 pad = make_uint4(kPad, kPad, kPad, kPad);
+      l[u] = in ? load16<STRAIGHT>(llr + at, f0, batch) : pad;
+      c[u] = in ? load16<STRAIGHT>(cw + at, f0, batch) : pad;
+      h[u] = info[u] ? load16<STRAIGHT>(hat + at, f0, batch) : pad;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t lw = word_of(l[u], i), cwd = word_of(c[u], i);
+        const uint32_t lz = zero80(lw);
+        qz += __popc(lz);
+        awgn += __popc((lw ^ cwd) & ~lz & 0x80808080u);
+        if (info[u]) {
+          const uint32_t hw = word_of(h[u], i);
+          const uint32_t ne = ~zero80(hw ^ cwd) & 0x80808080u;
+          err += __popc(ne);
+          amb += __popc(zero80(hw));
+          fe[i] |= ne;
+        }
+      }
+    }
+  }
+
+  // the CTA's sums and its group's frame-error words for this chunk
+  __shared__ int s_sum[kWarps][kSums];
+  __shared__ uint32_t s_bits[kWarps][32];
+  __shared__ long long s_tot[kWarps][kCounters];
+  __shared__ bool s_last;
+  s_bits[warp][lane] = top_bits(fe[0]) | top_bits(fe[1]) << 4 |
+                       top_bits(fe[2]) << 8 | top_bits(fe[3]) << 12;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    err += __shfl_xor_sync(0xFFFFFFFFu, err, off);
+    amb += __shfl_xor_sync(0xFFFFFFFFu, amb, off);
+    awgn += __shfl_xor_sync(0xFFFFFFFFu, awgn, off);
+    qz += __shfl_xor_sync(0xFFFFFFFFu, qz, off);
+  }
+  if (lane == 0) {
+    s_sum[warp][0] = err;
+    s_sum[warp][1] = amb;
+    s_sum[warp][2] = awgn;
+    s_sum[warp][3] = qz;
+  }
+  __syncthreads();
+  int* partials = reinterpret_cast<int*>(scratch + (long long)chunks * words);
+  const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+  if (warp == 0) {
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) bits |= s_bits[w][lane];
+    // lanes 2j and 2j + 1 hold frames 32 j .. 32 j + 31 of the group
+    const uint32_t high = __shfl_down_sync(0xFFFFFFFFu, bits, 1);
+    const int word = group * kGroupWords + (lane >> 1);
+    if (!(lane & 1) && word < words)
+      scratch[(long long)chunk * words + word] = bits | high << 16;
+    if (lane < kSums) {
+      int s = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += s_sum[w][lane];
+      partials[cta * kSums + lane] = s;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return;
+
+  // the fold, in the last CTA: every other CTA's words and sums are out
+  __threadfence();
+  long long tot[kCounters] = {0, 0, 0, 0, 0};
+  for (int w = threadIdx.x; w < words; w += blockDim.x) {
+    uint32_t any = 0u;
+#pragma unroll 8
+    for (int k = 0; k < chunks; ++k)
+      any |= __ldcg(scratch + (long long)k * words + w);
+    tot[1] += __popc(any);
+  }
+  const int ctas = gridDim.x * gridDim.y;
+  for (int i = threadIdx.x; i < ctas; i += blockDim.x) {
+    tot[0] += __ldcg(partials + i * kSums + 0);
+    tot[2] += __ldcg(partials + i * kSums + 1);
+    tot[3] += __ldcg(partials + i * kSums + 2);
+    tot[4] += __ldcg(partials + i * kSums + 3);
+  }
+#pragma unroll
+  for (int k = 0; k < kCounters; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      tot[k] += __shfl_xor_sync(0xFFFFFFFFu, tot[k], off);
+    if (lane == 0) s_tot[warp][k] = tot[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < kCounters) {
+    // out: uncorrected, frame errors, ambiguity, awgn, quantization
+    long long s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += s_tot[w][threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
 }  // namespace
 
-// Launch on `stream`: llr, cw, hat (n, batch) int8 element-major, frozen
-// (n,) uint8, out (ceil(batch / 32), 5) int32. lanes (1..32) threads share
-// a frame's rows. Returns cudaGetLastError().
+// The replaced design (style "bytes") on `stream`: llr, cw, hat (n, batch)
+// int8 element-major, frozen (n,) uint8, out (ceil(batch / 32), 5) int32.
+// lanes (1..32) threads share a frame's rows. Returns cudaGetLastError().
 extern "C" int polar_count(const void* llr, const void* cw, const void* hat,
                            const void* frozen, int n, int batch, int lanes,
                            void* out, void* stream) {
   const int blocks = (batch + kFrames - 1) / kFrames;
-  count_kernel<<<blocks, dim3(kFrames, lanes), 0, (cudaStream_t)stream>>>(
+  count_bytes_kernel<<<blocks, dim3(kFrames, lanes), 0,
+                       (cudaStream_t)stream>>>(
       (const int8_t*)llr, (const int8_t*)cw, (const int8_t*)hat,
       (const uint8_t*)frozen, n, batch, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// count_rows_kernel on `stream`: llr, cw, hat (n, batch) int8
+// element-major, frozen (n,) uint8; chunks row chunks of rows_per_chunk
+// rows (chunks * rows_per_chunk >= n, chunks <= 65535); scratch
+// chunks * ceil(batch / 32) + 4 * ceil(batch / 512) * chunks 32-bit words;
+// ticket one 32-bit word, 0 before the launch and after it; out (5,)
+// int64. straight != 0 only when batch % 16 == 0 and the three arrays are
+// 16-byte aligned. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a plan that does not cover the rows.
+extern "C" int polar_count_rows(const void* llr, const void* cw,
+                                const void* hat, const void* frozen, int n,
+                                int batch, int chunks, int rows_per_chunk,
+                                int straight, void* scratch, void* ticket,
+                                void* out, void* stream) {
+  if (chunks < 1 || chunks > 65535 || batch < 1 ||
+      (long long)chunks * rows_per_chunk < n)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((batch + kGroupFrames - 1) / kGroupFrames, chunks);
+  const int words = (batch + 31) / 32;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (straight)
+    count_rows_kernel<true><<<grid, kWarps * 32, 0, s>>>(
+        (const int8_t*)llr, (const int8_t*)cw, (const int8_t*)hat,
+        (const uint8_t*)frozen, n, batch, rows_per_chunk, words,
+        (uint32_t*)scratch, (unsigned int*)ticket, (long long*)out);
+  else
+    count_rows_kernel<false><<<grid, kWarps * 32, 0, s>>>(
+        (const int8_t*)llr, (const int8_t*)cw, (const int8_t*)hat,
+        (const uint8_t*)frozen, n, batch, rows_per_chunk, words,
+        (uint32_t*)scratch, (unsigned int*)ticket, (long long*)out);
   return (int)cudaGetLastError();
 }

@@ -8,15 +8,22 @@ The kernels (``csrc/channel_grid.cu``) replace
 ``:47``), ``quant(2/σ²·(cw + σ·n))`` with cosine-only Box-Muller normals.
 Both work on frame-major ``(rows, cols)`` grids, as the JAX kernels do.
 
-AWGN is bound by instruction throughput on the card (about 100
+Both kernels are bound by instruction throughput on the card. The
+symbols' default style, ``"lines"`` (``symbols_lines_kernel``), takes 16
+symbols a thread in straight-line code on a 2-D grid, four
+``PhiloxFrame`` blocks and one 16-byte store; ``style="quads"`` runs the
+four-symbols-a-thread kernel it replaced (``symbols_kernel``). AWGN needs
+about 100
 instructions an element against 2 bytes of device memory, with
-``-fmad=false`` keeping the plain version's rounding). Its default style,
+``-fmad=false`` keeping the plain version's rounding); its default style,
 ``"lines"`` (``awgn_lines_kernel``), takes 16 elements a thread in
 straight-line code on a 2-D grid with no division, computes the Philox
 round keys and first round once per frame and one polynomial per normal;
 ``style="grid"`` runs the four-elements-a-thread kernel it replaced
-(``awgn_kernel``), kept so that the two can be timed in turns. Both give
-the same LLRs bit for bit.
+(``awgn_kernel``). Each replaced kernel is kept so that the two can be
+timed in turns, and gives the same output bit for bit.
+:func:`symbols_lines_twin` writes the symbols kernel's index map out in
+torch for the CPU tests; the main path does not use it.
 
 Two modes, as the JAX kernels' ``native`` and ``bits``:
 
@@ -49,11 +56,12 @@ from . import build, philox
 
 THREADS = 256
 PLAIN_CHUNK = 1 << 24   # grid elements per chunk of a plain version
+SYMBOL_STYLES = ("lines", "quads")
 AWGN_STYLES = ("lines", "grid")
 launches = {"channel_symbols": 0, "channel_awgn": 0}
-# launches of the replaced AWGN kernel (style "grid"), apart from the
-# default's, so that a run can show it took the new kernel
-earlier_launches = {"channel_awgn_grid": 0}
+# launches of the replaced kernels (styles "quads" and "grid"), apart from
+# the defaults', so that a run can show it took the new kernels
+earlier_launches = {"channel_symbols_quads": 0, "channel_awgn_grid": 0}
 plain_calls = {"symbols_plain": 0, "awgn_plain": 0}
 
 
@@ -86,10 +94,14 @@ def symbols_plain(shape=None, *, words=None, seeds=None, call: int = 0,
 
 
 def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
-            device=None) -> torch.Tensor:
+            device=None, style: str = "lines") -> torch.Tensor:
     """Random ±1 int8 symbols: ``(rows, cols)`` = ``shape``. Bits mode
     with ``words`` (rows, cols) int64; native mode with ``shape``,
-    ``seeds`` (two words), ``call`` and ``device``."""
+    ``seeds`` (two words), ``call`` and ``device``. ``style`` picks the
+    CUDA kernel (:data:`SYMBOL_STYLES`); both draw the same symbols, and a
+    CPU tensor runs the plain version whatever the style."""
+    if style not in SYMBOL_STYLES:
+        raise ValueError(f"symbols style {style!r} not in {SYMBOL_STYLES}")
     dev = words.device if words is not None else torch.device(device)
     if dev.type == "cpu":
         return symbols_plain(shape, words=words, seeds=seeds, call=call,
@@ -109,12 +121,84 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
     if out.numel() == 0:
         return out
     stream = build.stream(dev)
-    err = build.load_library().polar_symbols(
-        rows, cols, words.data_ptr() if words is not None else None, s0, s1,
-        call & 0xFFFFFFFF, out.data_ptr(), THREADS, stream)
-    build.check(err, "polar_symbols")
+    wptr = words.data_ptr() if words is not None else None
+    if style == "quads":
+        err = build.load_library().polar_symbols(
+            rows, cols, wptr, s0, s1, call & 0xFFFFFFFF, out.data_ptr(),
+            THREADS, stream)
+        build.check(err, "polar_symbols")
+        earlier_launches["channel_symbols_quads"] += 1
+        return out
+    straight = cols % 16 == 0 and all(
+        p % 16 == 0 for p in (out.data_ptr(), wptr) if p is not None)
+    # 2: a warp's 512 columns lie in one row, read together in bits mode
+    io = 2 if straight and cols % 512 == 0 else int(straight)
+    err = build.load_library().polar_symbols_lines(
+        rows, cols, wptr, s0, s1, call & 0xFFFFFFFF, out.data_ptr(), io,
+        stream)
+    build.check(err, "polar_symbols_lines")
     launches["channel_symbols"] += 1
     return out
+
+
+def philox_frame_blocks(seeds, call: int, frames, blocks):
+    """``philox.cuh:PhiloxFrame`` in torch: Philox block ``blocks`` of the
+    streams of ``frames`` (broadcastable int64 tensors), by the split first
+    round: the state after round 1 of block 0 is computed once a frame
+    (``start``), block b enters round 2 with ``b`` XORed into its first
+    word, and the nine rounds left use round keys made once
+    (``PhiloxFrame``'s constructor). Returns the four output words."""
+    k0, k1 = philox.seed_words(seeds)
+    kx = [(k0 + r * philox._W0) & philox._MASK for r in range(10)]
+    ky = [(k1 + r * philox._W1) & philox._MASK for r in range(10)]
+    zero = torch.zeros_like(frames)
+    hi0, lo0 = philox._mulhilo(philox._M0, frames)
+    hi1, lo1 = philox._mulhilo(philox._M1, zero + (call & philox._MASK))
+    first = (hi1 ^ kx[0], lo1, hi0 ^ ky[0], lo0)      # PhiloxFrame.start
+    c0, c1, c2, c3 = first[0] ^ blocks, first[1], first[2], first[3]
+    for r in range(1, 10):                            # PhiloxFrame.block
+        hi0, lo0 = philox._mulhilo(philox._M0, c0)
+        hi1, lo1 = philox._mulhilo(philox._M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ kx[r], lo1, hi0 ^ c3 ^ ky[r], lo0
+    return c0, c1, c2, c3
+
+
+def symbols_lines_twin(shape, *, words=None, seeds=None, call: int = 0):
+    """``symbols_lines_kernel``'s index map in torch on the CPU:
+    ``(symbols, drawn)``, symbols (rows, cols) ±1 int8 and drawn the
+    (rows, cols) int64 words they came from. Thread (frame f, column group
+    g) takes columns c = 16 g + i, i < 16, c < cols; native mode reads lane
+    i % 4 of :func:`philox_frame_blocks` block 4 g + i // 4, bits mode
+    word (f, c) of ``words``; a symbol is ``0x01 | (w & 1) * 0xFE`` as a
+    signed byte. Bits mode at cols % 512 == 0 takes the kernel's warp
+    exchange (``WARP``): lane l of a warp loads word pair 32 k + l of the
+    warp's 512 columns (k < 8), two ballots of their low bits follow, and
+    lane L takes bits 8 (L & 3) .. + 7 of ballot L >> 2; drawn then holds
+    those low bits."""
+    rows, cols = shape if words is None else words.shape
+    groups = -(-cols // 16)
+    f = torch.arange(rows, dtype=torch.int64)[:, None, None]
+    g = torch.arange(groups, dtype=torch.int64)[None, :, None]
+    i = torch.arange(16, dtype=torch.int64)[None, None, :]
+    c = 16 * g + i                                    # (1, groups, 16)
+    live = (c < cols).reshape(-1)
+    if words is None:
+        blocks = philox_frame_blocks(seeds, call, f, 4 * g + i // 4)
+        lanes = torch.stack(torch.broadcast_tensors(*blocks), dim=-1)
+        w = torch.gather(lanes, 3, (i % 4).expand(rows, groups, 16)[..., None])
+        drawn = w.reshape(rows, -1)[:, live]
+    elif cols % 512 == 0:
+        # (row, warp, k, lane, even / odd): column 64 k + 2 lane + e
+        low = (words & 1).view(rows, cols // 512, 8, 32, 2)
+        lane = torch.arange(32, dtype=torch.int64)
+        ballots = (low << lane[:, None]).sum(3)        # (row, warp, k, 2)
+        mine = ballots[:, :, lane >> 2, :] >> (8 * (lane & 3))[:, None]
+        bits = (mine[..., None] >> torch.arange(8)) & 1   # (.., L, e, j)
+        drawn = bits.transpose(3, 4).reshape(rows, cols)  # 16 L + 2 j + e
+    else:
+        drawn = words
+    sym = (0x01 | (drawn & 1) * 0xFE).to(torch.uint8).view(torch.int8)
+    return sym, drawn
 
 
 def cos_2pi_one_poly(u: torch.Tensor) -> torch.Tensor:

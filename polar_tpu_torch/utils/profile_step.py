@@ -14,11 +14,14 @@ levels the fused step covers, the fused step too (``fused=True``, the tile
 step up to ``step_kernel.STEP_TILE_MAX_LEVEL``).
 
 For each run it prints the host's wall time, the number of device
-kernels, the device's busy time over the span from the first kernel's
-start to the last one's end (and so the idle share), then the device time
-by kernel and by the torch operator that launched it (the port's own CUDA
-kernels are launched through ctypes and show under the first list only).
-The shares are of the device-only trace's busy time.
+kernels, and beside it the port's own kernels in the trace (the
+functions of ``csrc/``, each in its file's anonymous namespace) against
+the launches its wrappers counted in the same run: where the two differ,
+the trace lacks a record. Then the device's busy time over the span from
+the first kernel's start to the last one's end (and so the idle share),
+the device time by kernel and by the torch operator that launched it (the
+port's own CUDA kernels are launched through ctypes and show under the
+first list only). The shares are of the device-only trace's busy time.
 
     python -m polar_tpu_torch.utils.profile_step      # one CUDA device
     python -m polar_tpu_torch.utils.profile_step --front-only \
@@ -28,11 +31,15 @@ The shares are of the device-only trace's busy time.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
 
 CONFIGS = ((10, 32768, 8), (17, 4096, 2))   # (level, batch, steps)
+# a kernel of csrc/: every one sits in a file's own anonymous namespace
+# (torch's sit in at::native's), demangled or not
+_OWN = re.compile(r"(void )?\(anonymous namespace\)::|_ZN\d+_GLOBAL__N_")
 SNR_DB = -1.5
 TOP = 12
 
@@ -61,11 +68,15 @@ def profile_steps(multi, gen, batch: int, steps: int) -> list[str]:
 
     run()   # warm-up: the first run of a chain on an idle card is slower
     wall = run()
+    counters = _launch_counters()
+    before = sum(v for c in counters for v in c.values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced = run()
+    counted = sum(v for c in counters for v in c.values()) - before
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
+    own = sum(bool(_OWN.match(e.name)) for e in kernels)
     busy = sum(e.device_time_total for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -81,10 +92,27 @@ def profile_steps(multi, gen, batch: int, steps: int) -> list[str]:
              and e.self_device_time_total > 0}
     return ([f"  {steps} steps: wall {wall:.2f} ms untraced, {traced:.2f} ms "
              f"traced; {len(kernels)} kernels, device busy {busy:.2f} of a "
-             f"{span:.2f} ms span ({100 * (1 - busy / span):.1f} % idle)",
+             f"{span:.2f} ms span ({100 * (1 - busy / span):.1f} % idle); "
+             f"the port's kernels: {own} in the trace, {counted} launches "
+             f"counted",
              "  by kernel:"] + _rows(by_kernel, busy)
             + ["  by torch operator (self device time, traced with the "
                "host's operators):"] + _rows(by_op, busy))
+
+
+def _launch_counters() -> list:
+    """The launch counters of every kernel wrapper (``launches`` and, where
+    a wrapper keeps a replaced kernel by name, ``earlier_launches``)."""
+    from ..ops.cuda import (channel_kernel, count_kernel, decoder_kernel,
+                            encode_kernel, front_kernel, interp_kernel,
+                            ring_kernel, step_kernel, subtree_kernel)
+
+    mods = (channel_kernel, count_kernel, decoder_kernel, encode_kernel,
+            front_kernel, interp_kernel, ring_kernel, step_kernel,
+            subtree_kernel)
+    return [c for mod in mods
+            for c in (mod.launches, getattr(mod, "earlier_launches", None))
+            if c is not None]
 
 
 def _configs(text: str) -> tuple:

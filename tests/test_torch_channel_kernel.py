@@ -14,12 +14,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from polar_tpu.ops.pallas.channel_kernel import (make_pallas_awgn,
-                                                 make_pallas_symbols)
+                                                 make_pallas_symbols,
+                                                 pick_blocks)
 from polar_tpu.ops.pallas.step_kernel import _snr_params
 from polar_tpu_torch.channel import snr_params
-from polar_tpu_torch.ops.cuda import channel_kernel, philox
+from polar_tpu_torch.ops.cuda import build, channel_kernel, philox
 
 
 def _jax_params(snr_db):
@@ -35,12 +37,65 @@ def _t(words):
 
 
 def test_symbols_bits_match_pallas():
+    """The plain version and the lines kernel's twin (its byte map
+    0x01 | (w & 1) * 0xFE) on the same words as the Pallas kernel."""
     words = _words(np.random.default_rng(0), (320, 640))
     want = make_pallas_symbols(interpret=True, prng="bits")(jnp.asarray(words))
     got = channel_kernel.symbols(words=_t(words))
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert set(np.unique(got.numpy())) == {-1, 1}
+    twin, drawn = channel_kernel.symbols_lines_twin(None, words=_t(words))
+    assert torch.equal(drawn, _t(words))
+    np.testing.assert_array_equal(twin.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape", [(32, 512), (33, 1024), (2, 4096)])
+def test_symbols_lines_warp_exchange(shape):
+    """Bits mode at cols % 512 == 0: the warp's coalesced loads and
+    ballots hand every lane the low bits of its own 16 words; the symbols
+    equal the plain version's and the Pallas kernel's on the same words."""
+    words = _words(np.random.default_rng(sum(shape)), shape)
+    twin, drawn = channel_kernel.symbols_lines_twin(None, words=_t(words))
+    assert torch.equal(drawn, _t(words) & 1)
+    assert torch.equal(twin, channel_kernel.symbols_plain(words=_t(words)))
+    if pick_blocks(*shape) is not None:
+        want = make_pallas_symbols(interpret=True, prng="bits")(
+            jnp.asarray(words))
+        np.testing.assert_array_equal(twin.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 3), (63, 70), (3, 100),
+                                   (2, 16), (32, 128), (64, 512)])
+def test_symbols_lines_index_map(shape):
+    """The lines kernel's index map (frame, column group, lane → Philox
+    block 4 g + i // 4, lane i % 4, through PhiloxFrame's split first
+    round) draws the documented words, and its symbols equal the plain
+    version's and, where the Pallas kernel tiles the shape (rows % 32,
+    cols % 128), the Pallas kernel's on those words."""
+    kw = dict(seeds=(12, 34), call=5)
+    twin, drawn = channel_kernel.symbols_lines_twin(shape, **kw)
+    assert torch.equal(drawn, philox.frame_words((12, 34), 5, *shape, "cpu"))
+    assert torch.equal(twin, channel_kernel.symbols_plain(shape, **kw,
+                                                          device="cpu"))
+    if pick_blocks(*shape) is not None:
+        want = make_pallas_symbols(interpret=True, prng="bits")(
+            jnp.asarray(drawn.numpy().astype(np.uint32)))
+        np.testing.assert_array_equal(twin.numpy(), np.asarray(want))
+
+
+def test_philox_frame_equals_philox():
+    """PhiloxFrame's split first round and keys made once give
+    philox4x32_10's words, for any frame, block and call."""
+    rng = np.random.default_rng(8)
+    f, b = (torch.from_numpy(rng.integers(0, 2**32, 4096, dtype=np.uint64)
+                             .astype(np.int64)) for _ in range(2))
+    for call in (0, 7, 2**32 - 1):
+        got = channel_kernel.philox_frame_blocks((0xDEADBEEF, 3), call, f, b)
+        want = philox.philox4x32_10(f, b, torch.full_like(f, call),
+                                    torch.zeros_like(f), (0xDEADBEEF, 3))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("snr_db", [-1.0, 3.0])
@@ -140,4 +195,42 @@ def test_awgn_styles_on_the_cpu():
                                                  call=3, style="grid"))
     with pytest.raises(ValueError, match="style"):
         channel_kernel.awgn(cw, params, seeds=(1, 2), style="rows")
-    assert channel_kernel.earlier_launches == {"channel_awgn_grid": 0}
+    assert channel_kernel.earlier_launches == {"channel_symbols_quads": 0,
+                                               "channel_awgn_grid": 0}
+
+
+def test_symbols_styles_on_the_cpu():
+    """A CPU tensor runs the plain version in either symbols style; an
+    unknown style is refused."""
+    kw = dict(seeds=(1, 2), call=3, device="cpu")
+    want = channel_kernel.symbols((7, 40), **kw)
+    assert torch.equal(want, channel_kernel.symbols((7, 40), **kw,
+                                                    style="quads"))
+    with pytest.raises(ValueError, match="style"):
+        channel_kernel.symbols((7, 40), **kw, style="grid")
+    assert channel_kernel.launches == {"channel_symbols": 0, "channel_awgn": 0}
+
+
+class _Asked(Exception):
+    pass
+
+
+@pytest.mark.parametrize("style", channel_kernel.SYMBOL_STYLES)
+def test_symbols_styles_ask_for_their_tensors_device(monkeypatch, style):
+    """On fake ``cuda:1`` words either symbols style asks ``build.stream``
+    for that device before it loads the library."""
+    asked = []
+
+    def stream(device):
+        asked.append(device)
+        raise _Asked
+
+    monkeypatch.setattr(build, "stream", stream)
+    monkeypatch.setattr(build, "load_library", lambda: pytest.fail(
+        "the library was loaded before the device was set"))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        words = torch.empty((8, 32), dtype=torch.int64,
+                            device=torch.device("cuda", 1))
+        with pytest.raises(_Asked):
+            channel_kernel.symbols(words=words, style=style)
+    assert [(d.type, d.index) for d in asked] == [("cuda", 1)]

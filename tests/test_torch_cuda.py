@@ -1033,7 +1033,8 @@ def test_draw_campaign_launches_the_redesigned_kernels(dev):
     assert channel_kernel.launches == {"channel_symbols": steps,
                                        "channel_awgn": steps}
     assert encode_kernel.launches == {"block_encoder": steps}
-    assert channel_kernel.earlier_launches == {"channel_awgn_grid": 0}
+    assert channel_kernel.earlier_launches == {"channel_symbols_quads": 0,
+                                               "channel_awgn_grid": 0}
     assert encode_kernel.earlier_launches == {"block_encoder_bytes": 0}
     assert max(channel_kernel.plain_calls.values()) == 0
     assert encode_kernel.plain_calls["encode_plain"] == 0
@@ -1162,3 +1163,190 @@ def test_front_campaign_launches_the_row_word_kernels(dev):
     assert front_kernel.earlier_launches == {"front_blocks_a_frame": 0,
                                              "front_blocks_b_frame": 0}
     assert max(front_kernel.plain_calls.values()) == 0
+
+
+# -- rows 7 and 10 redesigned: the counter on 16 frames a lane over row
+# chunks with a one-launch fold, and 16 symbols a thread from PhiloxFrame,
+# against the kernels they replaced and the plain versions
+
+
+def _count_code(m, k):
+    """Polar(2^m, k) by reliability, or the rate-1/2 code."""
+    return pt.make_code(m, k) if k is not None else pt.make_code(m, rate=0.5)
+
+
+def _count_inputs(dev, n, batch, seed):
+    """(llr, cw, hat): full-range LLRs with a -128 and a zero column, ±1
+    codewords, and estimates with some zeros and some flipped signs."""
+    llr = _llrs(dev, n, max(batch, 2), seed)[:, :batch].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    cw = (1 - 2 * torch.randint(0, 2, (n, batch), generator=g,
+                                device=dev)).to(torch.int8)
+    hat = cw.clone()
+    flips = torch.randint(0, 64, (n, batch), generator=g, device=dev)
+    hat[flips == 0] = 0
+    hat[flips == 1] *= -1
+    return llr, cw, hat
+
+
+def _count_both(c, llr, cw, hat):
+    """The rows kernel, checked to launch once, beside the bytes kernel,
+    checked to count in earlier_launches."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    before = (count_kernel.launches["count"],
+              count_kernel.earlier_launches["count_bytes"])
+    got = count_kernel.count(c.frozen, llr, cw, hat)
+    old = count_kernel.count(c.frozen, llr, cw, hat, style="bytes")
+    assert (count_kernel.launches["count"],
+            count_kernel.earlier_launches["count_bytes"]) == (
+                before[0] + 1, before[1] + 1)
+    return got, old
+
+
+@pytest.mark.parametrize("m,k", [(1, None), (2, None), (11, None), (11, 1),
+                                 (11, 2047), (14, None)])
+@pytest.mark.parametrize("batch", [1, 15, 16, 17, 33, 511, 512, 513, 4096,
+                                   4099])
+def test_count_rows_matches_bytes_and_plain(dev, m, k, batch):
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = _count_code(m, k)
+    llr, cw, hat = _count_inputs(dev, c.N, batch, m + batch)
+    got, old = _count_both(c, llr, cw, hat)
+    want = count_kernel.count_plain(c.frozen, llr, cw, hat)
+    assert got.dtype == torch.int64 and got.shape == (5,)
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    assert torch.equal(old, want)
+
+
+@pytest.mark.parametrize("batch", [16, 4096, 4099])
+def test_count_rows_takes_tensors_off_the_word(dev, batch):
+    """Tensors at a storage offset of 1 take the kernel's byte loads."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(11, rate=0.5)
+    llr, cw, hat = _count_inputs(dev, c.N, batch, batch)
+    moved = []
+    for t in (llr, cw, hat):
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=dev)
+        x = buf[1:].view(c.N, batch)
+        x.copy_(t)
+        assert x.data_ptr() % 16 == (t.data_ptr() + 1) % 16 != 0
+        moved.append(x)
+    got, old = _count_both(c, *moved)
+    assert torch.equal(got, count_kernel.count_plain(c.frozen, llr, cw, hat))
+    assert torch.equal(old, got)
+
+
+def test_count_rows_frame_errors_across_chunks(dev):
+    """A frame whose only error lies in the first row chunk, another whose
+    only error lies in the last, errors at frozen rows (unread), then an
+    all-zero estimate."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    m, batch = 14, 4096
+    frozen = np.arange(1 << m) % 3 == 2          # rows 1 and N - 1 are info
+    c = pt.PolarCode(m, frozen)
+    _, chunks, rows = count_kernel.count_plan(
+        c.N, batch, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert chunks > 2 and rows > 1
+    llr, cw, _ = _count_inputs(dev, c.N, batch, 3)
+    hat = cw.clone()
+    hat[1, 5] *= -1                              # chunk 0, group 0
+    hat[c.N - 1, batch - 1] *= -1                # the last chunk and group
+    hat[2, :] = 0                                # a frozen row
+    got, old = _count_both(c, llr, cw, hat)
+    want = count_kernel.count_plain(c.frozen, llr, cw, hat)
+    assert got.tolist()[:3] == [2, 2, 0]
+    assert torch.equal(got, want) and torch.equal(old, want)
+    zero = torch.zeros_like(hat)
+    got, old = _count_both(c, llr, cw, zero)
+    assert got.tolist()[:3] == [c.K * batch, batch, c.K * batch]
+    assert torch.equal(got, count_kernel.count_plain(c.frozen, llr, cw, zero))
+    assert torch.equal(old, got)
+
+
+def test_count_rows_back_to_back(dev):
+    """Two launches in a row on one stream, no synchronisation between:
+    the ticket and the scratch serve both."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    a = _count_inputs(dev, c.N, 4096, 1)
+    b = _count_inputs(dev, c.N, 4096, 2)
+    before = count_kernel.launches["count"]
+    got = [count_kernel.count(c.frozen, *a), count_kernel.count(c.frozen, *b),
+           count_kernel.count(c.frozen, *a)]
+    assert count_kernel.launches["count"] == before + 3
+    want_a = count_kernel.count_plain(c.frozen, *a)
+    want_b = count_kernel.count_plain(c.frozen, *b)
+    assert not torch.equal(want_a, want_b)
+    assert torch.equal(got[0], want_a) and torch.equal(got[2], want_a)
+    assert torch.equal(got[1], want_b)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 3), (63, 70), (1000, 512),
+                                   (65537, 16), (3, 65540), (7, 1536),
+                                   (5, 4608)])
+def test_symbols_lines_matches_quads_and_plain(dev, shape):
+    from polar_tpu_torch.ops.cuda import channel_kernel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(sum(shape))
+    words = torch.randint(0, 2**32, shape, generator=g, dtype=torch.int64,
+                          device=dev)
+    for kw in (dict(words=words), dict(seeds=(12, 34), call=5)):
+        args = () if "words" in kw else (shape,)
+        dev_kw = {} if "words" in kw else dict(device=dev)
+        before = (channel_kernel.launches["channel_symbols"],
+                  channel_kernel.earlier_launches["channel_symbols_quads"])
+        got = channel_kernel.symbols(*args, **kw, **dev_kw)
+        old = channel_kernel.symbols(*args, **kw, **dev_kw, style="quads")
+        assert (channel_kernel.launches["channel_symbols"],
+                channel_kernel.earlier_launches["channel_symbols_quads"]) == (
+                    before[0] + 1, before[1] + 1)
+        want = channel_kernel.symbols_plain(*args, **kw, **dev_kw)
+        assert got.shape == shape and got.dtype == torch.int8
+        assert torch.equal(got, want) and torch.equal(old, want)
+
+
+def test_symbols_lines_takes_words_off_the_word(dev):
+    """A words tensor one int64 off the 16-byte grid takes the kernel's
+    per-element path with the same symbols."""
+    from polar_tpu_torch.ops.cuda import channel_kernel
+
+    rows, cols = 37, 512
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    buf = torch.randint(0, 2**32, (rows * cols + 1,), generator=g,
+                        dtype=torch.int64, device=dev)
+    words = buf[1:].view(rows, cols)
+    assert words.data_ptr() % 16 == 8
+    got = channel_kernel.symbols(words=words)
+    assert torch.equal(got, channel_kernel.symbols_plain(words=words))
+    assert torch.equal(got, channel_kernel.symbols(words=words.clone()))
+    assert torch.equal(got, channel_kernel.symbols(words=words,
+                                                   style="quads"))
+
+
+def test_front_campaign_launches_the_row_counter(dev):
+    """A campaign on the block front (Polar(16384, 8192), B = 4096) counts
+    each step with the rows kernel: no bytes launch, no plain call."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    for count in (count_kernel.launches, count_kernel.earlier_launches,
+                  count_kernel.plain_calls):
+        for k in count:
+            count[k] = 0
+    res = pt.run_campaign(c, device=dev, seed=15, batch=4096,
+                          steps_per_call=2, snr_range=(-1.4, -1.4),
+                          max_frames_per_point=2 * 4096,
+                          measure_throughput=False)
+    steps = sum(p.frames for p in res.points) // 4096
+    assert steps == 2
+    assert count_kernel.launches == {"count": steps}
+    assert count_kernel.earlier_launches == {"count_bytes": 0}
+    assert count_kernel.plain_calls == {"count_plain": 0}

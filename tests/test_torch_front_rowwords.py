@@ -28,6 +28,17 @@ from polar_tpu_torch.ops.cuda import build, front_kernel
 BATCHES = [1, 31, 33, 999]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The twins run many small torch ops. Beside other test processes on
+    the same cores, torch's intra-op threads wait on each other at every
+    op, so this module runs on one thread and then restores the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(n, batch, seed):
     rng = np.random.default_rng(seed)
     msg = (1 - 2 * rng.integers(0, 2, (n, batch))).astype(np.int8)
