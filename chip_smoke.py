@@ -37,12 +37,17 @@ against the JAX package's results, and timings, kernels A and B in turns
 with the frame kernels at the shape of the campaign on the block front
 (12). Then the decoder's
 scratch (shared-memory) and interpreter styles: the scratch whole-code
-kernel against the golden vectors, its plain version and the SSA kernel;
-the scratch and interpreter subtree kernels in every distinct kernel node
-of the hybrid at Polar(131072, 65536); the hybrid in each style and the
-interpreter decoder against the SSA decoders; interpreter decode+count
+kernel (the packed tile kernel at the shapes of its table) against the
+golden vectors, its plain version, the byte kernel it replaced (style
+"scratch-bytes") and the SSA kernel at every level and batch class of the
+table; the scratch and interpreter subtree kernels in every distinct kernel
+node of the hybrid at Polar(131072, 65536); the hybrid in each style and
+the interpreter decoder against the SSA decoders; interpreter decode+count
 against its plain version and the block-interp front chain against
-block-hybrid; the slice's main path through run_point; timings (14). Then
+block-hybrid; the slice's main path through run_point; make_step's default
+path at plain Polar(32768, 16384), B = 4096, which runs the scratch
+hybrid, and its decoder against the plain one; timings, the scratch
+kernels in turns with the byte kernels (14). Then
 the parallel layer over a mesh of 8 positions on the one card: the
 ring-shift kernel against its plain version; the sharded encoder; the
 element-sharded decoder at Polar(131072, 65536) against the local decoder
@@ -51,7 +56,7 @@ frame-sharded step and a sharded point against the JAX package's result;
 dryrun_multichip(8); the multihost CLI as two processes on the card and
 resumed from its checkpoint; timings (15). Last, each kernel's bound (13);
 the rows of the draws and front kernels carry the steps that made their
-launches, rows 9 A, 9 B and 10-12 their numbers at each shape
+launches, rows 9 A, 9 B, 10-12, 3 and 4s their numbers at each shape
 ("by_shape") too.
 Phases print one line each; any failure raises,
 so the script exits non-zero and prints no result. The last three lines
@@ -87,6 +92,12 @@ SIGMAS = 4.0  # width of the statistical bounds
 CAMPAIGNS = ((10, (-1.0, 0.0), 0.2), (12, (-1.6, -1.2), 0.2),
              (13, (-1.5, -1.2), 0.1), (14, (-1.6, -1.2), 0.2))
 PAR_SHARDS = 8   # phase 15: mesh positions on the one card
+# phase 14: batches at which the scratch tile kernel is held against plain
+# and the byte kernel at every level, a batch of each class of its shape
+# table (decoder_kernel.SCRATCH_BATCHES) with ragged and tiny ones; the
+# plain code of make_step's default path that runs its hybrid
+SCRATCH_BATCHES = (31, 4096, 4099, 16384, BATCH)
+SCRATCH_PATH_M = 15
 # phases 10-11: (m, batch) of the pinned-decoder campaigns, the shapes at
 # which the symbols, AWGN and encoder kernels are checked, timed and counted
 DRAW_SHAPES = ((10, BATCH), (LARGE_M, LARGE_BATCH))
@@ -1235,15 +1246,22 @@ def front_step_phases(dev, card, ms) -> dict:
 
 def style_phases(dev, card, ms) -> dict:
     """Phase 14: the decoder's scratch and interpreter styles. The scratch
-    whole-code kernel against the golden vectors (m = 2..11), its plain
-    version and the SSA kernel; the scratch and interpreter subtree kernels
-    against their plain versions in every distinct kernel node of the
-    hybrid kl9 at Polar(131072, 65536); the hybrid in each style against
-    the SSA hybrid; the interpreter decoder against the SSA whole-code
-    kernel and the SSA hybrid; interpreter decode+count against its plain
-    version and the block-interp chain against block-hybrid; the slice's
-    main path (pinned decoders and the block-interp front step, counts
-    reset just before); timings."""
+    whole-code kernel (the tile kernel at scratch_shape's shapes) against
+    the golden vectors (m = 2..11), its plain version, the byte kernel it
+    replaced (style "scratch-bytes") and the SSA kernel, at every level
+    1..11 and batch class of its shape table; the scratch and interpreter
+    subtree kernels against their plain versions (and the scratch one
+    against the byte kernel) in every distinct kernel node of the hybrid
+    kl9 at Polar(131072, 65536), the scratch one also at B = 4096 and
+    16384; the hybrid in each style against the SSA hybrid; the
+    interpreter decoder against the SSA whole-code kernel and the SSA
+    hybrid; interpreter decode+count against its plain version and the
+    block-interp chain against block-hybrid; the slice's main path (pinned
+    decoders and the block-interp front step, counts reset just before);
+    make_step's default path at plain Polar(32768, 16384), B = 4096 (the
+    scratch hybrid's subtree kernel; counts reset just before) and its
+    decoder against the plain one; timings, the scratch kernels in turns
+    with the byte kernels."""
     import numpy as np
     import torch
 
@@ -1269,6 +1287,14 @@ def style_phases(dev, card, ms) -> dict:
         x = torch.randint(-128, 128, (rows, batch), generator=gen, device=dev,
                           dtype=torch.int8)
         assert bool((x == -128).any()) and bool((x == 0).any())
+        return x
+
+    def edge_i8(rows, batch):
+        """Full-range int8, column 0 all -128, column 1 all 0."""
+        x = torch.randint(-128, 128, (rows, batch), generator=gen, device=dev,
+                          dtype=torch.int8)
+        x[:, 0] = -128
+        x[:, 1:2] = 0
         return x
 
     def check(name, got, want, what):
@@ -1305,11 +1331,37 @@ def style_phases(dev, card, ms) -> dict:
             gold = torch.from_numpy(vec[f"dec_{m}_{rk}_{i}"].T.copy()).to(dev)
             check("scratch_decoder", got, want, f"golden m={m} rate={rk}")
             check("scratch_decoder", got, gold, f"golden m={m} rate={rk}")
+            check("scratch_decoder", got,
+                  decoder_kernel.decode(program, gcode.frozen, llr_t, False,
+                                        "scratch-bytes")[0],
+                  f"golden m={m} rate={rk} against scratch-bytes")
             batches += 1
             levels.add(int(m))
             i += 1
-    phase("14", f"scratch decoder == plain == {batches} golden dec_* batches "
-          f"(m={min(levels)}..{max(levels)}, max abs err 0)")
+    phase("14", f"scratch decoder == plain == scratch-bytes == {batches} "
+          f"golden dec_* batches (m={min(levels)}..{max(levels)}, max abs "
+          "err 0)")
+    # every cell of the shape table: each level, a batch of each class
+    picked = set()
+    for level in range(1, decoder_kernel.SCRATCH_MAX_LEVEL + 1):
+        lc = pt.make_code(level, rate=0.5)
+        lp = pt.compile_program(lc)
+        for bt in SCRATCH_BATCHES:
+            x = edge_i8(lc.N, bt)
+            got, _ = decoder_kernel.decode(lp, lc.frozen, x, False, "scratch")
+            what = f"Polar({lc.N}, {lc.K}) B={bt}"
+            check("scratch_decoder", got,
+                  decoder_kernel.decode_plain(lp, lc.frozen, x, False)[0],
+                  f"{what} against plain")
+            check("scratch_decoder", got,
+                  decoder_kernel.decode(lp, lc.frozen, x, False,
+                                        "scratch-bytes")[0],
+                  f"{what} against scratch-bytes")
+            picked.add(decoder_kernel.scratch_shape(level, bt))
+    phase("14", f"scratch tile kernel == plain == scratch-bytes at every "
+          f"level 1..{decoder_kernel.SCRATCH_MAX_LEVEL} and B in "
+          f"{SCRATCH_BATCHES}, full-range int8: (wr, vw, warps) picked "
+          f"{sorted(picked)} (max abs err 0)")
     code = pt.make_code(10, rate=0.5)
     program = pt.compile_program(code)
     llr_t = rand_i8(code.N, BATCH)
@@ -1320,8 +1372,12 @@ def style_phases(dev, card, ms) -> dict:
     check("scratch_decoder", got,
           decoder_kernel.decode_plain(program, code.frozen, llr_t, False)[0],
           "Polar(1024, 512) against plain")
-    phase("14", f"scratch decoder == SSA kernel == plain at Polar(1024, 512) "
-          f"B={BATCH}, full-range int8 (max abs err 0)")
+    check("scratch_decoder", got,
+          decoder_kernel.decode(program, code.frozen, llr_t, False,
+                                "scratch-bytes")[0],
+          "Polar(1024, 512) against scratch-bytes")
+    phase("14", f"scratch decoder == SSA kernel == scratch-bytes == plain at "
+          f"Polar(1024, 512) B={BATCH}, full-range int8 (max abs err 0)")
 
     # -- the interpreter decoder against the SSA whole-code kernel ----------
     for output in ("u", "systematic", "codeword", "both"):
@@ -1359,6 +1415,10 @@ def style_phases(dev, card, ms) -> dict:
         check("scratch_subtree",
               subtree_kernel.make_subtree_decoder(node, style="scratch")(slot),
               want_u, f"{node.kind} level {node.level}")
+        check("scratch_subtree",
+              subtree_kernel.make_subtree_decoder(
+                  node, style="scratch-bytes")(slot),
+              want_u, f"{node.kind} level {node.level} scratch-bytes")
         for sl in (5, 10):
             for emit_u in (True, False):
                 fn = make_interp_subtree(node, emit_u=emit_u, emit_cw=True,
@@ -1368,10 +1428,26 @@ def style_phases(dev, card, ms) -> dict:
                       f"{node.kind} level {node.level} sl{sl} u={emit_u}")
         check("interp_subtree", make_interp_subtree(node)(slot), want_u,
               f"{node.kind} level {node.level} u")
-    phase("14", f"scratch and interp (sl5, sl10; u, u+cw, cw) subtree kernels "
-          f"== plain in all {len(nodes)} distinct kernel nodes of the hybrid "
-          f"kl{kl} at Polar({n}, {k}), full-range int8 slots, B=1024 "
-          "(max abs err 0)")
+    phase("14", f"scratch, scratch-bytes and interp (sl5, sl10; u, u+cw, cw) "
+          f"subtree kernels == plain in all {len(nodes)} distinct kernel "
+          f"nodes of the hybrid kl{kl} at Polar({n}, {k}), full-range int8 "
+          "slots, B=1024 (max abs err 0)")
+    for bt in (b, 16384):
+        for node in nodes.values():
+            slot = edge_i8(1 << node.level, bt)
+            got = subtree_kernel.make_subtree_decoder(node, style="scratch")(
+                slot)
+            check("scratch_subtree", got,
+                  subtree_kernel.decode_plain(node, (slot,)),
+                  f"{node.kind} level {node.level} B={bt}")
+            check("scratch_subtree", got,
+                  subtree_kernel.make_subtree_decoder(
+                      node, style="scratch-bytes")(slot),
+                  f"{node.kind} level {node.level} B={bt} scratch-bytes")
+    phase("14", f"scratch subtree kernel == plain == scratch-bytes in all "
+          f"{len(nodes)} distinct kernel nodes at B={b} and 16384, shapes "
+          f"{decoder_kernel.scratch_shape(kl, b)} and "
+          f"{decoder_kernel.scratch_shape(kl, 16384)} (max abs err 0)")
 
     llr_t = rand_i8(n, b)
     for output in ("u", "systematic", "codeword", "both"):
@@ -1438,7 +1514,8 @@ def style_phases(dev, card, ms) -> dict:
             big, output="systematic", output_dtype=torch.int8,
             kernel_level=kl, kernel_style="interp")),
         (big, True, b, None))
-    _reset(*counts, *plains)
+    olds = (decoder_kernel.earlier_launches, subtree_kernel.earlier_launches)
+    _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     points = []
     for i, (c, systematic, batch, dec) in enumerate(runs):
@@ -1466,15 +1543,112 @@ def style_phases(dev, card, ms) -> dict:
           f"and the block-interp front step at Polar({n}, {k})): BER "
           f"{[round(p.ber, 5) for p in points]} in {wall:.1f} s; launches "
           f"{ {name: launched[name] for name in new} }; plain calls {plain}")
+    if max(v for c in olds for v in c.values()):
+        raise AssertionError(f"style path launched the byte kernels: {olds}")
+
+    # -- make_step's default path at plain Polar(32768, 16384), B = 4096 ----
+    mid = pt.make_code(SCRATCH_PATH_M, rate=0.5)
+    path = pt.ber._step_path(mid, torch.int8, None, None, "auto", dev, False,
+                             b)
+    dec_mid = pt.ber._default_decoder(mid, False, torch.int8, None, dev)
+    step = pt.make_step(mid, systematic=False, device=dev)
+    g = torch.Generator()
+    g.manual_seed(SCRATCH_PATH_M)
+    _reset(*counts, *olds, *plains)
+    mid_steps = 2
+    outs = [step(g, -1.0, b) for _ in range(mid_steps)]
+    torch.cuda.synchronize()
+    mid_launched = {name: v for c in counts + olds for name, v in c.items()
+                    if v}
+    plain = {name: v for c in plains for name, v in c.items()}
+    if (path != "draws" or subtree_kernel.launches["scratch_subtree"] == 0
+            or max(v for c in olds for v in c.values())
+            or max(plain.values())):
+        raise AssertionError(f"default path at Polar({mid.N}, {mid.K}) B={b}: "
+                             f"{path}, launches {mid_launched}, plain {plain}")
+    fer = [int(o["frame_errors"]) for o in outs]
+    mid_scratch = subtree_kernel.launches["scratch_subtree"]
+    phase("14", f"make_step's default path at plain Polar({mid.N}, {mid.K}) "
+          f"B={b} ({path} around {auto.decoder_names(SCRATCH_PATH_M, False)}"
+          f"): {mid_steps} steps at -1.0 dB, frame errors {fer}; "
+          f"scratch_subtree {mid_scratch} launches "
+          f"({mid_scratch / mid_steps:g} a step), scratch_bytes_subtree "
+          f"{subtree_kernel.earlier_launches['scratch_bytes_subtree']}, "
+          f"scratch_bytes_decoder "
+          f"{decoder_kernel.earlier_launches['scratch_bytes_decoder']}; all "
+          f"launches {mid_launched}")
+    seen = {}
+
+    def capture(llrs):
+        seen["llrs"] = llrs
+        return dec_mid(llrs)
+
+    pt.ber.make_step_body(mid, systematic=False, decoder=capture,
+                          rng="kernel", device=dev)(g, -1.0, b)
+    got = dec_mid(seen["llrs"])
+    check("scratch_subtree", got,
+          pt.make_fastssc_decoder(mid, output_dtype=torch.int8)(seen["llrs"]),
+          f"Polar({mid.N}, {mid.K}) default decoder against plain")
+    phase("14", f"its decoder on one step's LLRs ({b} frames) == the plain "
+          "decoder on the card (max abs err 0)")
 
     # -- timings at the shapes of the path ----------------------------------
-    times, work = {}, {}
+    times, work, earlier, by_shape = {}, {}, {}, {}
+
+    def scratch_turns(name, where, new_fn, old_fn, plain_fn, reps, nbytes,
+                      ops, launches, steps):
+        """The tile kernel and the byte kernel in turns (new, old, old,
+        new), the device time of each by the profiler, the plain
+        version; a by_shape entry."""
+        t = in_turns(new_fn, old_fn, reps)
+        t_p = ms(plain_fn, 2)
+        phase("14", f"{name} at {where}: tile kernel {t['ms']:.4f} ms, "
+              f"scratch-bytes {t['earlier_ms']:.4f} ms "
+              f"({t['earlier_ms'] / t['ms']:.2f}x; {t['turns']}); device "
+              f"time {profiled_ms(new_fn, reps)} / "
+              f"{profiled_ms(old_fn, reps)}; plain {t_p:.3f} ms ({card})")
+        by_shape.setdefault(name, {})[where] = {
+            "ms": t["ms"], "earlier_ms": t["earlier_ms"], "plain_ms": t_p,
+            "work": (nbytes, ops), "launches": launches, "steps": steps}
+        return t, t_p
+
     llr_s = rand_i8(code.N, BATCH)
-    times["scratch_decoder"] = (
-        ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s, False,
-                                         "scratch"), 20),
-        ms(lambda: decoder_kernel.decode_plain(program, code.frozen, llr_s,
-                                               False), 3))
+    t, t_p = scratch_turns(
+        "scratch_decoder", f"Polar(1024, 512) B={BATCH} u",
+        lambda: decoder_kernel.decode(program, code.frozen, llr_s, False,
+                                      "scratch"),
+        lambda: decoder_kernel.decode(program, code.frozen, llr_s, False,
+                                      "scratch-bytes"),
+        lambda: decoder_kernel.decode_plain(program, code.frozen, llr_s,
+                                            False), 20,
+        (code.N + code.K) * BATCH, decode_ops(code.N) * BATCH,
+        launched["scratch_decoder"], 1)
+    times["scratch_decoder"] = (t["ms"], t_p)
+    earlier["scratch_decoder"] = t["earlier_ms"]
+    # the default path of make_auto_decoder's u track (decode/auto.py):
+    # the scratch kernel at m = 6, and at m = 7 from BIG_BATCH; one decode
+    # through it a shape, counts reset just before
+    for m_s, b_s in ((6, 4096), (6, BATCH), (7, BATCH)):
+        sc = pt.make_code(m_s, rate=0.5)
+        sp = pt.compile_program(sc)
+        x = edge_i8(sc.N, b_s)
+        dec_s, desc = pt.make_auto_decoder(sc, device=dev)
+        _reset(decoder_kernel.launches)
+        got = dec_s.lane_major(x)
+        n_s = decoder_kernel.launches["scratch_decoder"]
+        check("scratch_decoder", got,
+              decoder_kernel.decode_plain(sp, sc.frozen, x, False)[0],
+              f"auto decoder Polar({sc.N}, {sc.K}) B={b_s}")
+        if n_s != 1:
+            raise AssertionError(f"auto decoder {desc} at Polar({sc.N}, "
+                                 f"{sc.K}) B={b_s}: {decoder_kernel.launches}")
+        scratch_turns(
+            "scratch_decoder", f"Polar({sc.N}, {sc.K}) B={b_s} u (auto)",
+            lambda: decoder_kernel.decode(sp, sc.frozen, x, False, "scratch"),
+            lambda: decoder_kernel.decode(sp, sc.frozen, x, False,
+                                          "scratch-bytes"),
+            lambda: decoder_kernel.decode_plain(sp, sc.frozen, x, False), 50,
+            (sc.N + sc.K) * b_s, decode_ops(sc.N) * b_s, n_s, None)
     t_ssa = ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s,
                                              False), 20)
     dec = make_interp_decoder(code)
@@ -1483,15 +1657,36 @@ def style_phases(dev, card, ms) -> dict:
     work["scratch_decoder"] = work["interp_decoder"] = (
         (code.N + code.K) * BATCH, decode_ops(code.N) * BATCH)
     node = max(nodes.values(), key=lambda nd: nd.mesg_bits)
-    slot = rand_i8(1 << node.level, b)
+    ln = 1 << node.level
     sc = subtree_kernel.make_subtree_decoder(node, style="scratch")
-    times["scratch_subtree"] = (
-        ms(lambda: sc(slot), 10),
-        ms(lambda: subtree_kernel.decode_plain(node, (slot,)), 2))
+    so = subtree_kernel.make_subtree_decoder(node, style="scratch-bytes")
+    for bt in (b, 16384):
+        slot = rand_i8(ln, bt)
+        t, t_p = scratch_turns(
+            "scratch_subtree", f"level-{node.level} node B={bt}",
+            lambda: sc(slot), lambda: so(slot),
+            lambda: subtree_kernel.decode_plain(node, (slot,)), 20,
+            (2 * ln + node.mesg_bits) * bt, decode_ops(ln) * bt,
+            mid_scratch if bt == b else 0, mid_steps if bt == b else 0)
+        if bt == b:
+            times["scratch_subtree"] = (t["ms"], t_p)
+            earlier["scratch_subtree"] = t["earlier_ms"]
+    llr_mid = rand_i8(mid.N, b)
+    hyb = {style: pt.make_fastssc_decoder(mid, output_dtype=torch.int8,
+                                          kernel_level=kl, kernel_style=style)
+           for style in ("scratch", "scratch-bytes")}
+    t = in_turns(lambda: hyb["scratch"].lane_major(llr_mid),
+                 lambda: hyb["scratch-bytes"].lane_major(llr_mid), 3)
+    phase("14", f"u Polar({mid.N}, {mid.K}) hybrid kl{kl} decode at B={b}: "
+          f"scratch {t['ms']:.3f} ms, scratch-bytes {t['earlier_ms']:.3f} ms "
+          f"({t['turns']}); device time "
+          f"{profiled_ms(lambda: hyb['scratch'].lane_major(llr_mid), 3)} / "
+          f"{profiled_ms(lambda: hyb['scratch-bytes'].lane_major(llr_mid), 3)}"
+          f" ({card})")
+    slot = rand_i8(ln, b)
     it = make_interp_subtree(node, emit_u=False, emit_cw=True)
     times["interp_subtree"] = (ms(lambda: it(slot), 10),
                                ms(lambda: it.plain(slot), 2))
-    ln = 1 << node.level
     work["scratch_subtree"] = ((2 * ln + node.mesg_bits) * b,
                                decode_ops(ln) * b)
     work["interp_subtree"] = (3 * ln * b,
@@ -1499,9 +1694,7 @@ def style_phases(dev, card, ms) -> dict:
     times["interp_decode_count"] = (ms(lambda: count(llr_f, cw_f), 3),
                                     ms(lambda: count.plain(llr_f, cw_f), 1))
     work["interp_decode_count"] = (2 * n * b, decode_count_ops(n) * b)
-    shapes = {"scratch_decoder": f"Polar(1024, 512) B={BATCH} u",
-              "interp_decoder": f"Polar(1024, 512) B={BATCH} u, sl10",
-              "scratch_subtree": f"level-{node.level} node B={b}",
+    shapes = {"interp_decoder": f"Polar(1024, 512) B={BATCH} u, sl10",
               "interp_subtree": f"level-{node.level} node B={b} cw",
               "interp_decode_count": f"Polar({n}, {k}) B={b}, sl10"}
     for name, shape in shapes.items():
@@ -1521,7 +1714,9 @@ def style_phases(dev, card, ms) -> dict:
           f"interp, hybrid, hybrid, interp): block-interp "
           f"{rates['block-interp']}, block-hybrid {rates['block-hybrid']} "
           f"({card})")
-    return {"err": err, "times": times, "work": work,
+    launched["scratch_subtree"] = mid_scratch
+    return {"err": err, "times": times, "work": work, "earlier": earlier,
+            "by_shape": by_shape, "steps": {"scratch_subtree": mid_steps},
             "launched": {name: launched[name] for name in new}}
 
 
@@ -1985,7 +2180,8 @@ def main() -> int:
     llrs = torch.from_numpy(
         rng.integers(-128, 128, (BATCH, n)).astype(np.int8)).to(dev)
     # at this code and batch the auto decoder (decode/auto.py) is the
-    # whole-code tile kernel, the same decoder as the one asked for by name
+    # scratch style, the tile kernel's u instance at the warps of
+    # decoder_kernel.SCRATCH_TABLE; the whole-code kernel by name follows
     for dec, desc in (pt.make_auto_decoder(code, output="u", device=dev),
                       (make_kernel_decoder(code, output="u"), "whole-code")):
         fps = measure_decode_fps(dec, llrs, iters=64)

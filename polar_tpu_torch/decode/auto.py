@@ -96,10 +96,29 @@ HYBRID_KERNEL_LEVEL = 9
 # against 5.031 / 5.870). At u m = 14 below BIG_BATCH it stays the default:
 # the scratch hybrid led frame-major (11.803 against 12.730) and trailed
 # lane-major (11.596 against 11.338). The walk hybrid led no cell.
+# With the scratch style redesigned as the packed tile kernel at the shapes
+# of decoder_kernel.SCRATCH_TABLE (its byte kernel the arm "scratch-bytes";
+# --decoders-only --levels 6-15; frame- / lane-major ms, each the mean of
+# two readings) the scratch kernel moved in for
+# - u, m = 8, 9, 10, 11 from BIG_BATCH (B = 32768): 0.149 / 0.068,
+#   0.337 / 0.169, 0.745 / 0.407, 2.033 / 1.334 against the tile kernel's
+#   0.176 / 0.094, 0.364 / 0.192, 0.779 / 0.441, 2.056 / 1.357 (the byte
+#   kernel 0.224 / 0.138, 0.680 / 0.479, 2.194 / 1.877, 10.952 / 10.386);
+#   at m = 9..11 it is the tile kernel's own instance, at 8, 4 and 2 warps
+#   a block where "ssa" takes 2, 1 and 1;
+# and stayed where it was at u m = 6 (scratch 0.062 / 0.032 at B = 4096,
+# 0.055 / 0.033 at 32768, host-bound, spread to 0.024), u m = 7 from
+# BIG_BATCH (0.079 / 0.039 against the byte kernel's 0.112 / 0.069), u
+# m = 15 below BIG_BATCH (the scratch hybrid 24.425 / 22.532, the SSA
+# hybrid 22.376 / 22.302 with spreads of 4.3 / 2.9, the byte hybrid
+# 24.732 / 23.234). It led u m = 13, 14 from BIG_BATCH by less than 1 %
+# (21.961 / 19.117 and 51.110 / 45.283 against the SSA hybrid's
+# 22.102 / 19.271 and 51.304 / 45.476) and no other cell.
 BIG_BATCH = 16384
 INTERP_SUBTREE_LEVEL = 5
 AUTO_DECODERS = {
     (6, False): ("scratch", "scratch"), (7, False): ("ssa", "scratch"),
+    **{(m, False): ("ssa", "scratch") for m in (8, 9, 10, 11)},
     (13, False): ("ssa", "hybrid"), (13, True): ("ssa", "hybrid"),
     (15, False): ("hybrid-scratch", "hybrid"),
 }
@@ -117,14 +136,15 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
     ``decode(llrs)`` on frame-major ``(B, N)`` int8 LLRs and
     ``decode.lane_major(llr_t)`` on element-major ``(N, B)`` ones (no
     transposes). The kernel always runs element-major; the frame-major
-    entry transposes in and out. ``style``: ``"ssa"``, ``"walk"`` or
+    entry transposes in and out. ``style``: ``"ssa"``, ``"walk"``,
     ``"scratch"`` (the shared-memory kernel: u output only, N <= 2^11; it
-    raises ``ValueError`` otherwise, as ``make_pallas_decoder`` does)."""
+    raises ``ValueError`` otherwise, as ``make_pallas_decoder`` does) or
+    ``"scratch-bytes"`` (the byte kernel it replaced, the same contract)."""
     if output not in OUTPUTS:
         raise ValueError(f"unknown output mode {output!r}")
     if style not in decoder_kernel.STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
-    if style == "scratch":
+    if style.startswith("scratch"):
         if output != "u":
             raise ValueError("non-u output modes require the SSA kernel style")
         decoder_kernel.scratch_frames(code.N)
@@ -179,10 +199,10 @@ def make_named_decoder(code: PolarCode, name: str, output: str,
                        output_dtype=torch.int8):
     """``(decode, description)``: the CUDA decoder of one of
     :data:`AUTO_DECODERS`' names."""
-    if name in ("ssa", "scratch"):
+    if name in decoder_kernel.STYLES:
         return (make_kernel_decoder(code, output=output,
                                     output_dtype=output_dtype, style=name),
-                "cuda-fastssc" if name == "ssa" else "cuda-scratch")
+                "cuda-fastssc" if name == "ssa" else f"cuda-{name}")
     if name == "interp":
         return (make_interp_decoder(code, subtree_level=INTERP_SUBTREE_LEVEL,
                                     output=output, output_dtype=output_dtype),

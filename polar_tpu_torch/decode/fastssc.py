@@ -38,7 +38,7 @@ from ..ops.arith import FloatArith, Int8Arith, QuantFloatArith, arith_for
 from ..ops.transform import polar_transform
 
 OUTPUTS = ("u", "systematic", "codeword", "both")
-KERNEL_STYLES = ("ssa", "walk", "scratch", "interp")
+KERNEL_STYLES = ("ssa", "walk", "scratch", "scratch-bytes", "interp")
 
 
 class _TreeDecoder:
@@ -298,13 +298,15 @@ def make_fastssc_decoder(
     ``kernel_fuse``: boundary fusion — a kernel-eligible left child runs
     its parent's f, a kernel-eligible right child of a branch its
     parent's g and combine (the SSA and walk styles only; ``"interp"`` raises,
-    ``"scratch"`` ignores it, as in JAX). ``kernel_style`` picks the
+    the scratch styles ignore it, as in JAX). ``kernel_style`` picks the
     subtree kernel (``polar_tpu/decode/fastssc.py:328-394``): ``"ssa"``
     (:mod:`~polar_tpu_torch.ops.cuda.subtree_kernel`: the tile kernel up to
     its ``TILE_SUBTREE_MAX_LEVEL``, the walk above), ``"walk"`` (the
     one-thread-a-frame walk at every level, for the A/B), ``"scratch"`` (its
     shared-memory twin: u blocks only, so non-u outputs re-encode û, and
-    nodes at most ``decoder_kernel.SCRATCH_MAX_LEVEL``) or ``"interp"``
+    nodes at most ``decoder_kernel.SCRATCH_MAX_LEVEL``), ``"scratch-bytes"``
+    (the same by the byte kernel ``"scratch"`` replaced, for the A/B) or
+    ``"interp"``
     (:func:`~polar_tpu_torch.ops.cuda.interp_kernel.make_interp_subtree`
     at its default ``subtree_level``, with the fused cw track). All are
     bit-exact.
@@ -329,7 +331,8 @@ def make_fastssc_decoder(
     # instead of re-encoding the whole u (the scratch style has no cw
     # block); "systematic" / "codeword" then never read the u blocks, so
     # the subtrees skip them
-    use_fused_cw = hybrid and output != "u" and kernel_style != "scratch"
+    use_fused_cw = (hybrid and output != "u"
+                    and not kernel_style.startswith("scratch"))
     kernel_emit_u = not use_fused_cw or output == "both"
     kernel_for = (make_kernel_for(kernel_level, style=kernel_style,
                                   boundary_fusion=kernel_fuse,

@@ -80,8 +80,10 @@ SIGNATURES = {
                      _P),
     "polar_encode_bits": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
                           _P),
-    "polar_scratch_decode": (_P, _I, _I, _P, _P, _I, _P),
-    "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _P),
+    "polar_scratch_decode": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
+    "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "polar_scratch_bytes_decode": (_P, _I, _I, _P, _P, _I, _P),
+    "polar_scratch_bytes_subtree": (_P, _I, _I, _P, _P, _P, _I, _P),
     "polar_interp_decode": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                             _P, _P, _I, _P),
     "polar_interp_subtree": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -155,9 +157,10 @@ def build() -> Path:
             text = proc.communicate()[0]
             log.append(text)
             if proc.returncode != 0:
-                for _, other in procs:
-                    other.kill()
-                    other.communicate()
+                for _, other in procs:   # those not yet read
+                    if other.returncode is None:
+                        other.kill()
+                        other.communicate()
                 raise BuildError(f"nvcc failed ({proc.returncode}):\n"
                                  f"{' '.join(cmd)}\n{text}")
         lib = Path(tmp) / out.name

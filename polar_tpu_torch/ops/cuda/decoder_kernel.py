@@ -18,13 +18,20 @@ Three kernels, two styles of ``polar_tpu/ops/pallas/decoder_kernel.py``'s
   a re-encode at the end: the codes above :data:`WHOLE_MAX_LEVEL`, and by
   name for the A/B;
 * ``"scratch"`` (``csrc/scratch.cu``) replaces ``_decoder_kernel``
-  (``:541``), u track only: the walk with the pyramid and the hard stack
-  of a block's frames in shared memory, 2N bytes a frame, so N is at most
-  2^:data:`SCRATCH_MAX_LEVEL` (:func:`scratch_frames` raises above).
+  (``:541``), u track only: the tile core of ``csrc/fastssc_simd.cuh``
+  with the pyramid and the hard stack in shared memory, 2N bytes a frame,
+  the root read in device memory, at a tile shape and block that
+  :func:`scratch_shape` picks by level and batch from
+  :data:`SCRATCH_SHAPES`; N is at most 2^:data:`SCRATCH_MAX_LEVEL`
+  (:func:`scratch_frames` raises above);
+* ``"scratch-bytes"``, the same function by the one-frame-a-thread byte
+  kernel that ``"scratch"`` replaced, in blocks of :func:`scratch_frames`
+  frames: by name, for the A/B.
 
 :func:`decode` launches the kernel for a CUDA tensor and runs
 :func:`decode_plain` (the eager decoder) only for a CPU tensor; it keeps
-a count of its launches per kernel and track in :data:`launches`.
+a count of its launches per kernel and track in :data:`launches`, and of
+the byte kernel's in :data:`earlier_launches`.
 :func:`simd_selftest` holds the tile kernel's packed functions against
 the walk's scalar ones on the card.
 """
@@ -39,14 +46,14 @@ from ...code.construction import PolarCode
 from ...decode.fastssc import make_fastssc_decoder
 from . import build
 
-# Frames (threads) per block of the walk and the scratch kernel. On an H100
-# at Polar(1024, 512) 128 was as fast as or faster than 64 at B = 4096,
+# Frames (threads) per block of the walk and the scratch byte kernel. On an
+# H100 at Polar(1024, 512) 128 was as fast as or faster than 64 at B = 4096,
 # 32768 and 131072; 256 was faster still at B = 32768 but a third slower at
 # B = 4096 (PERF.md).
 THREADS = 128
-STYLES = ("ssa", "walk", "scratch")
-# The shared memory a block may take on an H100 (227 KB). The scratch style
-# holds a multiple of 32 frames (at most 128), 2N bytes each.
+STYLES = ("ssa", "walk", "scratch", "scratch-bytes")
+# The shared memory a block may take on an H100 (227 KB). The scratch byte
+# kernel holds a multiple of 32 frames (at most 128), 2N bytes each.
 SCRATCH_SMEM_BYTES = 232448
 SCRATCH_MAX_FRAMES = 128
 SCRATCH_MAX_LEVEL = (SCRATCH_SMEM_BYTES // (2 * 32)).bit_length() - 1   # 11
@@ -70,6 +77,9 @@ SIMD_PRIMITIVES = ("sat_add", "qabs", "signum", "decide", "prod", "madd",
                    "hmul", "spc_flip")
 launches = {"fastssc_decoder_u": 0, "fastssc_decoder_cw": 0,
             "walk_decoder_u": 0, "walk_decoder_cw": 0, "scratch_decoder": 0}
+# launches of the byte kernel that "scratch" replaced (style
+# "scratch-bytes"), apart from the tile kernel's
+earlier_launches = {"scratch_bytes_decoder": 0}
 plain_calls = {"decode_plain": 0}
 _tables: dict = {}
 
@@ -146,6 +156,89 @@ def scratch_frames(n: int) -> int:
     return frames
 
 
+# The scratch tile kernel's shapes (csrc/scratch.cu): (WR, VW), WR words of
+# four frames a warp's tile, VW of them a lane, 32 VW / WR rows a pass.
+SCRATCH_SHAPES = ((2, 2), (4, 1), (8, 1), (32, 1))
+SCRATCH_SMS = 132        # an H100's SMs: the grid covers them where it can
+# (WR, VW, warps a block) by level, for calls below SCRATCH_BATCHES[0]
+# frames, below SCRATCH_BATCHES[1], and from it. scratch_shape cuts the
+# warps to what shared memory holds and to a grid that covers the card.
+# From the shape A/B (python -m polar_tpu_torch.utils.step_ab
+# --scratch-shapes --levels 1-11; NVIDIA H100 80GB HBM3, 700.00 W; device
+# ms of one u decode of Polar(2^m, 2^(m-1)), host time hidden, each arm
+# twice in mirrored order; every shape at 1, 2, 4, 8 warps where the block
+# holds them and the grid covers the card): the fastest arm at B = 4096 /
+# 16384 / 32768, beside the byte kernel and the SSA style's tile kernel:
+#   m    B=4096                B=16384               B=32768
+#   1    32x1w1 .0026 (.0026)  32x1w1 .0027 (.0027)  32x1w1 .0027 (.0027)
+#   2    2x2w2  .0033 (.0035)  8x1w2  .0033 (.0036)  8x1w4  .0034 (.0036)
+#   3    8x1w1  .0043 (.0051)  8x1w2  .0043 (.0052)  8x1w4  .0044 (.0053)
+#   4    4x1w1  .0046 (.0068)  4x1w4  .0048 (.0069)  8x1w4  .0053 (.0071)
+#   5    2x2w2  .0088 (.0140)  4x1w4  .0096 (.0142)  8x1w4  .0105 (.0155)
+#   6    2x2w2  .0123 (.0276)  4x1w4  .0152 (.0275)  4x1w4  .0181 (.0302)
+#   7    2x2w2  .0192 (.0554)  4x1w4  .0256 (.0554)  4x1w8  .0316 (.0632)
+#   8    2x2w1  .0342 (.1069)  2x2w8  .0491 (.1068)  4x1w8  .0600 (.1305)
+#   9    2x2w2  .0588 (.2101)  2x2w8  .0857 (.2128)  2x2w8  .1606 (.4426)
+#   10   2x2w1  .1079 (.5045)  2x2w4  .2327 (.9741)  2x2w4  .3972 (1.862)
+#   11   2x2w1  .2047 (1.060)  2x2w2  .6567 (5.206)  2x2w2  1.312 (10.63)
+# (the byte kernel in brackets; the tile kernel read .0137 / .0168 / .0264
+# at m = 6, .0339 / .0496 / .0866 at m = 8, .1079 / .2464 / .4312 at
+# m = 10). Level 9 takes the largest level-9 node of Polar(131072, 65536)'s
+# hybrid below 32768 frames, the hybrid's own case: 2x2w1 .0260 at B = 4096
+# (2x2w2 .0263; the byte kernel .2068, the tile subtree with its root copy
+# .0254) and 4x1w4 .0508 at B = 16384 (2x2w8 not among the best three;
+# the byte kernel .2175, the tile subtree .0523). The 32x1 shape led only
+# at m = 1, where every arm is a launch.
+SCRATCH_BATCHES = (16384, 32768)
+SCRATCH_TABLE = {
+    1: ((32, 1, 1), (32, 1, 1), (32, 1, 1)),
+    2: ((2, 2, 2), (8, 1, 2), (8, 1, 4)),
+    3: ((8, 1, 1), (8, 1, 2), (8, 1, 4)),
+    4: ((4, 1, 1), (4, 1, 4), (8, 1, 4)),
+    5: ((2, 2, 2), (4, 1, 4), (8, 1, 4)),
+    6: ((2, 2, 2), (4, 1, 4), (4, 1, 4)),
+    7: ((2, 2, 2), (4, 1, 4), (4, 1, 8)),
+    8: ((2, 2, 1), (2, 2, 8), (4, 1, 8)),
+    9: ((2, 2, 1), (4, 1, 4), (2, 2, 8)),
+    10: ((2, 2, 1), (2, 2, 4), (2, 2, 4)),
+    11: ((2, 2, 1), (2, 2, 2), (2, 2, 2)),
+}
+
+
+def scratch_smem(n: int, wr: int, warps: int) -> int:
+    """Shared memory of a block of the scratch tile kernel at code (or
+    node) length ``n``: ``warps`` tiles of 4 ``wr`` frames, 2n bytes a
+    frame."""
+    return warps * 2 * n * 4 * wr
+
+
+def scratch_shape(level: int, batch: int) -> tuple[int, int, int]:
+    """``(wr, vw, warps)`` of the scratch tile kernel for a decode of
+    ``batch`` frames at this level: :data:`SCRATCH_TABLE`'s shape, its warps
+    a block cut to what a block's shared memory holds and then until the
+    grid has at least ``min(SCRATCH_SMS, tiles)`` blocks. Raises
+    ``ValueError`` where no tile fits (level > :data:`SCRATCH_MAX_LEVEL`)."""
+    scratch_frames(1 << level)
+    wr, vw, warps = SCRATCH_TABLE[level][sum(batch >= b
+                                             for b in SCRATCH_BATCHES)]
+    n = 1 << level
+    warps = max(1, min(warps, SCRATCH_SMEM_BYTES // scratch_smem(n, wr, 1)))
+    tiles = -(-max(batch, 1) // (4 * wr))
+    warps = min(warps, tiles)
+    while warps > 1 and -(-tiles // warps) < min(SCRATCH_SMS, tiles):
+        warps -= 1
+    return wr, vw, warps
+
+
+def scratch_aligned(batch: int, vw: int, tensors) -> bool:
+    """The tile kernel's fast path for shape width ``vw``: the batch a
+    multiple of a lane's 4 vw bytes and every array on a 4 vw-byte
+    boundary (else rows go a byte at a time)."""
+    step = 4 * vw
+    return batch % step == 0 and all(t.data_ptr() % step == 0
+                                      for t in tensors)
+
+
 def tile_bytes(n: int, want_cw: bool, root: bool = False) -> int:
     """Shared memory of one tile of the tile core at code (or node) length
     ``n``: soft pyramid and hard stack, the codeword stack on the cw track
@@ -179,7 +272,8 @@ def ssa_kernel(n: int) -> str:
     return "tile" if n <= 1 << WHOLE_MAX_LEVEL else "walk"
 
 
-def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa"):
+def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
+           shape: tuple[int, int, int] | None = None):
     """Decode element-major ``(N, B)`` int8 LLRs: the kernel of ``style``
     for a CUDA tensor, :func:`decode_plain` for a CPU one.
 
@@ -187,11 +281,13 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa"):
     mask, both numpy uint8. Returns ``(u (K, B), cw (N, B) or None)``.
     ``style="ssa"`` takes the tile kernel or the walk by
     :func:`ssa_kernel`; ``"walk"`` the walk at every level;
-    ``"scratch"`` the u track only and N <= 2^11, on every device."""
+    ``"scratch"`` and ``"scratch-bytes"`` the u track only and N <= 2^11,
+    on every device. ``shape``: ``(wr, vw, warps)`` of the scratch tile
+    kernel in place of :func:`scratch_shape`'s (the A/B and the tests)."""
     n = int(np.asarray(frozen).size)
     if style not in STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
-    if style == "scratch":
+    if style.startswith("scratch"):
         if want_cw:
             raise ValueError("the cw track requires the SSA kernel style")
         frames = scratch_frames(n)
@@ -214,11 +310,19 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa"):
     prog_d, frozen_d = device_tables(np.asarray(program, np.uint8),
                                      np.asarray(frozen, np.uint8), dev)
     if style == "scratch":
+        wr, vw, warps = shape or scratch_shape(n.bit_length() - 1, b)
         err = build.load_library().polar_scratch_decode(
-            prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), frames,
-            stream)
+            prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), wr, vw,
+            warps, int(scratch_aligned(b, vw, (llr_t, mesg))), stream)
         build.check(err, "polar_scratch_decode")
         launches["scratch_decoder"] += 1
+        return mesg, None
+    if style == "scratch-bytes":
+        err = build.load_library().polar_scratch_bytes_decode(
+            prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), frames,
+            stream)
+        build.check(err, "polar_scratch_bytes_decode")
+        earlier_launches["scratch_bytes_decoder"] += 1
         return mesg, None
     track = "cw" if want_cw else "u"
     if style == "ssa" and ssa_kernel(n) == "tile":

@@ -30,13 +30,18 @@ Styles:
   the A/B;
 * ``"scratch"`` (``csrc/scratch.cu``) replaces the scratch body
   ``_subtree_kernel`` (``:550``): u and hard only, no fusion, the node's
-  pyramid and hard stack in shared memory (level at most
-  ``decoder_kernel.SCRATCH_MAX_LEVEL``; above it, as the other refusals,
-  ``ValueError`` when the decoder is made).
+  pyramid and hard stack in shared memory, the root read in device memory
+  (no copy on chip), on the tile core at the shape and block that
+  ``decoder_kernel.scratch_shape`` picks for the node's level and the
+  call's batch (level at most ``decoder_kernel.SCRATCH_MAX_LEVEL``; above
+  it, as the other refusals, ``ValueError`` when the decoder is made);
+* ``"scratch-bytes"`` — the one-frame-a-thread byte kernel that
+  ``"scratch"`` replaced, by name for the A/B, with its contract.
 
 The function launches the kernel for CUDA tensors and runs
 :func:`decode_plain` (the eager recursion over the node) only for CPU
-tensors; :data:`launches` counts the launches per kernel.
+tensors; :data:`launches` counts the launches per kernel, and
+:data:`earlier_launches` the byte kernel's.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ from ...code.compiler import Node, emit_program, node_frozen
 from ...decode.fastssc import _TreeDecoder
 from ...ops.arith import Int8Arith
 from . import build
-from .decoder_kernel import (STYLES, THREADS, device_tables, scratch_frames,
-                             tile_max_level, tile_warps)
+from .decoder_kernel import (STYLES, THREADS, device_tables, scratch_aligned,
+                             scratch_frames, scratch_shape, tile_max_level,
+                             tile_warps)
 
 FUSE_CODES = {None: 0, "f": 1, "g": 2}
 # The tile subtree keeps the node's root rows on chip beside the soft
@@ -60,6 +66,8 @@ FUSE_CODES = {None: 0, "f": 1, "g": 2}
 TILE_SUBTREE_MAX_LEVEL = tile_max_level(root=True)
 # "subtree_decoder": the tile kernel, "walk_subtree": the walk
 launches = {"subtree_decoder": 0, "walk_subtree": 0, "scratch_subtree": 0}
+# launches of the byte kernel that "scratch" replaced (style "scratch-bytes")
+earlier_launches = {"scratch_bytes_subtree": 0}
 plain_calls = {"subtree_plain": 0}
 
 
@@ -92,8 +100,11 @@ def decode_plain(node: Node, blocks, *, fuse=None, emit_u=True,
 
 def make_subtree_decoder(node: Node, *, emit_u: bool = True,
                          emit_cw: bool = False, fuse: str | None = None,
-                         style: str = "ssa"):
-    """The decoder of one node (see the module docstring). Any batch."""
+                         style: str = "ssa",
+                         shape: tuple[int, int, int] | None = None):
+    """The decoder of one node (see the module docstring). Any batch.
+    ``shape``: ``(wr, vw, warps)`` of the scratch tile kernel in place of
+    ``decoder_kernel.scratch_shape``'s (the A/B and the tests)."""
     if node.mesg_bits < 1:
         raise ValueError("only nodes that emit message bits take a kernel")
     if not emit_u and not emit_cw:
@@ -103,7 +114,7 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
     if style not in STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
     n, k = 1 << node.level, node.mesg_bits
-    if style == "scratch":
+    if style.startswith("scratch"):
         if emit_cw or fuse:
             raise ValueError("emit_cw and fuse require the SSA kernel style")
         frames = scratch_frames(n)
@@ -143,11 +154,20 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
         prog_d, frozen_d = device_tables(program, frozen, dev)
         lib = build.load_library()
         if style == "scratch":
+            wr, vw, warps = shape or scratch_shape(node.level, b)
             err = lib.polar_scratch_subtree(
                 prog_d.data_ptr(), n, b, blocks[0].data_ptr(), mesg.data_ptr(),
-                hard.data_ptr(), frames, stream)
+                hard.data_ptr(), wr, vw, warps,
+                int(scratch_aligned(b, vw, (blocks[0], mesg, hard))), stream)
             build.check(err, "polar_scratch_subtree")
             launches["scratch_subtree"] += 1
+            return outs
+        if style == "scratch-bytes":
+            err = lib.polar_scratch_bytes_subtree(
+                prog_d.data_ptr(), n, b, blocks[0].data_ptr(), mesg.data_ptr(),
+                hard.data_ptr(), frames, stream)
+            build.check(err, "polar_scratch_bytes_subtree")
+            earlier_launches["scratch_bytes_subtree"] += 1
             return outs
         ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
         if style == "ssa" and ssa_kernel(node.level) == "tile":

@@ -37,6 +37,33 @@ def elapsed_seconds(fn, device) -> float:
     return time.perf_counter() - t0
 
 
+# Cycles a second of torch.cuda._sleep's spin, at most: an H100 SXM's
+# highest SM clock (1.98 GHz), so a hold is never shorter than asked.
+HOLD_CYCLES_PER_S = 2.0e9
+
+
+def queued_seconds(fn, reps: int) -> float:
+    """Seconds one call of ``fn`` keeps the current CUDA device busy, its
+    host time hidden: a spin kernel holds the current stream while ``reps``
+    calls are queued behind it, so the CUDA events around them see their
+    kernels back to back. ``fn`` must not synchronise with the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(HOLD_CYCLES_PER_S * (2 * reps * host + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / reps
+
+
 def _chained_runner(decode_fn, n_out_pad):
     """runner(x, iters): ``iters`` decodes, each fed the previous input
     plus its zero-padded output (int8 wraparound is fine: only the

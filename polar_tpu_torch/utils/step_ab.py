@@ -45,15 +45,20 @@ the whole-code kernel (m <= 14: the tile kernel up to
 ``decoder_kernel.WHOLE_MAX_LEVEL``, the walk above), the walk by name (m <=
 ``WHOLE_MAX_LEVEL``), the hybrid at
 :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`, the scratch
-whole-code kernel (u, m <= 11), the interpreter at subtree levels 5 and 10
-(m = 9..13) and the hybrid at kernel level 9 in the walk, scratch and
+whole-code kernel and the byte kernel it replaced (``scratch-bytes``; u,
+m <= 11), the interpreter at subtree levels 5 and 10 (m = 9..13) and the
+hybrid at kernel level 9 in the walk, scratch, scratch-bytes and
 interpreter styles (m = 13..17; the SSA style's subtree kernel is the tile
-kernel, the walk the one it replaced). Every line names the card and its power
+kernel, the walk the one it replaced). ``--scratch-shapes`` times the
+scratch tile kernel alone at every shape and block size
+(:func:`scratch_shape_rows`), the source of
+``decoder_kernel.SCRATCH_TABLE``. Every line names the card and its power
 limit; ``--out`` also writes the readings as JSON lines.
 
     python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
     python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-17
     python -m polar_tpu_torch.utils.step_ab --fronts-only --levels 14-17
+    python -m polar_tpu_torch.utils.step_ab --scratch-shapes --levels 1-11
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ BIG_BATCH_MAX_LEVEL = 14
 BATCH = 4096
 WHOLE_DECODER_MAX_LEVEL = 14
 INTERP_LEVELS = (9, 13)          # the whole-code interpreter's arms
-STYLE_HYBRID_MIN_LEVEL = 13      # the hybrid's walk, scratch and interp arms
+STYLE_HYBRID_MIN_LEVEL = 13      # the hybrid's other styles' arms
 
 
 def _levels(text: str) -> list[int]:
@@ -199,12 +204,13 @@ def decoders(code, output: str) -> dict:
     if level <= decoder_kernel.WHOLE_MAX_LEVEL:   # whole-code is the tile kernel
         out["walk"] = make_kernel_decoder(code, output=output, style="walk")
     if output == "u" and level <= decoder_kernel.SCRATCH_MAX_LEVEL:
-        out["scratch"] = make_kernel_decoder(code, style="scratch")
+        for style in ("scratch", "scratch-bytes"):
+            out[style] = make_kernel_decoder(code, style=style)
     if INTERP_LEVELS[0] <= level <= INTERP_LEVELS[1]:
         for sl in (5, 10):
             out[f"interp sl{sl}"] = make_interp_decoder(
                 code, subtree_level=sl, output=output)
-    styles = (("ssa", "walk", "scratch", "interp")
+    styles = (("ssa", "walk", "scratch", "scratch-bytes", "interp")
               if level >= STYLE_HYBRID_MIN_LEVEL else ("ssa",))
     for style in styles:
         name = f"hybrid kl{kl}" + ("" if style == "ssa" else f" {style}")
@@ -212,6 +218,88 @@ def decoders(code, output: str) -> dict:
                                          output_dtype=torch.int8,
                                          kernel_level=kl, kernel_style=style)
     return out
+
+
+SHAPE_BATCHES = (4096, 16384, 32768)   # --scratch-shapes
+SHAPE_NODE_LEVEL = 9             # the hybrid kl9's nodes
+SHAPE_NODE_BATCHES = (4096, 16384)
+
+
+def scratch_arms(level: int) -> list:
+    """The scratch tile kernel's (wr, vw, warps) at this level: every shape
+    of ``decoder_kernel.SCRATCH_SHAPES`` at 1, 2, 4 and 8 warps a block,
+    where a block's shared memory holds them."""
+    from polar_tpu_torch.ops.cuda import decoder_kernel as dk
+
+    return [(wr, vw, warps) for wr, vw in dk.SCRATCH_SHAPES
+            for warps in (1, 2, 4, 8)
+            if dk.scratch_smem(1 << level, wr, warps) <= dk.SCRATCH_SMEM_BYTES]
+
+
+def scratch_shape_rows(levels, device, reps: int = 20) -> list[dict]:
+    """Device ms of one scratch decode (u) by every arm of
+    :func:`scratch_arms`, the byte kernel (``scratch-bytes``) and the SSA
+    style's kernel: the whole code Polar(2^m, 2^(m-1)) at
+    :data:`SHAPE_BATCHES` for m in ``levels`` (m <= 11), then the largest
+    level-9 node of Polar(131072, 65536)'s hybrid at
+    :data:`SHAPE_NODE_BATCHES`. Each arm is timed in order and in reverse
+    order by ``queued_seconds`` (host time hidden)."""
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.ops.cuda import decoder_kernel as dk
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+    from polar_tpu_torch.utils.benchmark import queued_seconds
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    cases = []
+    for level in levels:
+        if level > dk.SCRATCH_MAX_LEVEL:
+            continue
+        code = pt.make_code(level, rate=0.5)
+        program = pt.compile_program(code)
+        for batch in SHAPE_BATCHES:
+            def arm(style, shape=None, code=code, program=program):
+                return lambda x: dk.decode(program, code.frozen, x, False,
+                                           style, shape)
+            arms = {"bytes": arm("scratch-bytes"), "ssa": arm("ssa")}
+            arms.update({f"{wr}x{vw} w{warps}": arm("scratch",
+                                                    (wr, vw, warps))
+                         for wr, vw, warps in scratch_arms(level)})
+            cases.append((f"m={level}", level, batch, arms))
+    big = pt.make_code(17, rate=0.5)
+    node, stack = None, [pt.compile_code(big)]
+    while stack:     # the largest composite level-9 node, as chip_smoke's (b')
+        nd = stack.pop()
+        if nd.level == SHAPE_NODE_LEVEL and nd.mesg_bits >= 1 and nd.kind in (
+                "branch", "rate0_right", "rate1_comb"):
+            if node is None or nd.mesg_bits > node.mesg_bits:
+                node = nd
+            continue
+        stack.extend(c for c in (nd.left, nd.right) if c is not None)
+    for batch in SHAPE_NODE_BATCHES:
+        sub = subtree_kernel.make_subtree_decoder
+        arms = {"bytes": sub(node, style="scratch-bytes"),
+                "ssa": sub(node, style="ssa")}
+        arms.update({f"{wr}x{vw} w{warps}": sub(node, style="scratch",
+                                                shape=(wr, vw, warps))
+                     for wr, vw, warps in scratch_arms(node.level)})
+        cases.append((f"node level {node.level} k={node.mesg_bits}",
+                      node.level, batch, arms))
+    rows = []
+    for what, level, batch, arms in cases:
+        x = torch.randint(-128, 128, (1 << level, batch), generator=gen,
+                          device=device, dtype=torch.int8)
+        got = {name: [] for name in arms}
+        names = list(arms)
+        for name in names + names[::-1]:
+            got[name].append(queued_seconds(lambda: arms[name](x), reps) * 1e3)
+        for name in names:
+            rows.append(dict(case=what, level=level, batch=batch, arm=name,
+                             ms=got[name]))
+        del x
+    return rows
 
 
 def decoder_times(code, device, ms) -> list[dict]:
@@ -256,6 +344,8 @@ def main(argv=None) -> int:
                     help="time the decoders alone, no steps or fronts")
     ap.add_argument("--fronts-only", action="store_true",
                     help="time the fronts alone, no decoders or steps")
+    ap.add_argument("--scratch-shapes", action="store_true",
+                    help="time the scratch tile kernel's shapes alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_ab: no CUDA device", file=sys.stderr)
@@ -287,7 +377,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return elapsed_seconds(run, dev) / reps * 1e3
 
-    for level in _levels(args.levels):
+    if args.scratch_shapes:
+        for row in scratch_shape_rows(_levels(args.levels), dev):
+            rows.append(dict(row, card=card))
+            print(f"{row['case']} B={row['batch']} scratch {row['arm']}: "
+                  f"{', '.join(f'{t:.4f}' for t in row['ms'])} ms", flush=True)
+    for level in ([] if args.scratch_shapes else _levels(args.levels)):
         code = pt.make_code(level, rate=0.5)
         if args.fronts_only:
             pass

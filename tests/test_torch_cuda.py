@@ -124,8 +124,10 @@ def test_kernel_decoder_output_modes(dev):
 
     _, desc = pt.make_auto_decoder(c, output="codeword", device=dev)
     assert desc == "cuda-fastssc"                            # the tile kernel
-    _, desc = pt.make_auto_decoder(c, device=dev)            # u: the same
-    assert desc == "cuda-fastssc"
+    # u: the same below BIG_BATCH, the scratch style from it
+    _, desc = pt.make_auto_decoder(c, device=dev)
+    assert desc == f"cuda-fastssc below {auto.BIG_BATCH} frames, " \
+                   "cuda-scratch from it"
 
 
 def test_decoder_rejects_bad_input(dev):
@@ -564,17 +566,25 @@ def test_scratch_refuses_what_its_shared_memory_cannot_hold(dev):
     with pytest.raises(ValueError, match="shared memory"):
         subtree_kernel.make_subtree_decoder(pt.compile_code(big),
                                             style="scratch")
-    # a launch above the block's shared memory is refused and reported
+    # a launch above the block's shared memory is refused and reported, by
+    # the byte kernel (256 frames) and the tile kernel ((32, 1) at n = 2048);
+    # so is a tile shape that was not built
     c = pt.make_code(decoder_kernel.SCRATCH_MAX_LEVEL, rate=0.5)
     prog, _ = decoder_kernel.device_tables(pt.compile_program(c), c.frozen, dev)
     llr = _llrs(dev, c.N, 256, 2)
     mesg = torch.empty((c.K, 256), dtype=torch.int8, device=dev)
-    err = build.load_library().polar_scratch_decode(
-        prog.data_ptr(), c.N, 256, llr.data_ptr(), mesg.data_ptr(), 256,
-        torch.cuda.current_stream(dev).cuda_stream)
-    assert err != 0
-    with pytest.raises(RuntimeError):
-        build.check(err, "polar_scratch_decode")
+    lib, stream = build.load_library(), torch.cuda.current_stream(dev).cuda_stream
+    args = (prog.data_ptr(), c.N, 256, llr.data_ptr(), mesg.data_ptr())
+    for name, err in (
+            ("polar_scratch_bytes_decode",
+             lib.polar_scratch_bytes_decode(*args, 256, stream)),
+            ("polar_scratch_decode",
+             lib.polar_scratch_decode(*args, 32, 1, 1, 1, stream)),
+            ("polar_scratch_decode",
+             lib.polar_scratch_decode(*args, 16, 1, 1, 1, stream))):
+        assert err != 0, name
+        with pytest.raises(RuntimeError):
+            build.check(err, name)
     torch.cuda.synchronize()
 
 
@@ -599,6 +609,175 @@ def test_scratch_subtree_matches_plain(dev, level, batch):
         ssa = subtree_kernel.make_subtree_decoder(node)(slot)
         for a, b in zip(got, ssa):
             assert torch.equal(a, b)
+
+
+_TIES = (-128, -127, -1, 0, 1, 127)
+
+
+def _tie_llrs(dev, n, b, seed):
+    """Full-range int8 columns, then columns drawn from the tie-heavy
+    values alone."""
+    x = _llrs(dev, n, b, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    ties = torch.tensor(_TIES, dtype=torch.int8, device=dev)
+    x[:, b // 2:] = ties[torch.randint(0, len(_TIES), (n, b - b // 2),
+                                       generator=g, device=dev)]
+    return x
+
+
+_SCRATCH_WANT: dict = {}
+
+
+def _scratch_want(dev, level, batch):
+    """LLRs of Polar(2^level, 2^(level-1)) and the plain version's u, made
+    once a (level, batch)."""
+    key = (level, batch)
+    if key not in _SCRATCH_WANT:
+        c = pt.make_code(level, rate=0.5)
+        program = pt.compile_program(c)
+        llr = _tie_llrs(dev, c.N, max(batch, 2), level)[:, :batch].contiguous()
+        want, _ = decoder_kernel.decode_plain(program, c.frozen, llr, False)
+        _SCRATCH_WANT[key] = (c, program, llr, want)
+    return _SCRATCH_WANT[key]
+
+
+@pytest.mark.parametrize("shape", decoder_kernel.SCRATCH_SHAPES)
+@pytest.mark.parametrize("batch", [1, 3, 31, 4096, 4099])
+def test_scratch_tile_shapes_match_plain_and_bytes(dev, shape, batch):
+    """Each tile shape, at 1 and 2 warps a block where a block holds them,
+    at every level where one fits (whole code, u): equal to the plain
+    version and to the byte kernel on full-range and tie-heavy LLRs."""
+    wr, vw = shape
+    levels = 0
+    for level in range(1, decoder_kernel.SCRATCH_MAX_LEVEL + 1):
+        if decoder_kernel.scratch_smem(1 << level, wr, 1) > \
+                decoder_kernel.SCRATCH_SMEM_BYTES:
+            continue
+        c, program, llr, want = _scratch_want(dev, level, batch)
+        old, _ = decoder_kernel.decode(program, c.frozen, llr, False,
+                                       "scratch-bytes")
+        assert torch.equal(old, want), level
+        for warps in (1, 2):
+            if decoder_kernel.scratch_smem(c.N, wr, warps) > \
+                    decoder_kernel.SCRATCH_SMEM_BYTES:
+                continue
+            got, cw = decoder_kernel.decode(program, c.frozen, llr, False,
+                                            "scratch", (wr, vw, warps))
+            assert cw is None and torch.equal(got, want), (level, warps)
+        levels += 1
+    assert levels >= 9
+
+
+@pytest.mark.parametrize("shape", decoder_kernel.SCRATCH_SHAPES)
+@pytest.mark.parametrize("batch", [1, 3, 31, 4096, 4099])
+def test_scratch_tile_subtree_shapes_match_plain_and_bytes(dev, shape, batch):
+    """Each shape on every composite node kind of Polar(4096, 2048) at
+    levels 1..11 where it fits: u and the hard block (signum(0)'s zeros)
+    equal the plain version and the byte kernel."""
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    wr, vw = shape
+    nodes = 0
+    for level in range(1, decoder_kernel.SCRATCH_MAX_LEVEL + 1):
+        if decoder_kernel.scratch_smem(1 << level, wr, 1) > \
+                decoder_kernel.SCRATCH_SMEM_BYTES:
+            continue
+        for node in _subtree_nodes(12, level):
+            slot = _tie_llrs(dev, 1 << level, max(batch, 2),
+                             level)[:, :batch].contiguous()
+            want = subtree_kernel.decode_plain(node, [slot])
+            old = subtree_kernel.make_subtree_decoder(
+                node, style="scratch-bytes")(slot)
+            got = subtree_kernel.make_subtree_decoder(
+                node, style="scratch", shape=(wr, vw, 1))(slot)
+            for a, b, o in zip(got, want, old, strict=True):
+                assert torch.equal(a, b), (node.kind, level)
+                assert torch.equal(o, b), (node.kind, level)
+            nodes += 1
+    assert nodes >= 8
+
+
+def test_scratch_tile_kernel_off_the_word_and_back_to_back(dev):
+    """Arrays off the 4- and 16-byte grid (row views at odd offsets) take
+    the byte path; two launches queued back to back on one stream, with
+    no synchronisation between, give each its own answer."""
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    c = pt.make_code(9, rate=0.5)
+    program = pt.compile_program(c)
+    b = 4096
+    for off in (1, 2, 4, 8):
+        buf = torch.empty(c.N * b + off, dtype=torch.int8, device=dev)
+        llr = buf[off:].view(c.N, b)
+        llr.copy_(_tie_llrs(dev, c.N, b, off))
+        want, _ = decoder_kernel.decode_plain(program, c.frozen, llr, False)
+        for wr, vw in decoder_kernel.SCRATCH_SHAPES:
+            got, _ = decoder_kernel.decode(program, c.frozen, llr, False,
+                                           "scratch", (wr, vw, 1))
+            assert torch.equal(got, want), (off, wr)
+    node = _subtree_nodes(12, 9)[0]
+    buf = torch.empty(512 * 4100 + 4, dtype=torch.int8, device=dev)
+    slot = buf[4:].view(512, 4100)   # on the 4-byte grid, off the 8-byte
+    slot.copy_(_tie_llrs(dev, 512, 4100, 3))
+    assert slot.data_ptr() % 8 == 4
+    want = subtree_kernel.decode_plain(node, [slot])
+    for wr, vw in decoder_kernel.SCRATCH_SHAPES:
+        got = subtree_kernel.make_subtree_decoder(
+            node, style="scratch", shape=(wr, vw, 1))(slot)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), wr
+    xs = [_tie_llrs(dev, c.N, b, s) for s in (5, 6)]
+    wants = [decoder_kernel.decode_plain(program, c.frozen, x, False)[0]
+             for x in xs]
+    torch.cuda.synchronize()
+    gots = [decoder_kernel.decode(program, c.frozen, x, False, "scratch")[0]
+            for x in xs]
+    torch.cuda.synchronize()
+    for g, w in zip(gots, wants):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [13, 14, 15])
+def test_scratch_hybrid_matches_the_plain_hybrid(dev, m):
+    """The hybrid kl9 in the scratch style (the tile kernel) and in the
+    byte style, u output, equal the eager decoder on the CPU."""
+    c = pt.make_code(m, rate=0.5)
+    llr = _tie_llrs(dev, c.N, 257, m)
+    want = pt.make_fastssc_decoder(c, output_dtype=torch.int8).lane_major(
+        llr.cpu())
+    for style in ("scratch", "scratch-bytes"):
+        got = pt.make_fastssc_decoder(c, output_dtype=torch.int8,
+                                      kernel_level=9,
+                                      kernel_style=style).lane_major(llr)
+        assert torch.equal(got.cpu(), want), style
+
+
+def test_scratch_styles_count_their_own_launches(dev):
+    """Each scratch style moves its own counter and no other, in both
+    entries."""
+    from polar_tpu_torch.ops.cuda import subtree_kernel
+
+    c = pt.make_code(8, rate=0.5)
+    program = pt.compile_program(c)
+    llr = _llrs(dev, c.N, 100, 8)
+    node = _subtree_nodes(12, 7)[0]
+    slot = _llrs(dev, 128, 100, 7)
+    counts = (decoder_kernel.launches, decoder_kernel.earlier_launches,
+              subtree_kernel.launches, subtree_kernel.earlier_launches,
+              decoder_kernel.plain_calls, subtree_kernel.plain_calls)
+    for style, name in (("scratch", "scratch_decoder"),
+                        ("scratch-bytes", "scratch_bytes_decoder"),
+                        ("scratch", "scratch_subtree"),
+                        ("scratch-bytes", "scratch_bytes_subtree")):
+        before = [dict(x) for x in counts]
+        if name.endswith("decoder"):
+            decoder_kernel.decode(program, c.frozen, llr, False, style)
+        else:
+            subtree_kernel.make_subtree_decoder(node, style=style)(slot)
+        moved = {k: x[k] - b[k] for x, b in zip(counts, before) for k in x
+                 if x[k] != b[k]}
+        assert moved == {name: 1}, (style, moved)
 
 
 @pytest.mark.parametrize("m,kl", [(4, 2), (9, 5), (12, 10), (12, 4)])

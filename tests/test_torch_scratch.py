@@ -38,20 +38,31 @@ def _edge_llr_t(n, batch, seed):
     ], axis=1).astype(np.int8)
 
 
-@pytest.mark.parametrize("m,rate", [(4, 0.5), (6, 0.25), (8, 0.5)])
-def test_scratch_decoder_matches_jax_scratch_kernel(m, rate):
+def _check_decoder_against_jax(m, rate, style):
     jc = jpt.make_code(m, rate=rate)
     llr_t = _edge_llr_t(jc.N, 128, m)
     want = np.asarray(make_pallas_decoder(
         jc, frame_tile=128, style="scratch", interpret=True)(
             jnp.asarray(llr_t.T.copy())))
-    dec = make_kernel_decoder(pt.code_from_jax(jc), style="scratch")
-    before = dict(decoder_kernel.launches)
+    dec = make_kernel_decoder(pt.code_from_jax(jc), style=style)
+    before = (dict(decoder_kernel.launches),
+              dict(decoder_kernel.earlier_launches))
     got = dec(torch.from_numpy(llr_t.T.copy()))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         dec.lane_major(torch.from_numpy(llr_t)).numpy(), want.T)
-    assert decoder_kernel.launches == before
+    assert (decoder_kernel.launches, decoder_kernel.earlier_launches) == before
+
+
+@pytest.mark.parametrize("m,rate", [(4, 0.5), (6, 0.25), (8, 0.5)])
+def test_scratch_decoder_matches_jax_scratch_kernel(m, rate):
+    _check_decoder_against_jax(m, rate, "scratch")
+
+
+@pytest.mark.parametrize("m,rate", [(4, 0.5), (6, 0.25), (8, 0.5)])
+def test_scratch_bytes_decoder_matches_jax_scratch_kernel(m, rate):
+    """The kept byte style, as the default scratch style above."""
+    _check_decoder_against_jax(m, rate, "scratch-bytes")
 
 
 def _nodes(tree, levels):
@@ -65,8 +76,7 @@ def _nodes(tree, levels):
     return [out[k] for k in sorted(out)]
 
 
-@pytest.mark.parametrize("level", [4, 7])
-def test_scratch_subtree_matches_jax_scratch_kernel(level):
+def _check_subtree_against_jax(level, style):
     jc = jpt.make_code(8, rate=0.5)
     jnodes = _nodes(jpt.compile_code(jc), (level,))
     nodes = _nodes(pt.compile_code(pt.code_from_jax(jc)), (level,))
@@ -76,11 +86,21 @@ def test_scratch_subtree_matches_jax_scratch_kernel(level):
         want = make_subtree_decoder(jnode, frame_tile=128, style="scratch",
                                     interpret=True, layout="lane")(
                                         jnp.asarray(slot))
-        got = subtree_kernel.make_subtree_decoder(node, style="scratch")(
+        got = subtree_kernel.make_subtree_decoder(node, style=style)(
             torch.from_numpy(slot))
         assert len(got) == len(want) == 2
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("level", [4, 7])
+def test_scratch_subtree_matches_jax_scratch_kernel(level):
+    _check_subtree_against_jax(level, "scratch")
+
+
+@pytest.mark.parametrize("level", [4, 7])
+def test_scratch_bytes_subtree_matches_jax_scratch_kernel(level):
+    _check_subtree_against_jax(level, "scratch-bytes")
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,15 +113,11 @@ def _jax_xla_m9():
                        "codeword": (cw,), "both": (u, cw)}
 
 
-@pytest.mark.parametrize("entry", ["lane", "frame"])
-@pytest.mark.parametrize("output", OUTPUTS)
-def test_scratch_hybrid_matches_jax_xla(output, entry):
-    """kernel_fuse is ignored by the scratch style, as in JAX; non-u
-    outputs re-encode û."""
+def _check_hybrid_against_jax(output, entry, style):
     jc, llr_t, wants = _jax_xla_m9()
     dec = pt.make_fastssc_decoder(pt.code_from_jax(jc), output=output,
                                   output_dtype=torch.int8, kernel_level=6,
-                                  kernel_style="scratch",
+                                  kernel_style=style,
                                   kernel_fuse=entry == "lane")
     x = torch.from_numpy(llr_t)
     got = dec.lane_major(x) if entry == "lane" else dec(x.t().contiguous())
@@ -111,6 +127,20 @@ def test_scratch_hybrid_matches_jax_xla(output, entry):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
+@pytest.mark.parametrize("entry", ["lane", "frame"])
+@pytest.mark.parametrize("output", OUTPUTS)
+def test_scratch_hybrid_matches_jax_xla(output, entry):
+    """kernel_fuse is ignored by the scratch style, as in JAX; non-u
+    outputs re-encode û."""
+    _check_hybrid_against_jax(output, entry, "scratch")
+
+
+@pytest.mark.parametrize("entry", ["lane", "frame"])
+@pytest.mark.parametrize("output", OUTPUTS)
+def test_scratch_bytes_hybrid_matches_jax_xla(output, entry):
+    _check_hybrid_against_jax(output, entry, "scratch-bytes")
+
+
 def test_scratch_frames_follow_the_shared_memory():
     assert decoder_kernel.SCRATCH_MAX_LEVEL == 11
     assert [decoder_kernel.scratch_frames(1 << m) for m in (1, 9, 10, 11)] == [
@@ -118,6 +148,107 @@ def test_scratch_frames_follow_the_shared_memory():
     for m in (1, 6, 9, 10, 11):
         t = decoder_kernel.scratch_frames(1 << m)
         assert t % 32 == 0 and 2 * (1 << m) * t <= decoder_kernel.SCRATCH_SMEM_BYTES
+
+
+_BATCHES = (1, 31, 4096, 4099, 32768)
+
+
+@pytest.mark.parametrize("batch", _BATCHES)
+@pytest.mark.parametrize("level", range(1, 12))
+def test_scratch_shape_fits_a_block(level, batch):
+    """scratch_shape picks a built shape whose block fits the 232,448
+    bytes of shared memory, at least one warp, no more warps than tiles."""
+    wr, vw, warps = decoder_kernel.scratch_shape(level, batch)
+    assert (wr, vw) in decoder_kernel.SCRATCH_SHAPES
+    assert decoder_kernel.SCRATCH_SMEM_BYTES == 232448
+    assert decoder_kernel.scratch_smem(1 << level, wr, warps) <= 232448
+    assert 1 <= warps <= -(-batch // (4 * wr))
+
+
+@pytest.mark.parametrize("level", range(1, 12))
+def test_scratch_grid_covers_the_card_at_4096(level):
+    """At B = 4096 the grid has a block for every SM (132) wherever the
+    batch has that many tiles, else a block a tile."""
+    wr, _, warps = decoder_kernel.scratch_shape(level, 4096)
+    tiles = -(-4096 // (4 * wr))
+    assert -(-tiles // warps) >= min(132, tiles)
+
+
+def _lane_cover(wr, vw, length):
+    """A numpy model of fastssc_simd.cuh's Tile: lane l of a warp takes
+    words w = l % (WR / VW) * VW .. + VW - 1 of rows r0 = l // (WR / VW),
+    r0 + kPass, ... below ``length``, kPass = 32 / (WR / VW). Returns how
+    often each (row, word) of a node of ``length`` rows is visited."""
+    lanes_row = wr // vw
+    k_pass = 32 // lanes_row
+    seen = np.zeros((length, wr), dtype=np.int64)
+    for lane in range(32):
+        w = lane % lanes_row * vw
+        for r in range(lane // lanes_row, length, k_pass):
+            seen[r, w:w + vw] += 1
+    return seen, k_pass
+
+
+@pytest.mark.parametrize("length", [1 << k for k in range(1, 12)])
+@pytest.mark.parametrize("shape", decoder_kernel.SCRATCH_SHAPES)
+def test_tile_lanes_cover_every_row_word_once(shape, length):
+    wr, vw = shape
+    seen, k_pass = _lane_cover(wr, vw, length)
+    assert (seen == 1).all()
+    assert k_pass == 32 * vw // wr and k_pass in (1, 4, 8, 32)
+
+
+@pytest.mark.parametrize("style", ["scratch", "scratch-bytes"])
+def test_scratch_styles_run_plain_on_cpu(style):
+    """On CPU tensors both scratch styles run the plain version and launch
+    nothing, in both entries."""
+    code = pt.make_code(7, rate=0.5)
+    node = pt.compile_code(code).left
+    llr_t = torch.from_numpy(_edge_llr_t(code.N, 40, 3))
+    counts = (decoder_kernel.launches, decoder_kernel.earlier_launches,
+              subtree_kernel.launches, subtree_kernel.earlier_launches)
+    before = [dict(c) for c in counts]
+    plain = (decoder_kernel.plain_calls["decode_plain"],
+             subtree_kernel.plain_calls["subtree_plain"])
+    got, cw = decoder_kernel.decode(pt.compile_program(code), code.frozen,
+                                    llr_t, False, style)
+    assert cw is None
+    want, _ = decoder_kernel.decode_plain(pt.compile_program(code),
+                                          code.frozen, llr_t, False)
+    assert torch.equal(got, want)
+    subtree_kernel.make_subtree_decoder(node, style=style)(llr_t[:64])
+    assert [dict(c) for c in counts] == before
+    assert (decoder_kernel.plain_calls["decode_plain"],
+            subtree_kernel.plain_calls["subtree_plain"]) == (plain[0] + 2,
+                                                             plain[1] + 1)
+
+
+@pytest.mark.parametrize("style", ["scratch", "scratch-bytes"])
+def test_scratch_styles_refuse_alike(style):
+    """Each refusal of the scratch style holds for the kept byte style."""
+    code = pt.make_code(8, rate=0.5)
+    node = pt.compile_code(code).left
+    llr_t = torch.zeros(code.N, 4, dtype=torch.int8)
+    for output in ("systematic", "codeword", "both"):
+        with pytest.raises(ValueError, match="SSA"):
+            make_kernel_decoder(code, output=output, style=style)
+    with pytest.raises(ValueError, match="SSA"):
+        decoder_kernel.decode(pt.compile_program(code), code.frozen, llr_t,
+                              True, style)
+    for kw in (dict(emit_cw=True), dict(fuse="f"), dict(fuse="g")):
+        with pytest.raises(ValueError, match="SSA"):
+            subtree_kernel.make_subtree_decoder(node, style=style, **kw)
+    big = pt.make_code(12, rate=0.5)
+    with pytest.raises(ValueError, match="shared memory"):
+        make_kernel_decoder(big, style=style)
+    with pytest.raises(ValueError, match="shared memory"):
+        subtree_kernel.make_subtree_decoder(pt.compile_code(big), style=style)
+    with pytest.raises(ValueError, match="shared memory"):
+        pt.make_fastssc_decoder(big, kernel_level=12, kernel_style=style
+                                ).lane_major(torch.zeros(big.N, 4,
+                                                         dtype=torch.int8))
+    with pytest.raises(ValueError, match="shared memory"):
+        decoder_kernel.scratch_shape(12, 4096)
 
 
 def test_scratch_refuses_what_it_cannot_do():
@@ -172,8 +303,12 @@ def test_auto_decoders_follow_the_measured_table():
         "scratch", "ssa"]
     assert [auto.kernel_style(14, True, b, True) for b in (small, big)] == [
         "ssa", "ssa"]
-    assert [auto.kernel_style(7, False, b, False) for b in (small, big)] == [
-        "ssa", "scratch"]
+    for level in (7, 8, 9, 10, 11):
+        assert [auto.kernel_style(level, False, b, False)
+                for b in (small, big)] == ["ssa", "scratch"]
+    assert auto.decoder_names(6, False) == ("scratch", "scratch")
+    assert auto.decoder_names(12, False) == ("ssa", "ssa")
+    assert auto.decoder_names(11, True) == ("ssa", "ssa")
     assert auto.kernel_style(7, False, big, True) == "ssa"
     # the whole-code decoder takes none of the hybrid's styles
     assert auto.kernel_style(13, True, big, False) == "ssa"
