@@ -16,8 +16,10 @@ levels 1-9, and the hybrid against the whole-code kernel (7), the block
 front's kernels A and B in both styles (the row-word kernels and the frame
 kernels they replaced, style "frame") against the plain versions and each
 other, and the counter kernel (8), the large-N step against the fused step
-and a BER campaign against the JAX package's result (its launches: the
-row-word kernels, no frame kernel), with timings, the tile subtree against
+and a BER campaign against the JAX package's result (its default path the
+block front and the interpreter's decode+count: the row-word kernels, no
+frame kernel), a plain campaign (the draws around the hybrid: the tile
+subtree's launches), with timings, the tile subtree against
 the walk and kernels A and B against the frame kernels in turns at
 B = 4096 and the campaign's batch, and the frame kernel A timed three ways
 (9). Then the
@@ -41,13 +43,18 @@ kernel (the packed tile kernel at the shapes of its table) against the
 golden vectors, its plain version, the byte kernel it replaced (style
 "scratch-bytes") and the SSA kernel at every level and batch class of the
 table; the scratch and interpreter subtree kernels in every distinct kernel
-node of the hybrid at Polar(131072, 65536); the hybrid in each style and
-the interpreter decoder against the SSA decoders; interpreter decode+count
-against its plain version and the block-interp front chain against
-block-hybrid; the slice's main path through run_point; make_step's default
-path at plain Polar(32768, 16384), B = 4096, which runs the scratch
-hybrid, and its decoder against the plain one; timings, the scratch
-kernels in turns with the byte kernels (14). Then
+node of the hybrid at Polar(131072, 65536), the interpreter's tile kernel
+(style "tile") also against the bytes kernel it replaced (style "bytes");
+the hybrid in each style and the interpreter decoder (u, cw, both at
+subtree levels 5 and 10) against the SSA decoders, the plain version and
+the bytes kernel; interpreter decode+count against its plain version and
+the bytes kernel and the block-interp front chain against block-hybrid;
+the grid size, grid steps and tile runs of each interpreter program
+launched; the slice's main path through run_point; make_step's default
+path at plain Polar(32768, 16384), B = 4096, which runs the interpreter's
+tile kernel, and its decoder against the plain one; timings, the scratch
+kernels and the interpreter's rows 13, 14, 15 in turns with the kernels
+they replaced (14). Then
 the parallel layer over a mesh of 8 positions on the one card: the
 ring-shift kernel against its plain version; the sharded encoder; the
 element-sharded decoder at Polar(131072, 65536) against the local decoder
@@ -95,9 +102,10 @@ PAR_SHARDS = 8   # phase 15: mesh positions on the one card
 # phase 14: batches at which the scratch tile kernel is held against plain
 # and the byte kernel at every level, a batch of each class of its shape
 # table (decoder_kernel.SCRATCH_BATCHES) with ragged and tiny ones; the
-# plain code of make_step's default path that runs its hybrid
+# plain code of make_step's default path whose auto decoder is the
+# interpreter (decode/auto.py AUTO_DECODERS, below BIG_BATCH)
 SCRATCH_BATCHES = (31, 4096, 4099, 16384, BATCH)
-SCRATCH_PATH_M = 15
+MID_PATH_M = 15
 # phases 10-11: (m, batch) of the pinned-decoder campaigns, the shapes at
 # which the symbols, AWGN and encoder kernels are checked, timed and counted
 DRAW_SHAPES = ((10, BATCH), (LARGE_M, LARGE_BATCH))
@@ -251,10 +259,12 @@ def ms_kept(fn, reps: int) -> float:
 def profiled_ms(fn, reps: int, tries: int = 3) -> str:
     """Device time a call of ``fn`` by torch.profiler, as text: the device
     time of the kernels ``reps`` calls launch, over ``reps``. The profiler
-    at times records no device activity in a session; a session that
-    records none is tried again, up to ``tries`` in all, and then the
-    reading is given as not recorded (the CUDA-event times beside it in
-    each phase line stand). It is a reading only: no check rests on it."""
+    at times records no device activity in a session, or misses the
+    kernels and keeps a stray small one; a session that records no device
+    time, or less than a tenth of the CUDA-event time of the same calls,
+    is tried again, up to ``tries`` in all, and then the reading is given
+    as not recorded (the CUDA-event times beside it in each phase line
+    stand). It is a reading only: no check rests on it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -262,16 +272,19 @@ def profiled_ms(fn, reps: int, tries: int = 3) -> str:
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
             for _ in range(reps):
                 fn()
+            end.record()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        if kernels:
-            us = sum(e.device_time_total for e in kernels)
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us / 1e3 >= start.elapsed_time(end) / 10:
             return f"{us / 1e3 / reps:.4f} ms"
-    return f"not recorded (no device activity in {tries} profiler sessions)"
+    return (f"not recorded (no device time, or under a tenth of the events' "
+            f"time, in {tries} profiler sessions)")
 
 
 def _reset(*counts) -> None:
@@ -329,9 +342,10 @@ def large_n_phases(dev, card, ms) -> dict:
     from polar_tpu_torch.channel import snr_params
     from polar_tpu_torch.decode import auto
     from polar_tpu_torch.decode.auto import make_kernel_decoder
-    from polar_tpu_torch.ops.cuda import (count_kernel, decoder_kernel,
-                                          front_kernel, step_kernel,
-                                          subtree_kernel)
+    from polar_tpu_torch.ops.cuda import (channel_kernel, count_kernel,
+                                          decoder_kernel, encode_kernel,
+                                          front_kernel, interp_kernel,
+                                          step_kernel, subtree_kernel)
 
     code = pt.make_code(LARGE_M, rate=0.5)
     n, k, b = code.N, code.K, LARGE_BATCH
@@ -513,14 +527,20 @@ def large_n_phases(dev, card, ms) -> dict:
 
     counts = (decoder_kernel.launches, step_kernel.launches,
               subtree_kernel.launches, front_kernel.launches,
-              count_kernel.launches)
+              count_kernel.launches, interp_kernel.launches,
+              channel_kernel.launches, encode_kernel.launches)
     plains = (decoder_kernel.plain_calls, step_kernel.plain_calls,
               subtree_kernel.plain_calls, front_kernel.plain_calls,
-              count_kernel.plain_calls)
-    # steps of auto.BIG_BATCH frames, where the path's hybrid runs the SSA
-    # subtree kernel (below it the scratch style runs, phase 14)
+              count_kernel.plain_calls, interp_kernel.plain_calls,
+              channel_kernel.plain_calls, encode_kernel.plain_calls)
+    # steps of auto.BIG_BATCH frames. The systematic code's default path is
+    # the block front and the interpreter's decode+count (ber.front_branch);
+    # the plain campaign pins the hybrid (the default since decode.auto's
+    # table names the interpreter here is phase 14's), whose SSA subtree
+    # kernel runs around the kernel draws
     cb = auto.BIG_BATCH
-    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches)
+    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches,
+            interp_kernel.earlier_launches)
     _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     res = pt.run_campaign(code, device=dev, seed=3, batch=cb,
@@ -530,19 +550,49 @@ def large_n_phases(dev, card, ms) -> dict:
     wall = time.perf_counter() - t0
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
-    new = ("subtree_decoder", "front_blocks_a", "front_blocks_b", "count")
+    new = ("front_blocks_a", "front_blocks_b", "count", "interp_decode_count")
     old = {name: v for c in olds for name, v in c.items()}
     steps = sum(p.frames for p in res.points) // cb
     if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
-            or launched["walk_subtree"] or max(old.values())
-            or launched["count"] != steps):
+            or max(old.values()) or launched["count"] != steps
+            or launched["interp_decode_count"] != steps):
         raise AssertionError(f"large-N campaign launches {launched} in "
                              f"{steps} steps, plain calls {plain}, old-style "
                              f"launches {old}")
-    phase("9", f"campaign Polar({n}, {k}) sys: {len(res.points)} points x "
-          f"{cb} frames ({steps} steps) in {wall:.1f} s; launches {launched}; "
-          f"plain calls {plain}; old-style launches {old}")
+    phase("9", f"campaign Polar({n}, {k}) sys "
+          f"({pt.ber.front_branch(code, True)}): {len(res.points)} points x "
+          f"{cb} frames ({steps} steps) in {wall:.1f} s; launches "
+          f"{ {name: v for name, v in launched.items() if v} }; plain calls "
+          f"{max(plain.values())}; old-style launches {max(old.values())}")
     campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
+    hybrid = pt.make_fastssc_decoder(code, output_dtype=torch.int8,
+                                     kernel_level=kl)
+    _reset(*counts, *plains, *olds)
+    t0 = time.perf_counter()
+    res_p = pt.run_campaign(code, systematic=False, device=dev, seed=4,
+                            decoder=hybrid, batch=cb, snr_range=(-1.4, -1.4),
+                            max_frames_per_point=2 * cb,
+                            measure_throughput=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched_p = {name: v for c in counts for name, v in c.items()}
+    plain = {name: v for c in plains for name, v in c.items()}
+    old = {name: v for c in olds for name, v in c.items()}
+    steps_p = sum(p.frames for p in res_p.points) // cb
+    if (launched_p["subtree_decoder"] == 0 or launched_p["walk_subtree"]
+            or max(plain.values()) != 0 or max(old.values())
+            or not all(0 < p.ber < 0.5 for p in res_p.points)):
+        raise AssertionError(f"large-N plain campaign launches {launched_p} "
+                             f"in {steps_p} steps, plain calls {plain}, "
+                             f"old-style launches {old}, points "
+                             f"{res_p.points}")
+    phase("9", f"campaign Polar({n}, {k}) plain (draws around the pinned "
+          f"hybrid kl{kl}): "
+          f"{len(res_p.points)} point, {steps_p * cb} frames ({steps_p} "
+          f"steps of {cb}) "
+          f"in {wall:.1f} s, BER {res_p.points[0].ber:.4g}; launches "
+          f"{ {name: v for name, v in launched_p.items() if v} }")
+    launched["subtree_decoder"] = launched_p["subtree_decoder"]
 
     # timings at Polar(131072, 65536): the subtree kernel at the largest
     # level-kl node, at the campaign's batch (its launches) and at B = 4096,
@@ -691,11 +741,14 @@ def large_n_phases(dev, card, ms) -> dict:
     chain = pt.ber.make_front_chain(code, systematic=True)
     t_step = ms(lambda: chain(snr_params(-1.4), seeds=(1, 2), call=0,
                               batch=b, device=dev), 2)
-    phase("9", f"large-N step (systematic, kl{kl}): {t_step:.1f} ms per "
-          f"{b} frames, {b / t_step * 1e3:.1f} frames/s ({card})")
+    phase("9", f"large-N step (systematic, {pt.ber.front_branch(code, True)}"
+          f"): {t_step:.1f} ms per {b} frames, {b / t_step * 1e3:.1f} "
+          f"frames/s ({card})")
+    rows = ("subtree_decoder", "front_blocks_a", "front_blocks_b", "count")
     return {"err": err, "times": times, "work": work, "earlier": earlier,
-            "steps": {name: steps for name in new}, "by_shape": by_shape,
-            "launched": {name: launched[name] for name in new}}
+            "steps": {name: steps_p if name == "subtree_decoder" else steps
+                      for name in rows}, "by_shape": by_shape,
+            "launched": {name: launched[name] for name in rows}}
 
 
 def draw_phases(dev, card, ms) -> dict:
@@ -1259,9 +1312,9 @@ def style_phases(dev, card, ms) -> dict:
     block-interp chain against block-hybrid; the slice's main path (pinned
     decoders and the block-interp front step, counts reset just before);
     make_step's default path at plain Polar(32768, 16384), B = 4096 (the
-    scratch hybrid's subtree kernel; counts reset just before) and its
-    decoder against the plain one; timings, the scratch kernels in turns
-    with the byte kernels."""
+    interpreter's tile kernel; counts reset just before) and its decoder
+    against the plain one; timings, the scratch kernels and rows 13-15 in
+    turns with the byte kernels."""
     import numpy as np
     import torch
 
@@ -1280,6 +1333,7 @@ def style_phases(dev, card, ms) -> dict:
     new = ("scratch_decoder", "scratch_subtree", "interp_decoder",
            "interp_decode_count", "interp_subtree")
     err = dict.fromkeys(new, 0)
+    programs = {}   # each interpreter program launched: its schedule, grid
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
 
@@ -1384,16 +1438,25 @@ def style_phases(dev, card, ms) -> dict:
         ssa = make_kernel_decoder(code, output=output).lane_major(llr_t)
         for sl in (5, 10):
             dec = make_interp_decoder(code, subtree_level=sl, output=output)
-            check("interp_decoder", dec.lane_major(llr_t), ssa,
+            got = dec.lane_major(llr_t)
+            check("interp_decoder", got, ssa,
                   f"Polar(1024, 512) sl{sl} {output}")
-    dec = make_interp_decoder(code, subtree_level=5, output="both")
-    check("interp_decoder", dec.lane_major(llr_t), dec.plain(llr_t),
-          "Polar(1024, 512) sl5 both against plain")
-    phase("14", f"interp decoder (subtree levels 5, 10) == SSA whole-code "
-          f"kernel at Polar(1024, 512) B={BATCH}, u/systematic/codeword/both, "
-          f"and == plain (sl5, both) (max abs err 0; {dec.program_steps} "
-          f"steps, {dec.program_branches} branches at sl5)")
-    del llr_t, ssa
+            if output != "systematic":
+                check("interp_decoder", got,
+                      make_interp_decoder(code, subtree_level=sl,
+                                          output=output,
+                                          style="bytes").lane_major(llr_t),
+                      f"Polar(1024, 512) sl{sl} {output} against bytes")
+                check("interp_decoder", got, dec.plain(llr_t),
+                      f"Polar(1024, 512) sl{sl} {output} against plain")
+                programs[f"Polar(1024, 512) {output} sl{sl}"] = dec.plan(
+                    BATCH)
+    phase("14", f"interp decoder, tile kernel (subtree levels 5, 10) == SSA "
+          f"whole-code kernel at Polar(1024, 512) B={BATCH}, "
+          f"u/systematic/codeword/both, and == plain == bytes kernel "
+          f"(u/codeword/both) (max abs err 0; {dec.program_steps} steps, "
+          f"{dec.program_branches} branches at sl10)")
+    del llr_t, ssa, got
 
     # -- the large code: subtree kernels, hybrids, interpreter --------------
     big = pt.make_code(LARGE_M, rate=0.5)
@@ -1421,17 +1484,29 @@ def style_phases(dev, card, ms) -> dict:
               want_u, f"{node.kind} level {node.level} scratch-bytes")
         for sl in (5, 10):
             for emit_u in (True, False):
-                fn = make_interp_subtree(node, emit_u=emit_u, emit_cw=True,
-                                         subtree_level=sl)
-                check("interp_subtree", fn(slot),
+                kw = dict(emit_u=emit_u, emit_cw=True, subtree_level=sl)
+                got = make_interp_subtree(node, **kw)(slot)
+                check("interp_subtree", got,
                       want_cw if emit_u else want_cw[1:],
                       f"{node.kind} level {node.level} sl{sl} u={emit_u}")
-        check("interp_subtree", make_interp_subtree(node)(slot), want_u,
+                check("interp_subtree", got,
+                      make_interp_subtree(node, style="bytes", **kw)(slot),
+                      f"{node.kind} level {node.level} sl{sl} u={emit_u} "
+                      "against bytes")
+        fn = make_interp_subtree(node)
+        check("interp_subtree", fn(slot), want_u,
               f"{node.kind} level {node.level} u")
+        plan = fn.plan(slot.shape[1])
+        if plan["cooperative"]:
+            raise AssertionError(f"a level-{node.level} node's program has "
+                                 f"grid steps: {plan}")
     phase("14", f"scratch, scratch-bytes and interp (sl5, sl10; u, u+cw, cw) "
           f"subtree kernels == plain in all {len(nodes)} distinct kernel "
           f"nodes of the hybrid kl{kl} at Polar({n}, {k}), full-range int8 "
-          "slots, B=1024 (max abs err 0)")
+          "slots, B=1024, the interp tile kernel also == its bytes kernel "
+          "(max abs err 0); each node one tile run, a plain launch of "
+          f"{plan['warps']} warps a block, {plan['blocks']} blocks at "
+          f"B={slot.shape[1]}")
     for bt in (b, 16384):
         for node in nodes.values():
             slot = edge_i8(1 << node.level, bt)
@@ -1467,24 +1542,35 @@ def style_phases(dev, card, ms) -> dict:
         if output in ("u", "codeword"):
             for sl in (5, 10):
                 dec = make_interp_decoder(big, subtree_level=sl, output=output)
-                check("interp_decoder", dec.lane_major(llr_t), want,
+                got = dec.lane_major(llr_t)
+                check("interp_decoder", got, want,
                       f"Polar({n}, {k}) sl{sl} {output}")
+                check("interp_decoder", got, make_interp_decoder(
+                    big, subtree_level=sl, output=output,
+                    style="bytes").lane_major(llr_t),
+                    f"Polar({n}, {k}) sl{sl} {output} against bytes")
+                programs[f"Polar({n}, {k}) {output} sl{sl}"] = dec.plan(b)
         del want
     phase("14", f"hybrid kl{kl} in the scratch and interp styles == SSA hybrid "
           f"at Polar({n}, {k}) B={b}, all outputs, lane and frame entries; "
-          f"interp decoder (sl5, sl10) == SSA hybrid, u and codeword "
-          "(max abs err 0)")
+          f"interp decoder (sl5, sl10) == SSA hybrid == bytes kernel, u and "
+          "codeword (max abs err 0)")
 
     params = snr_params(-1.5)
     llr_f, cw_f = front_kernel.front_blocks(big.frozen, params, True,
                                             seeds=(14, 1), call=0, batch=b,
                                             device=dev)
     count = make_interp_decode_count(big)
+    count_old = make_interp_decode_count(big, style="bytes")
     got = count(llr_f, cw_f)
     check("interp_decode_count", got, count.plain(llr_f, cw_f),
           f"Polar({n}, {k}) on the block front's outputs")
-    phase("14", f"interp decode+count == plain at Polar({n}, {k}) B={b} on "
-          f"the block front's outputs: {got.tolist()} (max abs err 0)")
+    check("interp_decode_count", got, count_old(llr_f, cw_f),
+          f"Polar({n}, {k}) against the bytes kernel")
+    programs[f"Polar({n}, {k}) decode+count sl10"] = count.plan(b)
+    phase("14", f"interp decode+count (tile kernel, then the counter) == "
+          f"plain == bytes kernel at Polar({n}, {k}) B={b} on the block "
+          f"front's outputs: {got.tolist()} (max abs err 0)")
     kw = dict(seeds=(LARGE_M, 14), call=0, batch=2048, device=dev)
     counted = [pt.ber.make_front_chain(big, branch=br)(snr_params(-1.4),
                                                         **kw).tolist()
@@ -1494,6 +1580,16 @@ def style_phases(dev, card, ms) -> dict:
                              f"{counted[1]} at m={LARGE_M}")
     phase("14", f"m={LARGE_M}: block-interp chain == block-hybrid chain on the "
           f"same seeds, B=2048: {counted[0]}")
+    programs[f"Polar({n}, {k}) decode+count sl10, B=2048"] = count.plan(2048)
+    for what, plan in programs.items():
+        phase("14", f"interp program {what}: {plan['steps']} steps, grid "
+              f"level {plan['grid_level']}, {plan['grid_steps']} grid steps, "
+              f"{plan['tile_runs']} tile runs, {plan['entries']} entries, "
+              f"{plan['barriers']} grid barriers; "
+              + (f"cooperative grid of {plan['blocks']} blocks"
+                 if plan["cooperative"] else f"plain grid of {plan['blocks']}"
+                 " blocks")
+              + f" x {plan['warps']} warps, {plan['smem']} B shared")
 
     # -- the main path of the slice, through the entry points ---------------
     counts = (decoder_kernel.launches, subtree_kernel.launches,
@@ -1514,7 +1610,8 @@ def style_phases(dev, card, ms) -> dict:
             big, output="systematic", output_dtype=torch.int8,
             kernel_level=kl, kernel_style="interp")),
         (big, True, b, None))
-    olds = (decoder_kernel.earlier_launches, subtree_kernel.earlier_launches)
+    olds = (decoder_kernel.earlier_launches, subtree_kernel.earlier_launches,
+            interp_kernel.earlier_launches)
     _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     points = []
@@ -1547,13 +1644,13 @@ def style_phases(dev, card, ms) -> dict:
         raise AssertionError(f"style path launched the byte kernels: {olds}")
 
     # -- make_step's default path at plain Polar(32768, 16384), B = 4096 ----
-    mid = pt.make_code(SCRATCH_PATH_M, rate=0.5)
+    mid = pt.make_code(MID_PATH_M, rate=0.5)
     path = pt.ber._step_path(mid, torch.int8, None, None, "auto", dev, False,
                              b)
     dec_mid = pt.ber._default_decoder(mid, False, torch.int8, None, dev)
     step = pt.make_step(mid, systematic=False, device=dev)
     g = torch.Generator()
-    g.manual_seed(SCRATCH_PATH_M)
+    g.manual_seed(MID_PATH_M)
     _reset(*counts, *olds, *plains)
     mid_steps = 2
     outs = [step(g, -1.0, b) for _ in range(mid_steps)]
@@ -1561,22 +1658,18 @@ def style_phases(dev, card, ms) -> dict:
     mid_launched = {name: v for c in counts + olds for name, v in c.items()
                     if v}
     plain = {name: v for c in plains for name, v in c.items()}
-    if (path != "draws" or subtree_kernel.launches["scratch_subtree"] == 0
+    mid_interp = interp_kernel.launches["interp_decoder"]
+    if (path != "draws" or mid_interp != mid_steps
             or max(v for c in olds for v in c.values())
             or max(plain.values())):
         raise AssertionError(f"default path at Polar({mid.N}, {mid.K}) B={b}: "
                              f"{path}, launches {mid_launched}, plain {plain}")
     fer = [int(o["frame_errors"]) for o in outs]
-    mid_scratch = subtree_kernel.launches["scratch_subtree"]
     phase("14", f"make_step's default path at plain Polar({mid.N}, {mid.K}) "
-          f"B={b} ({path} around {auto.decoder_names(SCRATCH_PATH_M, False)}"
+          f"B={b} ({path} around {auto.decoder_names(MID_PATH_M, False)}"
           f"): {mid_steps} steps at -1.0 dB, frame errors {fer}; "
-          f"scratch_subtree {mid_scratch} launches "
-          f"({mid_scratch / mid_steps:g} a step), scratch_bytes_subtree "
-          f"{subtree_kernel.earlier_launches['scratch_bytes_subtree']}, "
-          f"scratch_bytes_decoder "
-          f"{decoder_kernel.earlier_launches['scratch_bytes_decoder']}; all "
-          f"launches {mid_launched}")
+          f"interp_decoder {mid_interp} launches ({mid_interp / mid_steps:g} "
+          f"a step), no bytes-style launch; all launches {mid_launched}")
     seen = {}
 
     def capture(llrs):
@@ -1586,7 +1679,7 @@ def style_phases(dev, card, ms) -> dict:
     pt.ber.make_step_body(mid, systematic=False, decoder=capture,
                           rng="kernel", device=dev)(g, -1.0, b)
     got = dec_mid(seen["llrs"])
-    check("scratch_subtree", got,
+    check("interp_decoder", got,
           pt.make_fastssc_decoder(mid, output_dtype=torch.int8)(seen["llrs"]),
           f"Polar({mid.N}, {mid.K}) default decoder against plain")
     phase("14", f"its decoder on one step's LLRs ({b} frames) == the plain "
@@ -1651,9 +1744,26 @@ def style_phases(dev, card, ms) -> dict:
             (sc.N + sc.K) * b_s, decode_ops(sc.N) * b_s, n_s, None)
     t_ssa = ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s,
                                              False), 20)
+    def interp_turns(name, where, new_fn, old_fn, plain_fn, reps):
+        """Rows 13-15: the tile kernel and the bytes kernel it replaced in
+        turns (new, old, old, new), the device time of each by the
+        profiler, the plain version."""
+        t = in_turns(new_fn, old_fn, reps)
+        t_p = ms(plain_fn, 1)
+        phase("14", f"{name} at {where}: tile kernel {t['ms']:.4f} ms, bytes "
+              f"kernel {t['earlier_ms']:.4f} ms "
+              f"({t['earlier_ms'] / t['ms']:.2f}x; {t['turns']}); device "
+              f"time {profiled_ms(new_fn, reps)} / "
+              f"{profiled_ms(old_fn, reps)}; plain {t_p:.3f} ms ({card})")
+        times[name] = (t["ms"], t_p)
+        earlier[name] = t["earlier_ms"]
+
     dec = make_interp_decoder(code)
-    times["interp_decoder"] = (ms(lambda: dec.lane_major(llr_s), 20),
-                               ms(lambda: dec.plain(llr_s), 3))
+    dec_old = make_interp_decoder(code, style="bytes")
+    interp_turns("interp_decoder", f"Polar(1024, 512) B={BATCH} u, sl10",
+                 lambda: dec.lane_major(llr_s),
+                 lambda: dec_old.lane_major(llr_s),
+                 lambda: dec.plain(llr_s), 10)
     work["scratch_decoder"] = work["interp_decoder"] = (
         (code.N + code.K) * BATCH, decode_ops(code.N) * BATCH)
     node = max(nodes.values(), key=lambda nd: nd.mesg_bits)
@@ -1667,7 +1777,7 @@ def style_phases(dev, card, ms) -> dict:
             lambda: sc(slot), lambda: so(slot),
             lambda: subtree_kernel.decode_plain(node, (slot,)), 20,
             (2 * ln + node.mesg_bits) * bt, decode_ops(ln) * bt,
-            mid_scratch if bt == b else 0, mid_steps if bt == b else 0)
+            launched["scratch_subtree"] if bt == b else 0, None)
         if bt == b:
             times["scratch_subtree"] = (t["ms"], t_p)
             earlier["scratch_subtree"] = t["earlier_ms"]
@@ -1685,22 +1795,19 @@ def style_phases(dev, card, ms) -> dict:
           f" ({card})")
     slot = rand_i8(ln, b)
     it = make_interp_subtree(node, emit_u=False, emit_cw=True)
-    times["interp_subtree"] = (ms(lambda: it(slot), 10),
-                               ms(lambda: it.plain(slot), 2))
+    it_old = make_interp_subtree(node, emit_u=False, emit_cw=True,
+                                 style="bytes")
+    interp_turns("interp_subtree", f"level-{node.level} node B={b} cw",
+                 lambda: it(slot), lambda: it_old(slot),
+                 lambda: it.plain(slot), 10)
     work["scratch_subtree"] = ((2 * ln + node.mesg_bits) * b,
                                decode_ops(ln) * b)
     work["interp_subtree"] = (3 * ln * b,
                               (decode_ops(ln) + transform_ops(ln)) * b)
-    times["interp_decode_count"] = (ms(lambda: count(llr_f, cw_f), 3),
-                                    ms(lambda: count.plain(llr_f, cw_f), 1))
+    interp_turns("interp_decode_count", f"Polar({n}, {k}) B={b}, sl10",
+                 lambda: count(llr_f, cw_f), lambda: count_old(llr_f, cw_f),
+                 lambda: count.plain(llr_f, cw_f), 2)
     work["interp_decode_count"] = (2 * n * b, decode_count_ops(n) * b)
-    shapes = {"interp_decoder": f"Polar(1024, 512) B={BATCH} u, sl10",
-              "interp_subtree": f"level-{node.level} node B={b} cw",
-              "interp_decode_count": f"Polar({n}, {k}) B={b}, sl10"}
-    for name, shape in shapes.items():
-        t_k, t_p = times[name]
-        phase("14", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
-              f"{shape} ({card})")
     phase("14", f"SSA whole-code u at Polar(1024, 512) B={BATCH}: {t_ssa:.3f} "
           f"ms ({card})")
     chains = {br: pt.ber.make_front_chain(big, branch=br)
@@ -1714,9 +1821,8 @@ def style_phases(dev, card, ms) -> dict:
           f"interp, hybrid, hybrid, interp): block-interp "
           f"{rates['block-interp']}, block-hybrid {rates['block-hybrid']} "
           f"({card})")
-    launched["scratch_subtree"] = mid_scratch
     return {"err": err, "times": times, "work": work, "earlier": earlier,
-            "by_shape": by_shape, "steps": {"scratch_subtree": mid_steps},
+            "by_shape": by_shape,
             "launched": {name: launched[name] for name in new}}
 
 
@@ -1983,15 +2089,18 @@ def parallel_phases(dev, card, ms) -> dict:
         ring_kernel.ring_shift_plain(blocks, 1)
 
     t_k, t_p, t_l = [], [], []
-    for _ in range(2):   # in turns: kernel, plain, library, then again
+    for _ in range(2):   # in turns: kernel, library, library, kernel, twice
+        t_k.append(ms(kernel, 20))
+        t_l += [ms(library, 20), ms(library, 20)]
         t_k.append(ms(kernel, 20))
         t_p.append(ms(plain_shift, 20))
-        t_l.append(ms(library, 20))
     times = {"ring_shift": (min(t_k), min(t_p))}
     nbytes = 2 * PAR_SHARDS * shard * b
-    phase("15", f"ring shift {PAR_SHARDS} x ({shard}, {b}) int8: kernel "
-          f"{t_k} ms, plain {t_p} ms, {PAR_SHARDS} Tensor.copy_ {t_l} ms "
-          f"({card})")
+    phase("15", f"ring shift {PAR_SHARDS} x ({shard}, {b}) int8, in turns: "
+          f"kernel {t_k} ms (mean {sum(t_k) / 4:.4f}, spread "
+          f"{max(t_k) - min(t_k):.4f}), {PAR_SHARDS} Tensor.copy_ {t_l} ms "
+          f"(mean {sum(t_l) / 4:.4f}, spread {max(t_l) - min(t_l):.4f}), "
+          f"plain {t_p} ms ({card})")
     del blocks, outs
     t_local = ms(lambda: local(llr_t), 3)
     dec_ms = {key: ms(lambda: d.lane_major(llr_t), 2)

@@ -134,14 +134,40 @@ STEP_KERNEL_MAX_LEVEL = 16
 # the front's 267.8k over both calls; the second alone 213.6k against
 # 225.5k), systematic m = 15 (the front 127.0k against 126.5k, 0.4 %) and
 # plain m = 15, 17 (the front 133.0k against 135.0k; 39.4k against 39.6k).
+# With the interpreter's tile kernel as the front's decode+count
+# (front_branch's "block-interp"; step_ab --levels 13-17 --arms fused,
+# draws, whole+count, block+whole, block+hybrid, block+interp; same card;
+# the mean of two readings, B = 4096 / 32768, the draws around the
+# decoders of decode.auto's table before it named the interpreter) the
+# front took every systematic cell from m = 13 to 17, by 2.3-3.6x over
+# the next arm:
+# - m = 13 from the draws: 2.087M / 3.138M against the draws' 724.7k /
+#   975.4k (block-whole 1.064M / 1.081M, block-hybrid 512.4k / 1.371M);
+# - m = 14 (the front already): 1.024M / 1.465M against block-hybrid's
+#   351.1k / 581.0k and the draws' 344.0k / 433.1k;
+# - m = 15, 16 below AUTO_BIG_BATCH from the draws: 499.8k, 243.2k against
+#   the draws' 149.5k, 69.8k and block-hybrid's 162.2k, 75.0k;
+# - m = 17 (the front already): 118.4k against block-hybrid's 39.3k and
+#   the draws' 32.8k.
+# A second call with the interpreter in decode.auto's table at m = 13..17
+# (--arms draws,"draws interp",block+hybrid,block+interp; --batches
+# 4096,16384 at m = 15..17; "draws interp" the draws around the
+# interpreter where the table named another decoder) kept the front first
+# in every systematic cell, by 1.7-2.1x over the draws around the
+# interpreter: m = 13 2.451M / 3.671M against 1.366M / 1.783M, m = 14
+# 1.224M / 1.732M against 699.2k / 862.4k (B = 4096 / 32768); at
+# B = 4096 / 16384 m = 15 595.2k / 804.1k against 351.4k / 416.0k,
+# m = 16 291.5k / 377.9k against 174.0k / 200.9k, m = 17 141.7k / 177.9k
+# against 85.3k / 97.7k (m = 15, 16 from AUTO_BIG_BATCH from the draws).
+# The draws around the interpreter led every plain cell, by 1.8-2.4x over
+# block-hybrid (m = 16 from the front: 197.8k / 233.8k against 91.3k /
+# 108.5k; m = 13 2.077M at B = 32768 against 1.185M).
 AUTO_BIG_BATCH = 16384
 AUTO_STEP_PATH = {
     **{(m, s): ("fused", "fused") for m in range(2, 12) for s in (True, False)},
     (12, True): ("draws", "draws"), (12, False): ("fused", "draws"),
-    (13, True): ("draws", "draws"), (14, True): ("front", "front"),
-    (15, True): ("draws", "draws"), (16, True): ("draws", "draws"),
-    **{(m, False): ("draws", "draws") for m in (13, 14, 15, 17)},
-    (16, False): ("front", "front")}
+    **{(m, True): ("front", "front") for m in (13, 14, 15, 16)},
+    **{(m, False): ("draws", "draws") for m in range(13, 18)}}
 
 # The front path's branches (polar_tpu/ber.py:193-279), by level; the JAX
 # package's thresholds are VMEM facts about the TPU. Systematic codes at
@@ -161,9 +187,16 @@ AUTO_STEP_PATH = {
 # whole-code decoder (HYBRID_MIN_LEVEL 14) block-whole is the front below
 # m = 14 (systematic m = 13, B = 4096: 673.1k against block-hybrid's
 # 361.0k). The block front + decode+count won at no level (m = 10: 1.72M /
-# 5.12M); it runs only when asked for by name, as does the block front +
-# interpreter decode+count ("block-interp", JAX's _INTERP_COUNT_LEVELS
-# branch, empty by measurement there too).
+# 5.12M); it runs only when asked for by name. Systematic codes take the
+# block front + the interpreter's decode+count ("block-interp", JAX's
+# _INTERP_COUNT_LEVELS branch) where decode.auto's table names the
+# interpreter on the codeword track at every batch (m = 13..17): with its
+# tile kernel (one cooperative launch for the whole decode) it beat
+# block-whole at m = 13 (2.087M / 3.138M against 1.064M / 1.081M frames/s
+# at B = 4096 / 32768) and block-hybrid at m = 14..17 (m = 14 1.024M /
+# 1.465M against 351.1k / 581.0k; m = 17 118.4k against 39.3k; at
+# B = 16384 177.9k against 52.8k), see AUTO_STEP_PATH; m = 9..12 and
+# m >= 18 were not measured with it.
 FRONT_WHOLE_MAX_LEVEL = 8
 FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid",
                   "block-interp")
@@ -368,12 +401,16 @@ def front_branch(code: PolarCode, systematic: bool) -> str:
     ``"block-whole"`` (the block front, the whole-code kernel decoder's
     lane-major entry, the counter kernel or torch u-domain counters) or
     ``"block-hybrid"`` (the same with the hybrid decoder); the choice of
-    decoder is :mod:`~polar_tpu_torch.decode.auto`'s. ``"block-count"``
-    (systematic: the block front, decode+count) and ``"block-interp"``
-    (systematic: the block front, the interpreter decode+count) are never
-    the default."""
+    decoder is :mod:`~polar_tpu_torch.decode.auto`'s, and so is
+    ``"block-interp"`` (systematic: the block front, the interpreter
+    decode+count), where its table names the interpreter on the codeword
+    track at every batch. ``"block-count"`` (systematic: the block front,
+    decode+count) is never the default."""
     if systematic and code.level <= FRONT_WHOLE_MAX_LEVEL:
         return "whole"
+    if systematic and decode_auto.decoder_names(code.level, True) == (
+            "interp", "interp"):
+        return "block-interp"
     return ("block-hybrid" if code.level >= decode_auto.HYBRID_MIN_LEVEL
             else "block-whole")
 

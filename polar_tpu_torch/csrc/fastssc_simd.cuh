@@ -172,8 +172,11 @@ constexpr int kTileWR = 2, kTileVW = 2;
 
 // One warp's tile: WR words a row, VW of them a lane; CW: the codeword
 // track is on; ROOT_SMEM: the root input is on chip; EMIT_U: the message
-// rows are stored.
-template <int WR, int VW, bool CW, bool ROOT_SMEM = false, bool EMIT_U = true>
+// rows are stored; INTERP: the interpreter's tile runs (csrc/interp.cu),
+// whose bodies lie in one level-positional pyramid: a body's root input
+// is the on-chip rows at `root` where that is set, else device memory.
+template <int WR, int VW, bool CW, bool ROOT_SMEM = false, bool EMIT_U = true,
+          bool INTERP = false>
 struct Tile {
   using V = Vec<VW>;
   static constexpr int kFrames = 4 * WR;        // frames a tile
@@ -184,7 +187,8 @@ struct Tile {
   uint32_t* soft;   // n rows: a node of len < n reads rows [len, 2 len)
   uint32_t* hard;   // n rows: the hard-decision stack
   uint32_t* cw;     // n rows: the codeword stack (CW only)
-  uint32_t* root;   // n rows: the root input (ROOT_SMEM only)
+  uint32_t* root;   // n rows: the root input (ROOT_SMEM; INTERP: a body's
+                    // on-chip root, or null)
   const int8_t* llr;   // the root LLRs (n, batch), device memory (else)
   int8_t* mesg;        // the message (k, batch)
   long long batch;
@@ -201,10 +205,20 @@ struct Tile {
   __device__ __forceinline__ bool bind(uint32_t* smem, int n,
                                        const int8_t* llr_, int8_t* mesg_,
                                        int batch_, int aligned_) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
     const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
     if (tile * kFrames >= batch_) return false;
-    uint32_t* base = smem + (size_t)warp * kRegions * n * WR;
+    place(smem + (size_t)warp * kRegions * n * WR, n, tile, llr_, mesg_,
+          batch_, aligned_);
+    return true;
+  }
+  // Binds this lane to tile `tile` (which must hold a frame), its regions
+  // of n rows from `base`, in the order of kRegions: bind's work, for a
+  // warp that walks over tiles itself.
+  __device__ __forceinline__ void place(uint32_t* base, int n, long long tile,
+                                        const int8_t* llr_, int8_t* mesg_,
+                                        int batch_, int aligned_) {
+    const int lane = threadIdx.x & 31;
     soft = base;
     hard = base + n * WR;
     cw = CW ? base + 2 * n * WR : nullptr;
@@ -216,7 +230,6 @@ struct Tile {
     r0 = lane / kLanesRow;
     f = (int)(tile * kFrames) + 4 * w;
     aligned = aligned_ != 0;
-    return true;
   }
   // the tile's first frame
   __device__ __forceinline__ int first() const { return f - 4 * w; }
@@ -248,6 +261,9 @@ struct Tile {
   __device__ __forceinline__ V in(int base, int r) const {
     if constexpr (ROOT_SMEM)
       return base == 0 ? at(root, r) : at(soft, base + r);
+    else if constexpr (INTERP)
+      return base != 0 ? at(soft, base + r)
+                       : root != nullptr ? at(root, r) : load(llr, r);
     else
       return base == 0 ? load(llr, r) : at(soft, base + r);
   }

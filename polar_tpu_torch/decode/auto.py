@@ -43,7 +43,9 @@ from .fastssc import OUTPUTS, make_fastssc_decoder
 # 4.472 / 12.496), and at m = 13 on the u track (2.958 / 22.916 against the
 # scratch hybrid's 7.500 and the hybrid's 23.581), so the hybrid starts at
 # m = 14 (m = 13 cw from BIG_BATCH: AUTO_DECODERS). The front path's
-# branches follow this threshold too (polar_tpu_torch.ber.front_branch).
+# branches follow this threshold too (polar_tpu_torch.ber.front_branch),
+# and take the interpreter's decode+count for systematic codes where
+# AUTO_DECODERS names the interpreter on the codeword track at every batch.
 HYBRID_MIN_LEVEL = 14
 HYBRID_KERNEL_LEVEL = 9
 
@@ -114,13 +116,40 @@ HYBRID_KERNEL_LEVEL = 9
 # 24.732 / 23.234). It led u m = 13, 14 from BIG_BATCH by less than 1 %
 # (21.961 / 19.117 and 51.110 / 45.283 against the SSA hybrid's
 # 22.102 / 19.271 and 51.304 / 45.476) and no other cell.
+# With the interpreter as the tile kernel (its whole program in one launch:
+# grid entries above level 11, tile runs below; arms "interp sl9" and
+# "interp sl10", --decoders-only --levels 13-17) it moved in at subtree
+# level 10 (sl9 trailed it by about 1 % everywhere) for every cell
+# measured, both tracks, by 2.0-5.1x and beyond every spread (frame- /
+# lane-major ms, interp against the decoder it replaced):
+# - m = 13, B = 4096 (the tile kernel before): u 1.563 / 1.219 against
+#   3.249 / 2.914, cw 1.901 / 1.474 against 4.078 / 3.660; from BIG_BATCH
+#   (the hybrid before; B = 32768): u 7.876 / 5.003 against 22.075 /
+#   19.205, cw 11.157 / 7.355 against 25.870 / 22.097;
+# - m = 14 (the hybrid): B = 4096 u 3.133 / 2.467 against 10.232 /
+#   12.277, cw 3.909 / 2.982 against 11.559 / 11.949; B = 32768 u 16.484 /
+#   10.708 against 51.186 / 45.395, cw 23.784 / 16.079 against 60.460 /
+#   52.725;
+# - m = 15..17 below BIG_BATCH (B = 4096): u m = 15 6.277 / 4.914 against
+#   the scratch hybrid's 17.669 / 20.721; cw m = 15 8.068 / 6.173 against
+#   the hybrid's 30.803 / 33.671; m = 16 u 12.985 / 9.928, cw 16.763 /
+#   12.649 against 47.316 / 42.853, 49.544 / 50.698; m = 17 u 25.811 /
+#   20.139, cw 34.345 / 26.403 against 91.156 / 80.641, 102.382 / 104.078;
+# - m = 15..17 from BIG_BATCH (the hybrid before; a second call, --levels
+#   15-17 --batches 16384 --arms "interp sl10,hybrid kl9"; B = 16384): u
+#   m = 15 17.989 / 12.302 against 57.310 / 51.581, m = 16 37.502 / 25.877
+#   against 129.178 / 117.543, m = 17 77.331 / 54.030 against 299.472 /
+#   254.985; cw m = 15 24.672 / 16.946 against 67.420 / 59.670, m = 16
+#   52.322 / 36.473 against 152.300 / 136.331, m = 17 109.965 / 78.392
+#   against 327.927 / 296.054.
+# From m = 18 nothing is measured, and the hybrid stays the default.
 BIG_BATCH = 16384
-INTERP_SUBTREE_LEVEL = 5
+INTERP_SUBTREE_LEVEL = 10
 AUTO_DECODERS = {
     (6, False): ("scratch", "scratch"), (7, False): ("ssa", "scratch"),
     **{(m, False): ("ssa", "scratch") for m in (8, 9, 10, 11)},
-    (13, False): ("ssa", "hybrid"), (13, True): ("ssa", "hybrid"),
-    (15, False): ("hybrid-scratch", "hybrid"),
+    **{(m, cw): ("interp", "interp") for m in range(13, 18)
+       for cw in (False, True)},
 }
 
 

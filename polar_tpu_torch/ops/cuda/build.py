@@ -90,6 +90,9 @@ SIGNATURES = {
                              _P, _P, _I, _P),
     "polar_interp_decode_count": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                   _P, _P, _P, _P, _I, _P),
+    "polar_interp_tile": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "polar_interp_tile_occupancy": (_I, _I, _I, _I, _P),
     "polar_set_device": (_I,),
     "polar_get_device": (_P,),
     "polar_ring_shift": (_P, _P, _I, _L, _I, _P),

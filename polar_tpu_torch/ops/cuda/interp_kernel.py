@@ -1,8 +1,8 @@
-"""Interpreter Fast-SSC decoder on the card: the step program, the wrappers
-and the plain version.
+"""Interpreter Fast-SSC decoder on the card: the step program, its
+schedule, the wrappers and the plain version.
 
-The kernel (``csrc/interp.cu`` over ``csrc/fastssc.cuh`` and ``mc.cuh``)
-replaces the three kernels of ``polar_tpu/ops/pallas/interp_kernel.py``:
+The kernels (``csrc/interp.cu``) replace the three kernels of
+``polar_tpu/ops/pallas/interp_kernel.py``:
 
 * :func:`make_interp_decoder` — ``make_interp_decoder`` (``:409``,
   ``_interp_kernel_entry`` ``:521`` → ``_interp_core`` ``:530``): a whole
@@ -23,16 +23,24 @@ node decoded whole. The words and the number of branches equal the JAX
 package's for every tree (``tests/test_torch_interp.py``). Each branch is
 one int32 descriptor row (:data:`DESC_COLS`); a body's byte program
 (``emit_program(node, node.level)``) and frozen mask (``node_frozen``)
-lie in one flat uint8 table at the row's offsets. ``_CHAIN_CHUNK_ROWS``
-is a fact about the TPU's vector registers: a thread walks a chain op's
-rows one at a time, so the port has no chunks.
+lie in one flat uint8 table at the row's offsets.
 
 State, as the JAX kernel's: the soft pyramid (the input of a level-l node
-at rows ``[2^l, 2^(l+1))``; the root's LLRs are read where they lie, so the
-pyramid has N rows) and absolutely positioned hard, codeword and u
-columns: the node at position p owns rows ``[p, p + 2^l)``. Rate-0 nodes
-emit no step, so hard, cw and u start at +1 where the JAX kernel prefills
-them (``:548-553``, ``:676-681``).
+at rows ``[2^l, 2^(l+1))``; the root's LLRs are read where they lie) and
+absolutely positioned hard, codeword and u columns: the node at position
+p owns rows ``[p, p + 2^l)``. Rate-0 nodes emit no step, so hard, cw and
+u start at +1 where the JAX kernel prefills them (``:548-553``,
+``:676-681``).
+
+Two kernel styles. ``"tile"`` (the default, ``interp_tile_kernel``) runs
+the program as :func:`schedule` cuts it at the grid level
+:data:`INTERP_GRID_LEVEL`: grid entries (the words at or above it, over
+rows × 16-frame chunks of the whole batch, a grid barrier between
+dependent entries) and tile runs (each subtree below it, one warp's tile
+of :data:`TILE_FRAMES` frames at a time, on the tile core of
+``csrc/fastssc_simd.cuh``); its message is written compacted, so u needs
+no gather. ``"bytes"`` runs the one-frame-a-thread kernels it replaced,
+counted in :data:`earlier_launches`.
 
 Every wrapper takes any batch, launches the kernel for CUDA tensors and
 runs :func:`interp_plain` only for CPU tensors; :data:`launches` and
@@ -42,6 +50,8 @@ and descriptors in torch, with the eager recursion as each body.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -53,7 +63,7 @@ from ...code.construction import PolarCode
 from ...decode.fastssc import _TreeDecoder
 from ...ops.arith import Int8Arith
 from ...ops.transform import polar_transform
-from . import build
+from . import build, count_kernel
 from .decoder_kernel import THREADS
 from .step_kernel import COUNTERS, cw_counts
 
@@ -63,9 +73,6 @@ BODY, F, G, G0, COMB, COMB0, GRATE1 = range(7)
 # descriptor columns: kind, level, safe, need_hard, cw, u, program offset,
 # mask offset (the last two for bodies only, else -1)
 DESC_COLS = 8
-launches = {"interp_decoder": 0, "interp_decode_count": 0,
-            "interp_subtree": 0}
-plain_calls = {"interp_plain": 0}
 
 
 @dataclass
@@ -268,13 +275,250 @@ def interp_plain(words, desc, table, level: int, kl: int, llr_t, *,
     return hard, cw, u
 
 
-# -- the kernel --------------------------------------------------------------
+# -- the schedule: grid steps and tile runs ---------------------------------
+
+# The grid level G: words at or above it are grid steps, the rest tile
+# runs. It is at least kl + 1, so that every body that is not a leaf lies
+# in a tile run (a body is decoded by one warp's tile, all its rows on
+# chip); at B = 4096 one level-11 op is 2^10 rows x 256 chunks of 16
+# frames, enough items to fill the card.
+INTERP_GRID_LEVEL = 11
+TILE_FRAMES = 8        # csrc/interp.cu: Tile<2, 2>, 8 frames a warp
+TILE_MAX_WARPS = 4     # warps (tiles) a block
+CHUNK_FRAMES = 16      # a grid item: one row of 16 frames, 16 bytes
+SMEM_BYTES = 232448    # the shared memory an H100 block may take
+# schedule entry kinds, column 0 (csrc/interp.cu); CHAIN: the next entry
+# runs without a grid barrier before it (it reads nothing this one writes)
+(RUN, S_F, S_G, S_ADD, S_HMUL, S_COPY, S_GRATE1, S_STAGE, S_RATE1, S_KEY,
+ S_KEYRED, S_FLIP, S_REPBC, S_FILL) = range(14)
+CHAIN = 0x100
+# columns: kind, rows, then the rows a, b, c, d, e and a stage x; a row is
+# (array << ROW_BITS) | row of the arrays IN (the root LLRs), PYR (the
+# soft pyramid, N + 1 rows: row N holds an SPC's reduction), HARD, CW and
+# U (the message, compacted: K rows), -1 for none
+SCHED_COLS = 8
+ROW_BITS = 20
+IN, PYR, HARD, CW, U = range(5)
+
+
+def _row(array: int, row: int) -> int:
+    return array << ROW_BITS | row
+
+
+@dataclass
+class Schedule:
+    """A program cut into grid entries and tile runs for the tile kernel.
+
+    ``entries`` (E, SCHED_COLS) int32, in order; ``mrows`` (steps,) int32,
+    each body's (grate1's) first compacted message row; ``grid_level`` the
+    G in force; ``region_level`` the largest tile run's root level (a
+    warp's shared regions hold 2^region_level rows each); ``runs`` the tile
+    runs, ``grid_steps`` the words at or above G, ``barriers`` the grid
+    barriers, ``max_rows`` the most rows (pairs) of any grid entry,
+    ``origin`` the word each entry comes from (-1: a prefill)."""
+
+    entries: np.ndarray
+    mrows: np.ndarray
+    grid_level: int
+    region_level: int
+    runs: list
+    grid_steps: list
+    barriers: int
+    max_rows: int
+    origin: np.ndarray    # (E,) the word of each entry (-1: a prefill)
+
+    @property
+    def cooperative(self) -> bool:
+        """Whether any grid step needs a grid barrier (else one launch
+        over the tiles, no barrier)."""
+        return bool(self.grid_steps)
+
+
+def _transform(out: list, src: int, dst: int, rows: int) -> None:
+    """Entries of the polar transform of ``rows`` rows from ``src`` into
+    ``dst`` (in place when equal): one butterfly stage each."""
+    stages = rows.bit_length() - 1
+    if stages == 0 and src != dst:
+        out.append([S_COPY, 1, src, -1, -1, dst, -1, 0])
+    for s in range(stages):
+        out.append([S_STAGE, rows // 2, src if s == 0 else dst, -1, -1, dst,
+                    -1, s])
+
+
+def _leaf_entries(kind: str, lv: int, p: int, mrow: int, level: int,
+                  need_hard: bool, do_cw: bool, do_u: bool) -> list:
+    """Grid entries of a leaf body at or above G: the node's rows × chunks
+    in passes, its reductions by halving, its transforms by stages."""
+    n = 1 << lv
+    s = _row(IN, 0) if lv == level else _row(PYR, n)
+    hard = _row(HARD, p) if need_hard else -1
+    cw, u = _row(CW, p), _row(U, mrow)
+    out = []
+    if kind == "rate1":       # u = T(signum(x)), cw = T(u)
+        t = u if do_u else cw
+        out.append([S_RATE1, n, s, -1, hard, t, -1, 0])
+        _transform(out, t, t, n)
+        if do_cw:
+            _transform(out, t, cw, n)
+    elif kind == "rep":       # saturating fold in halves, then the bit
+        src, h = s, n // 2
+        while h >= 1:
+            out.append([S_ADD, h, src, src + h, -1, _row(PYR, 0), -1, 0])
+            src, h = _row(PYR, 0), h // 2
+        out.append([S_REPBC, n, -1, _row(PYR, 0), hard, cw if do_cw else -1,
+                    u if do_u else -1, 0])
+    elif kind == "spc":       # parity and weakest |x| into row N, flip
+        key, src, h = _row(PYR, 1 << level), s, n // 2
+        while h >= 1:
+            out.append([S_KEY if src == s else S_KEYRED, h, src, src + h, -1,
+                        key if h == 1 else _row(PYR, 0), -1, 0])
+            src, h = _row(PYR, 0), h // 2
+        t = cw if do_cw else _row(PYR, 0)
+        out.append([S_FLIP, n, s, key, hard, t, -1, 0])
+        _transform(out, t, t, n)           # T(h): the message at rows 1..
+        if do_u:
+            out.append([S_COPY | (CHAIN if do_cw else 0), n - 1, t + 1, -1,
+                        -1, u, -1, 0])
+        if do_cw:                          # cw = T([+1, T(h)[1:]])
+            out.append([S_FILL, 1, -1, -1, -1, t, -1, 0])
+            _transform(out, t, t, n)
+    else:  # pragma: no cover
+        raise AssertionError(kind)
+    return out
+
+
+def schedule(words, desc, table, level: int, kl: int, mask, *,
+             grid_level: int, want_cw: bool, want_u: bool,
+             prefill: bool) -> Schedule:
+    """Cut a program into the tile kernel's order (``csrc/interp.cu``).
+
+    Words at or above ``G = max(grid_level, kl + 1)`` are grid steps: a
+    chain op is one pass over its rows × 16-frame chunks; a grate1 or a
+    leaf body there is a few passes (its transforms by stages, REP's and
+    SPC's per-frame reductions by halving). Every maximal run of words
+    below G (one subtree, since the walk is depth-first) is a tile run: a
+    warp runs it on its tile of frames, state on chip, its root slot read
+    in device memory. With ``prefill`` the rows of hard and cw that no tile
+    run writes back start at +1. Raises ``ValueError`` where a tile run's
+    regions exceed a block's shared memory."""
+    words = np.asarray(words, np.int64)
+    desc = np.asarray(desc)
+    n = 1 << level
+    info = np.flatnonzero(np.asarray(mask) == 0)
+    g = max(grid_level, kl + 1)
+    kinds, lvs = desc[words & 0xFFFF, 0], desc[words & 0xFFFF, 1]
+    pos = (words >> 16) << kl
+    # a body's message starts at its position, a grate1's at its right half
+    first = pos + np.where(kinds == GRATE1, 1 << (lvs - 1), 0)
+    mrows = np.where((kinds == BODY) | (kinds == GRATE1),
+                     np.searchsorted(info, first), 0).astype(np.int32)
+    entries, runs, grid_steps, covered = [], [], [], []
+    origin = []        # the word each entry comes from
+    i = 0
+    while i < len(words):
+        if lvs[i] < g:
+            j = i
+            while j < len(words) and lvs[j] < g:
+                j += 1
+            r, p0 = int(lvs[i]), int(pos[i])
+            inside = (lvs[i:j] <= r) & (pos[i:j] >= p0) & (
+                pos[i:j] < p0 + (1 << r))
+            if not inside.all():  # pragma: no cover
+                raise AssertionError("a tile run is not one subtree")
+            entries.append([RUN, 0, i, j, r, p0, 0, 0])
+            origin.append(i)
+            runs.append((i, j, r, p0))
+            covered.append((p0, p0 + (1 << r)))
+            i = j
+            continue
+        grid_steps.append(i)
+        before = len(entries)
+        kind, lv, _, need_hard, do_cw, do_u = (int(x) for x in
+                                               desc[words[i] & 0xFFFF][:6])
+        p, h = int(pos[i]), 1 << (lv - 1)
+        s = _row(IN, 0) if lv == level else _row(PYR, 1 << lv)
+        child = _row(PYR, h)
+        if kind == BODY:
+            m_off = int(desc[words[i] & 0xFFFF][7])
+            node = build_tree(np.asarray(table)[m_off:m_off + (1 << lv)], lv)
+            if node.kind not in LEAF_KINDS:
+                raise AssertionError("a body above kl is a leaf")
+            entries += _leaf_entries(node.kind, lv, p, int(mrows[i]), level,
+                                     bool(need_hard), bool(do_cw), bool(do_u))
+        elif kind == F:
+            entries.append([S_F, h, s, s + h, -1, child, -1, 0])
+        elif kind == G:
+            entries.append([S_G, h, s, s + h, _row(HARD, p), child, -1, 0])
+        elif kind == G0:
+            entries.append([S_ADD, h, s, s + h, -1, child, -1, 0])
+        elif kind in (COMB, COMB0):
+            both = []
+            for on, arr in ((need_hard, HARD), (do_cw, CW)):
+                if on:
+                    lo, hi = _row(arr, p), _row(arr, p + h)
+                    both.append([S_HMUL, h, lo, hi, -1, lo, -1, 0]
+                                if kind == COMB else
+                                [S_COPY, h, hi, -1, -1, lo, -1, 0])
+            if len(both) == 2:
+                both[0][0] |= CHAIN
+            entries += both
+        elif kind == GRATE1:
+            t = _row(U, int(mrows[i])) if do_u else _row(CW, p + h)
+            entries.append([S_GRATE1, h, s, s + h, _row(HARD, p), t,
+                            _row(HARD, p + h) if need_hard else -1, 0])
+            _transform(entries, t, t, h)              # u = T(hr)
+            if do_cw:                                 # cw_r = T(T(hr))
+                _transform(entries, t, _row(CW, p + h), h)
+                entries.append([S_HMUL, h, _row(CW, p), _row(CW, p + h), -1,
+                                _row(CW, p), -1, 0])
+        else:  # pragma: no cover
+            raise AssertionError(kind)
+        origin += [i] * (len(entries) - before)
+        i += 1
+    fills = []
+    if prefill and grid_steps:   # +1 where no tile run writes back
+        edges, start = sorted(covered), 0
+        gaps = []
+        for a, b in edges + [(n, n)]:
+            if a > start:
+                gaps.append((start, a))
+            start = max(start, b)
+        for arr in (HARD,) + ((CW,) if want_cw else ()):
+            fills += [[S_FILL | CHAIN, b - a, -1, -1, -1, _row(arr, a), -1, 0]
+                      for a, b in gaps]
+        if fills:
+            fills[-1][0] &= ~CHAIN
+    entries = fills + entries
+    origin = [-1] * len(fills) + origin
+    region = max((r for _, _, r, _ in runs), default=1)
+    if (2 + want_cw) * (TILE_FRAMES << region) > SMEM_BYTES:
+        raise ValueError(f"a tile run rooted at level {region} does not fit "
+                         f"a block's shared memory: lower grid_level")
+    table_ = np.asarray(entries, np.int32).reshape(-1, SCHED_COLS)
+    grid = table_[:, 0] & 0xFF != RUN
+    barriers = int(((table_[:-1, 0] & CHAIN) == 0).sum()) if grid.any() else 0
+    max_rows = int(table_[grid, 1].max()) if grid.any() else 0
+    return Schedule(table_, mrows, g, region, runs, grid_steps, barriers,
+                    max_rows, np.asarray(origin, np.int32))
+
+
+# -- the kernels --------------------------------------------------------------
+
+STYLES = ("tile", "bytes")
+launches = {"interp_decoder": 0, "interp_decode_count": 0,
+            "interp_subtree": 0}
+# launches of the one-frame-a-thread kernels that style "tile" replaced
+# (style "bytes"), apart from the tile kernel's
+earlier_launches = {"interp_bytes_decoder": 0, "interp_bytes_decode_count": 0,
+                    "interp_bytes_subtree": 0}
+plain_calls = {"interp_plain": 0}
+_occupancy: dict = {}
 
 
 @dataclass
 class _Compiled:
     """A program ready to run: words, descriptors, table, its level and
-    ``kl``, and the mask the u output is gathered by."""
+    ``kl``, the mask its message is gathered by, and its schedule."""
 
     words: np.ndarray
     desc: np.ndarray
@@ -285,28 +529,54 @@ class _Compiled:
     ones_init: bool
     steps: int
     branches: int
+    sched: Schedule
+    prefill: bool
+    want_cw: bool
+    want_u: bool
     _dev: dict = field(default_factory=dict)
 
     def device_args(self, dev):
-        """Device copies of words, descriptors, table and mask, once per
-        device."""
+        """Device copies of words, descriptors, table and mask (the bytes
+        kernel's), the schedule and the message rows, once per device."""
         key = str(dev)
         if key not in self._dev:
             self._dev[key] = tuple(torch.tensor(a, device=dev) for a in (
-                self.words, self.desc.reshape(-1), self.table, self.mask))
+                self.words, self.desc.reshape(-1), self.table, self.mask,
+                self.sched.entries.reshape(-1), self.sched.mrows))
         return self._dev[key]
+
+    def info(self) -> dict:
+        """The schedule's size, for the reports."""
+        s = self.sched
+        return {"steps": self.steps, "grid_level": s.grid_level,
+                "grid_steps": len(s.grid_steps), "tile_runs": len(s.runs),
+                "entries": len(s.entries), "barriers": s.barriers,
+                "region_level": s.region_level}
 
 
 def _compile(tree: Node, mask, subtree_level: int, want_cw: bool,
-             want_u: bool, root_need_hard: bool = False) -> _Compiled:
-    """The program of ``tree`` at ``min(subtree_level, tree.level)``."""
+             want_u: bool, root_need_hard: bool = False, *,
+             prefill_all: bool = False,
+             grid_level: int | None = None) -> _Compiled:
+    """The program of ``tree`` at ``min(subtree_level, tree.level)`` and
+    its schedule at ``grid_level`` (by default :data:`INTERP_GRID_LEVEL`):
+    hard, cw and u start at +1 where the program skips a rate-0 node, or
+    with ``prefill_all`` (the whole-code decoder's u track, as the JAX
+    kernel prefills it)."""
     kl = min(subtree_level, tree.level)
     prog = build_program(tree, kl, want_cw, want_u, root_need_hard)
     words = prog.words(kl)
     desc, table = tables(prog)
-    return _Compiled(words, desc, table, tree.level, kl,
-                     np.asarray(mask, np.uint8), prog.ones_init,
-                     len(prog.steps), len(prog.branches))
+    prefill = prog.ones_init or prefill_all
+    mask = np.asarray(mask, np.uint8)
+    sched = schedule(words, desc, table, tree.level, kl, mask,
+                     grid_level=(INTERP_GRID_LEVEL if grid_level is None
+                                 else grid_level),
+                     want_cw=want_cw, want_u=want_u,
+                     prefill=prefill)
+    return _Compiled(words, desc, table, tree.level, kl, mask,
+                     prog.ones_init, len(prog.steps), len(prog.branches),
+                     sched, prefill, want_cw, want_u)
 
 
 def _check_llr(llr_t, n, what):
@@ -316,49 +586,136 @@ def _check_llr(llr_t, n, what):
                          f"{tuple(llr_t.shape)} {llr_t.dtype}")
 
 
-def _run(c: _Compiled, llr_t, *, want_cw: bool, want_u: bool, prefill: bool,
-         entry: str, what: str):
-    """Launch the decode kernel through C entry ``entry``: returns
-    ``(hard, cw, u)``, u gathered into its first K rows by ``c.mask``."""
+def _plan(c: _Compiled, dev, b: int) -> dict:
+    """The tile kernel's launch for ``b`` frames on ``dev``: warps (tiles)
+    a block, blocks, dynamic shared memory, cooperative or not. A
+    cooperative grid holds no more blocks than the card keeps resident at
+    once (the occupancy the runtime reports for this kernel and block), and
+    no more than its tiles or its largest grid entry's items need. Call
+    after ``build.stream(dev)``."""
+    s = c.sched
+    per_warp = (2 + c.want_cw) * (TILE_FRAMES << s.region_level)
+    warps = max(1, min(TILE_MAX_WARPS, SMEM_BYTES // per_warp))
+    tiles = -(-b // TILE_FRAMES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if not s.cooperative:   # one warp a tile while few tiles a block
+        if tiles < 2 * TILE_MAX_WARPS * sms:
+            warps = 1
+        return {"warps": warps, "blocks": -(-tiles // warps),
+                "smem": warps * per_warp, "cooperative": False}
+    key = (str(dev), c.want_cw, c.want_u, s.region_level, warps)
+    if key not in _occupancy:
+        per_sm = ctypes.c_int(0)
+        build.check(build.load_library().polar_interp_tile_occupancy(
+            int(c.want_cw), int(c.want_u), s.region_level, warps,
+            ctypes.byref(per_sm)), "polar_interp_tile_occupancy")
+        if per_sm.value < 1:
+            raise RuntimeError("the interp tile kernel's block does not fit "
+                               "an SM")
+        _occupancy[key] = per_sm.value * sms
+    items = s.max_rows * -(-b // CHUNK_FRAMES)
+    need = max(-(-tiles // warps), -(-items // (32 * warps)))
+    return {"warps": warps, "blocks": min(_occupancy[key], need),
+            "smem": warps * per_warp, "cooperative": True}
+
+
+def _launch_plan(c: _Compiled, batch: int, dev="cuda") -> dict:
+    """:func:`_plan` of ``c`` for ``batch`` frames on CUDA device ``dev``,
+    with its schedule's size."""
+    dev = torch.device(dev)
+    build.stream(dev)
+    return {**c.info(), **_plan(c, dev, batch)}
+
+
+def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str):
+    """Launch the tile kernel on ``c``'s schedule: returns ``(hard, cw,
+    u)``, u compacted into K rows, hard None unless ``hard_out`` (or the
+    grid steps need it)."""
     dev = llr_t.device
     n, b = 1 << c.level, llr_t.shape[1]
-    hard, cw, u = (torch.empty((n, b), dtype=torch.int8, device=dev)
-                   if on else None for on in (True, want_cw, want_u))
+    k = int(np.count_nonzero(c.mask == 0))
+    coop = c.sched.cooperative
+    hard = (torch.empty((n, b), dtype=torch.int8, device=dev)
+            if hard_out or coop else None)
+    cw = (torch.empty((n, b), dtype=torch.int8, device=dev)
+          if c.want_cw else None)
+    u = torch.empty((k, b), dtype=torch.int8, device=dev) if c.want_u else None
     if b == 0:
         return hard, cw, u
     stream = build.stream(dev)
-    pyr = torch.empty((n, b), dtype=torch.int8, device=dev)
-    words, desc, table, mask = c.device_args(dev)
-    err = getattr(build.load_library(), entry)(
-        words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
-        mask.data_ptr(), c.level, c.kl, b, int(prefill), llr_t.data_ptr(),
-        pyr.data_ptr(), hard.data_ptr(), cw.data_ptr() if want_cw else None,
-        u.data_ptr() if want_u else None, THREADS, stream)
-    build.check(err, entry)
+    pyr = (torch.empty((n + 1, b), dtype=torch.int8, device=dev)
+           if coop else None)
+    plan = _plan(c, dev, b)
+    words, desc, table, _, sched, mrows = (a.data_ptr()
+                                           for a in c.device_args(dev))
+    arrays = [t for t in (llr_t, pyr, hard, cw, u) if t is not None]
+    aligned = b % CHUNK_FRAMES == 0 and all(t.data_ptr() % 16 == 0
+                                            for t in arrays)
+    err = build.load_library().polar_interp_tile(
+        words, desc, table, mrows, sched, len(c.sched.entries), c.level,
+        c.kl, b, int(c.prefill), int(aligned), c.sched.region_level,
+        llr_t.data_ptr(), *(t.data_ptr() if t is not None else None
+                            for t in (pyr, hard, cw, u)),
+        int(c.want_cw), int(c.want_u), plan["blocks"], plan["warps"],
+        int(plan["cooperative"]), stream)
+    build.check(err, "polar_interp_tile")
     launches[what] += 1
     return hard, cw, u
 
 
+def _run_bytes(c: _Compiled, llr_t, *, entry: str, what: str):
+    """Launch the bytes kernel through C entry ``entry``: returns ``(hard,
+    cw, u)``, u gathered into its first K rows by ``c.mask``."""
+    dev = llr_t.device
+    n, b = 1 << c.level, llr_t.shape[1]
+    hard, cw, u = (torch.empty((n, b), dtype=torch.int8, device=dev)
+                   if on else None for on in (True, c.want_cw, c.want_u))
+    if b == 0:
+        return hard, cw, u
+    stream = build.stream(dev)
+    pyr = torch.empty((n, b), dtype=torch.int8, device=dev)
+    words, desc, table, mask = c.device_args(dev)[:4]
+    err = getattr(build.load_library(), entry)(
+        words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
+        mask.data_ptr(), c.level, c.kl, b, int(c.prefill), llr_t.data_ptr(),
+        pyr.data_ptr(), hard.data_ptr(),
+        cw.data_ptr() if c.want_cw else None,
+        u.data_ptr() if c.want_u else None, THREADS, stream)
+    build.check(err, entry)
+    earlier_launches[what] += 1
+    return hard, cw, u
+
+
+def _style(style: str) -> str:
+    if style not in STYLES:
+        raise ValueError(f"unknown interp kernel style {style!r}")
+    return style
+
+
 def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
                         subtree_level: int = 10, output: str = "u",
-                        output_dtype=torch.int8):
+                        output_dtype=torch.int8, style: str = "tile"):
     """The interpreter whole-code decoder, with the eager decoder's
     contract: ``decode(llrs (B, N))`` → u ``(B, K)`` / systematic
     ``(B, K)`` / codeword ``(B, N)`` / both, and ``decode.lane_major(llr_t
     (N, B))`` with the code axis leading; ``decode.plain(llr_t)`` is the
     plain version of ``lane_major`` on any device. ``decode.program_steps``
-    and ``decode.program_branches`` give the program's size.
-    ``subtree_level``: nodes at or below it are bodies; ``output_dtype``
-    casts the outputs. Any batch."""
+    and ``decode.program_branches`` give the program's size,
+    ``decode.schedule`` its tile-kernel schedule and ``decode.plan(batch)``
+    its launch. ``subtree_level``: nodes at or below it are bodies;
+    ``output_dtype`` casts the outputs; ``style``: ``"tile"`` (grid steps
+    and tile runs, ``csrc/interp.cu`` ``interp_tile_kernel``) or
+    ``"bytes"`` (the one-frame-a-thread kernel it replaced). Any batch."""
     if tree is None:
         tree = compile_code(code)
     if output not in ("u", "systematic", "codeword", "both"):
         raise ValueError(f"unknown output mode {output!r}")
+    style = _style(style)
     want_cw = output != "u"
     want_u = output in ("u", "both")
-    c = _compile(tree, code.frozen, subtree_level, want_cw, want_u)
+    c = _compile(tree, code.frozen, subtree_level, want_cw, want_u,
+                 prefill_all=want_u)
     n, k = code.N, code.K
-    prefill = c.ones_init or want_u
 
     def by_mode(u, cw):
         if output == "u":
@@ -373,7 +730,7 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
     def plain(llr_t):
         _, cw, u = interp_plain(c.words, c.desc, c.table, c.level, c.kl,
                                 llr_t, want_cw=want_cw, want_u=want_u,
-                                prefill=prefill)
+                                prefill=c.prefill)
         info = torch.as_tensor(code.info_indices, device=llr_t.device)
         return by_mode(u[info] if want_u else None, cw)
 
@@ -383,10 +740,12 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
             return plain(llr_t)
         if llr_t.device.type != "cuda":
             raise ValueError(f"no interp decoder for device {llr_t.device}")
-        _, cw, u = _run(c, llr_t, want_cw=want_cw, want_u=want_u,
-                        prefill=prefill, entry="polar_interp_decode",
-                        what="interp_decoder")
-        return by_mode(u[:k] if want_u else None, cw)
+        if style == "bytes":
+            _, cw, u = _run_bytes(c, llr_t, entry="polar_interp_decode",
+                                  what="interp_bytes_decoder")
+            return by_mode(u[:k] if want_u else None, cw)
+        _, cw, u = _run_tile(c, llr_t, hard_out=False, what="interp_decoder")
+        return by_mode(u, cw)
 
     def decode(llrs):
         if llrs.ndim != 2:
@@ -400,25 +759,32 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
     decode.plain = plain
     decode.program_steps = c.steps
     decode.program_branches = c.branches
+    decode.schedule = c.info()
+    decode.plan = functools.partial(_launch_plan, c)
+    decode.compiled = c
     return decode
 
 
 def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
-                             subtree_level: int = 10):
+                             subtree_level: int = 10, style: str = "tile"):
     """``count(llr_t, cw_t)`` → the five counters (``(5,)`` int64, in
     ``step_kernel.COUNTERS`` order) of the interpreter decode on the
     codeword-estimate track against ``cw_t`` at the info rows, with the
     AWGN and quantization counters of ``llr_t``; both ``(N, B)`` int8.
-    ``count.plain`` is its plain version on any device."""
+    ``count.plain`` is its plain version on any device. Style ``"tile"``:
+    the tile kernel's cw track, then the counter kernel
+    (``count_kernel.count``, ``csrc/count.cu``) on the same stream;
+    ``"bytes"``: the one-frame-a-thread kernel with its own counters."""
     if tree is None:
         tree = compile_code(code)
+    style = _style(style)
     c = _compile(tree, code.frozen, subtree_level, True, False)
     n = code.N
 
     def plain(llr_t, cw_t):
         _, cw_hat, _ = interp_plain(c.words, c.desc, c.table, c.level, c.kl,
                                     llr_t, want_cw=True, want_u=False,
-                                    prefill=c.ones_init)
+                                    prefill=c.prefill)
         frz = torch.as_tensor(code.frozen.astype(bool),
                               device=llr_t.device).reshape(n, 1)
         return cw_counts(frz, llr_t, cw_t, cw_hat)
@@ -435,40 +801,49 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
             raise ValueError(f"no interp decode+count for device {dev}")
         if b == 0:
             return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+        if style == "tile":
+            _, cw_hat, _ = _run_tile(c, llr_t, hard_out=False,
+                                     what="interp_decode_count")
+            return count_kernel.count(code.frozen, llr_t, cw_t, cw_hat)
         stream = build.stream(dev)
         out = torch.empty((-(-b // THREADS), len(COUNTERS)), dtype=torch.int32,
                           device=dev)
         pyr, hard, cw = (torch.empty((n, b), dtype=torch.int8, device=dev)
                          for _ in range(3))
-        words, desc, table, mask = c.device_args(dev)
+        words, desc, table, mask = c.device_args(dev)[:4]
         err = build.load_library().polar_interp_decode_count(
             words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
-            mask.data_ptr(), c.level, c.kl, b, int(c.ones_init),
+            mask.data_ptr(), c.level, c.kl, b, int(c.prefill),
             llr_t.data_ptr(), cw_t.data_ptr(), pyr.data_ptr(),
             hard.data_ptr(), cw.data_ptr(), out.data_ptr(), THREADS, stream)
         build.check(err, "polar_interp_decode_count")
-        launches["interp_decode_count"] += 1
+        earlier_launches["interp_bytes_decode_count"] += 1
         return out.sum(dim=0, dtype=torch.int64)
 
     count.plain = plain
+    count.schedule = c.info()
+    count.plan = functools.partial(_launch_plan, c)
+    count.compiled = c
     return count
 
 
 def make_interp_subtree(node: Node, *, emit_u: bool = True,
                         emit_cw: bool = False, subtree_level: int = 10,
-                        fuse: str | None = None):
+                        fuse: str | None = None, style: str = "tile"):
     """The interpreter decoder of one hybrid node, with the contract of
     :func:`.subtree_kernel.make_subtree_decoder`: ``run(slot (2^l, B))`` →
     ``(u (k, B))?``, ``hard (2^l, B)``, ``(cw (2^l, B))?``, u at the node's
     :func:`info_positions`; ``run.plain`` is its plain version on any
     device. The root's hard is always kept (``root_need_hard``). No
-    boundary fusion. Any batch."""
+    boundary fusion. ``style`` as :func:`make_interp_decoder`'s. Any
+    batch."""
     if fuse is not None:
         raise ValueError("the interp kernel style has no boundary fusion")
     if node.mesg_bits < 1:
         raise ValueError("only nodes that emit message bits take a kernel")
     if not emit_u and not emit_cw:
         raise ValueError("emit_u=False needs emit_cw")
+    style = _style(style)
     c = _compile(node, node_frozen(node), subtree_level, emit_cw, emit_u,
                  root_need_hard=True)
     n, k = 1 << node.level, node.mesg_bits
@@ -480,7 +855,7 @@ def make_interp_subtree(node: Node, *, emit_u: bool = True,
     def plain(slot):
         hard, cw, u = interp_plain(c.words, c.desc, c.table, c.level, c.kl,
                                    slot, want_cw=emit_cw, want_u=emit_u,
-                                   prefill=c.ones_init)
+                                   prefill=c.prefill)
         return outs(hard, cw, u[torch.as_tensor(info, device=slot.device)]
                     if emit_u else None)
 
@@ -491,10 +866,14 @@ def make_interp_subtree(node: Node, *, emit_u: bool = True,
         if slot.device.type != "cuda":
             raise ValueError(f"no interp subtree decoder for device "
                              f"{slot.device}")
-        hard, cw, u = _run(c, slot, want_cw=emit_cw, want_u=emit_u,
-                           prefill=c.ones_init, entry="polar_interp_subtree",
-                           what="interp_subtree")
-        return outs(hard, cw, u[:k] if emit_u else None)
+        if style == "bytes":
+            hard, cw, u = _run_bytes(c, slot, entry="polar_interp_subtree",
+                                     what="interp_bytes_subtree")
+            return outs(hard, cw, u[:k] if emit_u else None)
+        return outs(*_run_tile(c, slot, hard_out=True, what="interp_subtree"))
 
     run.plain = plain
+    run.schedule = c.info()
+    run.plan = functools.partial(_launch_plan, c)
+    run.compiled = c
     return run

@@ -28,7 +28,11 @@ that applies:
   with the SSA-style decoders alone (``kernel_style="ssa"``;
   ``make_named_decoder``), where
   :data:`~polar_tpu_torch.decode.auto.AUTO_DECODERS` picks another style at
-  this level.
+  this level;
+* ``draws interp`` — the kernel draws around the whole-code interpreter
+  (m = 9..17), where
+  :data:`~polar_tpu_torch.decode.auto.AUTO_DECODERS` does not name it at
+  both batches.
 
 Arms run in order, then in reverse order (a drift shows as two readings
 apart). Then, at B = 4096, the fronts alone by CUDA events: the
@@ -46,19 +50,28 @@ the whole-code kernel (m <= 14: the tile kernel up to
 ``WHOLE_MAX_LEVEL``), the hybrid at
 :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`, the scratch
 whole-code kernel and the byte kernel it replaced (``scratch-bytes``; u,
-m <= 11), the interpreter at subtree levels 5 and 10 (m = 9..13) and the
+m <= 11), the interpreter's tile kernel at subtree levels 9 and 10 (m =
+9..17) and the
 hybrid at kernel level 9 in the walk, scratch, scratch-bytes and
 interpreter styles (m = 13..17; the SSA style's subtree kernel is the tile
 kernel, the walk the one it replaced). ``--scratch-shapes`` times the
 scratch tile kernel alone at every shape and block size
 (:func:`scratch_shape_rows`), the source of
-``decoder_kernel.SCRATCH_TABLE``. Every line names the card and its power
-limit; ``--out`` also writes the readings as JSON lines.
+``decoder_kernel.SCRATCH_TABLE``. ``--arms`` times only the step arms it
+names (comma-separated, e.g. ``block+interp,block+hybrid``), no decoders
+or fronts; with ``--decoders-only``, only the decoders it names.
+``--batches`` (comma-separated) takes the place of each level's batches.
+Every line names the card and its power limit; ``--out`` also writes the
+readings as JSON lines.
 
     python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
     python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-17
     python -m polar_tpu_torch.utils.step_ab --fronts-only --levels 14-17
     python -m polar_tpu_torch.utils.step_ab --scratch-shapes --levels 1-11
+    python -m polar_tpu_torch.utils.step_ab --levels 13-17 \
+        --arms block+interp,block+hybrid
+    python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 15-17 \
+        --batches 16384 --arms "interp sl10,hybrid kl9"
 """
 
 from __future__ import annotations
@@ -74,7 +87,8 @@ BIG_BATCH = 32768
 BIG_BATCH_MAX_LEVEL = 14
 BATCH = 4096
 WHOLE_DECODER_MAX_LEVEL = 14
-INTERP_LEVELS = (9, 13)          # the whole-code interpreter's arms
+INTERP_LEVELS = (9, 17)          # the whole-code interpreter's arms
+INTERP_SUBTREE_LEVELS = (9, 10)
 STYLE_HYBRID_MIN_LEVEL = 13      # the hybrid's other styles' arms
 
 
@@ -126,6 +140,10 @@ def arms(code, systematic: bool, device) -> dict:
         ssa = "hybrid" if level >= decode_auto.HYBRID_MIN_LEVEL else "ssa"
         decs["draws ssa"] = decode_auto.make_named_decoder(code, ssa,
                                                            output)[0]
+    if (INTERP_LEVELS[0] <= level <= INTERP_LEVELS[1] and
+            decode_auto.decoder_names(level, systematic) != ("interp",) * 2):
+        decs["draws interp"] = decode_auto.make_named_decoder(code, "interp",
+                                                              output)[0]
     for name, dec in decs.items():
         out[name] = ber.make_step(code, systematic=systematic, decoder=dec,
                                   device=device)
@@ -182,7 +200,9 @@ def front_times(code, device, ms) -> dict:
     return out
 
 
-def _batches(level: int) -> list[int]:
+def _batches(level: int, batches=None) -> list[int]:
+    if batches:
+        return list(batches)
     return [BIG_BATCH, BATCH] if level <= BIG_BATCH_MAX_LEVEL else [BATCH]
 
 
@@ -207,7 +227,7 @@ def decoders(code, output: str) -> dict:
         for style in ("scratch", "scratch-bytes"):
             out[style] = make_kernel_decoder(code, style=style)
     if INTERP_LEVELS[0] <= level <= INTERP_LEVELS[1]:
-        for sl in (5, 10):
+        for sl in INTERP_SUBTREE_LEVELS:
             out[f"interp sl{sl}"] = make_interp_decoder(
                 code, subtree_level=sl, output=output)
     styles = (("ssa", "walk", "scratch", "scratch-bytes", "interp")
@@ -302,20 +322,22 @@ def scratch_shape_rows(levels, device, reps: int = 20) -> list[dict]:
     return rows
 
 
-def decoder_times(code, device, ms) -> list[dict]:
-    """ms of one decode by each of :func:`decoders`, each run once first,
-    then timed in order and in reverse order."""
+def decoder_times(code, device, ms, only=None, batches=None) -> list[dict]:
+    """ms of one decode by each of :func:`decoders` (those named in
+    ``only`` if given), each run once first, then timed in order and in
+    reverse order, at ``batches`` or the level's own."""
     import torch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(code.level)
     rows = []
-    for batch in _batches(code.level):
+    for batch in _batches(code.level, batches):
         llr_t = torch.randint(-128, 128, (code.N, batch), generator=gen,
                               device=device, dtype=torch.int8)
         llrs = llr_t.t().contiguous()
         for output in ("u", "codeword"):
-            decs = decoders(code, output)
+            decs = {name: d for name, d in decoders(code, output).items()
+                    if only is None or name in only}
             for entry in ("frame-major", "lane-major"):
                 fns = {name: ((lambda d=d: d(llrs)) if entry == "frame-major"
                               else (lambda d=d: d.lane_major(llr_t)))
@@ -346,7 +368,15 @@ def main(argv=None) -> int:
                     help="time the fronts alone, no decoders or steps")
     ap.add_argument("--scratch-shapes", action="store_true",
                     help="time the scratch tile kernel's shapes alone")
+    ap.add_argument("--arms", default=None,
+                    help="only these step arms (with --decoders-only, these "
+                    "decoders), comma-separated")
+    ap.add_argument("--batches", default=None,
+                    help="these batches at every level, comma-separated")
     args = ap.parse_args(argv)
+    only = None if args.arms is None else set(args.arms.split(","))
+    batches = (None if args.batches is None
+               else [int(b) for b in args.batches.split(",")])
     if not torch.cuda.is_available():
         print("step_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -384,10 +414,10 @@ def main(argv=None) -> int:
                   f"{', '.join(f'{t:.4f}' for t in row['ms'])} ms", flush=True)
     for level in ([] if args.scratch_shapes else _levels(args.levels)):
         code = pt.make_code(level, rate=0.5)
-        if args.fronts_only:
+        if args.fronts_only or (only is not None and not args.decoders_only):
             pass
         elif level <= WHOLE_DECODER_MAX_LEVEL or args.decoders_only:
-            for row in decoder_times(code, dev, ms):
+            for row in decoder_times(code, dev, ms, only, batches):
                 rows.append(dict(row, card=card))
                 print(f"m={level} B={row['batch']} decode {row['output']} "
                       f"{row['entry']} {row['decoder']}: "
@@ -397,8 +427,10 @@ def main(argv=None) -> int:
         if args.decoders_only:
             continue
         for systematic in (() if args.fronts_only else (True, False)):
-            steps = arms(code, systematic, dev)
-            for batch in _batches(level):
+            steps = {name: step for name, step in
+                     arms(code, systematic, dev).items()
+                     if only is None or name in only}
+            for batch in _batches(level, batches) if steps else ():
                 names = list(steps)
                 got = {name: [] for name in names}
                 for name in names + names[::-1]:
@@ -414,7 +446,8 @@ def main(argv=None) -> int:
                           f"{'  <- best' if name == best else ''}", flush=True)
             del steps
             torch.cuda.empty_cache()
-        for name, t in front_times(code, dev, ms_dropped).items():
+        for name, t in (front_times(code, dev, ms_dropped).items()
+                        if only is None else ()):
             rows.append(dict(level=level, batch=BATCH, front=name, ms=t,
                              card=card))
             print(f"m={level} B={BATCH} {name}: {t:.3f} ms", flush=True)

@@ -233,13 +233,13 @@ def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
     from polar_tpu_torch.decode import auto
 
     kl, big = auto.HYBRID_KERNEL_LEVEL, auto.BIG_BATCH
+    interp = f"cuda-interp-sl{auto.INTERP_SUBTREE_LEVEL}"
     for m, output, want in (
             (auto.HYBRID_MIN_LEVEL - 2, "codeword", "cuda-fastssc"),
-            (13, "codeword", f"cuda-fastssc below {big} frames, "
-                             f"cuda-hybrid-kl{kl} from it"),
-            (auto.HYBRID_MIN_LEVEL + 2, "codeword", f"cuda-hybrid-kl{kl}"),
-            (15, "u", f"cuda-hybrid-kl{kl}-scratch below {big} frames, "
-                      f"cuda-hybrid-kl{kl} from it")):
+            (13, "codeword", interp),
+            (auto.HYBRID_MIN_LEVEL + 2, "codeword", interp),
+            (15, "u", interp),
+            (18, "u", f"cuda-hybrid-kl{kl}")):
         _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5),
                                        output=output, device=dev)
         assert desc == want
@@ -843,6 +843,142 @@ def test_interp_subtree_matches_plain(dev, level, batch):
                 for a, b, s in zip(got, want, ssa, strict=True):
                     assert torch.equal(a.cpu(), b), (node.kind, emit_u, kl)
                     assert torch.equal(a, s)
+
+
+def _interp_pair(code, output, sl):
+    """The interp decoder in the tile style and in the bytes style."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    return (interp_kernel.make_interp_decoder(code, subtree_level=sl,
+                                              output=output),
+            interp_kernel.make_interp_decoder(code, subtree_level=sl,
+                                              output=output, style="bytes"))
+
+
+@pytest.mark.parametrize("m", [4, 9, 12, 15])
+@pytest.mark.parametrize("sl", [3, 5, 9, 10])
+@pytest.mark.parametrize("batch", [1, 3, 31, 4096, 4099])
+def test_interp_tile_matches_plain_and_bytes(dev, m, sl, batch):
+    """The tile kernel against the bytes kernel it replaced and (B <= 31,
+    m <= 12) the plain version, u / cw / both; column 0 all -128, column 1 all
+    zero, and every fifth LLR zero (ties)."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    llr = _llrs(dev, c.N, max(batch, 2), 100 * m + sl)[:, :batch].contiguous()
+    llr[::5] = 0
+    for output in ("u", "codeword", "both"):
+        dec, old = _interp_pair(c, output, sl)
+        before = dict(interp_kernel.launches)
+        got = dec.lane_major(llr)
+        assert interp_kernel.launches == {
+            **before, "interp_decoder": before["interp_decoder"] + 1}
+        olds = dict(interp_kernel.earlier_launches)
+        want = old.lane_major(llr)
+        assert interp_kernel.earlier_launches["interp_bytes_decoder"] == (
+            olds["interp_bytes_decoder"] + 1)
+        got, want = ((x,) if output != "both" else x for x in (got, want))
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b), output
+        if batch <= 31 and m <= 12:
+            plain = dec.lane_major(llr.cpu())
+            plain = plain if output == "both" else (plain,)
+            for a, b in zip(got, plain, strict=True):
+                assert torch.equal(a.cpu(), b), output
+
+
+@pytest.mark.parametrize("m,rate,sl,grid_level", [
+    (9, 0.25, 2, 4), (9, 0.75, 3, 5), (12, 0.9, 5, 6), (12, 0.5, 3, 8),
+    (13, 0.5, 5, 11)])
+@pytest.mark.parametrize("batch", [3, 31, 4099])
+def test_interp_tile_grid_entries_match_plain(dev, m, rate, sl, grid_level,
+                                              batch, monkeypatch):
+    """Low grid levels, so that rate-1, REP and SPC leaves and grate1s run
+    as grid entries; high- and low-rate codes, tie-heavy LLRs."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    monkeypatch.setattr(interp_kernel, "INTERP_GRID_LEVEL", grid_level)
+    c = pt.make_code(m, rate=rate)
+    llr = _llrs(dev, c.N, max(batch, 2), m + batch)[:, :batch].contiguous()
+    llr[1::3] = 0
+    for output in ("u", "codeword", "both"):
+        dec, old = _interp_pair(c, output, sl)
+        assert dec.schedule["grid_steps"] > 0
+        got, want = dec.lane_major(llr), old.lane_major(llr)
+        got, want = ((x,) if output != "both" else x for x in (got, want))
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b), output
+        if batch <= 31:
+            plain = dec.lane_major(llr.cpu())
+            plain = plain if output == "both" else (plain,)
+            for a, b in zip(got, plain, strict=True):
+                assert torch.equal(a.cpu(), b), output
+
+
+def test_interp_tile_subtree_in_every_hybrid_node(dev):
+    """Every distinct kernel node of the m = 17 hybrid (kl9) at B = 4096:
+    the tile style against the bytes style and the plain version on the
+    card, u / u+cw / cw."""
+    from polar_tpu_torch.code.compiler import emit_program
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    nodes, stack = {}, [pt.compile_code(pt.make_code(17, rate=0.5))]
+    while stack:
+        node = stack.pop()
+        if node.level <= 9 and node.mesg_bits >= 1 and node.kind in (
+                "branch", "rate0_right", "rate1_comb"):
+            nodes.setdefault(emit_program(node, node.level).tobytes(), node)
+            continue
+        stack.extend(c for c in (node.left, node.right) if c is not None)
+    assert len(nodes) > 50
+    for i, node in enumerate(nodes.values()):
+        slot = _llrs(dev, 1 << node.level, 4096, i)
+        for emit_u, emit_cw in ((True, False), (True, True), (False, True)):
+            kw = dict(emit_u=emit_u, emit_cw=emit_cw)
+            fn = interp_kernel.make_interp_subtree(node, **kw)
+            got = fn(slot)
+            old = interp_kernel.make_interp_subtree(node, style="bytes",
+                                                    **kw)(slot)
+            for a, b, p in zip(got, old, fn.plain(slot), strict=True):
+                assert torch.equal(a, b), (node.kind, node.level, kw)
+                assert torch.equal(a, p), (node.kind, node.level, kw)
+
+
+def test_interp_decode_count_back_to_back(dev):
+    """Decode+count twice on one stream (the counter's ticket resets
+    between launches), against the bytes style's own counters."""
+    from polar_tpu_torch.ops.cuda import count_kernel, interp_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    llr = _llrs(dev, c.N, 4096, 14)
+    msg, _ = _inject(dev, c.K, 4096, 14)
+    cw = pt.encode_systematic(c, msg.t()).t().contiguous()
+    count = interp_kernel.make_interp_decode_count(c)
+    before = (interp_kernel.launches["interp_decode_count"],
+              count_kernel.launches["count"])
+    first, second = count(llr, cw), count(llr, cw)
+    assert (interp_kernel.launches["interp_decode_count"],
+            count_kernel.launches["count"]) == (before[0] + 2, before[1] + 2)
+    want = interp_kernel.make_interp_decode_count(c, style="bytes")(llr, cw)
+    assert torch.equal(first, want) and torch.equal(second, want)
+    assert int(want[0]) > 0
+
+
+def test_interp_refused_cooperative_launch_raises(dev, monkeypatch):
+    """A cooperative grid larger than the card holds at once is refused
+    by the runtime, and the wrapper raises (nothing falls back)."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    c = pt.make_code(12, rate=0.5)
+    dec = interp_kernel.make_interp_decoder(c, subtree_level=5)
+    assert dec.schedule["grid_steps"] > 0
+    plan = interp_kernel._plan
+    monkeypatch.setattr(interp_kernel, "_plan", lambda *a: {
+        **plan(*a), "blocks": 1 << 20})
+    before = dict(interp_kernel.launches)
+    with pytest.raises(RuntimeError, match="polar_interp_tile"):
+        dec.lane_major(_llrs(dev, c.N, 4096, 1))
+    assert interp_kernel.launches == before
 
 
 @pytest.mark.parametrize("style", ["scratch", "interp"])

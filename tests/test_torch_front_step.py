@@ -174,14 +174,21 @@ def test_front_branch_follows_the_thresholds(monkeypatch):
                                         (9, "block-whole", "block-whole"),
                                         (10, "block-whole", "block-whole"),
                                         (12, "block-whole", "block-whole"),
-                                        (13, "block-whole", "block-whole"),
-                                        (14, "block-hybrid", "block-hybrid"),
-                                        (17, "block-hybrid", "block-hybrid")):
+                                        (13, "block-interp", "block-whole"),
+                                        (14, "block-interp", "block-hybrid"),
+                                        (17, "block-interp", "block-hybrid"),
+                                        (18, "block-hybrid", "block-hybrid")):
         c = pt.make_code(m, rate=0.5)
         assert ber.front_branch(c, True) == sys_branch
         assert ber.front_branch(c, False) == plain_branch
-    # one owner for the decoder: the front follows decode.auto's threshold
+    # one owner for the decoder: the front follows decode.auto's threshold,
+    # and takes the interpreter where its table names it at every batch
     assert decode_auto.HYBRID_MIN_LEVEL == 14 and ber.FRONT_WHOLE_MAX_LEVEL == 8
+    for names, want in ((("interp", "hybrid"), "block-hybrid"),
+                        (("hybrid", "interp"), "block-hybrid"),
+                        (("interp", "interp"), "block-interp")):
+        monkeypatch.setitem(decode_auto.AUTO_DECODERS, (14, True), names)
+        assert ber.front_branch(pt.make_code(14, rate=0.5), True) == want
     c = pt.make_code(9, rate=0.5)
     monkeypatch.setattr(decode_auto, "HYBRID_MIN_LEVEL", 9)
     assert ber.front_branch(c, True) == ber.front_branch(c, False) == "block-hybrid"

@@ -295,12 +295,16 @@ def test_auto_decoders_follow_the_measured_table():
             assert not cw and level <= decoder_kernel.SCRATCH_MAX_LEVEL
     assert auto.decoder_names(5, False) == ("ssa", "ssa")
     assert auto.decoder_names(12, True) == ("ssa", "ssa")
-    assert auto.decoder_names(13, False) == ("ssa", "hybrid")
-    assert auto.decoder_names(13, True) == ("ssa", "hybrid")
-    assert auto.decoder_names(14, False) == ("hybrid", "hybrid")
+    assert auto.decoder_names(13, False) == ("interp", "interp")
+    assert auto.decoder_names(13, True) == ("interp", "interp")
+    assert auto.decoder_names(14, False) == ("interp", "interp")
+    assert auto.decoder_names(17, True) == ("interp", "interp")
+    assert auto.decoder_names(18, False) == ("hybrid", "hybrid")
     small, big = auto.BIG_BATCH - 1, auto.BIG_BATCH
+    # the hybrid's subtree kernels take the SSA style where the table names
+    # a whole-code decoder (the interpreter) or the plain hybrid
     assert [auto.kernel_style(15, False, b, True) for b in (small, big)] == [
-        "scratch", "ssa"]
+        "ssa", "ssa"]
     assert [auto.kernel_style(14, True, b, True) for b in (small, big)] == [
         "ssa", "ssa"]
     for level in (7, 8, 9, 10, 11):
