@@ -31,13 +31,15 @@ pinned-decoder step with the kernel draws at both codes: exact counters
 on injected words, one chained campaign a shape (its launches and steps
 counted alone, no old-style launch) against the JAX package's results,
 step rates against the torch draws, and the SC decoder on the card (11).
-Then the element-major front step: the whole-block front, decode+count and the
-middle-stages kernel against their plain versions, the front chains
-against the fused step at every level 2..16, chained campaigns through
-make_step's default path at Polar(1024, 512) up to Polar(16384, 8192)
-against the JAX package's results, and timings, kernels A and B in turns
-with the frame kernels at the shape of the campaign on the block front
-(12). Then the decoder's
+Then the element-major front step: the whole-block front (the row-word
+kernel), decode+count (the tile kernel) and the middle-stages kernel
+against their plain versions, the first two also against the kernels
+they replaced (styles "thread" and "walk"), the front chains against the
+fused step at every level 2..16, chained campaigns through make_step's
+default path at Polar(1024, 512) up to Polar(16384, 8192) and the front
+path's own run (launches of the new kernels only) against the JAX
+package's results, and timings, rows 6 and 8 and kernels A and B in
+turns with the kernels they replaced (12). Then the decoder's
 scratch (shared-memory) and interpreter styles: the scratch whole-code
 kernel (the packed tile kernel at the shapes of its table) against the
 golden vectors, its plain version, the byte kernel it replaced (style
@@ -90,14 +92,21 @@ AVX2_REFERENCE_FPS_N1024 = 2_983_104.0  # bench.py:27, a CPU figure
 BATCH = 32768
 LARGE_M = 17          # Polar(131072, 65536), results/n131072_sys_int8.json
 LARGE_BATCH = 4096
+# phase 5: the batch of the campaign through make_step's default path at
+# Polar(1024, 512), one below ber.AUTO_BIG_BATCH, where that path is the
+# fused step (from AUTO_BIG_BATCH it is the front's whole branch)
+FUSED_PATH_BATCH = 4096
 SIGMAS = 4.0  # width of the statistical bounds
 # phase 12: (m, SNR range, step) of the chained campaigns against
-# results/n<N>_sys_int8.json. The front path's own run takes the largest
-# level of the whole-front branch (ber.FRONT_WHOLE_MAX_LEVEL) at BATCH, and
-# the campaigns whose make_step path is the block front launch the middle
-# kernel; the kernels are checked and timed at those shapes.
+# results/n<N>_sys_int8.json. The front path's own run takes make_step's
+# default path at Polar(2^FRONT_PATH_M, 2^(FRONT_PATH_M - 1)), B = BATCH,
+# the front's whole branch there (the row-word front, the tile
+# decode+count), with a result file; the campaigns whose make_step path is
+# the block front launch the middle kernel; the kernels are checked and
+# timed at those shapes.
 CAMPAIGNS = ((10, (-1.0, 0.0), 0.2), (12, (-1.6, -1.2), 0.2),
              (13, (-1.5, -1.2), 0.1), (14, (-1.6, -1.2), 0.2))
+FRONT_PATH_M = 8
 PAR_SHARDS = 8   # phase 15: mesh positions on the one card
 # phase 14: batches at which the scratch tile kernel is held against plain
 # and the byte kernel at every level, a batch of each class of its shape
@@ -1020,13 +1029,16 @@ def draw_phases(dev, card, ms) -> dict:
 def front_step_phases(dev, card, ms) -> dict:
     """Phase 12: the element-major front step. The whole-block front,
     decode+count and the middle-stages kernel against their plain
-    versions; the front chains against the fused step on the same seeds at
-    every level 2..16; the large-N step with either middle; chained
-    campaigns through make_step's default path at B = 4096 at
-    Polar(1024, 512) (the fused step), Polar(4096, 2048) and
-    Polar(8192, 4096) (the kernel draws) and Polar(16384, 8192) (the block
-    front) against the JAX package's results, and the whole-front path's
-    own run; timings at the shapes those runs launch."""
+    versions, the first two also against the kernels they replaced; the
+    front chains against the fused step on the same seeds at every level
+    2..16; the large-N step with either middle; chained campaigns through
+    make_step's default path at B = 4096 at Polar(1024, 512) (the fused
+    step) and Polar(4096, 2048) up to Polar(16384, 8192) (the block front)
+    against the JAX package's results, and the front path's own run
+    (make_step's default at Polar(256, 128), B = BATCH: the whole branch)
+    against its result file;
+    timings at the shapes those runs launch, rows 6 and 8 in turns with
+    the kernels they replaced."""
     import torch
 
     import polar_tpu_torch as pt
@@ -1056,12 +1068,15 @@ def front_step_phases(dev, card, ms) -> dict:
             raise AssertionError(f"{name} differs from its plain version: {what}")
 
     # -- the whole-block front and decode+count against their plain versions
+    # and the kernels they replaced (styles "thread" and "walk")
     params = snr_params(-1.5)
     # front_m at BATCH is the shape the front path's run below launches and
-    # the timings take
-    front_m = pt.ber.FRONT_WHOLE_MAX_LEVEL
-    for m, b in ((front_m, BATCH), (10, BATCH), (13, LARGE_BATCH),
-                 (14, LARGE_BATCH)):
+    # the timings take; m = 12 at LARGE_BATCH the other timed shape
+    front_m = FRONT_PATH_M
+    ties = torch.tensor((-128, -127, -1, 0, 1, 127), dtype=torch.int8,
+                        device=dev)
+    for m, b in ((front_m, BATCH), (10, BATCH), (12, LARGE_BATCH),
+                 (13, LARGE_BATCH), (14, LARGE_BATCH)):
         code = pt.make_code(m, rate=0.5)
         program = pt.compile_program(code)
         desc = f"Polar({code.N}, {code.K}) B={b}"
@@ -1073,19 +1088,30 @@ def front_step_phases(dev, card, ms) -> dict:
                                          device=dev))):
             got = step_kernel.front(code.frozen, params, **kw)
             want = step_kernel.front_plain(code.frozen, params, **kw)
-            check("front_whole", got, want, f"whole front {mode} {desc}, "
-                  f"{int((got[0] != want[0]).sum())} of {code.N * b} LLRs moved")
-            del kw, want
+            old = step_kernel.front(code.frozen, params, style="thread", **kw)
+            check("front_whole", got, want, f"whole front "
+                  f"({step_kernel.front_kernel_name(code.N)}) {mode} {desc}, "
+                  f"{int((got[0] != want[0]).sum())} of {code.N * b} LLRs "
+                  "moved")
+            check("front_whole", got, old, f"whole front {mode} {desc} == "
+                  "style thread")
+            del kw, want, old
         llr_full = torch.randint(-128, 128, (code.N, b), generator=gen,
                                  device=dev, dtype=torch.int8)
         assert bool((llr_full == -128).any()), "LLRs must include -128"
+        llr_ties = ties[torch.randint(0, len(ties), (code.N, b), generator=gen,
+                                      device=dev)]
         for label, (llr, cw) in (("the front's outputs", got),
-                                 ("full-range int8 LLRs", (llr_full, got[1]))):
+                                 ("full-range int8 LLRs", (llr_full, got[1])),
+                                 ("tie-heavy LLRs", (llr_ties, got[1]))):
             a = step_kernel.decode_count(program, code.frozen, llr, cw)
             w = step_kernel.decode_count_plain(program, code.frozen, llr, cw)
-            check("decode_count", [a], [w],
-                  f"decode+count {desc} on {label}: {a.tolist()}")
-        del got, llr_full
+            o = step_kernel.decode_count(program, code.frozen, llr, cw,
+                                         style="walk")
+            check("decode_count", [a, a], [w, o],
+                  f"decode+count ({decoder_kernel.ssa_kernel(code.N)}) {desc} "
+                  f"on {label}: {a.tolist()} == plain == style walk")
+        del got, llr_full, llr_ties
 
     # -- every front branch counts what the fused step counts, at every level
     for level in range(pt.ber.STEP_KERNEL_MIN_LEVEL,
@@ -1158,7 +1184,8 @@ def front_step_phases(dev, card, ms) -> dict:
               decoder_kernel.plain_calls, subtree_kernel.plain_calls,
               count_kernel.plain_calls, channel_kernel.plain_calls,
               encode_kernel.plain_calls)
-    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches)
+    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches,
+            step_kernel.earlier_launches)
     _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     results, front_launches = [], {}
@@ -1174,50 +1201,111 @@ def front_step_phases(dev, card, ms) -> dict:
                                           "count")}
     gen_front = torch.Generator()
     gen_front.manual_seed(10)
-    front_code = pt.make_code(pt.ber.FRONT_WHOLE_MAX_LEVEL, rate=0.5)
-    front_res = pt.run_point(
-        front_code, -1.0, gen=gen_front, batch=BATCH, steps_per_call=4,
-        max_frames=8 * BATCH, device=dev, step=pt.ber.chain_steps(
-            pt.ber.make_step_body(front_code, rng="kernel", device=dev)))
+    front_code = pt.make_code(front_m, rate=0.5)
+    front_path = (pt.ber._step_path(front_code, torch.int8, None, None,
+                                    "auto", dev, True, BATCH),
+                  pt.ber.front_branch(front_code, True))
+    if front_path != ("front", "whole"):
+        raise AssertionError(f"make_step's default at Polar({front_code.N}, "
+                             f"{front_code.K}) B={BATCH} is {front_path}, not "
+                             "the front's whole branch")
+    before = dict(step_kernel.launches)
+    front_res = pt.run_point(front_code, -1.0, gen=gen_front, batch=BATCH,
+                             steps_per_call=4, max_frames=8 * BATCH,
+                             device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the front path's own launches: the row-word front and the tile
+    # decode+count, a launch each a step
+    front_steps = front_res.frames // BATCH
+    front_run = {name: step_kernel.launches[name] - before[name]
+                 for name in ("front_whole", "decode_count")}
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
     old = {name: v for c in olds for name, v in c.items()}
     if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
             or max(old.values()) or not all(
-                min(front_launches[m].values()) > 0 for m in middle_ms)):
+                min(front_launches[m].values()) > 0 for m in middle_ms)
+            or set(front_run.values()) != {front_steps}):
         raise AssertionError(f"front-step campaigns launches {launched}, "
-                             f"plain calls {plain}, old-style launches {old}")
+                             f"plain calls {plain}, old-style launches {old}, "
+                             f"front path {front_run} in {front_steps} steps")
     phase("12", f"campaigns at m = {[m for m, _, _ in CAMPAIGNS]} through "
-          f"make_step (paths {paths}), and the front path (make_step_body "
-          f"rng='kernel', {pt.ber.front_branch(front_code, True)}) at "
+          f"make_step (paths {paths}), and the front path (make_step's "
+          f"default, {front_path}) at "
           f"Polar({front_code.N}, {front_code.K}) B={BATCH}: "
-          f"{front_res.frames} frames, BER {front_res.ber:.4g}; {wall:.1f} s; "
+          f"{front_res.frames} frames, BER {front_res.ber:.4g}, its launches "
+          f"{front_run} in {front_steps} steps; {wall:.1f} s; "
           f"launches {launched}; plain calls {plain}; old-style launches "
           f"{old}")
     for (m, _, _), res in zip(CAMPAIGNS, results):
         campaign_vs_reference("12", res, f"n{1 << m}_sys_int8.json",
                               1 << (m - 1), len(res.points))
+    campaign_vs_reference(
+        "12", pt.ber.CampaignResult(front_code.N, front_code.K, True,
+                                    [front_res]),
+        f"n{front_code.N}_sys_int8.json", front_code.K, 1)
     # the middle kernel's launches come from the campaigns on the block front
-    front_steps = sum(p.frames for (m, _, _), res in zip(CAMPAIGNS, results)
-                      if paths[m] == "front" for p in res.points) // LARGE_BATCH
+    middle_steps = sum(p.frames for (m, _, _), res in zip(CAMPAIGNS, results)
+                       if paths[m] == "front" for p in res.points) // LARGE_BATCH
 
     # -- timings at the shapes of the path
-    times, work = {}, {}
-    code = pt.make_code(front_m, rate=0.5)
-    program = pt.compile_program(code)
-    kw = dict(seeds=(9, 9), call=0, batch=BATCH, device=dev)
-    times["front_whole"] = (
-        ms(lambda: step_kernel.front(code.frozen, params, **kw), 20),
-        ms(lambda: step_kernel.front_plain(code.frozen, params, **kw), 3))
-    llr, cw = step_kernel.front(code.frozen, params, **kw)
-    times["decode_count"] = (
-        ms(lambda: step_kernel.decode_count(program, code.frozen, llr, cw), 20),
-        ms(lambda: step_kernel.decode_count_plain(program, code.frozen, llr,
-                                                  cw), 3))
-    work["front_whole"] = (2 * code.N * BATCH, front_ops(code.N, code.K) * BATCH)
-    work["decode_count"] = (2 * code.N * BATCH, decode_count_ops(code.N) * BATCH)
+    times, work, earlier = {}, {}, {}
+    by_shape = {"front_blocks_a": {}, "front_blocks_b": {}, "count": {},
+                "front_whole": {}, "decode_count": {}}
+    # the row-word front and the tile decode+count in turns with the kernels
+    # they replaced (native words), with the profiler's device time: at the
+    # front path's shape (its launches), at Polar(4096, 2048), B = 4096, and
+    # decode+count at Polar(1024, 512), B = BATCH
+    for m, b, names in ((front_m, BATCH, ("front_whole", "decode_count")),
+                        (12, LARGE_BATCH, ("front_whole", "decode_count")),
+                        (10, BATCH, ("decode_count",))):
+        code = pt.make_code(m, rate=0.5)
+        program = pt.compile_program(code)
+        where = f"Polar({code.N}, {code.K}) B={b}"
+        kw = dict(seeds=(9, 9), call=0, batch=b, device=dev)
+        llr, cw = step_kernel.front(code.frozen, params, **kw)
+        fns = {
+            "front_whole": (
+                lambda st: step_kernel.front(code.frozen, params, style=st,
+                                             **kw), ("rows", "thread"),
+                lambda: step_kernel.front_plain(code.frozen, params, **kw),
+                (2 * code.N * b, front_ops(code.N, code.K) * b)),
+            "decode_count": (
+                lambda st: step_kernel.decode_count(program, code.frozen, llr,
+                                                    cw, style=st),
+                ("ssa", "walk"),
+                lambda: step_kernel.decode_count_plain(program, code.frozen,
+                                                       llr, cw),
+                (2 * code.N * b, decode_count_ops(code.N) * b))}
+        main = (m, b) == (front_m, BATCH)
+        # decode+count's decode alone: the whole-code tile decoder on the
+        # same cw track (it also stores the message and the estimate)
+        decode_ms = ms(lambda: decoder_kernel.decode(program, code.frozen, llr,
+                                                     True), 20)
+        for name in names:
+            fn, (new_st, old_st), plain_fn, w = fns[name]
+            t = in_turns(lambda: fn(new_st), lambda: fn(old_st), 20)
+            dev_ms = [profiled_ms(lambda: fn(st), 20)
+                      for st in (new_st, old_st)]
+            by_shape[name][where] = {
+                **t, "plain_ms": ms(plain_fn, 2),
+                "launches": front_run[name] if main else 0,
+                "steps": front_steps if main else 0, "work": w}
+            phase("12", f"{name} at {where}: kernel {t['ms']:.4f} ms, "
+                  f"earlier (style {old_st}) {t['earlier_ms']:.4f} ms "
+                  f"({t['turns']}), plain "
+                  f"{by_shape[name][where]['plain_ms']:.3f} ms; device time "
+                  f"(profiler) {dev_ms[0]}, style {old_st} {dev_ms[1]}; "
+                  f"{by_shape[name][where]['launches']} launches on the "
+                  f"front path"
+                  + (f"; the cw-track tile decoder alone {decode_ms:.4f} ms"
+                     if name == "decode_count" else "") + f" ({card})")
+            if main:
+                times[name] = (t["ms"], by_shape[name][where]["plain_ms"])
+                earlier[name] = t["earlier_ms"]
+                work[name] = w
+        del llr, cw, fns
     mc = pt.make_code(middle_ms[0], rate=0.5)
     n, b = middle_x.shape
     times["front_middle"] = (
@@ -1229,7 +1317,6 @@ def front_step_phases(dev, card, ms) -> dict:
                             * n * b)
     # kernels A and B at the shape of each campaign on the block front, in
     # turns with the frame kernels they replaced, and their launches there
-    by_shape = {"front_blocks_a": {}, "front_blocks_b": {}, "count": {}}
     for m in middle_ms:
         fc = pt.make_code(m, rate=0.5)
         where = f"Polar({fc.N}, {fc.K}) B={LARGE_BATCH}"
@@ -1285,15 +1372,13 @@ def front_step_phases(dev, card, ms) -> dict:
               f"device time (profiler) {dev_ms[0]}, style bytes "
               f"{dev_ms[1]} ({card})")
         del args
-    for name, shape in (("front_whole", f"Polar({code.N}, {code.K}) B={BATCH}"),
-                        ("decode_count", f"Polar({code.N}, {code.K}) B={BATCH}"),
-                        ("front_middle", f"({n}, {b}) systematic, blocks "
-                                         f"{blk}/{blk}")):
-        t_k, t_p = times[name]
-        phase("12", f"{name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
-              f"{shape} ({card})")
+    t_k, t_p = times["front_middle"]
+    phase("12", f"front_middle: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
+          f"({n}, {b}) systematic, blocks {blk}/{blk} ({card})")
     return {"err": err, "times": times, "work": work, "by_shape": by_shape,
-            "steps": {"front_middle": front_steps},
+            "earlier": earlier,
+            "steps": {"front_middle": middle_steps,
+                      "front_whole": front_steps, "decode_count": front_steps},
             "launched": {name: launched[name] for name in new}}
 
 
@@ -2320,18 +2405,19 @@ def main() -> int:
           f"{res.peak_mbps:.1f} info Mbit/s")
     campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
     # the fused step's main path: a campaign through make_step's default
-    # path at this code and batch, which ber.AUTO_STEP_PATH sends to the
-    # fused step (the tile step); its launches are row 5's
+    # path at this code and FUSED_PATH_BATCH, which ber.AUTO_STEP_PATH
+    # sends to the fused step (the tile step); its launches are row 5's
+    b_f = FUSED_PATH_BATCH
     path = pt.ber._step_path(code, torch.int8, None, None, "auto", dev,
-                             True, BATCH)
+                             True, b_f)
     if path != "fused":
         raise AssertionError(f"make_step's default at Polar({n}, {k}) "
-                             f"B={BATCH} is {path!r}, not the fused step")
+                             f"B={b_f} is {path!r}, not the fused step")
     _reset(step_kernel.launches, step_kernel.plain_calls)
     t0 = time.perf_counter()
-    res = pt.run_campaign(code, device=dev, seed=8, batch=BATCH,
+    res = pt.run_campaign(code, device=dev, seed=8, batch=b_f,
                           snr_range=(-1.0, 0.0), snr_step=0.2,
-                          max_frames_per_point=2 * BATCH,
+                          max_frames_per_point=4 * b_f,
                           measure_throughput=False)
     wall = time.perf_counter() - t0
     step_launches = dict(step_kernel.launches)
@@ -2341,7 +2427,7 @@ def main() -> int:
                              f" plain calls {step_kernel.plain_calls}")
     launched["mc_step"] = step_launches["mc_step"]
     phase("5", f"campaign through make_step's default path at "
-          f"Polar({n}, {k}) B={BATCH}: {len(res.points)} "
+          f"Polar({n}, {k}) B={b_f}: {len(res.points)} "
           f"points in {wall:.1f} s; step launches {step_launches}; plain calls "
           f"{step_kernel.plain_calls}")
     campaign_vs_reference("5", res, "n1024_sys_int8.json", k, len(res.points))
@@ -2428,7 +2514,7 @@ def main() -> int:
                          "polar_tpu/ops/pallas/channel_kernel.py:60"),
         "block_encoder": ("polar_tpu_torch/csrc/encode.cu",
                           "polar_tpu/ops/pallas/encode_kernel.py:52"),
-        "front_whole": ("polar_tpu_torch/csrc/step.cu",
+        "front_whole": ("polar_tpu_torch/csrc/front.cu",
                         "polar_tpu/ops/pallas/step_kernel.py:611"),
         "decode_count": ("polar_tpu_torch/csrc/step.cu",
                          "polar_tpu/ops/pallas/step_kernel.py:453"),

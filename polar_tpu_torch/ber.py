@@ -162,10 +162,31 @@ STEP_KERNEL_MAX_LEVEL = 16
 # The draws around the interpreter led every plain cell, by 1.8-2.4x over
 # block-hybrid (m = 16 from the front: 197.8k / 233.8k against 91.3k /
 # 108.5k; m = 13 2.077M at B = 32768 against 1.185M).
+# With the row-word whole front and the tile decode+count as the front's
+# whole branch (step_ab --levels 6-13 --systematic-only --batches
+# 4096,32768 --arms fused,draws,whole+count,block+count,block+whole,
+# block+interp; same card, 700.00 W; the mean of two readings, frames/s at
+# B = 4096 / 32768) the front took these systematic cells, by the same
+# rule, FRONT_WHOLE_MAX_LEVEL moving to 11 (below):
+# - m = 8 from AUTO_BIG_BATCH: whole+count 167.4M against the fused step's
+#   162.9M (2.7 %; the front's two readings 182.5M and 152.3M);
+# - m = 9, 10 from AUTO_BIG_BATCH: whole+count 96.06M, 36.67M against the
+#   fused step's 72.58M, 22.26M;
+# - m = 11: whole+count 11.34M / 11.91M against the fused step's 4.41M /
+#   6.50M;
+# - m = 12 from the draws: the front (block-whole) 3.66M / 3.76M against
+#   2.22M / 2.42M;
+# and left m = 6..10 below AUTO_BIG_BATCH and m = 6, 7 from it with the
+# fused step (m = 10: 15.83M against whole+count's 14.20M; m = 7 at 32768:
+# 245.9M against 185.1M). block+interp led at m = 11 from AUTO_BIG_BATCH
+# (15.63M) and at m = 12 (4.71M / 7.67M), but front_branch gives it only
+# where decode.auto's table names the interpreter (m >= 13).
 AUTO_BIG_BATCH = 16384
 AUTO_STEP_PATH = {
     **{(m, s): ("fused", "fused") for m in range(2, 12) for s in (True, False)},
-    (12, True): ("draws", "draws"), (12, False): ("fused", "draws"),
+    **{(m, True): ("fused", "front") for m in (8, 9, 10)},
+    (11, True): ("front", "front"), (12, True): ("front", "front"),
+    (12, False): ("fused", "draws"),
     **{(m, True): ("front", "front") for m in (13, 14, 15, 16)},
     **{(m, False): ("draws", "draws") for m in range(13, 18)}}
 
@@ -175,9 +196,9 @@ AUTO_STEP_PATH = {
 # best front at m = 6..9 in the same A/B (frames/s at B = 4096 / 32768;
 # m = 9: 4.56M / 24.3M against block + whole-code 4.35M / 23.0M) until the
 # tile kernel took m = 9 (block + whole-code 6.84M / 35.33M against 4.49M /
-# 24.18M); above it the whole front's per-thread transforms slow down
-# (11.0 ms at m = 12 against the block front's 1.15 ms, B = 4096). Every
-# other code takes the
+# 24.18M); above it the whole front's per-thread transforms slowed down
+# (11.0 ms at m = 12 against the block front's 1.15 ms, B = 4096; the
+# row-word whole front reads 0.12 ms there). Every other code takes the
 # block front, then the whole-code decoder below
 # decode.auto.HYBRID_MIN_LEVEL and the hybrid from it (the best front arm
 # at every level, both modes: m = 10 systematic 1.98M / 6.53M against
@@ -195,9 +216,16 @@ AUTO_STEP_PATH = {
 # block-whole at m = 13 (2.087M / 3.138M against 1.064M / 1.081M frames/s
 # at B = 4096 / 32768) and block-hybrid at m = 14..17 (m = 14 1.024M /
 # 1.465M against 351.1k / 581.0k; m = 17 118.4k against 39.3k; at
-# B = 16384 177.9k against 52.8k), see AUTO_STEP_PATH; m = 9..12 and
-# m >= 18 were not measured with it.
-FRONT_WHOLE_MAX_LEVEL = 8
+# B = 16384 177.9k against 52.8k), see AUTO_STEP_PATH; m >= 18 was not
+# measured with it. With the row-word whole front and the tile
+# decode+count (PERF.md) the whole branch led the other front
+# branches at m = 9, 10 at both batches (m = 9: 19.14M / 96.06M against
+# block-whole's 17.30M / 74.46M; m = 10: 14.20M / 36.67M against 9.68M /
+# 33.56M) and at m = 11 below AUTO_BIG_BATCH (11.34M against 10.71M), tied
+# with block-whole from it (11.91M against 11.93M), and trailed block-whole
+# at m = 12 (3.36M / 3.40M against 3.66M / 3.76M), so the threshold moved
+# from 8 to 11 (step_ab --levels 6-13, systematic; same card).
+FRONT_WHOLE_MAX_LEVEL = 11
 FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid",
                   "block-interp")
 SYSTEMATIC_BRANCHES = ("whole", "block-count", "block-interp")

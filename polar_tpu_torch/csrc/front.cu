@@ -1,6 +1,7 @@
 // Block-structured Monte-Carlo front for large N: the message draw and the
 // channel of the step, as two row-block kernels around the middle's top
-// butterfly stages (ops/cuda/front_kernel.py).
+// butterfly stages (ops/cuda/front_kernel.py); and the whole front of a
+// code in one kernel on the same row words (ops/cuda/step_kernel.py:front).
 //
 // Replaces polar_tpu/ops/pallas/step_kernel.py:make_pallas_front_blocks
 // (:831):
@@ -57,6 +58,25 @@
 // loads (a lane keeps kLoads in flight) and the draw do not overlap within
 // a CTA. channel.cuh's instruction sequence is kept as it is (-fmad=false),
 // so the LLRs equal the fused step's.
+//
+// The whole front (front_rows_kernel) replaces
+// polar_tpu/ops/pallas/step_kernel.py:make_pallas_front (:632),
+// _front_kernel_native (:611) / _front_kernel_inject (:623) over _front
+// (:225): the systematic front of the fused step for a whole code, (llr, cw)
+// out, on kernel A's and kernel B's machinery with the middle on chip. A
+// CTA owns one 32-frame column and all N rows of it as N row words in
+// shared memory (4N bytes), its G warps (the wrapper's choice, 1 to 8)
+// splitting every phase's rows: kernel A's chunked draw with its all-frozen
+// skip (or the injected symbols' signs, frozen words then 0), the first
+// transform's log2 N XOR stages, the refreeze, the second transform, the cw
+// rows out, then kernel B's channel over pair rows j < N/2 (row j n0, row
+// N/2 + j n1, each Box-Muller pair once) with the same channel.cuh
+// instructions, so the LLRs equal the fused step's. Where words move, a
+// chunk's eight LLR rows go through 256 bytes of staging a warp so that a
+// lane stores four frames as one 32-bit word. It reaches N = 2^15 (the
+// wrapper's FRONT_ROWS_MAX_LEVEL); bound like kernel B by issued
+// instructions (the draws, Box-Muller, quantize), with one byte of cw and
+// one of LLR out an element and nothing read back.
 //
 // style "frame" (front_msg_kernel, front_chan_kernel): the kernels these
 // replaced, kept by name so that the two can be timed in turns: one thread
@@ -207,18 +227,122 @@ __device__ __forceinline__ uint32_t frozen_nibble(const uint8_t* frozen,
   return (m | (m >> 7) | (m >> 14) | (m >> 21)) & 0xFu;
 }
 
+// Native mode's message row words of rows [r0, r0 + blk) into sm[0, blk):
+// rows in chunks of c = min(4, blk), a warp a chunk, one Philox block each
+// (words N + r .. N + r + c - 1 lie in one block) unless all c rows are
+// frozen; lane l votes for frame f0 + l (0 unless `live`). WIDE (blk >= 4):
+// c = 4, a chunk's words are one whole block; the warp's chunks k = 0, 1,
+// ... start at rows 4 warp + 4 nwarps k, taken 32 at a time: lane l reads
+// chunk k + l's frozen nibble and zeroes its rows if all four are frozen;
+// the live ones go two at a time, their two Philox blocks independent.
+template <bool WIDE>
+__device__ __forceinline__ void draw_msg_rows(const polar::PhiloxFrame& ph,
+                                              const uint8_t* __restrict__ frozen,
+                                              int n, int r0, int blk,
+                                              bool live, uint32_t* sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if (WIDE) {
+    const int stride = 4 * nwarps;
+    for (int ib = 4 * warp; ib < blk; ib += 32 * stride) {
+      const int ii = ib + stride * lane;
+      const uint32_t nib = ii < blk ? frozen_nibble(frozen, r0 + ii) : 0xFu;
+      if (ii < blk && nib == 0xFu)
+        *reinterpret_cast<uint4*>(sm + ii) = make_uint4(0u, 0u, 0u, 0u);
+      uint32_t todo = __ballot_sync(kFull, nib != 0xFu);
+      while (todo) {
+        const int k0 = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int k1 = todo ? __ffs(todo) - 1 : k0;
+        todo &= todo - 1;
+        const int i0 = ib + stride * k0, i1 = ib + stride * k1;
+        const uint32_t fz0 = __shfl_sync(kFull, nib, k0);
+        const uint32_t fz1 = __shfl_sync(kFull, nib, k1);
+        const uint4 v0 = ph.block((uint32_t)((n + r0 + i0) >> 2));
+        const uint4 v1 = ph.block((uint32_t)((n + r0 + i1) >> 2));
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint32_t b0 = __ballot_sync(
+              kFull, live && !((fz0 >> t) & 1u) && (pick(v0, t) & 1u));
+          const uint32_t b1 = __ballot_sync(
+              kFull, live && !((fz1 >> t) & 1u) && (pick(v1, t) & 1u));
+          if (lane == t) {
+            sm[i0 + t] = b0;
+            sm[i1 + t] = b1;
+          }
+        }
+      }
+    }
+  } else {
+    const int c = min(4, blk);
+    for (int i0 = c * warp; i0 < blk; i0 += c * nwarps) {
+      uint32_t fz = 0u;  // bit t: row r0 + i0 + t frozen
+      for (int t = 0; t < c; ++t)
+        fz |= (uint32_t)(__ldg(frozen + r0 + i0 + t) != 0) << t;
+      if (fz == (1u << c) - 1u) {  // no info row: no Philox block
+        if (lane < c) sm[i0 + lane] = 0u;
+        continue;
+      }
+      const int w = n + r0 + i0;
+      const uint4 v = ph.block((uint32_t)(w >> 2));
+      for (int t = 0; t < c; ++t) {
+        const uint32_t bal = __ballot_sync(
+            kFull, live && !((fz >> t) & 1u) && (pick(v, (w & 3) + t) & 1u));
+        if (lane == t) sm[i0 + t] = bal;
+      }
+    }
+  }
+}
+
+// One frame's LLRs at pair rows j + t (q0[t], the n0 of pair j + t) and
+// N/2 + j + t (q1[t], its n1), t < c <= 4: the radius block (words j ..)
+// and the angle block (words N/2 + j ..), one block where both lie in it
+// (N <= 4), then c Box-Muller pairs, each computed once; or, where nz (the
+// frame's column of the injected normals) is set, its rows j + t and
+// N/2 + j + t. lo, hi: the row words of rows j and N/2 + j on, bit `lane`
+// the frame's codeword sign. WIDE (c = 4, N/2 >= 4): the chunk's radius
+// and angle words are whole blocks.
+template <bool WIDE>
+__device__ __forceinline__ void pair_llrs(const polar::PhiloxFrame& ph,
+                                          int h, int j, int c,
+                                          const float* nz, long long b,
+                                          const uint32_t* lo,
+                                          const uint32_t* hi, int lane,
+                                          float sigma, float scale,
+                                          int8_t (&q0)[4], int8_t (&q1)[4]) {
+  uint4 vr = make_uint4(0u, 0u, 0u, 0u), va = vr;
+  if (nz == nullptr) {
+    vr = ph.block((uint32_t)(j >> 2));
+    va = !WIDE && (h + j) >> 2 == j >> 2 ? vr
+                                         : ph.block((uint32_t)((h + j) >> 2));
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= c) break;
+    float n0, n1;
+    if (nz != nullptr) {
+      n0 = nz[(long long)(j + t) * b];
+      n1 = nz[(long long)(h + j + t) * b];
+    } else {
+      polar::box_muller(pick(vr, WIDE ? t : (j + t) & 3),
+                        pick(va, WIDE ? t : (h + j + t) & 3), &n0, &n1);
+    }
+    const float c0 = (lo[t] >> lane) & 1u ? -1.0f : 1.0f;
+    const float c1 = (hi[t] >> lane) & 1u ? -1.0f : 1.0f;
+    q0[t] = polar::quantize(c0, n0, sigma, scale);
+    q1[t] = polar::quantize(c1, n1, sigma, scale);
+  }
+}
+
 // Kernel A: grid (ceil(batch / 32), n / blk), S = blk words of shared
-// memory. Rows in chunks of c = min(4, blk), a warp a chunk: one Philox
-// block (words N + r .. N + r + c - 1 lie in one block) unless all c rows
-// are frozen. WIDE (blk >= 4): c = 4, a chunk's words are one whole block.
+// memory; the draw is draw_msg_rows's. WIDE: blk >= 4.
 template <bool WIDE>
 __global__ void __launch_bounds__(256) front_msg_rows_kernel(
     const uint8_t* __restrict__ frozen, int n, int batch, int blk,
     int butterfly, const int8_t* __restrict__ msg_in, uint32_t seed0,
     uint32_t seed1, uint32_t call, int8_t* out, int words) {
   extern __shared__ uint32_t sm[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int r0 = blockIdx.y * blk;
   const Rows rows{r0, 0, 0};
   if (msg_in != nullptr) {
@@ -228,63 +352,9 @@ __global__ void __launch_bounds__(256) front_msg_rows_kernel(
       if (__ldg(frozen + r0 + l)) sm[l] = 0u;
   } else {
     const int f = blockIdx.x * 32 + lane;
-    const bool live = f < batch;
     polar::PhiloxFrame ph(make_uint2(seed0, seed1));
     ph.start((uint32_t)f, call);
-    if (WIDE) {
-      // the warp's chunks k = 0, 1, ... start at rows 4 warp + 4 nwarps k,
-      // taken 32 at a time: lane l reads chunk k + l's frozen nibble and
-      // zeroes its rows if all four are frozen; the live ones go two at a
-      // time, their two Philox blocks independent
-      const int stride = 4 * nwarps;
-      for (int ib = 4 * warp; ib < blk; ib += 32 * stride) {
-        const int ii = ib + stride * lane;
-        const uint32_t nib = ii < blk ? frozen_nibble(frozen, r0 + ii) : 0xFu;
-        if (ii < blk && nib == 0xFu)
-          *reinterpret_cast<uint4*>(sm + ii) = make_uint4(0u, 0u, 0u, 0u);
-        uint32_t todo = __ballot_sync(kFull, nib != 0xFu);
-        while (todo) {
-          const int k0 = __ffs(todo) - 1;
-          todo &= todo - 1;
-          const int k1 = todo ? __ffs(todo) - 1 : k0;
-          todo &= todo - 1;
-          const int i0 = ib + stride * k0, i1 = ib + stride * k1;
-          const uint32_t fz0 = __shfl_sync(kFull, nib, k0);
-          const uint32_t fz1 = __shfl_sync(kFull, nib, k1);
-          const uint4 v0 = ph.block((uint32_t)((n + r0 + i0) >> 2));
-          const uint4 v1 = ph.block((uint32_t)((n + r0 + i1) >> 2));
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const uint32_t b0 = __ballot_sync(
-                kFull, live && !((fz0 >> t) & 1u) && (pick(v0, t) & 1u));
-            const uint32_t b1 = __ballot_sync(
-                kFull, live && !((fz1 >> t) & 1u) && (pick(v1, t) & 1u));
-            if (lane == t) {
-              sm[i0 + t] = b0;
-              sm[i1 + t] = b1;
-            }
-          }
-        }
-      }
-    } else {
-      const int c = min(4, blk);
-      for (int i0 = c * warp; i0 < blk; i0 += c * nwarps) {
-        uint32_t fz = 0u;  // bit t: row r0 + i0 + t frozen
-        for (int t = 0; t < c; ++t)
-          fz |= (uint32_t)(__ldg(frozen + r0 + i0 + t) != 0) << t;
-        if (fz == (1u << c) - 1u) {  // no info row: no Philox block
-          if (lane < c) sm[i0 + lane] = 0u;
-          continue;
-        }
-        const int w = n + r0 + i0;
-        const uint4 v = ph.block((uint32_t)(w >> 2));
-        for (int t = 0; t < c; ++t) {
-          const uint32_t bal = __ballot_sync(
-              kFull, live && !((fz >> t) & 1u) && (pick(v, (w & 3) + t) & 1u));
-          if (lane == t) sm[i0 + t] = bal;
-        }
-      }
-    }
+    draw_msg_rows<WIDE>(ph, frozen, n, r0, blk, f < batch, sm);
   }
   if (butterfly) {
     xor_stages(sm, blk, blk);
@@ -297,10 +367,7 @@ __global__ void __launch_bounds__(256) front_msg_rows_kernel(
 // Kernel B: grid (ceil(batch / 32), N / S) with P = min(blk, N/2) pair rows
 // a CTA and S = 2 P words of shared memory: pair rows [p P, p P + P) and
 // the same rows + N/2. Pair rows in chunks of c = min(4, P), a warp a
-// chunk: the radius block (words j ..) and the angle block (words N/2 + j
-// ..), one block where both lie in it (N <= 4), then c Box-Muller pairs,
-// each giving row j's normal (n0) and row N/2 + j's (n1). WIDE (P >= 4):
-// c = 4, the chunk's radius and angle words are whole blocks.
+// chunk, each chunk's LLRs pair_llrs's. WIDE: P >= 4.
 template <bool WIDE>
 __global__ void __launch_bounds__(256) front_chan_rows_kernel(
     int n, int batch, int blk, float sigma, float scale,
@@ -322,32 +389,94 @@ __global__ void __launch_bounds__(256) front_chan_rows_kernel(
   const long long b = batch;
   polar::PhiloxFrame ph(make_uint2(seed0, seed1));
   ph.start((uint32_t)f, call);
+  const float* nz = normals_in == nullptr ? nullptr : normals_in + f;
   const int c = WIDE ? 4 : min(4, P);
   for (int i0 = c * warp; i0 < P; i0 += c * nwarps) {
     const int j = j0 + i0;
-    uint4 vr = make_uint4(0u, 0u, 0u, 0u), va = vr;
-    if (normals_in == nullptr) {
-      vr = ph.block((uint32_t)(j >> 2));
-      va = !WIDE && (h + j) >> 2 == j >> 2
-               ? vr
-               : ph.block((uint32_t)((h + j) >> 2));
-    }
+    int8_t q0[4], q1[4];
+    pair_llrs<WIDE>(ph, h, j, c, nz, b, sm + i0, sm + P + i0, lane, sigma,
+                    scale, q0, q1);
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       if (t >= c) break;
-      float n0, n1;
-      if (normals_in != nullptr) {
-        n0 = normals_in[(long long)(j + t) * b + f];
-        n1 = normals_in[(long long)(h + j + t) * b + f];
-      } else {
-        polar::box_muller(pick(vr, WIDE ? t : (j + t) & 3),
-                          pick(va, WIDE ? t : (h + j + t) & 3), &n0, &n1);
+      llr[(long long)(j + t) * b + f] = q0[t];
+      llr[(long long)(h + j + t) * b + f] = q1[t];
+    }
+  }
+}
+
+// The whole systematic front (front_rows_kernel): grid ceil(batch / 32),
+// a CTA of G warps owns one 32-frame column and all N rows of it, N row
+// words in shared memory, then kStage words of LLR staging a warp.
+constexpr int kStage = 64;  // 8 rows of 32 LLR bytes
+
+template <bool WIDE>
+__global__ void __launch_bounds__(256) front_rows_kernel(
+    const uint8_t* __restrict__ frozen, int n, int batch, float sigma,
+    float scale, const int8_t* __restrict__ msg_in,
+    const float* __restrict__ normals_in, uint32_t seed0, uint32_t seed1,
+    uint32_t call, int8_t* llr, int8_t* cw, int words) {
+  extern __shared__ uint32_t sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const Rows rows{0, 0, 0};
+  const int f0 = blockIdx.x * 32, f = f0 + lane;
+  const bool live = f < batch;
+  polar::PhiloxFrame ph(make_uint2(seed0, seed1));
+  ph.start((uint32_t)f, call);
+  // 1. u0's row words: the message (a Philox word's low bit or the
+  // injected symbol's sign) on the info rows, 0 (+1) on the frozen ones
+  if (msg_in != nullptr) {
+    load_rows(msg_in, rows, n, batch, words, sm);
+    __syncthreads();
+    for (int l = threadIdx.x; l < n; l += blockDim.x)
+      if (__ldg(frozen + l)) sm[l] = 0u;
+  } else {
+    draw_msg_rows<WIDE>(ph, frozen, n, 0, n, live, sm);
+  }
+  // 2. cw = T(refreeze(T(u0))), every stage an XOR of row words on chip
+  xor_stages(sm, n, n);
+  for (int l = threadIdx.x; l < n; l += blockDim.x)
+    if (__ldg(frozen + l)) sm[l] = 0u;
+  xor_stages(sm, n, n);
+  store_rows(cw, rows, n, batch, words, sm);
+  // 3. the LLRs: pair j's Box-Muller gives rows j and N/2 + j. With word
+  // stores a chunk's 2c rows go through the warp's staging rows (t and
+  // 4 + t), then a lane moves four frames of a row as one 32-bit word
+  const long long b = batch;
+  const int h = n >> 1;
+  const int c = WIDE ? 4 : min(4, h);
+  const float* nz = normals_in == nullptr || !live ? nullptr : normals_in + f;
+  int8_t* stage = reinterpret_cast<int8_t*>(sm + n + kStage * warp);
+  const int i = lane >> 3, q = lane & 7;
+  const bool quad = f0 + 4 * q < batch;
+  for (int j = c * warp; j < h; j += c * nwarps) {
+    int8_t q0[4], q1[4];
+    pair_llrs<WIDE>(ph, h, j, c, nz, b, sm + j, sm + h + j, lane, sigma,
+                    scale, q0, q1);
+    if (words) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (t >= c) break;
+        stage[32 * t + lane] = q0[t];
+        stage[32 * (4 + t) + lane] = q1[t];
       }
-      const float c0 = (sm[i0 + t] >> lane) & 1u ? -1.0f : 1.0f;
-      const float c1 = (sm[P + i0 + t] >> lane) & 1u ? -1.0f : 1.0f;
-      llr[(long long)(j + t) * b + f] = polar::quantize(c0, n0, sigma, scale);
-      llr[(long long)(h + j + t) * b + f] =
-          polar::quantize(c1, n1, sigma, scale);
+      __syncwarp();
+      if (i < c && quad) {
+        const uint32_t* sw = reinterpret_cast<const uint32_t*>(stage);
+        *reinterpret_cast<uint32_t*>(llr + (j + i) * b + f0 + 4 * q) =
+            sw[8 * i + q];
+        *reinterpret_cast<uint32_t*>(llr + (h + j + i) * b + f0 + 4 * q) =
+            sw[8 * (4 + i) + q];
+      }
+      __syncwarp();
+    } else if (live) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (t >= c) break;
+        llr[(j + t) * b + f] = q0[t];
+        llr[(h + j + t) * b + f] = q1[t];
+      }
     }
   }
 }
@@ -521,11 +650,12 @@ int launch_middle(const void* in, void* out, const void* frz, int n,
   return (int)cudaGetLastError();
 }
 
-// Shared memory of the row-word kernels: S words a CTA, S at most
-// 2^15 (128 KB; above 48 KB by the opt-in attribute).
+// Shared memory of the row-word kernels: S row words a CTA, S at most
+// 2^15 (128 KB), and `extra` words more (the whole front's LLR staging);
+// above 48 KB by the opt-in attribute.
 template <typename K>
-int rows_smem(K kernel, int S) {
-  const int bytes = 4 * S;
+int rows_smem(K kernel, int S, int extra = 0) {
+  const int bytes = 4 * (S + extra);
   if (S > (1 << 15)) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -585,6 +715,33 @@ extern "C" int polar_front_chan_rows(int n, int batch, int blk, float sigma,
   kernel<<<grid, rows_threads(S), 4 * S, (cudaStream_t)stream>>>(
       n, batch, blk, sigma, scale, (const int8_t*)y, (const float*)normals,
       seed0, seed1, call, (int8_t*)llr, (int8_t*)cw, words);
+  return (int)cudaGetLastError();
+}
+
+// The whole systematic front (front_rows_kernel) on `stream`: llr and cw
+// (n, batch) int8 out, n >= 2. Inject mode: msg (n, batch) int8 +-1 and
+// normals (n, batch) float32; native mode: both null, words from Philox
+// keyed by (seed0, seed1) with counter word 2 = call. warps (1..8) share a
+// CTA's 32 frames; 4 (n + 64 warps) bytes of shared memory. words != 0:
+// batch % 4 == 0 and msg, llr, cw are 4-byte aligned. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for n above 2^15 or warps
+// out of range.
+extern "C" int polar_front_rows(const void* frozen, int n, int batch,
+                                float sigma, float scale, const void* msg,
+                                const void* normals, unsigned int seed0,
+                                unsigned int seed1, unsigned int call,
+                                void* llr, void* cw, int warps, int words,
+                                void* stream) {
+  if (warps < 1 || warps > 8) return (int)cudaErrorInvalidValue;
+  const auto kernel = n >= 8 ? front_rows_kernel<true>
+                             : front_rows_kernel<false>;
+  const int err = rows_smem(kernel, n, kStage * warps);
+  if (err) return err;
+  kernel<<<(batch + 31) / 32, 32 * warps, 4 * (n + kStage * warps),
+           (cudaStream_t)stream>>>(
+      (const uint8_t*)frozen, n, batch, sigma, scale, (const int8_t*)msg,
+      (const float*)normals, seed0, seed1, call, (int8_t*)llr, (int8_t*)cw,
+      words);
   return (int)cudaGetLastError();
 }
 

@@ -10,14 +10,16 @@
 //   mc_step_kernel — the same function one thread a frame over the two
 //     halves in mc.cuh (the walk): the levels above the tile's, and by name
 //     (style="walk") for the A/B;
-//   front_whole_kernel — the front half alone, systematic: (llr, cw) out.
-//     Replaces step_kernel.py:make_pallas_front (:632),
-//     _front_kernel_native (:611) / _front_kernel_inject (:623) over _front
-//     (:225).
-//   decode_count_kernel — the back half alone, systematic: decode the LLRs
-//     on the codeword-estimate track and count against cw. Replaces
-//     step_kernel.py:make_pallas_decode_count (:475), _decode_count_kernel
-//     (:453).
+//   decode_count_tile_kernel — the back half alone, systematic, on the
+//     tile core: decode the LLRs on the codeword-estimate track and count
+//     against cw. Replaces step_kernel.py:make_pallas_decode_count (:475),
+//     _decode_count_kernel (:453), up to the wrapper's WHOLE_MAX_LEVEL;
+//   decode_count_kernel — the same one thread a frame (the walk): the
+//     levels above the tile's, and by name (style="walk");
+//   front_whole_kernel — the front half alone, systematic, one thread a
+//     frame: (llr, cw) out. Replaces step_kernel.py:make_pallas_front
+//     (:632) above the row-word kernel's level (front.cu:front_rows_kernel,
+//     the default) and by name (style="thread").
 //
 // Math as in testbench.cc:125-192:
 //   1. u0 = frozen ? +1 : message symbol;
@@ -57,6 +59,21 @@
 // Philox and Box-Muller work; above the tile's level limit the step runs
 // mc_step_kernel.
 //
+// Decode+count on the tile core. A warp decodes a tile of 8 frames with
+// Tile::decode on the cw track, its root rows read from llr in device
+// memory as the whole-code tile decoder reads them, soft, hard and cw
+// stacks on chip (3 n bytes a frame, so it reaches level 13). The epilogue
+// is the tile step's: at each info row the cw stack against the
+// transmitted cw as packed byte masks of the live frames, __popc for the bit
+// errors and the decoded zeros, the frame errors by a per-byte OR across
+// the lanes. The channel counters, which the tile step counts where it
+// makes each LLR, come from the inputs: a pass over the n rows of llr and cw
+// in packed words (zero bytes by __vcmpeq4, sign flips where bit 7 of
+// llr ^ cw is set in a byte whose LLR is not 0), the root rows by then in
+// L2 from the decode. Counters per block, no atomics. What bounds it: the
+// tile core's op latency (as the whole-code tile decoder on the cw track)
+// and one more read of llr and cw.
+//
 // What bounds the other kernels on the card: like the walk, the latency of
 // per-row byte accesses to the frame's columns in device memory; the front
 // half adds
@@ -78,6 +95,59 @@ namespace {
 template <bool SYS>
 using StepTile = polar::simd::Tile<polar::simd::kTileWR,
                                    polar::simd::kTileVW, SYS, true, !SYS>;
+
+// Byte masks of the tile's frames in the batch: 0xFF in each byte of a
+// lane's VW words whose frame is live.
+template <typename T>
+__device__ __forceinline__ void live_masks(const T& t, int batch,
+                                           uint32_t (&live)[polar::simd::kTileVW]) {
+#pragma unroll
+  for (int v = 0; v < polar::simd::kTileVW; ++v) {
+    live[v] = 0;
+    for (int j = 0; j < 4; ++j)
+      if (t.f + 4 * v + j < batch) live[v] |= 0xFFu << (8 * j);
+  }
+}
+
+// The tile step's epilogue, shared with decode+count: at info row info[m]
+// (the m-th message row) the estimate (the cw stack, or message row m of
+// t.mesg) against row info[m] of ref, as byte masks of the live frames:
+// cnt[0] bit errors and cnt[2] decoded zeros by __popc of the byte flags,
+// cnt[1] frame errors by a per-byte OR of the error masks across the lanes
+// that hold a frame's word.
+template <bool CW, typename T>
+__device__ __forceinline__ void count_info_rows(
+    const T& t, const int* __restrict__ info, int k, const int8_t* ref,
+    const uint32_t (&live)[polar::simd::kTileVW], int* cnt) {
+  using V = typename T::V;
+  namespace s = polar::simd;
+  constexpr int kVW = polar::simd::kTileVW;
+  uint32_t frame_err[kVW];
+#pragma unroll
+  for (int v = 0; v < kVW; ++v) frame_err[v] = 0;
+  for (int m = t.r0; m < k; m += T::kPass) {
+    const int i = __ldg(info + m);
+    const V hat = CW ? t.at(t.cw, i) : t.load(t.mesg, m);
+    const V want = t.load(ref, i);
+#pragma unroll
+    for (int v = 0; v < kVW; ++v) {
+      const uint32_t e = __vcmpne4(hat.x[v], want.x[v]) & live[v];
+      const uint32_t z = __vcmpeq4(hat.x[v], 0u) & live[v];
+      cnt[0] += __popc(e & s::kOnes);
+      cnt[2] += __popc(z & s::kOnes);
+      frame_err[v] |= e;
+    }
+  }
+  for (int o = T::kLanesRow; o < 32; o <<= 1) {
+#pragma unroll
+    for (int v = 0; v < kVW; ++v)
+      frame_err[v] |= __shfl_xor_sync(0xFFFFFFFFu, frame_err[v], o);
+  }
+  if (t.r0 == 0) {
+#pragma unroll
+    for (int v = 0; v < kVW; ++v) cnt[1] += __popc(frame_err[v] & s::kOnes);
+  }
+}
 
 __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
                                const uint8_t* __restrict__ frozen, int n,
@@ -128,7 +198,6 @@ __global__ void tile_step_kernel(
     uint32_t call, int8_t* tx, int8_t* mesg, int aligned, int* out) {
   extern __shared__ uint32_t smem[];
   using T = StepTile<SYS>;
-  using V = typename T::V;
   namespace s = polar::simd;
   constexpr int kVW = polar::simd::kTileVW;
   int cnt[polar::kCounters] = {0, 0, 0, 0, 0};
@@ -207,40 +276,50 @@ __global__ void tile_step_kernel(
     __syncwarp();
     // 4. decode (every op ends with a warp barrier)
     t.decode(prog, n);
-    // 5. at info row info[m] (the m-th message row): the estimate (the cw
-    // stack, or message row m) against the reference, byte masks of the
-    // live frames
-    uint32_t live_mask[kVW], frame_err[kVW];
-#pragma unroll
-    for (int v = 0; v < kVW; ++v) {
-      live_mask[v] = 0;
-      frame_err[v] = 0;
-      for (int j = 0; j < 4; ++j)
-        if (t.f + 4 * v + j < batch) live_mask[v] |= 0xFFu << (8 * j);
-    }
-    for (int m = t.r0; m < k; m += T::kPass) {
-      const int i = __ldg(info + m);
-      const V hat = SYS ? t.at(t.cw, i) : t.load(mesg, m);
-      const V ref = t.load(tx, i);
+    // 5. the estimate against the reference at the info rows
+    uint32_t live_mask[kVW];
+    live_masks(t, batch, live_mask);
+    count_info_rows<SYS>(t, info, k, tx, live_mask, cnt);
+  }
+  polar::store_block_counts(cnt, out);
+}
+
+// decode+count on the tile core: the cw track with the root LLRs in device
+// memory and no message rows, soft, hard and cw stacks on chip (3 n bytes a
+// frame)
+using CountTile = polar::simd::Tile<polar::simd::kTileWR,
+                                    polar::simd::kTileVW, true, false, false>;
+
+__global__ void decode_count_tile_kernel(const uint8_t* __restrict__ prog,
+                                         const int* __restrict__ info, int n,
+                                         int k, int batch, const int8_t* llr,
+                                         const int8_t* cw_in, int aligned,
+                                         int* out) {
+  extern __shared__ uint32_t smem[];
+  using T = CountTile;
+  using V = T::V;
+  namespace s = polar::simd;
+  constexpr int kVW = polar::simd::kTileVW;
+  int cnt[polar::kCounters] = {0, 0, 0, 0, 0};
+  T t;
+  // a whole warp skips, and every warp counts below
+  if (t.bind(smem, n, llr, nullptr, batch, aligned)) {
+    t.decode(prog, n);
+    uint32_t live_mask[kVW];
+    live_masks(t, batch, live_mask);
+    // the channel counters over every row: zero LLR bytes, and sign flips
+    // (bit 7 of llr ^ cw) where the LLR is not 0
+    for (int r = t.r0; r < n; r += T::kPass) {
+      const V l = t.load(llr, r), c = t.load(cw_in, r);
 #pragma unroll
       for (int v = 0; v < kVW; ++v) {
-        const uint32_t e = __vcmpne4(hat.x[v], ref.x[v]) & live_mask[v];
-        const uint32_t z = __vcmpeq4(hat.x[v], 0u) & live_mask[v];
-        cnt[0] += __popc(e & s::kOnes);
-        cnt[2] += __popc(z & s::kOnes);
-        frame_err[v] |= e;
+        const uint32_t z = __vcmpeq4(l.x[v], 0u) & live_mask[v];
+        cnt[3] += __popc((l.x[v] ^ c.x[v]) & ~z & live_mask[v] & 0x80808080u);
+        cnt[4] += __popc(z & s::kOnes);
       }
     }
-    // a frame's errors over every lane that holds its word
-    for (int o = T::kLanesRow; o < 32; o <<= 1) {
-#pragma unroll
-      for (int v = 0; v < kVW; ++v)
-        frame_err[v] |= __shfl_xor_sync(0xFFFFFFFFu, frame_err[v], o);
-    }
-    if (t.r0 == 0) {
-#pragma unroll
-      for (int v = 0; v < kVW; ++v) cnt[1] += __popc(frame_err[v] & s::kOnes);
-    }
+    // the cw stack against the transmitted codeword, as the tile step
+    count_info_rows<true>(t, info, k, cw_in, live_mask, cnt);
   }
   polar::store_block_counts(cnt, out);
 }
@@ -352,6 +431,22 @@ extern "C" int polar_front_whole(const void* frozen, int n, int batch,
       (const uint8_t*)frozen, n, batch, sigma, scale, (const int8_t*)msg,
       (const float*)normals, seed0, seed1, call, (int8_t*)llr, (int8_t*)cw);
   return (int)cudaGetLastError();
+}
+
+// Decode+count on the tile core on `stream`: tiles of 8 frames, `warps`
+// tiles a block, warps * 8 * 3 n bytes of shared memory. llr and cw (n,
+// batch) int8 in; info: the k info rows (int32, increasing); out (blocks,
+// 5) int32 in polar_step's order, blocks = ceil(ceil(batch / 8) / warps).
+// aligned != 0: batch % 16 == 0 and llr, cw start on 16-byte boundaries.
+// Returns the CUDA error of the attribute call or of the launch.
+extern "C" int polar_decode_count_tile(const void* prog, const void* info,
+                                       int n, int k, int batch,
+                                       const void* llr, const void* cw,
+                                       void* out, int warps, int aligned,
+                                       void* stream) {
+  return polar::simd::launch_tiles<CountTile>(
+      decode_count_tile_kernel, n, batch, warps, (cudaStream_t)stream, prog,
+      info, n, k, batch, llr, cw, aligned, out);
 }
 
 // Decode+count on `stream`: llr and cw (n, batch) int8 in; scratch soft,

@@ -68,6 +68,9 @@ SIGNATURES = {
     "polar_front_whole": (_P, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
                           _I, _P),
     "polar_decode_count": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
+    "polar_front_rows": (_P, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P, _I,
+                         _I, _P),
+    "polar_decode_count_tile": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "polar_count": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "polar_count_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P),

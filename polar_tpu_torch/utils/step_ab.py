@@ -60,14 +60,24 @@ scratch tile kernel alone at every shape and block size
 ``decoder_kernel.SCRATCH_TABLE``. ``--arms`` times only the step arms it
 names (comma-separated, e.g. ``block+interp,block+hybrid``), no decoders
 or fronts; with ``--decoders-only``, only the decoders it names.
-``--batches`` (comma-separated) takes the place of each level's batches.
-Every line names the card and its power limit; ``--out`` also writes the
-readings as JSON lines.
+``--batches`` (comma-separated) takes the place of each level's batches;
+``--systematic-only`` leaves out the plain steps. ``--front-warps`` times
+the whole front alone at each level and batch: the row-word kernel at 1, 2,
+4 and 8 warps a CTA (up to its cap) and the thread kernel it replaced, in
+mirrored order (:func:`front_warp_rows`, the source of
+``step_kernel.front_rows_warps``' rule); ``--count-warps`` times
+decode+count alone the same way: the tile kernel at 1, 2, 4 and 8 tiles a
+block (where they fit) and the walk (:func:`count_warp_rows`, the source
+of ``step_kernel.COUNT_BIG_WARPS``). Every line
+names the card and its power limit; ``--out`` also writes the readings as
+JSON lines.
 
     python -m polar_tpu_torch.utils.step_ab [--levels 10-17] [--out FILE]
     python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 9-17
     python -m polar_tpu_torch.utils.step_ab --fronts-only --levels 14-17
     python -m polar_tpu_torch.utils.step_ab --scratch-shapes --levels 1-11
+    python -m polar_tpu_torch.utils.step_ab --front-warps --levels 6-13 \
+        --batches 4096,32768
     python -m polar_tpu_torch.utils.step_ab --levels 13-17 \
         --arms block+interp,block+hybrid
     python -m polar_tpu_torch.utils.step_ab --decoders-only --levels 15-17 \
@@ -198,6 +208,72 @@ def front_times(code, device, ms) -> dict:
                      ("middle torch", front_kernel.middle_plain)):
         out[name] = ms(lambda: fn(x, frozen, blk_a, blk_b, True))
     return out
+
+
+def front_warp_rows(levels, batches, device, ms) -> list[dict]:
+    """ms of the whole front (native words, systematic) by arm at each
+    level and batch: ``rows wG`` the row-word kernel at G warps a CTA,
+    ``thread`` the kernel it replaced; each arm twice, in mirrored order."""
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.ops.cuda import step_kernel
+
+    rows = []
+    params = snr_params(SNR_DB)
+    for level in levels:
+        frozen = pt.make_code(level, rate=0.5).frozen
+        cap = step_kernel.front_rows_warps(1 << level)
+        for batch in _batches(level, batches):
+            kw = dict(seeds=(3, 4), call=0, batch=batch, device=device)
+            arms = {f"rows w{w}": dict(warps=w) for w in (1, 2, 4, 8)
+                    if w <= cap}
+            arms["thread"] = dict(style="thread")
+            got = {name: [] for name in arms}
+            for name in list(arms) + list(arms)[::-1]:
+                got[name].append(ms(lambda: step_kernel.front(
+                    frozen, params, **kw, **arms[name])))
+            rule = step_kernel.front_rows_warps(1 << level)
+            for name, t in got.items():
+                rows.append(dict(level=level, batch=batch, front=name, ms=t,
+                                 rule=f"rows w{rule}"))
+    return rows
+
+
+def count_warp_rows(levels, batches, device, ms) -> list[dict]:
+    """ms of decode+count (full-range int8 LLRs, a systematic codeword) by
+    arm at each level and batch: ``tile wG`` the tile kernel at G tiles a
+    block (where G tiles fit a block's shared memory), ``walk`` the kernel
+    it replaced; each arm twice, in mirrored order."""
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.ops.cuda import decoder_kernel, step_kernel
+
+    rows = []
+    for level in levels:
+        code = pt.make_code(level, rate=0.5)
+        program = pt.compile_program(code)
+        fit = (decoder_kernel.SCRATCH_SMEM_BYTES
+               // decoder_kernel.tile_bytes(code.N, True))
+        for batch in _batches(level, batches):
+            g = torch.Generator(device=device)
+            g.manual_seed(level)
+            llr = torch.randint(-128, 128, (code.N, batch), generator=g,
+                                device=device, dtype=torch.int8)
+            cw = step_kernel.front(code.frozen, (1.0, 2.0), seeds=(1, 2),
+                                   batch=batch, device=device)[1]
+            arms = {f"tile w{w}": dict(warps=w) for w in (1, 2, 4, 8)
+                    if w <= fit}
+            arms["walk"] = dict(style="walk")
+            got = {name: [] for name in arms}
+            for name in list(arms) + list(arms)[::-1]:
+                got[name].append(ms(lambda: step_kernel.decode_count(
+                    program, code.frozen, llr, cw, **arms[name])))
+            rule = step_kernel.decode_count_warps(code.N, batch)
+            for name, t in got.items():
+                rows.append(dict(level=level, batch=batch, count=name, ms=t,
+                                 rule=f"tile w{rule}"))
+    return rows
 
 
 def _batches(level: int, batches=None) -> list[int]:
@@ -373,6 +449,12 @@ def main(argv=None) -> int:
                     "decoders), comma-separated")
     ap.add_argument("--batches", default=None,
                     help="these batches at every level, comma-separated")
+    ap.add_argument("--systematic-only", action="store_true",
+                    help="no plain steps")
+    ap.add_argument("--front-warps", action="store_true",
+                    help="time the whole front's warps a CTA alone")
+    ap.add_argument("--count-warps", action="store_true",
+                    help="time decode+count's tiles a block alone")
     args = ap.parse_args(argv)
     only = None if args.arms is None else set(args.arms.split(","))
     batches = (None if args.batches is None
@@ -412,7 +494,22 @@ def main(argv=None) -> int:
             rows.append(dict(row, card=card))
             print(f"{row['case']} B={row['batch']} scratch {row['arm']}: "
                   f"{', '.join(f'{t:.4f}' for t in row['ms'])} ms", flush=True)
-    for level in ([] if args.scratch_shapes else _levels(args.levels)):
+    if args.front_warps:
+        for row in front_warp_rows(_levels(args.levels), batches, dev,
+                                   ms_dropped):
+            rows.append(dict(row, card=card))
+            print(f"m={row['level']} B={row['batch']} whole front "
+                  f"{row['front']}: {', '.join(f'{t:.4f}' for t in row['ms'])}"
+                  f" ms (rule: {row['rule']})", flush=True)
+    if args.count_warps:
+        for row in count_warp_rows(_levels(args.levels), batches, dev,
+                                   ms_dropped):
+            rows.append(dict(row, card=card))
+            print(f"m={row['level']} B={row['batch']} decode+count "
+                  f"{row['count']}: {', '.join(f'{t:.4f}' for t in row['ms'])}"
+                  f" ms (rule: {row['rule']})", flush=True)
+    for level in ([] if args.scratch_shapes or args.front_warps
+                  or args.count_warps else _levels(args.levels)):
         code = pt.make_code(level, rate=0.5)
         if args.fronts_only or (only is not None and not args.decoders_only):
             pass
@@ -426,7 +523,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if args.decoders_only:
             continue
-        for systematic in (() if args.fronts_only else (True, False)):
+        for systematic in (() if args.fronts_only else (True,)
+                           if args.systematic_only else (True, False)):
             steps = {name: step for name, step in
                      arms(code, systematic, dev).items()
                      if only is None or name in only}

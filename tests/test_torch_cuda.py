@@ -459,39 +459,113 @@ def _inject(dev, n, batch, seed):
     return msg, torch.randn((n, batch), generator=g, device=dev)
 
 
-@pytest.mark.parametrize("m", [2, 7, 10, 13])
-@pytest.mark.parametrize("batch", [1, 999])
+# (m, batch) of the front and decode+count card tests: every level to one
+# above each kernel's limit at the small batches, the large ones where N * B
+# stays within 2^26 elements (the plain versions' int64 and float32
+# temporaries)
+_ROW_BATCHES = (1, 3, 31, 4099, 32768)
+
+
+def _shapes(levels):
+    return [(m, b) for m in levels for b in _ROW_BATCHES
+            if b <= 31 or (1 << m) * b <= 1 << 26]
+
+
+@pytest.mark.parametrize(
+    "m,batch", _shapes(range(2, step_kernel.FRONT_ROWS_MAX_LEVEL + 2)))
 def test_front_whole_kernel_matches_plain(dev, m, batch):
+    """The row-word front (style "rows") against the plain version and the
+    thread kernel it replaced (style "thread"), inject and native; each
+    launch counted by its kernel, the thread kernel apart."""
     c = pt.make_code(m, rate=0.5)
     msg, nrm = _inject(dev, c.N, batch, m)
     params = snr_params(-1.0)
-    before = step_kernel.launches["front_whole"]
-    got = step_kernel.front(c.frozen, params, msg_t=msg, normals_t=nrm)
+    rows = m <= step_kernel.FRONT_ROWS_MAX_LEVEL
+    before = (step_kernel.launches["front_whole"],
+              step_kernel.earlier_launches["front_whole_thread"])
+    for kw in (dict(msg_t=msg, normals_t=nrm),
+               dict(seeds=(8, 9), call=3, batch=batch, device=dev)):
+        got = step_kernel.front(c.frozen, params, **kw)
+        old = step_kernel.front(c.frozen, params, style="thread", **kw)
+        want = step_kernel.front_plain(c.frozen, params, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, old))
+        assert torch.equal(got[1], want[1])
+        if "msg_t" in kw:
+            assert torch.equal(got[0], want[0])
+        else:
+            # the same words; an ulp of torch's log/sqrt against the card's
+            # may move an LLR of the plain version by one step
+            d = (got[0].int() - want[0].int()).abs()
+            assert int(d.max()) <= 1 and int((d != 0).sum()) <= 3
+        del got, old, want
+    assert (step_kernel.launches["front_whole"],
+            step_kernel.earlier_launches["front_whole_thread"]) == (
+        before[0] + 2 * rows, before[1] + 4 - 2 * rows)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [3, 8, 12])
+def test_front_rows_every_warp_count_matches_plain(dev, warps, m):
+    """Any warps a CTA give the thread kernel's front, with word stores
+    (B % 4 == 0) and byte stores (an odd batch; inputs off a 4-byte
+    line)."""
+    c = pt.make_code(m, rate=0.5)
+    params = snr_params(0.5)
+    for batch in (4096, 4097):
+        kw = dict(seeds=(m, warps), call=1, batch=batch, device=dev)
+        got = step_kernel.front(c.frozen, params, warps=warps, **kw)
+        want = step_kernel.front(c.frozen, params, style="thread", **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    msg, nrm = _inject(dev, c.N + 1, 4096, m)
+    msg = msg.view(-1)[1:c.N * 4096 + 1].view(c.N, 4096)   # 1 byte off
+    nrm = nrm[:c.N].contiguous()
+    assert msg.is_contiguous() and msg.data_ptr() % 4 == 1
+    got = step_kernel.front(c.frozen, params, msg_t=msg, normals_t=nrm,
+                            warps=warps)
     want = step_kernel.front_plain(c.frozen, params, msg_t=msg, normals_t=nrm)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    kw = dict(seeds=(8, 9), call=3, batch=batch, device=dev)
-    got = step_kernel.front(c.frozen, params, **kw)
-    want = step_kernel.front_plain(c.frozen, params, **kw)
-    assert step_kernel.launches["front_whole"] == before + 2
-    assert torch.equal(got[1], want[1])
-    # the same words; an ulp of log/sqrt may move an LLR by one step
-    d = (got[0].int() - want[0].int()).abs()
-    assert int(d.max()) <= 1 and int((d != 0).sum()) <= 3
 
 
-@pytest.mark.parametrize("m", [2, 8, 11])
-@pytest.mark.parametrize("batch", [1, 63, 4099])
-def test_decode_count_kernel_matches_plain(dev, m, batch):
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [3, 8, 10])
+def test_decode_count_tile_every_warp_count_matches_plain(dev, warps, m):
+    """Any tiles a block give the plain counts, at a ragged batch and at
+    one from COUNT_BIG_BATCH."""
     c = pt.make_code(m, rate=0.5)
-    llr = _llrs(dev, c.N, max(batch, 2), batch)[:, :batch].contiguous()
+    program = pt.compile_program(c)
+    for batch in (4099, step_kernel.COUNT_BIG_BATCH):
+        llr = _tie_llrs(dev, c.N, batch, m + warps)
+        cw = step_kernel.front(c.frozen, snr_params(0.0), seeds=(m, 1),
+                               batch=batch, device=dev)[1]
+        got = step_kernel.decode_count(program, c.frozen, llr, cw,
+                                       warps=warps)
+        assert torch.equal(got, step_kernel.decode_count_plain(
+            program, c.frozen, llr, cw))
+
+
+@pytest.mark.parametrize(
+    "m,batch", _shapes(range(2, decoder_kernel.WHOLE_MAX_LEVEL + 2)))
+def test_decode_count_kernel_matches_plain(dev, m, batch):
+    """The tile decode+count (style "ssa") against the plain version and
+    the walk it replaced (style "walk") on full-range and on tie-heavy
+    LLRs; each launch counted by its kernel, the walk apart."""
+    c = pt.make_code(m, rate=0.5)
     msg, _ = _inject(dev, c.K, batch, m)
     cw = pt.encode_systematic(c, msg.t()).t().contiguous()
     program = pt.compile_program(c)
-    before = step_kernel.launches["decode_count"]
-    got = step_kernel.decode_count(program, c.frozen, llr, cw)
-    assert step_kernel.launches["decode_count"] == before + 1
-    assert torch.equal(got, step_kernel.decode_count_plain(program, c.frozen,
-                                                           llr, cw))
+    tile = m <= decoder_kernel.WHOLE_MAX_LEVEL
+    for llr in (_llrs(dev, c.N, max(batch, 2), batch)[:, :batch].contiguous(),
+                _tie_llrs(dev, c.N, 2 * batch, m)[:, batch:].contiguous()):
+        before = (step_kernel.launches["decode_count"],
+                  step_kernel.earlier_launches["decode_count_walk"])
+        got = step_kernel.decode_count(program, c.frozen, llr, cw)
+        old = step_kernel.decode_count(program, c.frozen, llr, cw,
+                                       style="walk")
+        assert (step_kernel.launches["decode_count"],
+                step_kernel.earlier_launches["decode_count_walk"]) == (
+            before[0] + tile, before[1] + 2 - tile)
+        want = step_kernel.decode_count_plain(program, c.frozen, llr, cw)
+        assert torch.equal(got, want) and torch.equal(old, want)
 
 
 @pytest.mark.parametrize("m", [3, 9, 12])

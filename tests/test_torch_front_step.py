@@ -144,10 +144,10 @@ def _jax_whole_count_chain(jc):
 def test_front_chain_inject_matches_pallas_whole_front_chain(m):
     """The port's front chain on injected inputs counts what JAX's
     ``make_pallas_front`` → ``make_pallas_decode_count`` counts; at m = 9
-    the block-front branches too: block + decode+count by name (no level
-    takes it by default) and block + whole-code decoder + counter kernel,
-    the default there (JAX's by moving its threshold, as
-    ``tests/test_step_kernel.py`` does)."""
+    the block-front branches too, by name: block + decode+count (no level
+    takes it by default) and block + whole-code decoder + counter kernel
+    (JAX's by moving its threshold, as ``tests/test_step_kernel.py``
+    does)."""
     jc = jpt.make_code(m, rate=0.5)
     code = pt.code_from_jax(jc)
     jchain = _jax_whole_count_chain(jc)
@@ -158,9 +158,9 @@ def test_front_chain_inject_matches_pallas_whole_front_chain(m):
     assert wants[0][0] > 0
     assert ber.front_branch(code, True) == (
         "whole" if m <= ber.FRONT_WHOLE_MAX_LEVEL else "block-whole")
-    branches = ["whole"]
-    if m == 9:                             # None: the default, block-whole
-        branches += [None, "block-count"]
+    branches = [None]                      # the default: whole
+    if m == 9:
+        branches += ["block-whole", "block-count"]
     for branch in branches:
         chain = ber.make_front_chain(code, systematic=True, branch=branch)
         for (snr, msg, nrm), want in zip(inputs, wants):
@@ -171,8 +171,8 @@ def test_front_chain_inject_matches_pallas_whole_front_chain(m):
 
 def test_front_branch_follows_the_thresholds(monkeypatch):
     for m, sys_branch, plain_branch in ((8, "whole", "block-whole"),
-                                        (9, "block-whole", "block-whole"),
-                                        (10, "block-whole", "block-whole"),
+                                        (9, "whole", "block-whole"),
+                                        (11, "whole", "block-whole"),
                                         (12, "block-whole", "block-whole"),
                                         (13, "block-interp", "block-whole"),
                                         (14, "block-interp", "block-hybrid"),
@@ -183,7 +183,7 @@ def test_front_branch_follows_the_thresholds(monkeypatch):
         assert ber.front_branch(c, False) == plain_branch
     # one owner for the decoder: the front follows decode.auto's threshold,
     # and takes the interpreter where its table names it at every batch
-    assert decode_auto.HYBRID_MIN_LEVEL == 14 and ber.FRONT_WHOLE_MAX_LEVEL == 8
+    assert decode_auto.HYBRID_MIN_LEVEL == 14 and ber.FRONT_WHOLE_MAX_LEVEL == 11
     for names, want in ((("interp", "hybrid"), "block-hybrid"),
                         (("hybrid", "interp"), "block-hybrid"),
                         (("interp", "interp"), "block-interp")):
@@ -191,6 +191,7 @@ def test_front_branch_follows_the_thresholds(monkeypatch):
         assert ber.front_branch(pt.make_code(14, rate=0.5), True) == want
     c = pt.make_code(9, rate=0.5)
     monkeypatch.setattr(decode_auto, "HYBRID_MIN_LEVEL", 9)
+    monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", 8)
     assert ber.front_branch(c, True) == ber.front_branch(c, False) == "block-hybrid"
     monkeypatch.setattr(ber, "FRONT_WHOLE_MAX_LEVEL", 9)
     assert ber.front_branch(c, True) == "whole"
