@@ -63,7 +63,15 @@ element-sharded decoder at Polar(131072, 65536) against the local decoder
 over both transports, its ring-kernel run the slice's main path; the
 frame-sharded step and a sharded point against the JAX package's result;
 dryrun_multichip(8); the multihost CLI as two processes on the card and
-resumed from its checkpoint; timings (15). Last, each kernel's bound (13);
+resumed from its checkpoint; timings (15). Then the modules of the last
+slice (16): the native construction and compiler built from the port's C
+source against numpy; the code store and the decoder cache; the
+throughput CLI's per-N table (m = 6..16, the decoders auto picks, their
+launches, no plain call); the curve-set CLI at m = 8 and 10, both modes,
+against the JAX package's result files and resumed with no new step; a
+campaign point traced through utils.profiling; the fused step's bits mode
+against native mode on the same Philox words and timed in turns with it.
+Last, each kernel's bound (13, reckoned in polar_tpu_torch/utils/cost.py);
 the rows of the draws and front kernels carry the steps that made their
 launches, rows 9 A, 9 B, 10-12, 3 and 4s their numbers at each shape
 ("by_shape") too.
@@ -119,19 +127,8 @@ MID_PATH_M = 15
 # which the symbols, AWGN and encoder kernels are checked, timed and counted
 DRAW_SHAPES = ((10, BATCH), (LARGE_M, LARGE_BATCH))
 
-# The least time the card could take for a kernel's work ("bound_ms"): the
-# larger of its bytes (each input read once, each output written once) over
-# the H100 SXM's memory rate and its operations over the card's rate for
-# them. None of these kernels uses the tensor cores, so every 32-bit
-# integer or float operation is counted at the non-tensor float32 rate
-# (NVIDIA's H100 SXM data sheet). Operation counts per element, the least
-# each function must do:
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-PHILOX_OPS = 25   # a word: ten rounds of 2 mulhi, 2 mul, 4 xor, 2 adds per 4
-NORMAL_OPS = 20   # a normal: half a Box-Muller pair (unit maps, log, sqrt,
-                  # the sin/cos polynomial)
-QUANT_OPS = 5     # an LLR: multiply, add, multiply, round, clamp
+# Every kernel's work and bound ("bound_ms") is reckoned in
+# polar_tpu_torch/utils/cost.py (row_work, bound).
 
 
 def phase(name: str, msg: str) -> None:
@@ -152,58 +149,6 @@ def ber_ok(e1, n1, e2, n2, k) -> tuple[bool, float]:
     b = (e1 + e2) / ((n1 + n2) * k)
     sd = math.sqrt(b * (1 / n1 + 1 / n2))
     return abs(e1 / (n1 * k) - e2 / (n2 * k)) <= SIGMAS * sd, sd
-
-
-def transform_ops(n: int, stages: int | None = None) -> int:
-    """Products of a polar transform's butterfly (or its first stages)."""
-    return n // 2 * (n.bit_length() - 1 if stages is None else stages)
-
-
-def decode_ops(n: int) -> int:
-    """f and g element operations of SC over N rows; Fast-SSC does fewer."""
-    return n * (n.bit_length() - 1)
-
-
-def front_ops(n: int, k: int) -> int:
-    """A systematic front: K message words and N noise words, N normals,
-    N LLRs, two transforms."""
-    return ((k + n) * PHILOX_OPS + n * (NORMAL_OPS + QUANT_OPS)
-            + 2 * transform_ops(n))
-
-
-def decode_count_ops(n: int) -> int:
-    """Decode, re-encode, and the five counters over N rows."""
-    return decode_ops(n) + transform_ops(n) + 5 * n
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(bound_ms, bound_by) of a kernel's work."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def front_work(name: str, code, b: int) -> tuple[int, int]:
-    """(bytes, operations) of kernel A ("front_blocks_a": K Philox words,
-    the block's bottom stages, N bytes out a frame) or kernel B
-    ("front_blocks_b": N words, normals and LLRs, the bottom stages, y in
-    and cw, LLR out) at ``code`` and ``b`` frames, blocks as the front's."""
-    from polar_tpu_torch.ops.cuda import front_kernel
-
-    n, k = code.N, code.K
-    if name == "front_blocks_a":
-        level = min(front_kernel.BLOCK_LEVEL, code.level)
-        return n * b, (k * PHILOX_OPS + transform_ops(n, level)) * b
-    level = min(front_kernel.CHAN_BLOCK_LEVEL, code.level)
-    return 3 * n * b, (n * (PHILOX_OPS + NORMAL_OPS + QUANT_OPS)
-                       + transform_ops(n, level)) * b
-
-
-def count_work(code, b: int) -> tuple[int, int]:
-    """(bytes, operations) of the counter at ``code`` and ``b`` frames:
-    llr and cw at every row, hat at the K info rows (the kernel never reads
-    it at a frozen row); five compares an element."""
-    return (2 * code.N + code.K) * b, 5 * code.N * b
 
 
 def count_inputs(gen, rows: int, batch: int, dev):
@@ -355,6 +300,7 @@ def large_n_phases(dev, card, ms) -> dict:
                                           decoder_kernel, encode_kernel,
                                           front_kernel, interp_kernel,
                                           step_kernel, subtree_kernel)
+    from polar_tpu_torch.utils.cost import bound, row_work
 
     code = pt.make_code(LARGE_M, rate=0.5)
     n, k, b = code.N, code.K, LARGE_BATCH
@@ -662,7 +608,7 @@ def large_n_phases(dev, card, ms) -> dict:
         t = by_shape[name].pop(f"Polar({n}, {k}) B={b}")
         by_shape[name][f"Polar({n}, {k}) B={cb}"].update(
             launches=launched[name], steps=steps, plain_ms=None,
-            work=front_work(name, code, cb))
+            work=row_work(name, n=n, k=k, b=cb))
     # the frame kernel A read three ways: as phases 6-14 time a kernel (ten
     # launches whose outputs stay alive, each a new allocator block after
     # the cache is emptied), with each output dropped, and its device time
@@ -709,25 +655,23 @@ def large_n_phases(dev, card, ms) -> dict:
         phase("9", f"count at {where}: kernel {t['ms']:.4f} ms, earlier "
               f"(style bytes) {t['earlier_ms']:.4f} ms ({t['turns']}; "
               f"{t['earlier_ms'] / t['ms']:.2f}x), bound "
-              f"{bound(*count_work(code, batch))[0]:.4f} ms; device time "
-              f"(profiler) {dev_ms} ({card})")
+              f"{bound(*row_work('count', n=n, k=k, b=batch))[0]:.4f} ms; "
+              f"device time (profiler) {dev_ms} ({card})")
     t = by_shape["count"].pop(f"Polar({n}, {k}) B={b}")
     times["count"] = (t["ms"], ms(lambda: count_kernel.count_plain(
         frozen, *count_in[b]), 2))
     earlier["count"] = t["earlier_ms"]
     by_shape["count"][f"Polar({n}, {k}) B={cb}"].update(
         launches=launched["count"], steps=steps, plain_ms=None,
-        work=count_work(code, cb))
+        work=row_work("count", n=n, k=k, b=cb))
     del count_in, args
     out = subtree_kernel.make_subtree_decoder(node, emit_u=False,
                                               emit_cw=True)(slot)
     work = {
-        "subtree_decoder": (slot.numel() + sum(o.numel() for o in out),
-                            (decode_ops(slot.shape[0])
-                             + transform_ops(slot.shape[0])) * cb),
-        "front_blocks_a": front_work("front_blocks_a", code, b),
-        "front_blocks_b": front_work("front_blocks_b", code, b),
-        "count": count_work(code, b),
+        "subtree_decoder": row_work("subtree_decoder", n=slot.shape[0],
+                                    b=cb),
+        **{name: row_work(name, n=n, k=k, b=b)
+           for name in ("front_blocks_a", "front_blocks_b", "count")},
     }
     for name, (t_k, t_p) in times.items():
         where = (f"the level-{kl} node B={cb}" if name == "subtree_decoder"
@@ -773,6 +717,7 @@ def draw_phases(dev, card, ms) -> dict:
                                           front_kernel, step_kernel,
                                           subtree_kernel)
     from polar_tpu_torch.utils.benchmark import measure_step_rate
+    from polar_tpu_torch.utils.cost import bound, row_work
 
     new = ("channel_symbols", "channel_awgn", "block_encoder")
     err = dict.fromkeys(new, 0)
@@ -814,19 +759,20 @@ def draw_phases(dev, card, ms) -> dict:
                 raise AssertionError(f"symbols kernel ({mode}) differs from "
                                      f"plain or style quads at {(b, k)}")
         # bits mode is no main-path launch: timed for the record
+        bits_bound = bound(*row_work("channel_symbols", n=n, k=k, b=b,
+                                     bits=True))[0]
         t = in_turns(lambda: sym["bits"]("lines"),
                      lambda: sym["bits"]("quads"), 20)
         phase("10", f"symbols bits {(b, k)}: kernel {t['ms']:.4f} ms, "
               f"earlier (style quads) {t['earlier_ms']:.4f} ms "
-              f"({t['turns']}), bound {bound(9 * k * b, 0)[0]:.4f} ms "
-              f"(bytes) ({card})")
+              f"({t['turns']}), bound {bits_bound:.4f} ms (bytes) ({card})")
         del w, got
         by_shape["channel_symbols"][where] = {
             **in_turns(lambda: sym["native"]("lines"),
                        lambda: sym["native"]("quads"), 20),
             "plain_ms": ms(lambda: channel_kernel.symbols_plain((b, k), **kw),
                            2),
-            "work": (k * b, k * b * PHILOX_OPS)}
+            "work": row_work("channel_symbols", n=n, k=k, b=b)}
         # the device's own time, which the host's launch rate hides in the
         # timing loop at the small shape
         phase("10", f"symbols native {(b, k)} device time (profiler): "
@@ -865,8 +811,7 @@ def draw_phases(dev, card, ms) -> dict:
         by_shape["channel_awgn"][where] = {
             **t, "plain_ms": ms(lambda: channel_kernel.awgn_plain(
                 cw, params, **kw), 2),
-            "work": (2 * n * b,
-                     n * b * (2 * PHILOX_OPS + 2 * NORMAL_OPS + QUANT_OPS))}
+            "work": row_work("channel_awgn", n=n, k=k, b=b)}
 
         msg = channel_kernel.symbols((b, k), seeds=(m, 1), device=dev)
         for systematic in (True, False):
@@ -894,7 +839,7 @@ def draw_phases(dev, card, ms) -> dict:
             **in_turns(lambda: enc(msg), lambda: old(msg), 20),
             "plain_ms": ms(lambda: encode_kernel.encode_plain(
                 code, msg, True, blk), 2),
-            "work": ((k + n) * b, 2 * transform_ops(n) * b)}
+            "work": row_work("block_encoder", n=n, k=k, b=b)}
         del msg, ref, got, plain
         for name in new:
             t = by_shape[name][where]
@@ -1047,6 +992,7 @@ def front_step_phases(dev, card, ms) -> dict:
                                           decoder_kernel, encode_kernel,
                                           front_kernel, step_kernel,
                                           subtree_kernel)
+    from polar_tpu_torch.utils.cost import bound, row_work
 
     new = ("front_whole", "decode_count", "front_middle")
     err = dict.fromkeys(new, 0)
@@ -1198,7 +1144,7 @@ def front_step_phases(dev, card, ms) -> dict:
         after = {**front_kernel.launches, **count_kernel.launches}
         front_launches[m] = {name: after[name] - before[name]
                              for name in ("front_blocks_a", "front_blocks_b",
-                                          "count")}
+                                          "count", "front_middle")}
     gen_front = torch.Generator()
     gen_front.manual_seed(10)
     front_code = pt.make_code(front_m, rate=0.5)
@@ -1270,14 +1216,14 @@ def front_step_phases(dev, card, ms) -> dict:
                 lambda st: step_kernel.front(code.frozen, params, style=st,
                                              **kw), ("rows", "thread"),
                 lambda: step_kernel.front_plain(code.frozen, params, **kw),
-                (2 * code.N * b, front_ops(code.N, code.K) * b)),
+                row_work("front_whole", n=code.N, k=code.K, b=b)),
             "decode_count": (
                 lambda st: step_kernel.decode_count(program, code.frozen, llr,
                                                     cw, style=st),
                 ("ssa", "walk"),
                 lambda: step_kernel.decode_count_plain(program, code.frozen,
                                                        llr, cw),
-                (2 * code.N * b, decode_count_ops(code.N) * b))}
+                row_work("decode_count", n=code.N, k=code.K, b=b))}
         main = (m, b) == (front_m, BATCH)
         # decode+count's decode alone: the whole-code tile decoder on the
         # same cw track (it also stores the message and the estimate)
@@ -1313,8 +1259,36 @@ def front_step_phases(dev, card, ms) -> dict:
                                               True), 20),
         ms(lambda: front_kernel.middle_plain(middle_x, mc.frozen, blk, blk,
                                              True), 3))
-    work["front_middle"] = (2 * n * b, (mc.level - front_kernel.BLOCK_LEVEL)
-                            * n * b)
+    work["front_middle"] = row_work("front_middle", n=n, b=b, level=mc.level)
+    # row 9s at each shape the main path launches it (the campaigns on the
+    # block front, systematic, blocks blk/blk): CUDA events around the
+    # wrapper (its host work included) and the profiler's device time
+    by_shape["front_middle"] = {}
+    for m in middle_ms:
+        fc = pt.make_code(m, rate=0.5)
+        x = symbols(fc.N, LARGE_BATCH)
+        where = f"Polar({fc.N}, {fc.K}) B={LARGE_BATCH}"
+        steps_m = sum(p.frames for p in results[[c[0] for c in CAMPAIGNS]
+                                                .index(m)].points) // LARGE_BATCH
+        mid = lambda: front_kernel.middle_kernel(  # noqa: E731
+            x, fc.frozen, blk, blk, True)
+        t_ev = ms(mid, 20)
+        dev_ms = profiled_ms(mid, 20)
+        w = row_work("front_middle", n=fc.N, b=LARGE_BATCH, level=fc.level)
+        by_shape["front_middle"][where] = {
+            "ms": t_ev,
+            "device_ms": (float(dev_ms.split()[0]) if dev_ms.endswith(" ms")
+                          else None),
+            "plain_ms": ms(lambda: front_kernel.middle_plain(
+                x, fc.frozen, blk, blk, True), 2),
+            "launches": front_launches[m]["front_middle"], "steps": steps_m,
+            "work": w}
+        phase("12", f"front_middle at {where}: events {t_ev:.4f} ms, device "
+              f"time (profiler) {dev_ms}, bound {bound(*w)[0]:.4f} ms, "
+              f"{len(front_kernel.middle_passes(fc.N, blk, blk, True))} "
+              f"pass(es), {front_launches[m]['front_middle']} launches in "
+              f"{steps_m} steps ({card})")
+        del x
     # kernels A and B at the shape of each campaign on the block front, in
     # turns with the frame kernels they replaced, and their launches there
     for m in middle_ms:
@@ -1343,7 +1317,7 @@ def front_step_phases(dev, card, ms) -> dict:
             by_shape[name][where] = {
                 **t, "plain_ms": ms(plain_fn, 2),
                 "launches": front_launches[m][name], "steps": steps_m,
-                "work": front_work(name, fc, LARGE_BATCH)}
+                "work": row_work(name, n=fc.N, k=fc.K, b=LARGE_BATCH)}
             phase("12", f"{name} at {where}: kernel {t['ms']:.4f} ms, "
                   f"earlier (style frame) {t['earlier_ms']:.4f} ms "
                   f"({t['turns']}), plain "
@@ -1361,7 +1335,7 @@ def front_step_phases(dev, card, ms) -> dict:
             **t, "plain_ms": ms(lambda: count_kernel.count_plain(
                 fc.frozen, *args), 2),
             "launches": front_launches[m]["count"], "steps": steps_m,
-            "work": count_work(fc, LARGE_BATCH)}
+            "work": row_work("count", n=fc.N, k=fc.K, b=LARGE_BATCH)}
         # the device's own time (the old style's with its torch sum)
         dev_ms = [profiled_ms(lambda: count_kernel.count(
             fc.frozen, *args, style=st), 20) for st in ("rows", "bytes")]
@@ -1414,6 +1388,7 @@ def style_phases(dev, card, ms) -> dict:
                                           step_kernel, subtree_kernel)
     from polar_tpu_torch.ops.cuda.interp_kernel import (
         make_interp_decode_count, make_interp_decoder, make_interp_subtree)
+    from polar_tpu_torch.utils.cost import row_work
 
     new = ("scratch_decoder", "scratch_subtree", "interp_decoder",
            "interp_decode_count", "interp_subtree")
@@ -1773,8 +1748,8 @@ def style_phases(dev, card, ms) -> dict:
     # -- timings at the shapes of the path ----------------------------------
     times, work, earlier, by_shape = {}, {}, {}, {}
 
-    def scratch_turns(name, where, new_fn, old_fn, plain_fn, reps, nbytes,
-                      ops, launches, steps):
+    def scratch_turns(name, where, new_fn, old_fn, plain_fn, reps, work_s,
+                      launches, steps):
         """The tile kernel and the byte kernel in turns (new, old, old,
         new), the device time of each by the profiler, the plain
         version; a by_shape entry."""
@@ -1787,7 +1762,7 @@ def style_phases(dev, card, ms) -> dict:
               f"{profiled_ms(old_fn, reps)}; plain {t_p:.3f} ms ({card})")
         by_shape.setdefault(name, {})[where] = {
             "ms": t["ms"], "earlier_ms": t["earlier_ms"], "plain_ms": t_p,
-            "work": (nbytes, ops), "launches": launches, "steps": steps}
+            "work": work_s, "launches": launches, "steps": steps}
         return t, t_p
 
     llr_s = rand_i8(code.N, BATCH)
@@ -1799,7 +1774,7 @@ def style_phases(dev, card, ms) -> dict:
                                       "scratch-bytes"),
         lambda: decoder_kernel.decode_plain(program, code.frozen, llr_s,
                                             False), 20,
-        (code.N + code.K) * BATCH, decode_ops(code.N) * BATCH,
+        row_work("scratch_decoder", n=code.N, k=code.K, b=BATCH),
         launched["scratch_decoder"], 1)
     times["scratch_decoder"] = (t["ms"], t_p)
     earlier["scratch_decoder"] = t["earlier_ms"]
@@ -1826,7 +1801,7 @@ def style_phases(dev, card, ms) -> dict:
             lambda: decoder_kernel.decode(sp, sc.frozen, x, False,
                                           "scratch-bytes"),
             lambda: decoder_kernel.decode_plain(sp, sc.frozen, x, False), 50,
-            (sc.N + sc.K) * b_s, decode_ops(sc.N) * b_s, n_s, None)
+            row_work("scratch_decoder", n=sc.N, k=sc.K, b=b_s), n_s, None)
     t_ssa = ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s,
                                              False), 20)
     def interp_turns(name, where, new_fn, old_fn, plain_fn, reps):
@@ -1849,8 +1824,8 @@ def style_phases(dev, card, ms) -> dict:
                  lambda: dec.lane_major(llr_s),
                  lambda: dec_old.lane_major(llr_s),
                  lambda: dec.plain(llr_s), 10)
-    work["scratch_decoder"] = work["interp_decoder"] = (
-        (code.N + code.K) * BATCH, decode_ops(code.N) * BATCH)
+    for name in ("scratch_decoder", "interp_decoder"):
+        work[name] = row_work(name, n=code.N, k=code.K, b=BATCH)
     node = max(nodes.values(), key=lambda nd: nd.mesg_bits)
     ln = 1 << node.level
     sc = subtree_kernel.make_subtree_decoder(node, style="scratch")
@@ -1861,7 +1836,7 @@ def style_phases(dev, card, ms) -> dict:
             "scratch_subtree", f"level-{node.level} node B={bt}",
             lambda: sc(slot), lambda: so(slot),
             lambda: subtree_kernel.decode_plain(node, (slot,)), 20,
-            (2 * ln + node.mesg_bits) * bt, decode_ops(ln) * bt,
+            row_work("scratch_subtree", n=ln, b=bt, mesg_bits=node.mesg_bits),
             launched["scratch_subtree"] if bt == b else 0, None)
         if bt == b:
             times["scratch_subtree"] = (t["ms"], t_p)
@@ -1885,14 +1860,13 @@ def style_phases(dev, card, ms) -> dict:
     interp_turns("interp_subtree", f"level-{node.level} node B={b} cw",
                  lambda: it(slot), lambda: it_old(slot),
                  lambda: it.plain(slot), 10)
-    work["scratch_subtree"] = ((2 * ln + node.mesg_bits) * b,
-                               decode_ops(ln) * b)
-    work["interp_subtree"] = (3 * ln * b,
-                              (decode_ops(ln) + transform_ops(ln)) * b)
+    work["scratch_subtree"] = row_work("scratch_subtree", n=ln, b=b,
+                                       mesg_bits=node.mesg_bits)
+    work["interp_subtree"] = row_work("interp_subtree", n=ln, b=b)
     interp_turns("interp_decode_count", f"Polar({n}, {k}) B={b}, sl10",
                  lambda: count(llr_f, cw_f), lambda: count_old(llr_f, cw_f),
                  lambda: count.plain(llr_f, cw_f), 2)
-    work["interp_decode_count"] = (2 * n * b, decode_count_ops(n) * b)
+    work["interp_decode_count"] = row_work("interp_decode_count", n=n, b=b)
     phase("14", f"SSA whole-code u at Polar(1024, 512) B={BATCH}: {t_ssa:.3f} "
           f"ms ({card})")
     chains = {br: pt.ber.make_front_chain(big, branch=br)
@@ -1987,6 +1961,7 @@ def parallel_phases(dev, card, ms) -> dict:
     from polar_tpu_torch.parallel.seqpar import (element_mesh,
                                                  make_sharded_encoder)
     from polar_tpu_torch.parallel.seqpar_decode import make_seqpar_decoder
+    from polar_tpu_torch.utils.cost import row_work
 
     err = {"ring_shift": 0}
     gen = torch.Generator(device=dev)
@@ -2180,7 +2155,6 @@ def parallel_phases(dev, card, ms) -> dict:
         t_k.append(ms(kernel, 20))
         t_p.append(ms(plain_shift, 20))
     times = {"ring_shift": (min(t_k), min(t_p))}
-    nbytes = 2 * PAR_SHARDS * shard * b
     phase("15", f"ring shift {PAR_SHARDS} x ({shard}, {b}) int8, in turns: "
           f"kernel {t_k} ms (mean {sum(t_k) / 4:.4f}, spread "
           f"{max(t_k) - min(t_k):.4f}), {PAR_SHARDS} Tensor.copy_ {t_l} ms "
@@ -2196,9 +2170,264 @@ def parallel_phases(dev, card, ms) -> dict:
                     f"({v / t_local:.2f}x)"
                     for (comm, split), v in dec_ms.items()) + f" ({card})")
     return {"err": err, "times": times,
-            "work": {"ring_shift": (nbytes, 0)},
+            "work": {"ring_shift": row_work("ring_shift", n=shard, b=b,
+                                            shards=PAR_SHARDS)},
             "launched": {"ring_shift": launched["ring_shift"]},
             "library": {"ring_shift": min(t_l)}}
+
+
+def module_phases(dev, card, ms) -> dict:
+    """Phase 16, the modules the last slice ported and the fused step's
+    bits mode: (a) the native construction and compiler, built here,
+    against numpy; (b) the code store and the decoder cache on the card;
+    (c) the throughput CLI's per-N table at m = 6..16 (the decoders auto
+    picks, their launches, no plain call); (d) the curve-set CLI at m = 8
+    and 10, both modes, against the JAX package's result files, then
+    resumed with no new step; (e) a campaign point traced through
+    utils.profiling with an annotation; (f) the bits-mode step against
+    native mode on the words native mode draws (the tile step at
+    Polar(1024, 512) and m = 2, the walk at m = 13), then in turns with
+    native mode. Each part prints its seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch import curve_set, throughput
+    from polar_tpu_torch.campaign_io import load_result
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.code import construction, native
+    from polar_tpu_torch.code.store import DecoderCache
+    from polar_tpu_torch.decode import auto
+    from polar_tpu_torch.ops.cuda import (channel_kernel, count_kernel,
+                                          decoder_kernel, encode_kernel,
+                                          front_kernel, interp_kernel,
+                                          philox, ring_kernel, step_kernel,
+                                          subtree_kernel)
+    from polar_tpu_torch.utils.benchmark import measure_decode_fps
+    from polar_tpu_torch.utils.cost import bound, row_work
+    from polar_tpu_torch.utils.profiling import (annotate, own_kernels,
+                                                 trace, trace_events)
+
+    mods = (channel_kernel, count_kernel, decoder_kernel, encode_kernel,
+            front_kernel, interp_kernel, ring_kernel, step_kernel,
+            subtree_kernel)
+    counts = [c for mod in mods for c in (
+        mod.launches, getattr(mod, "earlier_launches", {}))]
+    plains = [mod.plain_calls for mod in mods]
+
+    def nonzero(dicts):
+        return {name: v for d in dicts for name, v in d.items() if v}
+
+    # -- a. native construction and compile --------------------------------
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    native.load()
+    t_build = time.perf_counter() - t0
+    for m in (10, 16, 20):
+        t0 = time.perf_counter()
+        a = native.frozen_mask_fixed_k(m, 1 << (m - 1))
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = construction.frozen_mask_fixed_k(m, 1 << (m - 1))
+        t_np = time.perf_counter() - t0
+        if not np.array_equal(a, b):
+            raise AssertionError(f"native fixed-K mask differs at m={m}")
+        line = f"m={m}: fixed-K mask C {t_c:.3f} s == numpy {t_np:.3f} s"
+        if m <= 16:
+            t0 = time.perf_counter()
+            prog = native.compile_program(a, m)
+            t_c = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = pt.compile_program(pt.PolarCode(m, b))
+            t_np = time.perf_counter() - t0
+            if not np.array_equal(prog, want):
+                raise AssertionError(f"native program differs at m={m}")
+            line += f"; program C {t_c:.3f} s == numpy {t_np:.3f} s"
+        phase("16a", line)
+    phase("16a", f"native extension {native.library_path().name} built and "
+          f"loaded in {t_build:.2f} s; part (a) {time.perf_counter() - t_all:.1f} s")
+
+    # -- b. code store and decoder cache -----------------------------------
+    t0 = time.perf_counter()
+    code = pt.make_code(10, rate=0.5)
+    with tempfile.TemporaryDirectory() as tmp:
+        pt.save_code(code, Path(tmp) / "code.npz")
+        loaded = pt.load_code(Path(tmp) / "code.npz")
+    if loaded != code:
+        raise AssertionError("load_code(save_code(code)) != code")
+    cache = DecoderCache(pt.make_auto_decoder)
+    dec, desc = cache.get(code, device=dev)
+    if cache.get(loaded, device=dev)[0] is not dec or len(cache) != 1:
+        raise AssertionError("the decoder cache built a second decoder")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    llrs = torch.randint(-128, 128, (4096, code.N), generator=gen,
+                         device=dev, dtype=torch.int8)
+    _reset(*counts, *plains)
+    got = dec(llrs)
+    launched = nonzero(counts)
+    want = pt.make_fastssc_decoder(code, output_dtype=torch.int8)(llrs)
+    if not torch.equal(got, want) or not launched or nonzero(plains):
+        raise AssertionError(f"cached decoder ({desc}): launches {launched}, "
+                             f"plain calls {nonzero(plains)}, equal "
+                             f"{torch.equal(got, want)}")
+    phase("16b", f"save_code/load_code round trip at Polar({code.N}, "
+          f"{code.K}); DecoderCache(make_auto_decoder) gives one decoder "
+          f"({desc}), launches {launched}, == the eager decoder on the "
+          f"card; {time.perf_counter() - t0:.1f} s")
+
+    # -- c. the throughput table -------------------------------------------
+    t0 = time.perf_counter()
+    table = []
+    for code, llrs in throughput.inputs(np.random.default_rng(5),
+                                        (6, 8, 10, 12, 14, 16), dev):
+        dec, desc = pt.make_auto_decoder(code, device=dev)
+        _reset(*counts, *plains)
+        fps = measure_decode_fps(dec, llrs, iters=64)
+        launched, plain = nonzero(counts), nonzero(plains)
+        # the decoder auto picks at this batch, and the one it picks for
+        # the single frame measure_decode_fps decodes first to learn K
+        kernel, probe = ({"scratch": "scratch_decoder",
+                          "ssa": "fastssc_decoder_u",
+                          "interp": "interp_decoder"}[name] for name in (
+            auto.decoder_names(code.level, False)[
+                llrs.shape[0] >= auto.BIG_BATCH],
+            auto.decoder_names(code.level, False)[0]))
+        if (plain or launched.get(kernel, 0) < 2
+                or set(launched) - {kernel, probe}
+                or (probe != kernel and launched.get(probe) != 1)):
+            raise AssertionError(f"throughput at N={code.N}: launches "
+                                 f"{launched}, plain calls {plain}")
+        row = {"n": code.N, "batch": llrs.shape[0], "decoder": desc,
+               "fps": fps, "launches": launched}
+        if code.N == 1024:
+            row["vs_baseline"] = fps / AVX2_REFERENCE_FPS_N1024
+        table.append(row)
+        phase("16c", f"N={code.N:6d} B={llrs.shape[0]} [{desc}] "
+              f"{fps:14,.0f} frames/s; launches {launched}, plain calls 0"
+              + (f"; vs_baseline {row['vs_baseline']:.3f} (AVX2 "
+                 f"{AVX2_REFERENCE_FPS_N1024:,.0f} frames/s at Polar(1024, "
+                 "512))" if "vs_baseline" in row else "") + f" ({card})")
+        del llrs
+    phase("16c", "throughput " + json.dumps(table))
+    phase("16c", f"part (c) {time.perf_counter() - t0:.1f} s")
+
+    # -- d. the curve set against the JAX package's results ----------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--ms", "8", "10", "--batch", "4096", "--max-frames", "8192",
+                "--snr-min", "-1.0", "--snr-max", "0.0", "--outdir", tmp,
+                "--plot", "", "--device", str(dev)]
+        _reset(*counts, *plains)
+        if curve_set.main(argv) != 0:
+            raise AssertionError("curve_set failed")
+        launched, plain = nonzero(counts), nonzero(plains)
+        if not launched or plain:
+            raise AssertionError(f"curve set launches {launched}, plain "
+                                 f"calls {plain}")
+        files = {}
+        for m in (8, 10):
+            for systematic in (True, False):
+                name = curve_set.tag(m, systematic)
+                files[name] = (Path(tmp) / f"{name}.json").read_text()
+                res = load_result(Path(tmp) / f"{name}.json")
+                ref = (f"n{1 << m}_{'sys' if systematic else 'nonsys'}"
+                       "_int8.json")
+                campaign_vs_reference("16d", res, ref, res.code_k,
+                                      len(res.points))
+        _reset(*counts, *plains)
+        if curve_set.main(argv) != 0:
+            raise AssertionError("curve_set failed on resuming")
+        again = {name: (Path(tmp) / f"{name}.json").read_text()
+                 for name in files}
+        if nonzero(counts) or nonzero(plains) or again != files:
+            raise AssertionError(f"resumed curve set launched "
+                                 f"{nonzero(counts)}, plain calls "
+                                 f"{nonzero(plains)}, files changed "
+                                 f"{again != files}")
+    phase("16d", f"curve set m = 8, 10, both modes: launches {launched}; "
+          f"resumed with no launch and the files unchanged; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- e. a campaign point traced, three sessions: the port's kernels in
+    # each trace file are a reading (a session at times records none of
+    # them, PERF.md section 7); the annotation must be there
+    t0 = time.perf_counter()
+    code = pt.make_code(10, rate=0.5)
+    readings = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(3):
+            point_gen = torch.Generator()
+            point_gen.manual_seed(1)
+            _reset(*counts)
+            with trace(tmp) as prof:
+                with annotate("polar_point"):
+                    point = pt.run_point(code, -0.5, gen=point_gen,
+                                         batch=BATCH, max_frames=2 * BATCH,
+                                         device=dev)
+            events = trace_events(prof.trace_file)
+            if not any(e.get("name") == "polar_point" for e in events):
+                raise AssertionError("the trace lacks the annotation")
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            own = own_kernels(prof.trace_file)
+            readings.append(f"{len(own)} of {sum(nonzero(counts).values())} "
+                            f"launches of the port's kernels, "
+                            f"{len(kernels) - len(own)} of torch's")
+    phase("16e", f"traced run_point at Polar({code.N}, {code.K}) B={BATCH}, "
+          f"-0.5 dB (BER {point.ber:.4g}), three sessions: the annotation in "
+          f"each trace file; recorded: {'; '.join(readings)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- f. the fused step's bits mode -------------------------------------
+    t0 = time.perf_counter()
+    by_shape = {}
+    for m, b in ((10, BATCH), (2, 4096), (13, 4096)):
+        c = pt.make_code(m, rate=0.5)
+        seeds, call = (m, 16), 1
+        words = philox.to_int32(philox.random_bits(seeds, call, 2 * c.N, b,
+                                                   dev))
+        kernel = step_kernel.step_kernel_name(c.N)
+        for systematic in (True, False):
+            args = (pt.compile_program(c), c.frozen, snr_params(-0.5),
+                    systematic)
+            _reset(step_kernel.launches)
+            bits = step_kernel.step(*args, words_t=words)
+            nat = step_kernel.step(*args, seeds=seeds, call=call, batch=b,
+                                   device=dev)
+            name = "mc_step" if kernel == "tile" else "walk_step"
+            if (not torch.equal(bits, nat)
+                    or step_kernel.launches[name] != 2):
+                raise AssertionError(f"bits step {bits.tolist()} vs native "
+                                     f"{nat.tolist()} at m={m} "
+                                     f"sys={systematic}; launches "
+                                     f"{step_kernel.launches}")
+            phase("16f", f"bits step == native step ({kernel}) at "
+                  f"Polar({c.N}, {c.K}) B={b} sys={systematic}: "
+                  f"{bits.tolist()}")
+        if (m, b) == (10, BATCH):
+            args = (pt.compile_program(c), c.frozen, snr_params(1.0), True)
+            t = in_turns(lambda: step_kernel.step(*args, words_t=words),
+                         lambda: step_kernel.step(
+                             *args, seeds=seeds, call=call, batch=b,
+                             device=dev), 20)
+            w = row_work("mc_step", n=c.N, k=c.K, b=b, bits=True)
+            where = f"Polar({c.N}, {c.K}) B={b} bits"
+            by_shape[where] = {
+                "ms": t["ms"], "native_ms": t["earlier_ms"],
+                "plain_ms": ms(lambda: step_kernel.step_plain(
+                    *args, words_t=words), 3),
+                "launches": 0, "steps": 0, "work": w}
+            turns = t["turns"].replace("new", "bits").replace("old", "native")
+            phase("16f", f"mc_step bits mode at {where[:-5]}: {t['ms']:.4f} "
+                  f"ms, native mode {t['earlier_ms']:.4f} ms ({turns}); "
+                  f"bound {bound(*w)[0]:.4f} ms ({bound(*w)[1]}) ({card})")
+        del words
+    phase("16f", f"part (f) {time.perf_counter() - t0:.1f} s; phase 16 "
+          f"{time.perf_counter() - t_all:.1f} s")
+    return {"err": {}, "times": {}, "work": {}, "launched": {},
+            "by_shape": {"mc_step": by_shape}}
 
 
 def main() -> int:
@@ -2216,6 +2445,7 @@ def main() -> int:
                                           front_kernel, step_kernel,
                                           subtree_kernel)
     from polar_tpu_torch.utils.benchmark import measure_decode_fps
+    from polar_tpu_torch.utils.cost import bound, row_work
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -2473,15 +2703,11 @@ def main() -> int:
               f"plain {t_p:.3f} ms ({BATCH / t_p * 1e3:.4g} frames/s) at "
               f"Polar({n}, {k}) B={BATCH} ({card})")
 
-    work = {
-        "fastssc_decoder_u": ((n + k) * BATCH, decode_ops(n) * BATCH),
-        "fastssc_decoder_cw": ((2 * n + k) * BATCH,
-                               (decode_ops(n) + transform_ops(n)) * BATCH),
-        "mc_step": (0, (front_ops(n, k) + decode_count_ops(n)) * BATCH),
-    }
+    work = {name: row_work(name, n=n, k=k, b=BATCH)
+            for name in ("fastssc_decoder_u", "fastssc_decoder_cw", "mc_step")}
     library, steps, by_shape = {}, {}, {}
     for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
-                parallel_phases):
+                parallel_phases, module_phases):
         more = run(dev, card, ms)
         err.update(more["err"])
         times.update(more["times"])
@@ -2557,8 +2783,8 @@ def main() -> int:
                 rows[-1]["by_shape"].append({
                     "shape": where, "launches": t["launches"],
                     "steps": t["steps"], "ms": t["ms"],
-                    **({"earlier_ms": t["earlier_ms"]}
-                       if "earlier_ms" in t else {}),
+                    **{key: t[key] for key in ("earlier_ms", "device_ms",
+                                                "native_ms") if key in t},
                     "plain_ms": t["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by})
                 phase("13", f"{name} at {where}: {t['ms']:.4f} ms, bound "

@@ -15,7 +15,10 @@ Quick start::
     code = pt.make_code(10, rate=0.5)                    # Polar(1024, 512)
     result = pt.run_campaign(code, device="cuda")        # BER waterfall
 
-The waterfall CLI: ``python -m polar_tpu_torch.waterfall --help``.
+The CLIs: ``python -m polar_tpu_torch.waterfall --help`` (one BER
+waterfall), ``python -m polar_tpu_torch.curve_set`` (the curve set per
+code length and mode) and ``python -m polar_tpu_torch.throughput`` (decode
+frames/s per code length).
 """
 
 from .ber import (CampaignResult, SnrPoint, make_multi_step, make_step,
@@ -35,7 +38,8 @@ from .code.construction import (
     make_code,
     make_code_threshold,
 )
-from .decode.auto import make_auto_decoder
+from .code.store import load_code, save_code
+from .decode.auto import make_auto_decoder, make_kernel_decoder
 from .decode.fastssc import make_fastssc_decoder
 from .decode.sc import make_sc_decoder
 from .encode import encode, encode_systematic, extract_systematic
@@ -57,6 +61,8 @@ __all__ = [
     "Node",
     "compile_code",
     "compile_program",
+    "save_code",
+    "load_code",
     "polar_transform",
     "encode",
     "encode_systematic",
@@ -64,6 +70,7 @@ __all__ = [
     "make_sc_decoder",
     "make_fastssc_decoder",
     "make_auto_decoder",
+    "make_kernel_decoder",
     "awgn_llrs",
     "noise_sigma",
     "ebn0_db",

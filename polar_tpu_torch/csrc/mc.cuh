@@ -23,26 +23,31 @@ constexpr int kMaxWarps = 32;
 
 // Front half for frame f (polar_tpu/ops/pallas/step_kernel.py:_front):
 //   1. u0 = frozen ? +1 : message symbol (msg_in row i in inject mode, else
-//      bit 0 of Philox word N + i), into u when keep_u and into c;
+//      bit 0 of word N + i), into u when keep_u and into c;
 //   2. c = T(u0); systematic: refreeze, c = T(c);
 //   3. llr = quantize(c + sigma * normal), normals from normals_in (inject)
 //      or Box-Muller over words i (radius) and N/2 + i (angle), giving rows
 //      i and N/2 + i;
 //   4. cnt[3] += AWGN sign flips, cnt[4] += zero LLRs.
+// The words: row r of words_in (2N, B) u32 in bits mode, else word r of the
+// frame's Philox stream.
 __device__ inline void mc_front(const uint8_t* __restrict__ frozen, int n,
                                 int f, long long b, int systematic,
                                 float sigma, float scale,
                                 const int8_t* __restrict__ msg_in,
                                 const float* __restrict__ normals_in,
+                                const uint32_t* __restrict__ words_in,
                                 uint2 key, uint32_t call, bool keep_u, Col u,
                                 Col c, Col llr, int* cnt) {
-  const bool inject = msg_in != nullptr;
+  const bool inject = msg_in != nullptr, bits = words_in != nullptr;
   PhiloxStream msg_words(key, (uint32_t)f, call);
   for (int i = 0; i < n; ++i) {
     int8_t sym = 1;
-    if (!__ldg(frozen + i))
+    if (!__ldg(frozen + i)) {
+      const uint32_t w = bits ? words_in[(long long)(n + i) * b + f] : 0u;
       sym = inject ? msg_in[(long long)i * b + f]
-                   : (int8_t)(1 - 2 * (int)(msg_words.word(n + i) & 1u));
+            : (int8_t)(1 - 2 * (int)((bits ? w : msg_words.word(n + i)) & 1u));
+    }
     if (keep_u) u[i] = sym;
     c[i] = sym;
   }
@@ -60,6 +65,9 @@ __device__ inline void mc_front(const uint8_t* __restrict__ frozen, int n,
     if (inject) {
       n0 = normals_in[(long long)i * b + f];
       n1 = normals_in[(long long)(h + i) * b + f];
+    } else if (bits) {
+      box_muller(words_in[(long long)i * b + f],
+                 words_in[(long long)(h + i) * b + f], &n0, &n1);
     } else {
       box_muller(radius_words.word(i), angle_words.word(h + i), &n0, &n1);
     }

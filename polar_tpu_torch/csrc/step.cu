@@ -154,6 +154,7 @@ __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
                                int batch, int systematic, float sigma,
                                float scale, const int8_t* __restrict__ msg_in,
                                const float* __restrict__ normals_in,
+                               const uint32_t* __restrict__ words_in,
                                uint32_t seed0, uint32_t seed1, uint32_t call,
                                int8_t* u_s, int8_t* c_s, int8_t* llr_s,
                                int8_t* soft, int8_t* hard, int8_t* mesg,
@@ -165,8 +166,8 @@ __global__ void mc_step_kernel(const uint8_t* __restrict__ prog,
     const polar::Col u{u_s + f, b}, c{c_s + f, b}, llr{llr_s + f, b};
     const polar::Col m{mesg + f, b};
     polar::mc_front(frozen, n, f, b, systematic, sigma, scale, msg_in,
-                    normals_in, make_uint2(seed0, seed1), call, true, u, c,
-                    llr, cnt);
+                    normals_in, words_in, make_uint2(seed0, seed1), call,
+                    true, u, c, llr, cnt);
     polar::fastssc_decode(prog, n, llr, polar::Col{soft + f, b},
                           polar::Col{hard + f, b}, m);
     if (systematic) {
@@ -194,7 +195,8 @@ __global__ void tile_step_kernel(
     const uint8_t* __restrict__ prog, const uint8_t* __restrict__ frozen,
     const int* __restrict__ info, int n, int k, int batch, float sigma,
     float scale, const int8_t* __restrict__ msg_in,
-    const float* __restrict__ normals_in, uint32_t seed0, uint32_t seed1,
+    const float* __restrict__ normals_in,
+    const uint32_t* __restrict__ words_in, uint32_t seed0, uint32_t seed1,
     uint32_t call, int8_t* tx, int8_t* mesg, int aligned, int* out) {
   extern __shared__ uint32_t smem[];
   using T = StepTile<SYS>;
@@ -211,20 +213,27 @@ __global__ void tile_step_kernel(
     const int f = t.first() + fl;
     const bool live = f < batch;
     const long long b = batch;
-    const bool inject = msg_in != nullptr;
+    const bool inject = msg_in != nullptr, bits = words_in != nullptr;
     const uint2 key = make_uint2(seed0, seed1);
     int8_t* soft_b = reinterpret_cast<int8_t*>(t.soft) + fl;
     int8_t* root_b = reinterpret_cast<int8_t*>(t.root) + fl;
     constexpr int kRowBytes = T::kFrames;  // a byte a frame
     // 1. u0 = frozen ? +1 : the symbol of word N + i (rows 4j..4j+3 are one
-    // Philox block, n >= 4)
+    // Philox block, n >= 4; in bits mode row N + i of words_in)
     for (int j = q; 4 * j < n; j += kStep) {
       polar::PhiloxStream words(key, (uint32_t)f, call);
       for (int i = 4 * j; i < 4 * j + 4; ++i) {
         int8_t sym = 1;
-        if (!__ldg(frozen + i))
-          sym = inject ? (live ? msg_in[(long long)i * b + f] : (int8_t)1)
-                       : (int8_t)(1 - 2 * (int)(words.word(n + i) & 1u));
+        if (!__ldg(frozen + i)) {
+          if (inject || bits) {
+            if (live)
+              sym = inject ? msg_in[(long long)i * b + f]
+                           : (int8_t)(1 - 2 * (int)(
+                                 words_in[(long long)(n + i) * b + f] & 1u));
+          } else {
+            sym = (int8_t)(1 - 2 * (int)(words.word(n + i) & 1u));
+          }
+        }
         soft_b[i * kRowBytes] = sym;
       }
     }
@@ -244,17 +253,21 @@ __global__ void tile_step_kernel(
       for (int r = t.r0; r < n; r += T::kPass) t.store(tx, r, t.at(t.soft, r));
     }
     // 3. llr = quantize(cw + sigma * normal): rows i (radius word i) and
-    // N/2 + i (angle word N/2 + i) of Box-Muller pair i, into the root rows;
-    // the channel counters of each live LLR
+    // N/2 + i (angle word N/2 + i) of Box-Muller pair i (in bits mode rows i
+    // and N/2 + i of words_in), into the root rows; the channel counters of
+    // each live LLR
     const int h = n >> 1;
     for (int j = q; 4 * j < h; j += kStep) {
       polar::PhiloxStream radius_words(key, (uint32_t)f, call);
       polar::PhiloxStream angle_words(key, (uint32_t)f, call);
       for (int i = 4 * j; i < min(4 * j + 4, h); ++i) {
         float n0 = 0.0f, n1 = 0.0f;
-        if (!inject) {
+        if (!inject && !bits) {
           polar::box_muller(radius_words.word(i), angle_words.word(h + i),
                             &n0, &n1);
+        } else if (live && bits) {
+          polar::box_muller(words_in[(long long)i * b + f],
+                            words_in[(long long)(h + i) * b + f], &n0, &n1);
         } else if (live) {
           n0 = normals_in[(long long)i * b + f];
           n1 = normals_in[(long long)(h + i) * b + f];
@@ -337,7 +350,7 @@ __global__ void front_whole_kernel(const uint8_t* __restrict__ frozen, int n,
   const polar::Col c{cw_s + f, b};
   int cnt[polar::kCounters] = {0, 0, 0, 0, 0};  // unused here
   polar::mc_front(frozen, n, f, b, 1, sigma, scale, msg_in, normals_in,
-                  make_uint2(seed0, seed1), call, false, c, c,
+                  nullptr, make_uint2(seed0, seed1), call, false, c, c,
                   polar::Col{llr_s + f, b}, cnt);
 }
 
@@ -370,8 +383,8 @@ __global__ void decode_count_kernel(const uint8_t* __restrict__ prog,
 
 // The tile step on `stream`: tiles of 8 frames, `warps` tiles a block,
 // warps * 8 * n * (4 systematic, 3 plain) bytes of shared memory; n >= 4.
-// info: the k info rows (int32, increasing). Inject and native modes as
-// polar_step's. Scratch: tx (n, batch) int8, the transmitted codeword
+// info: the k info rows (int32, increasing). Inject, bits and native modes
+// as polar_step's. Scratch: tx (n, batch) int8, the transmitted codeword
 // (systematic) or u0 (plain); mesg (k, batch) int8 (plain mode only). out
 // (blocks, 5) int32, blocks = ceil(ceil(batch / 8) / warps). aligned != 0:
 // batch % 16 == 0 and tx and mesg start on 16-byte boundaries. Returns the
@@ -380,40 +393,44 @@ extern "C" int polar_tile_step(const void* prog, const void* frozen,
                                const void* info, int n, int k, int batch,
                                int systematic, float sigma, float scale,
                                const void* msg, const void* normals,
-                               unsigned int seed0, unsigned int seed1,
-                               unsigned int call, void* tx, void* mesg,
-                               void* out, int warps, int aligned,
+                               const void* words, unsigned int seed0,
+                               unsigned int seed1, unsigned int call, void* tx,
+                               void* mesg, void* out, int warps, int aligned,
                                void* stream) {
   namespace s = polar::simd;
   const cudaStream_t st = (cudaStream_t)stream;
   return systematic
              ? s::launch_tiles<StepTile<true>>(
                    tile_step_kernel<true>, n, batch, warps, st, prog, frozen,
-                   info, n, k, batch, sigma, scale, msg, normals, seed0,
-                   seed1, call, tx, mesg, aligned, out)
+                   info, n, k, batch, sigma, scale, msg, normals, words,
+                   seed0, seed1, call, tx, mesg, aligned, out)
              : s::launch_tiles<StepTile<false>>(
                    tile_step_kernel<false>, n, batch, warps, st, prog, frozen,
-                   info, n, k, batch, sigma, scale, msg, normals, seed0,
-                   seed1, call, tx, mesg, aligned, out);
+                   info, n, k, batch, sigma, scale, msg, normals, words,
+                   seed0, seed1, call, tx, mesg, aligned, out);
 }
 
 // The walk on `stream`. Inject mode: msg (n, batch) int8 ±1 and normals
-// (n, batch) float32; native mode: msg and normals null, words from Philox
+// (n, batch) float32; bits mode: words (2n, batch) u32, rows [0, n) the
+// normals' (radius rows below n/2, angle rows above), rows [n, 2n) the
+// message's; native mode: msg, normals and words null, words from Philox
 // keyed by (seed0, seed1) with counter word 2 = call. Scratch u, c, llr,
 // soft, hard (n, batch) and mesg (k, batch) int8; out (blocks, 5) int32.
 // threads must be a multiple of 32, at most 1024. Returns cudaGetLastError().
 extern "C" int polar_step(const void* prog, const void* frozen, int n,
                           int batch, int systematic, float sigma, float scale,
                           const void* msg, const void* normals,
-                          unsigned int seed0, unsigned int seed1,
-                          unsigned int call, void* u, void* c, void* llr,
+                          const void* words, unsigned int seed0,
+                          unsigned int seed1, unsigned int call, void* u,
+                          void* c, void* llr,
                           void* soft, void* hard, void* mesg, void* out,
                           int threads, void* stream) {
   const int blocks = (batch + threads - 1) / threads;
   mc_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)prog, (const uint8_t*)frozen, n, batch, systematic,
-      sigma, scale, (const int8_t*)msg, (const float*)normals, seed0, seed1,
-      call, (int8_t*)u, (int8_t*)c, (int8_t*)llr, (int8_t*)soft,
+      sigma, scale, (const int8_t*)msg, (const float*)normals,
+      (const uint32_t*)words, seed0, seed1, call, (int8_t*)u, (int8_t*)c,
+      (int8_t*)llr, (int8_t*)soft,
       (int8_t*)hard, (int8_t*)mesg, (int*)out);
   return (int)cudaGetLastError();
 }

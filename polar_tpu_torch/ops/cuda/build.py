@@ -48,14 +48,14 @@ SIGNATURES = {
     "polar_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "polar_tile_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "polar_simd_selftest": (_P, _P),
-    "polar_step": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _U, _U, _U,
+    "polar_step": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _U, _U, _U,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "polar_subtree": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _P),
     "polar_tile_subtree": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                            _P),
-    "polar_tile_step": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _U, _U,
-                        _U, _P, _P, _P, _I, _I, _P),
+    "polar_tile_step": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _U,
+                        _U, _U, _P, _P, _P, _I, _I, _P),
     "polar_front_msg": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_front_chan": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
                          _I, _P),

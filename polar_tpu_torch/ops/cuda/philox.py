@@ -84,6 +84,12 @@ def random_bits(seeds: tuple[int, int], call: int, rows: int, batch: int,
                        first=first).t().contiguous()
 
 
+def to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words holding u32 values → int32 words with the same 32 bits
+    (values from 2^31 as their two's-complement negatives)."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
 def _f32(x: float) -> float:
     return float(np.float32(x))
 

@@ -33,11 +33,18 @@ of ``polar_tpu/ops/pallas/step_kernel.py``:
   counters); above it, and at every level under ``style="walk"``, the walk
   (``decode_count_kernel``).
 
-Two modes for the draws:
+Three modes for the draws:
 
 * native — the kernel draws its own Philox words from two seed words and a
   call counter (``csrc/philox.cuh``); the front draws the fused step's
   words, so the front plus decode+count counts what the step counts;
+* bits (:func:`step` only) — the step's words come in as ``words_t``, a
+  ``(2N, B)`` int32 tensor holding the u32 bits (:func:`philox.to_int32`
+  stores int64 words so): rows ``[0, N)`` feed the normals (radius rows
+  ``[0, N/2)``, angle rows ``[N/2, N)``), rows ``[N, 2N)`` the message, the
+  layout of ``make_pallas_step(prng="bits")`` (``:417``,
+  ``_step_kernel_bits`` ``:295``) and of the native draw; on the words
+  native mode draws, the two modes count the same;
 * inject — message symbols and normals come in as ``(N, B)`` tensors, so
   the counters can be compared exactly with any other chain fed the same
   inputs.
@@ -135,12 +142,22 @@ plain_calls = {"step_plain": 0, "front_plain": 0,
                "decode_count_plain": 0}
 
 
-def _draw_plain(seeds, call, n, batch, device):
-    """Message symbols (N, B) int8 and normals (N, B) float32 from the
-    Philox words the kernel draws: words [0, N) feed the normals, words
-    [N, 2N) the message."""
-    bits = philox.random_bits(seeds, call, 2 * n, batch, device)
+def _bits_plain(bits):
+    """Message symbols (N, B) int8 and normals (N, B) float32 from (2N, B)
+    int64 words: words [0, N) feed the normals, words [N, 2N) the
+    message."""
+    n = bits.shape[0] // 2
     return philox.bits_to_sym(bits[n:]), philox.bits_to_normals(bits[:n])
+
+
+def _draw_plain(seeds, call, n, batch, device):
+    """:func:`_bits_plain` of the Philox words the kernel draws."""
+    return _bits_plain(philox.random_bits(seeds, call, 2 * n, batch, device))
+
+
+def _words_plain(words_t):
+    """:func:`_bits_plain` of the bits mode's ``(2N, B)`` int32 words."""
+    return _bits_plain(words_t.to(torch.int64) & 0xFFFFFFFF)
 
 
 def _front_plain(frozen, params, systematic: bool, msg_t, normals_t,
@@ -160,13 +177,16 @@ def _front_plain(frozen, params, systematic: bool, msg_t, normals_t,
 
 
 def step_plain(program, frozen, params, systematic: bool, *, msg_t=None,
-               normals_t=None, seeds=None, call: int = 0, batch: int = 0,
-               device=None) -> torch.Tensor:
+               normals_t=None, words_t=None, seeds=None, call: int = 0,
+               batch: int = 0, device=None) -> torch.Tensor:
     """The eager step: inject mode with ``msg_t`` (N, B) ±1 int8 and
-    ``normals_t`` (N, B) float32, native mode with ``seeds``, ``call``,
-    ``batch`` and ``device``. ``params`` = (σ, 2/σ²) as float32 values."""
+    ``normals_t`` (N, B) float32, bits mode with ``words_t`` (2N, B) int32,
+    native mode with ``seeds``, ``call``, ``batch`` and ``device``.
+    ``params`` = (σ, 2/σ²) as float32 values."""
     plain_calls["step_plain"] += 1
     frozen = np.asarray(frozen, dtype=np.uint8)
+    if words_t is not None:
+        msg_t, normals_t = _words_plain(words_t)
     llr, cw, u0, frz = _front_plain(frozen, params, systematic, msg_t,
                                     normals_t, seeds, call, batch, device)
     return counts_plain(program, frozen, systematic, llr, cw, u0, frz)
@@ -351,13 +371,23 @@ def decode_count(program, frozen, llr_t, cw_t, style: str = "ssa",
     return out.sum(dim=0, dtype=torch.int64)
 
 
-def _check_draws(frozen, msg_t, normals_t, seeds, batch, dev):
+def _check_draws(frozen, msg_t, normals_t, seeds, batch, dev,
+                 words_t=None):
     """Checked kernel arguments of the draws: ``(frozen, batch, seed0,
-    seed1)``; raises on a device other than CUDA or a bad inject input."""
+    seed1)``; raises on a device other than CUDA or a bad inject or bits
+    input."""
     if dev.type != "cuda":
         raise ValueError(f"no step kernel for device {dev}")
     frozen = np.asarray(frozen, dtype=np.uint8)
     n = frozen.size
+    if words_t is not None:
+        batch = words_t.shape[1] if words_t.ndim == 2 else -1
+        if (words_t.dtype != torch.int32
+                or tuple(words_t.shape) != (2 * n, batch)
+                or not words_t.is_contiguous() or words_t.device != dev):
+            raise ValueError(f"words_t: expected contiguous ({2 * n}, {batch})"
+                             f" int32 on {dev}")
+        return frozen, batch, 0, 0
     if msg_t is None:
         return (frozen, batch) + philox.seed_words(seeds)
     batch = msg_t.shape[1] if msg_t.ndim == 2 else -1
@@ -378,8 +408,8 @@ def step_kernel_name(n: int) -> str:
 
 
 def step(program, frozen, params, systematic: bool, *, msg_t=None,
-         normals_t=None, seeds=None, call: int = 0, batch: int = 0,
-         device=None, style: str = "ssa") -> torch.Tensor:
+         normals_t=None, words_t=None, seeds=None, call: int = 0,
+         batch: int = 0, device=None, style: str = "ssa") -> torch.Tensor:
     """One Monte-Carlo step (arguments as :func:`step_plain`): the kernel
     of ``style`` (``"ssa"``: the tile step up to
     :data:`STEP_TILE_MAX_LEVEL`, the walk above; ``"walk"``: the walk) on a
@@ -387,13 +417,15 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
     if style not in STEP_STYLES:
         raise ValueError(f"unknown step style {style!r}")
     inject = msg_t is not None
-    dev = msg_t.device if inject else torch.device(device)
+    dev = (msg_t.device if inject else words_t.device
+           if words_t is not None else torch.device(device))
     if dev.type == "cpu":
         return step_plain(program, frozen, params, systematic, msg_t=msg_t,
-                          normals_t=normals_t, seeds=seeds, call=call,
-                          batch=batch, device=dev)
+                          normals_t=normals_t, words_t=words_t, seeds=seeds,
+                          call=call, batch=batch, device=dev)
     frozen, batch, s0, s1 = _check_draws(frozen, msg_t, normals_t, seeds,
-                                         batch, dev)
+                                         batch, dev, words_t)
+    words = None if words_t is None else words_t.data_ptr()
     n = frozen.size
     k = n - int(np.count_nonzero(frozen))
     if batch == 0:
@@ -418,7 +450,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
             prog_d.data_ptr(), frozen_d.data_ptr(),
             device_info(frozen, dev).data_ptr(), n, k, batch, int(systematic),
             sigma, scale, msg_t.data_ptr() if inject else None,
-            normals_t.data_ptr() if inject else None, s0, s1,
+            normals_t.data_ptr() if inject else None, words, s0, s1,
             call & 0xFFFFFFFF, tx.data_ptr(),
             None if mesg is None else mesg.data_ptr(), out.data_ptr(), warps,
             int(aligned), stream)
@@ -434,7 +466,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
         prog_d.data_ptr(), frozen_d.data_ptr(), n, batch, int(systematic),
         sigma, scale,
         msg_t.data_ptr() if inject else None,
-        normals_t.data_ptr() if inject else None,
+        normals_t.data_ptr() if inject else None, words,
         s0, s1, call & 0xFFFFFFFF, *(s.data_ptr() for s in scratch),
         mesg.data_ptr(), out.data_ptr(), THREADS, stream)
     build.check(err, "polar_step")

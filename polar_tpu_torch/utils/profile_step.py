@@ -31,15 +31,13 @@ first list only). The shares are of the device-only trace's busy time.
 from __future__ import annotations
 
 import argparse
-import re
 import subprocess
 import sys
 import time
 
+from .profiling import OWN_KERNEL
+
 CONFIGS = ((10, 32768, 8), (17, 4096, 2))   # (level, batch, steps)
-# a kernel of csrc/: every one sits in a file's own anonymous namespace
-# (torch's sit in at::native's), demangled or not
-_OWN = re.compile(r"(void )?\(anonymous namespace\)::|_ZN\d+_GLOBAL__N_")
 SNR_DB = -1.5
 TOP = 12
 
@@ -76,7 +74,7 @@ def profile_steps(multi, gen, batch: int, steps: int) -> list[str]:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
-    own = sum(bool(_OWN.match(e.name)) for e in kernels)
+    own = sum(bool(OWN_KERNEL.match(e.name)) for e in kernels)
     busy = sum(e.device_time_total for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3

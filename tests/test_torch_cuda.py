@@ -1286,6 +1286,45 @@ def test_tile_step_matches_plain_and_the_walk(dev, m, batch):
         assert torch.equal(a, b), (a.tolist(), b.tolist())
 
 
+@pytest.mark.parametrize("m,batch", [(2, 1), (2, 999), (5, 999), (10, 1),
+                                     (10, 32768), (12, 999), (13, 999)])
+def test_step_bits_mode_matches_native_and_plain(dev, m, batch):
+    """Bits mode (``words_t``, (2N, B) int32) on the words native mode
+    draws: the native counters exactly, in both styles and modes, the
+    tile step to its limit and the walk above; against the plain chain on
+    the same words within phase 4's tolerance (an ulp of log/sqrt may move
+    an LLR: at most 3 frames' worth of bits)."""
+    from polar_tpu_torch.ops.cuda import philox
+
+    c = pt.make_code(m, rate=0.5)
+    seeds, call = (m, batch), 3
+    words = philox.to_int32(philox.random_bits(seeds, call, 2 * c.N, batch,
+                                               dev))
+    for systematic in (True, False):
+        args = (pt.compile_program(c), c.frozen, snr_params(-0.5), systematic)
+        for style in step_kernel.STEP_STYLES:
+            before = dict(step_kernel.launches)
+            got = step_kernel.step(*args, words_t=words, style=style)
+            name = ("mc_step" if style == "ssa" and m <= step_kernel.
+                    STEP_TILE_MAX_LEVEL else "walk_step")
+            assert step_kernel.launches == {**before, name: before[name] + 1}
+            native = step_kernel.step(*args, seeds=seeds, call=call,
+                                      batch=batch, device=dev, style=style)
+            assert torch.equal(got, native), (got.tolist(), native.tolist())
+        plain = step_kernel.step_plain(*args, words_t=words)
+        assert int((got - plain).abs().max()) <= 3 * c.K
+
+
+def test_step_bits_mode_checks_its_words(dev):
+    c = pt.make_code(6, rate=0.5)
+    args = (pt.compile_program(c), c.frozen, snr_params(0.0), True)
+    for bad in (torch.zeros((2 * c.N, 8), dtype=torch.int64, device=dev),
+                torch.zeros((c.N, 8), dtype=torch.int32, device=dev),
+                torch.zeros((8, 2 * c.N), dtype=torch.int32, device=dev).t()):
+        with pytest.raises(ValueError, match="words_t"):
+            step_kernel.step(*args, words_t=bad)
+
+
 def test_tile_step_counts_errors_and_rows_off_the_word(dev):
     """At a low SNR every counter moves; a batch off the 16-byte word
     still equals the walk."""
