@@ -53,6 +53,7 @@ from .encode import encode, encode_systematic
 from .ops.cuda import (channel_kernel, count_kernel, encode_kernel,
                        front_kernel, interp_kernel, step_kernel)
 from .utils.benchmark import measure_decode_fps
+from .utils.profiling import annotate
 
 # Levels at which make_step runs the fused step kernel for int8 codes. Up to
 # step_kernel.STEP_TILE_MAX_LEVEL that is the tile step; above it the walk,
@@ -276,9 +277,11 @@ def _device_generator(gen: torch.Generator, device) -> torch.Generator:
 
 
 def _philox_seeds(gen: torch.Generator) -> tuple[int, int]:
-    """Two 32-bit Philox seed words drawn from a host generator."""
-    return tuple(int(s) for s in torch.randint(
-        0, 2**32, (2,), generator=gen, dtype=torch.int64))
+    """Two 32-bit Philox seed words drawn from a host generator (the span
+    ``step.seeds``)."""
+    with annotate("step.seeds"):
+        return tuple(int(s) for s in torch.randint(
+            0, 2**32, (2,), generator=gen, dtype=torch.int64))
 
 
 def _default_decoder(code: PolarCode, systematic: bool, dtype, compute,
@@ -385,10 +388,17 @@ def frame_counters(message, codeword, llrs, decoded) -> dict:
     and ``llrs*codeword < 0`` ⟺ ``llrs≠0 ∧ sign(llrs)≠sign(codeword)``."""
     zero_d = decoded == 0
     errs = zero_d | ((decoded < 0) != (message < 0))
-    return dict(zip(step_kernel.COUNTERS, (
-        errs.sum(), errs.any(dim=-1).sum(), zero_d.sum(),
-        ((llrs != 0) & ((llrs < 0) != (codeword < 0))).sum(),
-        (llrs == 0).sum())))
+    t = (errs.sum(), errs.any(dim=-1).sum(), zero_d.sum(),
+         ((llrs != 0) & ((llrs < 0) != (codeword < 0))).sum(),
+         (llrs == 0).sum())
+    return _unpack(t)
+
+
+def _unpack(t) -> dict:
+    """The counter dict of a step's five counters (the span
+    ``step.unpack``)."""
+    with annotate("step.unpack"):
+        return dict(zip(step_kernel.COUNTERS, t))
 
 
 def step_kernel_eligible(code: PolarCode, dtype, compute) -> bool:
@@ -549,7 +559,7 @@ def make_front_step(code: PolarCode, *, systematic: bool = True,
             raise ValueError("words= is taken by int8 rng='kernel-bits' only")
         t = chain(snr_params(snr_db), seeds=_philox_seeds(gen), call=0,
                   batch=batch, device=device)
-        return dict(zip(step_kernel.COUNTERS, t))
+        return _unpack(t)
 
     return front_step
 
@@ -637,7 +647,7 @@ def _path_step(code: PolarCode, path: str, *, systematic: bool, dtype,
         t = step_kernel.step(program, code.frozen, snr_params(snr_db),
                              systematic, seeds=_philox_seeds(gen), call=0,
                              batch=batch, device=device, style=step_style)
-        return dict(zip(step_kernel.COUNTERS, t))
+        return _unpack(t)
 
     return fused_step
 
@@ -655,7 +665,7 @@ def chain_steps(step):
             out = step(gen, snr_db, batch)
             t = torch.stack([out[name] for name in step_kernel.COUNTERS])
             acc = t if acc is None else acc + t
-        return dict(zip(step_kernel.COUNTERS, acc))
+        return _unpack(acc)
 
     return multi
 
@@ -701,29 +711,38 @@ def run_point(
     ``steps_per_call`` > 1 runs that many steps per call (``step`` must
     then be a :func:`make_multi_step` callable); the counters come to the
     host once per call, and the early-stop check runs at that
-    granularity."""
-    if step is None:
-        make = make_multi_step if steps_per_call > 1 else make_step
-        step = make(code, systematic=systematic, dtype=dtype, device=device)
-    totals = dict.fromkeys(step_kernel.COUNTERS, 0)
-    frames = 0
-    while frames < max_frames and totals["uncorrected_errors"] < target_bit_errors:
-        if steps_per_call > 1:
-            out = step(gen, snr_db, batch, steps_per_call)
-            frames += batch * steps_per_call
-        else:
-            out = step(gen, snr_db, batch)
-            frames += batch
-        # one host pull per call; a caller's step may return Python ints
-        pulled = torch.stack([torch.as_tensor(out[name])
-                              for name in step_kernel.COUNTERS])
-        for name, v in zip(step_kernel.COUNTERS, pulled.tolist()):
-            totals[name] += v
+    granularity.
 
-    bps = 0.0
-    if measure_throughput and decode_fn is not None:
-        bps = measure_decode_throughput(code, decode_fn, snr_db, gen, batch,
-                                        dtype, device=device)
+    Spans (:func:`~polar_tpu_torch.utils.profiling.annotate`):
+    ``run_point`` over the point, ``run_point.step`` over each step call
+    and ``run_point.pull`` over each pull, the host's wait included."""
+    with annotate("run_point"):
+        if step is None:
+            make = make_multi_step if steps_per_call > 1 else make_step
+            step = make(code, systematic=systematic, dtype=dtype,
+                        device=device)
+        totals = dict.fromkeys(step_kernel.COUNTERS, 0)
+        frames = 0
+        while (frames < max_frames
+               and totals["uncorrected_errors"] < target_bit_errors):
+            with annotate("run_point.step"):
+                if steps_per_call > 1:
+                    out = step(gen, snr_db, batch, steps_per_call)
+                else:
+                    out = step(gen, snr_db, batch)
+            frames += batch * steps_per_call if steps_per_call > 1 else batch
+            # one host pull per call; a caller's step may return Python ints
+            with annotate("run_point.pull"):
+                pulled = torch.stack([torch.as_tensor(out[name])
+                                      for name in step_kernel.COUNTERS])
+                values = pulled.tolist()
+            for name, v in zip(step_kernel.COUNTERS, values):
+                totals[name] += v
+
+        bps = 0.0
+        if measure_throughput and decode_fn is not None:
+            bps = measure_decode_throughput(code, decode_fn, snr_db, gen,
+                                            batch, dtype, device=device)
     bits = frames * code.K
     return SnrPoint(
         snr_db=snr_db,

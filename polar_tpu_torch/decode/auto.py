@@ -27,7 +27,7 @@ from ..code.compiler import compile_program
 from ..code.construction import PolarCode
 from ..ops.cuda import decoder_kernel
 from ..ops.cuda.interp_kernel import make_interp_decoder
-from .fastssc import OUTPUTS, make_fastssc_decoder
+from .fastssc import OUTPUTS, frame_major, make_fastssc_decoder
 
 
 # Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): at
@@ -193,14 +193,7 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
             return cw.to(output_dtype)
         return mesg.to(output_dtype), cw.to(output_dtype)
 
-    def decode(llrs):
-        if llrs.ndim != 2:
-            raise ValueError("kernel decoder expects (batch, N) LLRs")
-        out = lane_major(llrs.t().contiguous())
-        if isinstance(out, tuple):
-            return tuple(o.t().contiguous() for o in out)
-        return out.t().contiguous()
-
+    decode = frame_major(lane_major, "kernel decoder")
     decode.lane_major = lane_major
     return decode
 

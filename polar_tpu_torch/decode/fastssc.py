@@ -36,6 +36,7 @@ from ..code.compiler import Node, compile_code, emit_program
 from ..code.construction import PolarCode
 from ..ops.arith import FloatArith, Int8Arith, QuantFloatArith, arith_for
 from ..ops.transform import polar_transform
+from ..utils.profiling import annotate
 
 OUTPUTS = ("u", "systematic", "codeword", "both")
 KERNEL_STYLES = ("ssa", "walk", "scratch", "scratch-bytes", "interp")
@@ -200,6 +201,27 @@ class _TreeDecoder:
             return None
         args = (soft, hard_l) + ((cw_l,) if self.want_cw else ())
         return self._kernel_outs(kernel(*(a.contiguous() for a in args)))
+
+
+def frame_major(lane_major, what: str):
+    """The frame-major entry ``decode(llrs (B, N))`` of an element-major
+    decoder ``lane_major(llr_t (N, B))``: a transpose in, the decode and a
+    transpose out of each output, under the spans ``decode``,
+    ``decode.transpose_in`` and ``decode.transpose_out``."""
+
+    def decode(llrs):
+        if llrs.ndim != 2:
+            raise ValueError(f"{what} expects (batch, N) LLRs")
+        with annotate("decode"):
+            with annotate("decode.transpose_in"):
+                llr_t = llrs.t().contiguous()
+            out = lane_major(llr_t)
+            with annotate("decode.transpose_out"):
+                if isinstance(out, tuple):
+                    return tuple(o.t().contiguous() for o in out)
+                return out.t().contiguous()
+
+    return decode
 
 
 def _resolve_arith(compute, dtype):
@@ -380,15 +402,11 @@ def make_fastssc_decoder(
             raise ValueError(f"expected (N={code.N}, B) lane-major LLRs")
         return run(llr_t, 0)
 
-    def decode(llrs):
-        if not hybrid:
+    if hybrid:
+        decode = frame_major(decode_lane_major, "hybrid decoder")
+    else:
+        def decode(llrs):
             return run(llrs, -1)
-        if llrs.ndim != 2:
-            raise ValueError("hybrid decoder expects (batch, N) LLRs")
-        out = decode_lane_major(llrs.t().contiguous())
-        if isinstance(out, tuple):
-            return tuple(o.t().contiguous() for o in out)
-        return out.t().contiguous()
 
     decode.lane_major = decode_lane_major
     return decode

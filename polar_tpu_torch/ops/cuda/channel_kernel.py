@@ -52,6 +52,7 @@ import math
 import torch
 
 from ...channel import channel_llrs
+from ...utils import profiling
 from . import build, philox
 
 THREADS = 256
@@ -100,6 +101,7 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
     ``seeds`` (two words), ``call`` and ``device``. ``style`` picks the
     CUDA kernel (:data:`SYMBOL_STYLES`); both draw the same symbols, and a
     CPU tensor runs the plain version whatever the style."""
+    start = profiling.begin()
     if style not in SYMBOL_STYLES:
         raise ValueError(f"symbols style {style!r} not in {SYMBOL_STYLES}")
     dev = words.device if words is not None else torch.device(device)
@@ -127,7 +129,7 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
             rows, cols, wptr, s0, s1, call & 0xFFFFFFFF, out.data_ptr(),
             THREADS, stream)
         build.check(err, "polar_symbols")
-        earlier_launches["channel_symbols_quads"] += 1
+        profiling.launched(start, earlier_launches, "channel_symbols_quads")
         return out
     straight = cols % 16 == 0 and all(
         p % 16 == 0 for p in (out.data_ptr(), wptr) if p is not None)
@@ -137,7 +139,7 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
         rows, cols, wptr, s0, s1, call & 0xFFFFFFFF, out.data_ptr(), io,
         stream)
     build.check(err, "polar_symbols_lines")
-    launches["channel_symbols"] += 1
+    profiling.launched(start, launches, "channel_symbols")
     return out
 
 
@@ -255,6 +257,7 @@ def awgn(codeword, params, *, words=None, seeds=None, call: int = 0,
     int64; native mode with ``seeds`` (two words) and ``call``. ``style``
     picks the CUDA kernel (:data:`AWGN_STYLES`); both compute the same
     LLRs, and a CPU tensor runs the plain version whatever the style."""
+    start = profiling.begin()
     if style not in AWGN_STYLES:
         raise ValueError(f"AWGN style {style!r} not in {AWGN_STYLES}")
     dev = codeword.device
@@ -286,7 +289,7 @@ def awgn(codeword, params, *, words=None, seeds=None, call: int = 0,
             shape[0], shape[1], sigma, scale, ptrs[0], *wptrs, s0, s1,
             call & 0xFFFFFFFF, ptrs[1], THREADS, stream)
         build.check(err, "polar_awgn")
-        earlier_launches["channel_awgn_grid"] += 1
+        profiling.launched(start, earlier_launches, "channel_awgn_grid")
         return llr
     straight = shape[1] % 16 == 0 and all(
         p % 16 == 0 for p in ptrs + [w for w in wptrs if w is not None])
@@ -294,5 +297,5 @@ def awgn(codeword, params, *, words=None, seeds=None, call: int = 0,
         shape[0], shape[1], sigma, scale, ptrs[0], *wptrs, s0, s1,
         call & 0xFFFFFFFF, ptrs[1], int(straight), stream)
     build.check(err, "polar_awgn_lines")
-    launches["channel_awgn"] += 1
+    profiling.launched(start, launches, "channel_awgn")
     return llr

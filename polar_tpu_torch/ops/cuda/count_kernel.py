@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils import profiling
 from . import build
 from .decoder_kernel import device_mask
 from .step_kernel import COUNTERS, cw_counts
@@ -84,6 +85,7 @@ def count(frozen, llr_t, cw_t, hat_t, style: str = "rows") -> torch.Tensor:
     kernel for CUDA tensors, :func:`count_plain` for CPU ones. ``style``
     picks the CUDA kernel (:data:`STYLES`); both count the same, and a CPU
     tensor runs the plain version whatever the style."""
+    start = profiling.begin()
     if style not in STYLES:
         raise ValueError(f"count style {style!r} not in {STYLES}")
     dev = llr_t.device
@@ -112,7 +114,7 @@ def count(frozen, llr_t, cw_t, hat_t, style: str = "rows") -> torch.Tensor:
         err = build.load_library().polar_count(*ptrs, mask, n, batch, LANES,
                                                out.data_ptr(), stream)
         build.check(err, "polar_count")
-        earlier_launches["count_bytes"] += 1
+        profiling.launched(start, earlier_launches, "count_bytes")
         return out.sum(dim=0, dtype=torch.int64)
     groups, chunks, rows = count_plan(
         n, batch, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -125,7 +127,7 @@ def count(frozen, llr_t, cw_t, hat_t, style: str = "rows") -> torch.Tensor:
         *ptrs, mask, n, batch, chunks, rows, int(straight), scratch.data_ptr(),
         _ticket(dev, stream).data_ptr(), out.data_ptr(), stream)
     build.check(err, "polar_count_rows")
-    launches["count"] += 1
+    profiling.launched(start, launches, "count")
     return out
 
 

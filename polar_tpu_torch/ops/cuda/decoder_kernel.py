@@ -44,6 +44,7 @@ import torch
 from ...code.compiler import build_tree, emit_program
 from ...code.construction import PolarCode
 from ...decode.fastssc import make_fastssc_decoder
+from ...utils import profiling
 from . import build
 
 # Frames (threads) per block of the walk and the scratch byte kernel. On an
@@ -284,6 +285,7 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
     ``"scratch"`` and ``"scratch-bytes"`` the u track only and N <= 2^11,
     on every device. ``shape``: ``(wr, vw, warps)`` of the scratch tile
     kernel in place of :func:`scratch_shape`'s (the A/B and the tests)."""
+    start = profiling.begin()
     n = int(np.asarray(frozen).size)
     if style not in STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
@@ -315,14 +317,14 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
             prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), wr, vw,
             warps, int(scratch_aligned(b, vw, (llr_t, mesg))), stream)
         build.check(err, "polar_scratch_decode")
-        launches["scratch_decoder"] += 1
+        profiling.launched(start, launches, "scratch_decoder")
         return mesg, None
     if style == "scratch-bytes":
         err = build.load_library().polar_scratch_bytes_decode(
             prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), frames,
             stream)
         build.check(err, "polar_scratch_bytes_decode")
-        earlier_launches["scratch_bytes_decoder"] += 1
+        profiling.launched(start, earlier_launches, "scratch_bytes_decoder")
         return mesg, None
     track = "cw" if want_cw else "u"
     if style == "ssa" and ssa_kernel(n) == "tile":
@@ -333,7 +335,7 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
             cw.data_ptr() if want_cw else None, n, b, tile_warps(n, want_cw),
             int(aligned), stream)
         build.check(err, "polar_tile_decode")
-        launches[f"fastssc_decoder_{track}"] += 1
+        profiling.launched(start, launches, f"fastssc_decoder_{track}")
         return mesg, cw
     soft = torch.empty((n, b), dtype=torch.int8, device=dev)
     hard = torch.empty((n, b), dtype=torch.int8, device=dev)
@@ -342,7 +344,7 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
         soft.data_ptr(), hard.data_ptr(), mesg.data_ptr(),
         cw.data_ptr() if want_cw else None, n, b, THREADS, stream)
     build.check(err, "polar_decode")
-    launches[f"walk_decoder_{track}"] += 1
+    profiling.launched(start, launches, f"walk_decoder_{track}")
     return mesg, cw
 
 

@@ -40,6 +40,7 @@ import torch
 from ...code.construction import PolarCode
 from ...encode import _scatter_message
 from ...ops.transform import polar_transform_stages
+from ...utils import profiling
 from . import build
 from .decoder_kernel import device_mask
 
@@ -131,6 +132,7 @@ def _device_bit_tables(code: PolarCode, blk: int, dev):
 
 def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
                  style: str = "bits"):
+    start = profiling.begin()
     n, k, dev = code.N, code.K, message.device
     batch = message.shape[0] if message.ndim == 2 else -1
     if (message.dtype != torch.int8 or tuple(message.shape) != (batch, k)
@@ -155,7 +157,7 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
             int(whole), x.data_ptr() if x is not None else None, n, batch,
             blk, int(systematic), int(vec), out.data_ptr(), stream)
         build.check(err, "polar_encode_bits")
-        launches["block_encoder"] += 1
+        profiling.launched(start, launches, "block_encoder")
         if systematic and not whole:
             out = polar_transform_stages(out, blk, n)
         return out
@@ -168,7 +170,7 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
         device_mask(code.frozen, dev).data_ptr(), n, batch, blk,
         int(systematic), out.data_ptr(), threads, stream)
     build.check(err, "polar_encode")
-    earlier_launches["block_encoder_bytes"] += 1
+    profiling.launched(start, earlier_launches, "block_encoder_bytes")
     if systematic and not whole:
         out = polar_transform_stages(out, blk, n)
     return out

@@ -44,6 +44,7 @@ import torch
 
 from ...channel import channel_llrs
 from ...ops.transform import polar_transform_stages
+from ...utils import profiling
 from . import build, philox
 from .decoder_kernel import THREADS, device_mask
 
@@ -134,6 +135,7 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     ``batch`` and ``device``. ``style`` picks the CUDA kernel
     (:data:`FRONT_STYLES`); both give the same symbols, and a CPU tensor
     runs the plain version whatever the style."""
+    start = profiling.begin()
     _check_style(style)
     dev = msg_t.device if msg_t is not None else torch.device(device)
     if dev.type == "cpu":
@@ -163,12 +165,12 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     if style == "frame":
         err = build.load_library().polar_front_msg(*args, THREADS, stream)
         build.check(err, "polar_front_msg")
-        earlier_launches["front_blocks_a_frame"] += 1
+        profiling.launched(start, earlier_launches, "front_blocks_a_frame")
         return out
     words = _word_io(batch, out, *(() if msg_t is None else (msg_t,)))
     err = build.load_library().polar_front_msg_rows(*args, words, stream)
     build.check(err, "polar_front_msg_rows")
-    launches["front_blocks_a"] += 1
+    profiling.launched(start, launches, "front_blocks_a")
     return out
 
 
@@ -193,6 +195,7 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
     2/σ²). Inject mode with ``normals_t`` (N, B) float32; native mode with
     ``seeds`` and ``call``. ``style`` as :func:`msg_blocks`'s. Returns
     ``(llr_t, cw_t)``."""
+    start = profiling.begin()
     _check_style(style)
     dev = y.device
     if dev.type == "cpu":
@@ -222,12 +225,12 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
     if style == "frame":
         err = build.load_library().polar_front_chan(*args, THREADS, stream)
         build.check(err, "polar_front_chan")
-        earlier_launches["front_blocks_b_frame"] += 1
+        profiling.launched(start, earlier_launches, "front_blocks_b_frame")
         return llr, cw
     err = build.load_library().polar_front_chan_rows(
         *args, _word_io(batch, y, cw), stream)
     build.check(err, "polar_front_chan_rows")
-    launches["front_blocks_b"] += 1
+    profiling.launched(start, launches, "front_blocks_b")
     return llr, cw
 
 
@@ -295,7 +298,9 @@ def middle_kernel(x, frozen, blk_a: int, blk_b: int, systematic: bool):
     The first pass writes a new array, later ones update it in place;
     ``x`` itself is never changed (it is the plain front's ``u0``). With
     no pass to run (plain, ``blk_b == N``) it returns ``x``. On a CPU
-    tensor :func:`middle_plain` runs."""
+    tensor :func:`middle_plain` runs. The launches count once a pass,
+    under one span."""
+    start = profiling.begin()
     if x.device.type == "cpu":
         return middle_plain(x, frozen, blk_a, blk_b, systematic)
     if x.device.type != "cuda":
@@ -321,8 +326,8 @@ def middle_kernel(x, frozen, blk_a: int, blk_b: int, systematic: bool):
             frz.data_ptr() if refreeze else None, n, batch, words, 1 << lo,
             glog, *s1, int(refreeze), *s2, THREADS, stream)
         build.check(err, "polar_front_middle")
-        launches["front_middle"] += 1
         src = out
+    profiling.launched(start, launches, "front_middle", len(passes))
     return out
 
 

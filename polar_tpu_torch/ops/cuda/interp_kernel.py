@@ -60,9 +60,10 @@ import torch
 from ...code.compiler import (Node, build_tree, compile_code, emit_program,
                               node_frozen)
 from ...code.construction import PolarCode
-from ...decode.fastssc import _TreeDecoder
+from ...decode.fastssc import _TreeDecoder, frame_major
 from ...ops.arith import Int8Arith
 from ...ops.transform import polar_transform
+from ...utils import profiling
 from . import build, count_kernel
 from .decoder_kernel import THREADS
 from .step_kernel import COUNTERS, cw_counts
@@ -631,6 +632,7 @@ def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str):
     """Launch the tile kernel on ``c``'s schedule: returns ``(hard, cw,
     u)``, u compacted into K rows, hard None unless ``hard_out`` (or the
     grid steps need it)."""
+    start = profiling.begin()
     dev = llr_t.device
     n, b = 1 << c.level, llr_t.shape[1]
     k = int(np.count_nonzero(c.mask == 0))
@@ -659,13 +661,14 @@ def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str):
         int(c.want_cw), int(c.want_u), plan["blocks"], plan["warps"],
         int(plan["cooperative"]), stream)
     build.check(err, "polar_interp_tile")
-    launches[what] += 1
+    profiling.launched(start, launches, what)
     return hard, cw, u
 
 
 def _run_bytes(c: _Compiled, llr_t, *, entry: str, what: str):
     """Launch the bytes kernel through C entry ``entry``: returns ``(hard,
     cw, u)``, u gathered into its first K rows by ``c.mask``."""
+    start = profiling.begin()
     dev = llr_t.device
     n, b = 1 << c.level, llr_t.shape[1]
     hard, cw, u = (torch.empty((n, b), dtype=torch.int8, device=dev)
@@ -682,7 +685,7 @@ def _run_bytes(c: _Compiled, llr_t, *, entry: str, what: str):
         cw.data_ptr() if c.want_cw else None,
         u.data_ptr() if c.want_u else None, THREADS, stream)
     build.check(err, entry)
-    earlier_launches[what] += 1
+    profiling.launched(start, earlier_launches, what)
     return hard, cw, u
 
 
@@ -747,14 +750,7 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
         _, cw, u = _run_tile(c, llr_t, hard_out=False, what="interp_decoder")
         return by_mode(u, cw)
 
-    def decode(llrs):
-        if llrs.ndim != 2:
-            raise ValueError("interp decoder expects (batch, N) LLRs")
-        out = lane_major(llrs.t().contiguous())
-        if isinstance(out, tuple):
-            return tuple(o.t().contiguous() for o in out)
-        return out.t().contiguous()
-
+    decode = frame_major(lane_major, "interp decoder")
     decode.lane_major = lane_major
     decode.plain = plain
     decode.program_steps = c.steps
@@ -790,6 +786,7 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
         return cw_counts(frz, llr_t, cw_t, cw_hat)
 
     def count(llr_t, cw_t):
+        start = profiling.begin()
         _check_llr(llr_t, n, "llr_t")
         _check_llr(cw_t, n, "cw_t")
         if cw_t.shape != llr_t.shape or cw_t.device != llr_t.device:
@@ -817,7 +814,8 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
             llr_t.data_ptr(), cw_t.data_ptr(), pyr.data_ptr(),
             hard.data_ptr(), cw.data_ptr(), out.data_ptr(), THREADS, stream)
         build.check(err, "polar_interp_decode_count")
-        earlier_launches["interp_bytes_decode_count"] += 1
+        profiling.launched(start, earlier_launches,
+                           "interp_bytes_decode_count")
         return out.sum(dim=0, dtype=torch.int64)
 
     count.plain = plain

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from ...utils import profiling
 from . import build
 
 THREADS = 256
@@ -58,6 +59,8 @@ def ring_shift_plain(blocks, offset: int) -> list:
 
 
 def _launch(pairs, nbytes: int, stream: int) -> None:
+    """One launch a chunk of :data:`MAX_SHARDS` pairs, under one span."""
+    start = profiling.begin()
     for i in range(0, len(pairs), MAX_SHARDS):
         chunk = pairs[i:i + MAX_SHARDS]
         srcs = (ctypes.c_void_p * len(chunk))(*(s.data_ptr() for s, _ in chunk))
@@ -66,7 +69,8 @@ def _launch(pairs, nbytes: int, stream: int) -> None:
             ctypes.addressof(srcs), ctypes.addressof(dsts), len(chunk), nbytes,
             THREADS, stream)
         build.check(err, "polar_ring_shift")
-        launches["ring_shift"] += 1
+    profiling.launched(start, launches, "ring_shift",
+                       -(-len(pairs) // MAX_SHARDS))
 
 
 def ring_shift(blocks, offset: int) -> list:

@@ -67,6 +67,7 @@ import torch
 
 from ...channel import channel_llrs
 from ...ops.transform import polar_transform
+from ...utils import profiling
 from . import build, front_kernel, philox
 from .decoder_kernel import (SCRATCH_SMEM_BYTES, THREADS, WHOLE_FRAMES,
                              decode_plain, device_info, device_mask,
@@ -254,6 +255,7 @@ def front(frozen, params, *, msg_t=None, normals_t=None, seeds=None,
     :func:`front_kernel_name`) on a CUDA device, :func:`front_plain` on
     the CPU. Arguments as :func:`step`'s; ``warps``: the row-word kernel's
     warps a CTA in place of :func:`front_rows_warps`' (the A/B)."""
+    start = profiling.begin()
     kernel = front_kernel_name(np.asarray(frozen).size, style)
     inject = msg_t is not None
     dev = msg_t.device if inject else torch.device(device)
@@ -276,14 +278,14 @@ def front(frozen, params, *, msg_t=None, normals_t=None, seeds=None,
     if kernel == "thread":
         err = build.load_library().polar_front_whole(*args, THREADS, stream)
         build.check(err, "polar_front_whole")
-        earlier_launches["front_whole_thread"] += 1
+        profiling.launched(start, earlier_launches, "front_whole_thread")
         return llr, cw
     words = front_kernel._word_io(batch, llr, cw, *(
         (msg_t,) if inject else ()))
     err = build.load_library().polar_front_rows(
         *args, warps or front_rows_warps(n), words, stream)
     build.check(err, "polar_front_rows")
-    launches["front_whole"] += 1
+    profiling.launched(start, launches, "front_whole")
     return llr, cw
 
 
@@ -320,6 +322,7 @@ def decode_count(program, frozen, llr_t, cw_t, style: str = "ssa",
     walk), :func:`decode_count_plain` for CPU ones. ``warps``: the tile
     kernel's tiles a block in place of :func:`decode_count_warps`' (the
     A/B)."""
+    start = profiling.begin()
     if style not in DECODE_COUNT_STYLES:
         raise ValueError(f"decode+count style {style!r} not in "
                          f"{DECODE_COUNT_STYLES}")
@@ -355,7 +358,7 @@ def decode_count(program, frozen, llr_t, cw_t, style: str = "ssa",
             batch, llr_t.data_ptr(), cw_t.data_ptr(), out.data_ptr(), warps,
             int(aligned), stream)
         build.check(err, "polar_decode_count_tile")
-        launches["decode_count"] += 1
+        profiling.launched(start, launches, "decode_count")
         return out.sum(dim=0, dtype=torch.int64)
     out = torch.empty((-(-batch // THREADS), len(COUNTERS)), dtype=torch.int32,
                       device=dev)
@@ -367,7 +370,7 @@ def decode_count(program, frozen, llr_t, cw_t, style: str = "ssa",
         cw_t.data_ptr(), soft.data_ptr(), hard.data_ptr(), mesg.data_ptr(),
         out.data_ptr(), THREADS, stream)
     build.check(err, "polar_decode_count")
-    earlier_launches["decode_count_walk"] += 1
+    profiling.launched(start, earlier_launches, "decode_count_walk")
     return out.sum(dim=0, dtype=torch.int64)
 
 
@@ -414,6 +417,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
     of ``style`` (``"ssa"``: the tile step up to
     :data:`STEP_TILE_MAX_LEVEL`, the walk above; ``"walk"``: the walk) on a
     CUDA device, :func:`step_plain` on the CPU."""
+    start = profiling.begin()
     if style not in STEP_STYLES:
         raise ValueError(f"unknown step style {style!r}")
     inject = msg_t is not None
@@ -455,7 +459,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
             None if mesg is None else mesg.data_ptr(), out.data_ptr(), warps,
             int(aligned), stream)
         build.check(err, "polar_tile_step")
-        launches["mc_step"] += 1
+        profiling.launched(start, launches, "mc_step")
         return out.sum(dim=0, dtype=torch.int64)
     blocks = -(-batch // THREADS)
     out = torch.empty((blocks, len(COUNTERS)), dtype=torch.int32, device=dev)
@@ -470,7 +474,7 @@ def step(program, frozen, params, systematic: bool, *, msg_t=None,
         s0, s1, call & 0xFFFFFFFF, *(s.data_ptr() for s in scratch),
         mesg.data_ptr(), out.data_ptr(), THREADS, stream)
     build.check(err, "polar_step")
-    launches["walk_step"] += 1
+    profiling.launched(start, launches, "walk_step")
     return out.sum(dim=0, dtype=torch.int64)
 
 

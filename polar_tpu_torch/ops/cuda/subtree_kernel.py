@@ -51,6 +51,7 @@ import torch
 from ...code.compiler import Node, emit_program, node_frozen
 from ...decode.fastssc import _TreeDecoder
 from ...ops.arith import Int8Arith
+from ...utils import profiling
 from . import build
 from .decoder_kernel import (STYLES, THREADS, device_tables, scratch_aligned,
                              scratch_frames, scratch_shape, tile_max_level,
@@ -127,6 +128,7 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
     frozen = node_frozen(node)
 
     def run(*blocks):
+        start = profiling.begin()
         if len(blocks) != len(in_rows):
             raise ValueError(f"expected {len(in_rows)} input blocks")
         dev = blocks[0].device
@@ -160,14 +162,15 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
                 hard.data_ptr(), wr, vw, warps,
                 int(scratch_aligned(b, vw, (blocks[0], mesg, hard))), stream)
             build.check(err, "polar_scratch_subtree")
-            launches["scratch_subtree"] += 1
+            profiling.launched(start, launches, "scratch_subtree")
             return outs
         if style == "scratch-bytes":
             err = lib.polar_scratch_bytes_subtree(
                 prog_d.data_ptr(), n, b, blocks[0].data_ptr(), mesg.data_ptr(),
                 hard.data_ptr(), frames, stream)
             build.check(err, "polar_scratch_bytes_subtree")
-            earlier_launches["scratch_bytes_subtree"] += 1
+            profiling.launched(start, earlier_launches,
+                               "scratch_bytes_subtree")
             return outs
         ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
         if style == "ssa" and ssa_kernel(node.level) == "tile":
@@ -179,7 +182,7 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
                 cw.data_ptr() if emit_cw else None,
                 tile_warps(n, emit_cw, root=True), int(aligned), stream)
             build.check(err, "polar_tile_subtree")
-            launches["subtree_decoder"] += 1
+            profiling.launched(start, launches, "subtree_decoder")
             return outs
         soft = torch.empty((n, b), dtype=torch.int8, device=dev)
         child = (torch.empty((n, b), dtype=torch.int8, device=dev)
@@ -190,7 +193,7 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
             mesg.data_ptr(), hard.data_ptr(),
             cw.data_ptr() if emit_cw else None, THREADS, stream)
         build.check(err, "polar_subtree")
-        launches["walk_subtree"] += 1
+        profiling.launched(start, launches, "walk_subtree")
         return outs
 
     return run

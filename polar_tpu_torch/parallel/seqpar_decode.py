@@ -41,7 +41,8 @@ import torch
 from ..code.compiler import Node, compile_code
 from ..code.construction import PolarCode
 from ..decode import auto
-from ..decode.fastssc import _resolve_arith, _TreeDecoder, make_kernel_for
+from ..decode.fastssc import (_resolve_arith, _TreeDecoder, frame_major,
+                              make_kernel_for)
 from ..ops.arith import Int8Arith
 from ..ops.transform import polar_transform
 from .mesh import Mesh
@@ -357,10 +358,12 @@ def make_seqpar_decoder(
                   for d, dev in enumerate(devices)]
         return torch.cat([o.to(llr_t.device) for o in shards(blocks)], dim=0)
 
+    entry = frame_major(lane_major, "sharded decoder")
+
     def decode(llrs):
         if llrs.ndim != 2 or llrs.shape[1] != code.N:
             raise ValueError(f"expected (B, N={code.N}) LLRs")
-        return lane_major(llrs.t().contiguous()).t().contiguous()
+        return entry(llrs)
 
     decode.lane_major = lane_major
     decode.shards = shards

@@ -52,3 +52,343 @@ def test_own_kernel_names():
     for name in ("void at::native::vectorized_elementwise_kernel<4>()",
                  "polar_point", "Memcpy HtoD"):
         assert not OWN_KERNEL.match(name)
+
+
+# -- the recorder: spans and launch counters, on only while a profiler
+# session runs
+
+import types  # noqa: E402
+
+import pytest  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from polar_tpu_torch.ops.cuda import (build, channel_kernel,  # noqa: E402
+                                      count_kernel, decoder_kernel,
+                                      encode_kernel, front_kernel,
+                                      interp_kernel, ring_kernel,
+                                      subtree_kernel)
+from polar_tpu_torch.utils import profiling  # noqa: E402
+
+MODULES = (decoder_kernel, step_kernel, subtree_kernel, front_kernel,
+           count_kernel, interp_kernel, channel_kernel, encode_kernel,
+           ring_kernel)
+FAKE = torch.device("cuda", 1)
+CODE = pt.make_code(6, rate=0.5)
+N, K, B = CODE.N, CODE.K, 8
+
+
+def _session():
+    """A CPU-only profiler session: the recorder runs while it does."""
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _names(spans):
+    return [s[0] for s in spans]
+
+
+def _node(code):
+    """A composite node that emits message bits."""
+    stack = [pt.compile_code(code)]
+    while stack:
+        node = stack.pop()
+        if node.kind in ("branch", "rate0_right", "rate1_comb") and \
+                node.mesg_bits >= 1 and node.level < code.level:
+            return node
+        stack.extend(c for c in (node.left, node.right) if c is not None)
+    raise AssertionError("no composite node")
+
+
+class _Library:
+    """A stand-in for the kernels' library: every C entry returns 0
+    (success) and launches nothing; the occupancy query answers one block
+    an SM."""
+
+    def __getattr__(self, name):
+        def entry(*args):
+            if name == "polar_interp_tile_occupancy":
+                args[-1]._obj.value = 1
+            return 0
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Fake ``cuda:1`` tensors (shapes and devices, no storage) reach each
+    wrapper's launching branch: ``build.stream`` and the library are
+    stood in for, and the device tables' caches start empty."""
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    monkeypatch.setattr(build, "load_library", _Library)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    for mod, cache in ((decoder_kernel, "_tables"), (encode_kernel, "_tables"),
+                       (front_kernel, "_frozen_bits"),
+                       (count_kernel, "_tickets"),
+                       (interp_kernel, "_occupancy")):
+        monkeypatch.setattr(mod, cache, {})
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        yield
+
+
+def _i8(*shape):
+    return torch.empty(shape, dtype=torch.int8, device=FAKE)
+
+
+def _launch_calls():
+    """Counter key → a call of the wrapper that counts one launch under it
+    (``front_middle``: one a pass). Where a wrapper slices its fake
+    outputs after the launch (which a CPU build of torch refuses for a
+    fake ``cuda`` tensor), or launches two kernels, the call is the
+    launching function inside it."""
+    program = pt.compile_program(CODE)
+    frozen = CODE.frozen
+    params = (0.5, 8.0)
+    node = _node(CODE)
+    slot = lambda: _i8(1 << node.level, B)  # noqa: E731
+    f32 = lambda: torch.empty((N, B), dtype=torch.float32, device=FAKE)  # noqa: E731
+    i64 = lambda *s: torch.empty(s, dtype=torch.int64, device=FAKE)  # noqa: E731
+    step = lambda **kw: step_kernel.step(  # noqa: E731
+        program, frozen, params, True, msg_t=_i8(N, B), normals_t=f32(), **kw)
+    return {
+        "fastssc_decoder_cw": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), True),
+        "fastssc_decoder_u": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), False),
+        "walk_decoder_cw": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), True, "walk"),
+        "walk_decoder_u": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), False, "walk"),
+        "scratch_decoder": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), False, "scratch"),
+        "scratch_bytes_decoder": lambda: decoder_kernel.decode(
+            program, frozen, _i8(N, B), False, "scratch-bytes"),
+        "mc_step": lambda: step(),
+        "walk_step": lambda: step(style="walk"),
+        "front_whole": lambda: step_kernel.front(
+            frozen, params, msg_t=_i8(N, B), normals_t=f32()),
+        "front_whole_thread": lambda: step_kernel.front(
+            frozen, params, msg_t=_i8(N, B), normals_t=f32(),
+            style="thread"),
+        "decode_count": lambda: step_kernel.decode_count(
+            program, frozen, _i8(N, B), _i8(N, B)),
+        "decode_count_walk": lambda: step_kernel.decode_count(
+            program, frozen, _i8(N, B), _i8(N, B), "walk"),
+        "subtree_decoder": lambda: subtree_kernel.make_subtree_decoder(node)(
+            slot()),
+        "walk_subtree": lambda: subtree_kernel.make_subtree_decoder(
+            node, style="walk")(slot()),
+        "scratch_subtree": lambda: subtree_kernel.make_subtree_decoder(
+            node, style="scratch")(slot()),
+        "scratch_bytes_subtree": lambda: subtree_kernel.make_subtree_decoder(
+            node, style="scratch-bytes")(slot()),
+        "front_blocks_a": lambda: front_kernel.msg_blocks(
+            frozen, 16, True, msg_t=_i8(N, B)),
+        "front_blocks_a_frame": lambda: front_kernel.msg_blocks(
+            frozen, 16, True, msg_t=_i8(N, B), style="frame"),
+        "front_blocks_b": lambda: front_kernel.chan_blocks(
+            _i8(N, B), 16, params, normals_t=f32()),
+        "front_blocks_b_frame": lambda: front_kernel.chan_blocks(
+            _i8(N, B), 16, params, normals_t=f32(), style="frame"),
+        "front_middle": lambda: front_kernel.middle_kernel(
+            _i8(N, B), frozen, 4, 4, True),
+        "count": lambda: count_kernel.count(frozen, _i8(N, B), _i8(N, B),
+                                            _i8(N, B)),
+        "count_bytes": lambda: count_kernel.count(
+            frozen, _i8(N, B), _i8(N, B), _i8(N, B), style="bytes"),
+        "interp_decoder": lambda: interp_kernel.make_interp_decoder(
+            CODE, subtree_level=3).lane_major(_i8(N, B)),
+        "interp_bytes_decoder": lambda: interp_kernel._run_bytes(
+            interp_kernel.make_interp_decoder(
+                CODE, subtree_level=3, style="bytes").compiled, _i8(N, B),
+            entry="polar_interp_decode", what="interp_bytes_decoder"),
+        "interp_decode_count": lambda: interp_kernel._run_tile(
+            interp_kernel.make_interp_decode_count(
+                CODE, subtree_level=3).compiled, _i8(N, B), hard_out=False,
+            what="interp_decode_count"),
+        "interp_bytes_decode_count": lambda: (
+            interp_kernel.make_interp_decode_count(
+                CODE, subtree_level=3, style="bytes")(_i8(N, B), _i8(N, B))),
+        "interp_subtree": lambda: interp_kernel.make_interp_subtree(
+            node, subtree_level=3)(slot()),
+        "interp_bytes_subtree": lambda: interp_kernel._run_bytes(
+            interp_kernel.make_interp_subtree(
+                node, subtree_level=3, style="bytes").compiled, slot(),
+            entry="polar_interp_subtree", what="interp_bytes_subtree"),
+        "channel_symbols": lambda: channel_kernel.symbols(words=i64(B, K)),
+        "channel_symbols_quads": lambda: channel_kernel.symbols(
+            words=i64(B, K), style="quads"),
+        "channel_awgn": lambda: channel_kernel.awgn(
+            _i8(B, N), params, words=(i64(B, N), i64(B, N))),
+        "channel_awgn_grid": lambda: channel_kernel.awgn(
+            _i8(B, N), params, words=(i64(B, N), i64(B, N)), style="grid"),
+        "block_encoder": lambda: encode_kernel.make_encoder(CODE)(_i8(B, K)),
+        "block_encoder_bytes": lambda: encode_kernel.make_encoder(
+            CODE, style="bytes")(_i8(B, K)),
+        "ring_shift": lambda: ring_kernel.ring_shift([_i8(4, B), _i8(4, B)],
+                                                     1),
+    }
+
+
+def _counts():
+    return {(mod.__name__, attr, key): v for mod in MODULES
+            for attr in ("launches", "earlier_launches")
+            for key, v in getattr(mod, attr, {}).items()}
+
+
+def test_torch_every_counter_has_a_launching_call():
+    """The calls above reach every key of every wrapper's counters."""
+    assert set(_launch_calls()) == {key for _, _, key in _counts()}
+
+
+@pytest.mark.parametrize("key", sorted(_launch_calls()))
+def test_torch_a_counted_launch_records_one_kernel_span(fake_card, key):
+    """Each wrapper call that counts launches under a key records one span
+    ``kernel.<key>`` (``front_middle``: one over its passes), inside the
+    enclosing span; with no session it counts the same and records
+    nothing."""
+    call = _launch_calls()[key]
+    profiling.take_spans()
+    before = _counts()
+    call()
+    assert profiling.take_spans() == ([], 0)
+    with _session():
+        before = _counts()
+        with profiling.annotate("outer"):
+            call()
+        after = _counts()
+    spans, dropped = profiling.take_spans()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert [k for _, _, k in moved] == [key]
+    want = (len(front_kernel.middle_passes(N, 4, 4, True))
+            if key == "front_middle" else 1)
+    assert list(moved.values()) == [want]
+    assert _names(spans) == ["outer", f"kernel.{key}"] and dropped == 0
+    (_, a0, b0, p0), (_, a1, b1, p1) = spans
+    assert p0 == -1 and p1 == 0 and a0 <= a1 <= b1 <= b0
+
+
+def test_torch_annotate_off_is_one_shared_no_op():
+    profiling.take_spans()
+    assert profiling.annotate("a") is profiling.annotate("b")
+    assert profiling.begin() is None
+    counts = {"k": 0}
+    with profiling.annotate("a"):
+        profiling.launched(profiling.begin(), counts, "k")
+    assert counts == {"k": 1}
+    assert profiling.take_spans() == ([], 0)
+
+
+def test_torch_run_point_records_its_spans_with_parents():
+    code = pt.make_code(5, rate=0.5)
+    step = pt.make_step(code, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    profiling.take_spans()
+    with _session():
+        pt.run_point(code, 0.0, gen=gen, step=step, batch=32, max_frames=64,
+                     device="cpu")
+    spans, dropped = profiling.take_spans()
+    assert dropped == 0
+    call = ["run_point.step", "step.seeds", "step.unpack", "run_point.pull"]
+    assert _names(spans) == ["run_point"] + call + call
+    parents = [p for *_, p in spans]
+    assert parents == [-1, 0, 1, 1, 0, 0, 5, 5, 0]
+    for name, a, b, p in spans:
+        assert a <= b
+        if p >= 0:
+            assert spans[p][1] <= a and b <= spans[p][2], name
+
+
+def test_torch_frame_major_decode_records_its_spans(monkeypatch):
+    """The frame-major entry on CPU tensors: ``decode`` over the transpose
+    in, the kernel's span and the transpose out. The element-major decode
+    is a stand-in that counts a launch as the wrappers do and decodes by
+    the plain version (a fake ``cuda`` tensor cannot be transposed by a
+    CPU build of torch)."""
+
+    def decode(program, frozen, llr_t, want_cw, style):
+        start = profiling.begin()
+        out = decoder_kernel.decode_plain(program, frozen, llr_t, want_cw)
+        profiling.launched(start, decoder_kernel.launches,
+                           "fastssc_decoder_u")
+        return out
+
+    monkeypatch.setattr(decoder_kernel, "decode", decode)
+    dec = pt.make_kernel_decoder(CODE)
+    llrs = torch.randint(-9, 9, (B, N), dtype=torch.int8)
+    profiling.take_spans()
+    with _session():
+        out = dec(llrs)
+    spans, _ = profiling.take_spans()
+    assert _names(spans) == ["decode", "decode.transpose_in",
+                             "kernel.fastssc_decoder_u",
+                             "decode.transpose_out"]
+    assert [p for *_, p in spans] == [-1, 0, 0, 0]
+    assert [a for _, a, _, _ in spans] == sorted(a for _, a, _, _ in spans)
+    assert torch.equal(out, dec(llrs))
+
+
+def test_torch_the_span_buffer_is_bounded(monkeypatch):
+    monkeypatch.setattr(profiling, "MAX_SPANS", 3)
+    counts = {"k": 0}
+    profiling.take_spans()
+    with _session():
+        with profiling.annotate("a"):
+            for _ in range(3):
+                profiling.launched(profiling.begin(), counts, "k")
+        with profiling.annotate("b"):
+            pass
+    spans, dropped = profiling.take_spans()
+    assert _names(spans) == ["a", "kernel.k", "kernel.k"] and dropped == 2
+    assert counts == {"k": 3}
+    assert profiling.take_spans() == ([], 0)
+
+
+def test_torch_a_span_open_across_take_spans_closes_in_its_buffer():
+    profiling.take_spans()
+    with _session():
+        with profiling.annotate("outer"):
+            early, _ = profiling.take_spans()
+            with profiling.annotate("inner"):
+                pass
+    late, _ = profiling.take_spans()
+    assert _names(early) == ["outer"] and early[0][2] == 0
+    assert _names(late) == ["inner"] and late[0][3] == -1
+
+
+def test_torch_trace_files_hold_the_program_spans(tmp_path):
+    """Inside :func:`trace` a span is also a ``record_function`` range."""
+    code = pt.make_code(5, rate=0.5)
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    profiling.take_spans()
+    with trace(tmp_path) as prof:
+        pt.run_point(code, 0.0, gen=gen, step=pt.make_step(code, device="cpu"),
+                     batch=32, max_frames=32, device="cpu")
+    names = {e.get("name") for e in trace_events(prof.trace_file)}
+    assert {"run_point", "run_point.step", "run_point.pull",
+            "step.seeds"} <= names
+    assert "run_point" in _names(profiling.take_spans()[0])
+
+
+@pytest.mark.parametrize("entry", ["kernel", "interp", "hybrid"])
+def test_torch_every_frame_major_entry_records_its_copies(entry):
+    """The kernel, interpreter and hybrid decoders' frame-major entries
+    (plain versions on CPU tensors) share the spans of the copies."""
+    make = {
+        "kernel": lambda: pt.make_kernel_decoder(CODE),
+        "interp": lambda: interp_kernel.make_interp_decoder(
+            CODE, subtree_level=3),
+        "hybrid": lambda: pt.make_fastssc_decoder(CODE, kernel_level=4),
+    }[entry]
+    dec = make()
+    llrs = torch.randint(-9, 9, (B, N), dtype=torch.int8)
+    profiling.take_spans()
+    with _session():
+        dec(llrs)
+    spans, _ = profiling.take_spans()
+    assert _names(spans) == ["decode", "decode.transpose_in",
+                             "decode.transpose_out"]
+    with pytest.raises(ValueError, match="expects"):
+        dec(llrs[0])
