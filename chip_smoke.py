@@ -71,9 +71,16 @@ launches, no plain call); the curve-set CLI at m = 8 and 10, both modes,
 against the JAX package's result files and resumed with no new step; a
 campaign point traced through utils.profiling; the fused step's bits mode
 against native mode on the same Philox words and timed in turns with it.
-Last, each kernel's bound (13, reckoned in polar_tpu_torch/utils/cost.py);
-the rows of the draws and front kernels carry the steps that made their
-launches, rows 9 A, 9 B, 10-12, 3 and 4s their numbers at each shape
+Then the frame-major u track of the tile kernels (17), rows 1 and 3's
+main path: the auto decoder's frame-major entry at Polar(1024, 512),
+B = 4096 and 32768 (the tile kernel's and the scratch kernel's (B, N)
+launch, no copy) against plain and the transposing entry around the same
+kernels, bit for bit and in turns; rows 1 and 3's frame-major launches
+and each tile shape's against plain and in turns with their element-major
+launches by device time (rows 1 and 3 take their ms from it). Last,
+each kernel's bound (13, reckoned in polar_tpu_torch/utils/cost.py); the
+rows of the draws and front kernels carry the steps that made their
+launches, rows 9 A, 9 B, 10-12, 1, 3 and 4s their numbers at each shape
 ("by_shape") too.
 Phases print one line each; any failure raises,
 so the script exits non-zero and prints no result. The last three lines
@@ -1687,6 +1694,11 @@ def style_phases(dev, card, ms) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = {name: v for c in counts for name, v in c.items()}
+    # row 3 counts the scratch kernel in both layouts: the step hands the
+    # pinned u decoder (B, N) LLRs, which it launches frame-major (phase 17
+    # times that launch); the by_shape entries below are element-major
+    lanes_launched = launched["scratch_decoder"]
+    launched["scratch_decoder"] += launched["scratch_decoder_frames"]
     plain = {name: v for c in plains for name, v in c.items()}
     if min(launched[name] for name in new) == 0 or max(plain.values()) != 0:
         raise AssertionError(f"style path launches {launched}, plain calls "
@@ -1775,7 +1787,7 @@ def style_phases(dev, card, ms) -> dict:
         lambda: decoder_kernel.decode_plain(program, code.frozen, llr_s,
                                             False), 20,
         row_work("scratch_decoder", n=code.N, k=code.K, b=BATCH),
-        launched["scratch_decoder"], 1)
+        lanes_launched, 1 if lanes_launched else None)
     times["scratch_decoder"] = (t["ms"], t_p)
     earlier["scratch_decoder"] = t["earlier_ms"]
     # the default path of make_auto_decoder's u track (decode/auto.py):
@@ -1883,6 +1895,127 @@ def style_phases(dev, card, ms) -> dict:
     return {"err": err, "times": times, "work": work, "earlier": earlier,
             "by_shape": by_shape,
             "launched": {name: launched[name] for name in new}}
+
+
+def frame_entry_phases(dev, card, ms) -> dict:
+    """Phase 17: the tile kernels' frame-major u track, the main path of
+    rows 1 and 3 (the u entry of the kernel and auto decoders hands the
+    kernel (B, N) LLRs). The auto decoder's frame-major entry at
+    Polar(1024, 512), B = 4096 (the tile kernel) and BATCH (the scratch
+    kernel at the (2, 2) shape): equal bit for bit to the plain version and
+    to the transposing entry around the same element-major kernels
+    (``fastssc.frame_major``), one frame-major launch a call and no
+    element-major one, then timed in turns with the transposing entry by
+    CUDA events (new, old, old, new). Then rows 1 and 3's frame-major
+    launches at both batches, and each scratch tile shape at the largest
+    level up to 10 where it fits, at both batches: against the plain
+    version, then in turns with the element-major launch on the transposed
+    LLRs, device time a call with the host's hidden (``queued_seconds``).
+    Each is a by_shape entry with its bound; rows 1 and 3 take their ms,
+    plain ms and error from their frame-major launch at BATCH."""
+    import numpy as np
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.decode.fastssc import frame_major
+    from polar_tpu_torch.ops.cuda import decoder_kernel
+    from polar_tpu_torch.utils.benchmark import queued_seconds
+    from polar_tpu_torch.utils.cost import row_work
+
+    code = pt.make_code(10, rate=0.5)
+    program = pt.compile_program(code)
+    n, k = code.N, code.K
+    dec, desc = pt.make_auto_decoder(code, device=dev)
+    old = frame_major(dec.lane_major, "transposing entry")
+    rng = np.random.default_rng(17)
+    err = {"fastssc_decoder_u": 0, "scratch_decoder": 0}
+    times, by_shape, entry = {}, {}, {}
+
+    def rand_frames(b, n):
+        return torch.from_numpy(
+            rng.integers(-128, 128, (b, n)).astype(np.int8)).to(dev)
+
+    def plain_u(prog, frozen, llrs):
+        """The plain version's u of frame-major LLRs, (B, K)."""
+        return decoder_kernel.decode_plain(prog, frozen, llrs.t().contiguous(),
+                                           False)[0].t()
+
+    def check(name, got, want, what):
+        e = int((got.int() - want.int()).abs().max())
+        err[name] = max(err[name], e)
+        if e:
+            raise AssertionError(f"{name} frame-major != plain: {what}")
+
+    keys = ("fastssc_decoder_u", "scratch_decoder", "fastssc_decoder_u_frames",
+            "scratch_decoder_frames")
+    for b, key in ((4096, "fastssc_decoder_u_frames"),
+                   (BATCH, "scratch_decoder_frames")):
+        llrs = rand_frames(b, n)
+        before = {x: decoder_kernel.launches[x] for x in keys}
+        got = dec(llrs)
+        moved = {x: decoder_kernel.launches[x] - before[x] for x in keys}
+        if moved != {x: int(x == key) for x in keys}:
+            raise AssertionError(f"frame-major entry at B={b} launched "
+                                 f"{moved}")
+        entry[b] = key.removesuffix("_frames")
+        check(entry[b], got, plain_u(program, code.frozen, llrs),
+              f"auto decoder Polar({n}, {k}) B={b}")
+        if not torch.equal(got, old(llrs)):
+            raise AssertionError(f"frame-major entry != transposing entry at "
+                                 f"Polar({n}, {k}) B={b}")
+        t = in_turns(lambda: dec(llrs), lambda: old(llrs), 20)
+        phase("17", f"u Polar({n}, {k}) B={b} ({desc}): frame-major entry "
+              f"{t['ms']:.4f} ms, transposing entry {t['earlier_ms']:.4f} ms "
+              f"({t['earlier_ms'] / t['ms']:.2f}x; {t['turns']}); "
+              f"{b / t['ms'] * 1e3:.4g} against "
+              f"{b / t['earlier_ms'] * 1e3:.4g} frames/s ({card})")
+
+    def turns(name, c, prog, llrs, style, shape, launched, what):
+        """The frame-major launch against plain, then in turns with the
+        element-major one (frame, element, element, frame); a by_shape
+        entry, which it returns."""
+        b = llrs.shape[0]
+        llr_t = llrs.t().contiguous()
+        run = (prog, c.frozen)
+        frames = lambda: decoder_kernel.decode(  # noqa: E731
+            *run, llrs, False, style, shape, layout="frames")
+        lanes = lambda: decoder_kernel.decode(  # noqa: E731
+            *run, llr_t, False, style, shape)
+        where = f"Polar({c.N}, {c.K}) B={b} u, {what}"
+        check(name, frames()[0], plain_u(*run, llrs), where)
+        f = [queued_seconds(frames, 20)]
+        e = [queued_seconds(lanes, 20), queued_seconds(lanes, 20)]
+        f.append(queued_seconds(frames, 20))
+        t_p = ms(lambda: plain_u(*run, llrs), 2)
+        phase("17", f"{name} at {where}, device ms a call: frame-major "
+              f"{f[0] * 1e3:.4f}, {f[1] * 1e3:.4f}; element-major "
+              f"{e[0] * 1e3:.4f}, {e[1] * 1e3:.4f}; plain {t_p:.3f} ms "
+              f"({card})")
+        by_shape.setdefault(name, {})[where] = row = {
+            "ms": sum(f) / 2 * 1e3, "lanes_ms": sum(e) / 2 * 1e3,
+            "plain_ms": t_p, "work": row_work(name, n=c.N, k=c.K, b=b),
+            "launches": launched, "steps": None}
+        return row
+
+    for name, style in (("fastssc_decoder_u", "ssa"),
+                        ("scratch_decoder", "scratch")):
+        for b in (4096, BATCH):
+            t = turns(name, code, program, rand_frames(b, n), style, None,
+                      int(entry[b] == name), "frame-major")
+        times[name] = (t["ms"], t["plain_ms"])
+    for wr, vw in decoder_kernel.SCRATCH_SHAPES:
+        level = max(m for m in range(1, 11)
+                    if decoder_kernel.scratch_smem(1 << m, wr, 1)
+                    <= decoder_kernel.SCRATCH_SMEM_BYTES)
+        c = pt.make_code(level, rate=0.5)
+        prog = pt.compile_program(c)
+        for b in (4096, BATCH):
+            table = decoder_kernel.scratch_shape(level, b)
+            warps = table[2] if table[:2] == (wr, vw) else 1
+            turns("scratch_decoder", c, prog, rand_frames(b, c.N), "scratch",
+                  (wr, vw, warps), 0, f"({wr}, {vw}) x{warps} frame-major")
+    return {"err": err, "times": times, "work": {}, "launched": {},
+            "by_shape": by_shape}
 
 
 def _free_port() -> int:
@@ -2289,8 +2422,8 @@ def module_phases(dev, card, ms) -> dict:
         launched, plain = nonzero(counts), nonzero(plains)
         # the decoder auto picks at this batch, and the one it picks for
         # the single frame measure_decode_fps decodes first to learn K
-        kernel, probe = ({"scratch": "scratch_decoder",
-                          "ssa": "fastssc_decoder_u",
+        kernel, probe = ({"scratch": "scratch_decoder_frames",
+                          "ssa": "fastssc_decoder_u_frames",
                           "interp": "interp_decoder"}[name] for name in (
             auto.decoder_names(code.level, False)[
                 llrs.shape[0] >= auto.BIG_BATCH],
@@ -2493,7 +2626,9 @@ def main() -> int:
             batches += 1
             i += 1
     routes = {name: v for name, v in decoder_kernel.launches.items() if v}
-    if set(routes) != {"fastssc_decoder_u", "walk_decoder_u"}:
+    # the frame-major u entry: the tile kernel's (B, N) launch, the walk
+    # (transposed) above its level
+    if set(routes) != {"fastssc_decoder_u_frames", "walk_decoder_u"}:
         raise AssertionError(f"golden decodes launched {routes}")
     phase("2", f"decoder kernel equals {batches} golden dec_* batches (m=2..14; "
           f"the tile kernel to m={decoder_kernel.WHOLE_MAX_LEVEL}, the walk "
@@ -2625,6 +2760,10 @@ def main() -> int:
     launched = {name: v for c in (decoder_kernel.launches, step_kernel.launches)
                 for name, v in c.items()
                 if name in ("fastssc_decoder_u", "fastssc_decoder_cw", "mc_step")}
+    # row 1 counts the u track in both layouts: the decode benchmark's
+    # frame-major entry launches it on (B, N) LLRs
+    launched["fastssc_decoder_u"] += \
+        decoder_kernel.launches["fastssc_decoder_u_frames"]
     plain = {**decoder_kernel.plain_calls, **step_kernel.plain_calls}
     walked = decoder_kernel.launches["walk_decoder_u"] + \
         decoder_kernel.launches["walk_decoder_cw"]
@@ -2707,9 +2846,10 @@ def main() -> int:
             for name in ("fastssc_decoder_u", "fastssc_decoder_cw", "mc_step")}
     library, steps, by_shape = {}, {}, {}
     for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
-                parallel_phases, module_phases):
+                parallel_phases, module_phases, frame_entry_phases):
         more = run(dev, card, ms)
-        err.update(more["err"])
+        for name, e in more["err"].items():   # a row's checks in any phase
+            err[name] = max(err.get(name, 0), e)
         times.update(more["times"])
         work.update(more["work"])
         launched.update(more["launched"])
@@ -2783,8 +2923,9 @@ def main() -> int:
                 rows[-1]["by_shape"].append({
                     "shape": where, "launches": t["launches"],
                     "steps": t["steps"], "ms": t["ms"],
-                    **{key: t[key] for key in ("earlier_ms", "device_ms",
-                                                "native_ms") if key in t},
+                    **{key: t[key] for key in ("earlier_ms", "lanes_ms",
+                                                "device_ms", "native_ms")
+                       if key in t},
                     "plain_ms": t["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by})
                 phase("13", f"{name} at {where}: {t['ms']:.4f} ms, bound "

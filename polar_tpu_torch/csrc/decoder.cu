@@ -29,6 +29,11 @@
 // above WHOLE_MAX_LEVEL and is reachable by name (style="walk") for the
 // A/B. The last block is masked.
 //
+// The tile kernel's u track also comes frame-major
+// (tile_decoder_frames_kernel): the root LLRs (batch, n) in, the message
+// (batch, k) out, the decode in shared memory as it is element-major, so
+// the frame-major entry (decode/auto.py) runs no transpose around it.
+//
 // Both read the code's byte program at run time, so one build serves every
 // code. polar_simd_selftest holds every packed function of
 // fastssc_simd.cuh against its scalar namesake in fastssc.cuh.
@@ -74,6 +79,23 @@ __global__ void tile_decoder_kernel(const uint8_t* __restrict__ prog,
   t.decode(prog, n);
   if (CW)
     for (int r = t.r0; r < n; r += T::kPass) t.store(cw, r, t.at(t.cw, r));
+}
+
+using FramesTile = polar::simd::Tile<polar::simd::kTileWR,
+                                     polar::simd::kTileVW, /*CW=*/false,
+                                     /*ROOT_SMEM=*/false, /*EMIT_U=*/true,
+                                     /*INTERP=*/false, /*FRAMES=*/true>;
+
+// tile_decoder_kernel<false> on frame-major arrays: llr (batch, n) in, mesg
+// (batch, k) out.
+__global__ void tile_decoder_frames_kernel(const uint8_t* __restrict__ prog,
+                                           const int8_t* llr, int8_t* mesg,
+                                           int n, int k, int batch) {
+  extern __shared__ uint32_t smem[];
+  FramesTile t;
+  // a whole warp returns: no barrier below
+  if (!t.bind(smem, n, llr, mesg, batch, 0, k)) return;
+  t.decode(prog, n);
 }
 
 // Each thread packs four (a, b) pairs of the 65,536 into words and checks
@@ -160,6 +182,18 @@ extern "C" int polar_tile_decode(const void* prog, const void* llr,
              : s::launch_tiles<DecoderTile<false>>(
                    tile_decoder_kernel<false>, n, batch, warps, st, prog, llr,
                    mesg, cw, n, batch, aligned);
+}
+
+// The tile kernel's u track on frame-major arrays, on `stream`: llr
+// (batch, n) in, mesg (batch, k) out, int8, any alignment; tiles and
+// shared memory as polar_tile_decode's. Returns the CUDA error of the
+// attribute call or of the launch.
+extern "C" int polar_tile_decode_frames(const void* prog, const void* llr,
+                                        void* mesg, int n, int k, int batch,
+                                        int warps, void* stream) {
+  return polar::simd::launch_tiles<FramesTile>(
+      tile_decoder_frames_kernel, n, batch, warps, (cudaStream_t)stream,
+      prog, llr, mesg, n, k, batch);
 }
 
 // The packed-primitive self-test on `stream`: bad (8) int32, zeroed by the

@@ -56,6 +56,21 @@
 // EMIT_U = false emits no message rows (a node or step that needs the cw
 // track alone).
 //
+// FRAMES, a third such flag, serves the u track's frame-major entry: the
+// root LLRs are (batch, n) and the message (batch, k), so no transpose
+// runs around the kernel. Only the device-memory accesses change: a lane
+// gathers byte r of each of its 4 VW frames (one byte load a frame, packed
+// by __byte_perm) from a pointer to its first frame kept in a register,
+// and scatters the message bytes the same way. The lanes of a pass take
+// consecutive rows, so a warp's bytes of one frame in one access are
+// contiguous (32, one sector, at the (2, 2) shape). An op that reads two
+// root rows issues both rows' loads before it packs either (in2): packed
+// in turn, the second row's loads waited for the first's. In the A/B on an
+// H100 (PERF.md) a 4-byte load of four rows a lane, transposed among four
+// lanes by __shfl_xor_sync, ran 6-19 % slower than this; an L2 prefetch of
+// the tile's root, __ldg loads and a register pointer for the message as
+// well gained nothing or lost.
+//
 // What bounds it on the card: the latency of each op's dependent chain
 // (shared-memory loads, the emulated byte-SIMD arithmetic, a warp barrier)
 // with the few warps an SM can hold: a tile takes 2 n (u) or 3 n (cw) bytes
@@ -174,10 +189,13 @@ constexpr int kTileWR = 2, kTileVW = 2;
 // track is on; ROOT_SMEM: the root input is on chip; EMIT_U: the message
 // rows are stored; INTERP: the interpreter's tile runs (csrc/interp.cu),
 // whose bodies lie in one level-positional pyramid: a body's root input
-// is the on-chip rows at `root` where that is set, else device memory.
+// is the on-chip rows at `root` where that is set, else device memory;
+// FRAMES: the root and the message in device memory are frame-major.
 template <int WR, int VW, bool CW, bool ROOT_SMEM = false, bool EMIT_U = true,
-          bool INTERP = false>
+          bool INTERP = false, bool FRAMES = false>
 struct Tile {
+  static_assert(!FRAMES || (!CW && !ROOT_SMEM && EMIT_U && !INTERP),
+                "the frame-major layout serves the u track alone");
   using V = Vec<VW>;
   static constexpr int kFrames = 4 * WR;        // frames a tile
   static constexpr int kLanesRow = WR / VW;     // lanes that share a row
@@ -189,9 +207,13 @@ struct Tile {
   uint32_t* cw;     // n rows: the codeword stack (CW only)
   uint32_t* root;   // n rows: the root input (ROOT_SMEM; INTERP: a body's
                     // on-chip root, or null)
-  const int8_t* llr;   // the root LLRs (n, batch), device memory (else)
-  int8_t* mesg;        // the message (k, batch)
+  const int8_t* llr;   // the root LLRs (n, batch), device memory (else);
+                       // FRAMES: (batch, n)
+  int8_t* mesg;        // the message (k, batch); FRAMES: (batch, k)
   long long batch;
+  const int8_t* root_f;  // FRAMES: this lane's first frame of the root
+  int in_stride;         // FRAMES: bytes a frame of the root (n)
+  int out_stride;        // FRAMES: bytes a frame of the message (k)
   int f;               // this lane's first frame
   int r0;              // this lane's first row of a pass
   int w;               // this lane's first word of a row
@@ -202,14 +224,15 @@ struct Tile {
   // warps + warp, its regions at kRegions * n * WR words a warp of the
   // block's dynamic shared memory `smem`, in the order of kRegions. False
   // when the whole tile lies past the batch (the warp has no frame).
+  // FRAMES: k is the message's rows (aligned_ is not read).
   __device__ __forceinline__ bool bind(uint32_t* smem, int n,
                                        const int8_t* llr_, int8_t* mesg_,
-                                       int batch_, int aligned_) {
+                                       int batch_, int aligned_, int k = 0) {
     const int warp = threadIdx.x >> 5;
     const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
     if (tile * kFrames >= batch_) return false;
     place(smem + (size_t)warp * kRegions * n * WR, n, tile, llr_, mesg_,
-          batch_, aligned_);
+          batch_, aligned_, k);
     return true;
   }
   // Binds this lane to tile `tile` (which must hold a frame), its regions
@@ -217,7 +240,7 @@ struct Tile {
   // warp that walks over tiles itself.
   __device__ __forceinline__ void place(uint32_t* base, int n, long long tile,
                                         const int8_t* llr_, int8_t* mesg_,
-                                        int batch_, int aligned_) {
+                                        int batch_, int aligned_, int k = 0) {
     const int lane = threadIdx.x & 31;
     soft = base;
     hard = base + n * WR;
@@ -230,13 +253,20 @@ struct Tile {
     r0 = lane / kLanesRow;
     f = (int)(tile * kFrames) + 4 * w;
     aligned = aligned_ != 0;
+    if constexpr (FRAMES) {
+      in_stride = n;
+      out_stride = k;
+      root_f = llr_ + (long long)f * n;
+    }
   }
   // the tile's first frame
   __device__ __forceinline__ int first() const { return f - 4 * w; }
 
   // A lane's words of a device row. The tail of the last tile is masked
   // explicitly: frames at or past `batch` read as 0 and are never stored.
+  // FRAMES: load reads the root and store writes the message.
   __device__ __forceinline__ V load(const int8_t* base, int r) const {
+    if constexpr (FRAMES) return gather(r);
     const int8_t* p = base + (long long)r * batch + f;
     if (aligned && f < batch) return *reinterpret_cast<const V*>(p);
     V v = splat<VW>(0u);
@@ -245,6 +275,7 @@ struct Tile {
     return v;
   }
   __device__ __forceinline__ void store(int8_t* base, int r, V v) const {
+    if constexpr (FRAMES) return scatter(r, v);
     int8_t* p = base + (long long)r * batch + f;
     if (aligned && f < batch) {
       *reinterpret_cast<V*>(p) = v;
@@ -252,6 +283,36 @@ struct Tile {
     }
     for (int j = 0; j < 4 * VW; ++j)
       if (f + j < batch) p[j] = (int8_t)(v.x[j / 4] >> (8 * (j % 4)));
+  }
+  // FRAMES: byte r of each of the lane's frames of the root, packed four
+  // frames to a word as load's words are; frames past the batch read 0
+  __device__ __forceinline__ V gather(int r) const {
+    const int8_t* p = root_f + r;
+    const bool full = f + 4 * VW <= batch;
+    V v;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      uint32_t b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int fr = 4 * k + j;
+        b[j] = full || f + fr < batch
+                   ? (uint32_t)(uint8_t)p[(long long)fr * in_stride]
+                   : 0u;
+      }
+      v.x[k] = __byte_perm(__byte_perm(b[0], b[1], 0x0040),
+                           __byte_perm(b[2], b[3], 0x0040), 0x5410);
+    }
+    return v;
+  }
+  // FRAMES: byte r of each of the lane's frames of the message
+  __device__ __forceinline__ void scatter(int r, V v) const {
+    int8_t* p = mesg + (long long)f * out_stride + r;
+    const bool full = f + 4 * VW <= batch;
+#pragma unroll
+    for (int j = 0; j < 4 * VW; ++j)
+      if (full || f + j < batch)
+        p[(long long)j * out_stride] = (int8_t)(v.x[j / 4] >> (8 * (j % 4)));
   }
   __device__ __forceinline__ V& at(uint32_t* a, int r) const {
     return *reinterpret_cast<V*>(a + r * WR + w);
@@ -266,6 +327,19 @@ struct Tile {
                        : root != nullptr ? at(root, r) : load(llr, r);
     else
       return base == 0 ? load(llr, r) : at(soft, base + r);
+  }
+
+  // FRAMES: rows r1 and r2 of that input, both rows' loads issued before
+  // either is packed
+  __device__ __forceinline__ void in2(int base, int r1, int r2, V& a,
+                                      V& b) const {
+    if (base == 0) {
+      a = gather(r1);
+      b = gather(r2);
+    } else {
+      a = at(soft, base + r1);
+      b = at(soft, base + r2);
+    }
   }
 
   // In-place polar transform of rows [0, len) of t: every stage's pairs
@@ -307,17 +381,31 @@ struct Tile {
       switch (op) {
         case OP_LEFT: {
           const int half = len >> 1;
-          for (int i = r0; i < half; i += kPass)
-            at(soft, half + i) = prod(in(xb, i), in(xb, half + i));
+          for (int i = r0; i < half; i += kPass) {
+            if constexpr (FRAMES) {
+              V a, b;
+              in2(xb, i, half + i, a, b);
+              at(soft, half + i) = prod(a, b);
+            } else {
+              at(soft, half + i) = prod(in(xb, i), in(xb, half + i));
+            }
+          }
           --lvl;
           break;
         }
         case OP_RIGHT: {
           const int half = len;
           const int pb = 2 * half == n ? 0 : 2 * half;
-          for (int i = r0; i < half; i += kPass)
-            at(soft, half + i) =
-                madd(at(hard, hoff + i), in(pb, i), in(pb, half + i));
+          for (int i = r0; i < half; i += kPass) {
+            if constexpr (FRAMES) {
+              V a, b;
+              in2(pb, i, half + i, a, b);
+              at(soft, half + i) = madd(at(hard, hoff + i), a, b);
+            } else {
+              at(soft, half + i) =
+                  madd(at(hard, hoff + i), in(pb, i), in(pb, half + i));
+            }
+          }
           hoff += half;
           break;
         }
@@ -357,8 +445,15 @@ struct Tile {
         }
         case OP_REP: {  // saturating fold in halves, in that order
           int h = len >> 1;
-          for (int i = r0; i < h; i += kPass)
-            at(soft, i) = sat_add(in(xb, i), in(xb, h + i));
+          for (int i = r0; i < h; i += kPass) {
+            if constexpr (FRAMES) {
+              V a, b;
+              in2(xb, i, h + i, a, b);
+              at(soft, i) = sat_add(a, b);
+            } else {
+              at(soft, i) = sat_add(in(xb, i), in(xb, h + i));
+            }
+          }
           __syncwarp();
           while (h > 1) {
             h >>= 1;
@@ -412,8 +507,15 @@ struct Tile {
         }
         case OP_RATE0_RIGHT: {  // all-frozen left half: g is a plain sat add
           const int half = len >> 1;
-          for (int i = r0; i < half; i += kPass)
-            at(soft, half + i) = sat_add(in(xb, i), in(xb, half + i));
+          for (int i = r0; i < half; i += kPass) {
+            if constexpr (FRAMES) {
+              V a, b;
+              in2(xb, i, half + i, a, b);
+              at(soft, half + i) = sat_add(a, b);
+            } else {
+              at(soft, half + i) = sat_add(in(xb, i), in(xb, half + i));
+            }
+          }
           hoff += half;
           --lvl;
           break;
@@ -433,7 +535,14 @@ struct Tile {
           const int pb = 2 * half == n ? 0 : 2 * half;
           for (int i = r0; i < half; i += kPass) {
             const V hl = at(hard, hoff + i);
-            const V hr = signum(madd(hl, in(pb, i), in(pb, half + i)));
+            V hr;
+            if constexpr (FRAMES) {
+              V a, b;
+              in2(pb, i, half + i, a, b);
+              hr = signum(madd(hl, a, b));
+            } else {
+              hr = signum(madd(hl, in(pb, i), in(pb, half + i)));
+            }
             at(hard, hoff + half + i) = hr;
             at(hard, hoff + i) = hmul(hl, hr);
             at(soft, i) = hr;

@@ -32,6 +32,11 @@
 // scratch_shape) picks the shape and the warps a block by level and batch,
 // so that the grid covers the card where the batch has the tiles for it.
 //
+// The u track also comes frame-major (scratch_frames_kernel, and
+// decoder.cu's tile_decoder_frames_kernel at (2, 2)): llr (batch, n) in,
+// mesg (batch, k) out, each lane gathering and scattering a byte a frame
+// (fastssc_simd.cuh, FRAMES), the decode in shared memory unchanged.
+//
 // What bounds it: not the bytes (the root and the outputs, about 2 n bytes
 // a frame), but each op's chain of dependent shared-memory accesses,
 // emulated byte-SIMD arithmetic and warp barrier, with the few warps a
@@ -54,10 +59,14 @@
 #include "fastssc.cuh"
 #include "fastssc_simd.cuh"
 
-// decoder.cu: the whole-code tile kernel, the (2, 2) shape of the u track
+// decoder.cu: the whole-code tile kernel, the (2, 2) shape of the u track,
+// element-major and frame-major
 extern "C" int polar_tile_decode(const void* prog, const void* llr,
                                  void* mesg, void* cw, int n, int batch,
                                  int warps, int aligned, void* stream);
+extern "C" int polar_tile_decode_frames(const void* prog, const void* llr,
+                                        void* mesg, int n, int k, int batch,
+                                        int warps, void* stream);
 
 namespace {
 
@@ -155,6 +164,32 @@ int launch_shape(const void* prog, int n, int batch, const void* llr,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int WR, int VW>
+using FramesTile = polar::simd::Tile<WR, VW, /*CW=*/false, /*ROOT_SMEM=*/false,
+                                     /*EMIT_U=*/true, /*INTERP=*/false,
+                                     /*FRAMES=*/true>;
+
+// scratch_tile_kernel<WR, VW, false> on frame-major arrays: llr (batch, n)
+// in, mesg (batch, k) out.
+template <int WR, int VW>
+__global__ void scratch_frames_kernel(const uint8_t* __restrict__ prog, int n,
+                                      int k, int batch, const int8_t* llr,
+                                      int8_t* mesg) {
+  extern __shared__ uint32_t words[];
+  FramesTile<WR, VW> t;
+  // a whole warp returns: no barrier below
+  if (!t.bind(words, n, llr, mesg, batch, 0, k)) return;
+  t.decode(prog, n);
+}
+
+template <int WR, int VW>
+int launch_frames(const void* prog, int n, int k, int batch, const void* llr,
+                  void* mesg, int warps, cudaStream_t stream) {
+  return polar::simd::launch_tiles<FramesTile<WR, VW>>(
+      scratch_frames_kernel<WR, VW>, n, batch, warps, stream,
+      (const uint8_t*)prog, n, k, batch, (const int8_t*)llr, (int8_t*)mesg);
+}
+
 }  // namespace
 
 // The whole-code decoder on `stream`, u output, the tile kernel: llr (n,
@@ -171,6 +206,25 @@ extern "C" int polar_scratch_decode(const void* prog, int n, int batch,
                                     void* stream) {
   return launch_shape(prog, n, batch, llr, mesg, nullptr, wr, vw, warps,
                       aligned, stream);
+}
+
+// The same on frame-major arrays: llr (batch, n) in, mesg (batch, k) out,
+// int8, any alignment.
+extern "C" int polar_scratch_decode_frames(const void* prog, int n, int k,
+                                           int batch, const void* llr,
+                                           void* mesg, int wr, int vw,
+                                           int warps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (wr == 2 && vw == 2)
+    return polar_tile_decode_frames(prog, llr, mesg, n, k, batch, warps,
+                                    stream);
+  if (wr == 4 && vw == 1)
+    return launch_frames<4, 1>(prog, n, k, batch, llr, mesg, warps, st);
+  if (wr == 8 && vw == 1)
+    return launch_frames<8, 1>(prog, n, k, batch, llr, mesg, warps, st);
+  if (wr == 32 && vw == 1)
+    return launch_frames<32, 1>(prog, n, k, batch, llr, mesg, warps, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // One hybrid node on `stream`, the tile kernel: in (n, batch), out mesg (k,

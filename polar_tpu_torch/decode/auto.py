@@ -27,6 +27,7 @@ from ..code.compiler import compile_program
 from ..code.construction import PolarCode
 from ..ops.cuda import decoder_kernel
 from ..ops.cuda.interp_kernel import make_interp_decoder
+from ..utils.profiling import annotate
 from .fastssc import OUTPUTS, frame_major, make_fastssc_decoder
 
 
@@ -164,8 +165,12 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
     """The CUDA kernel decoder with the eager decoder's interface:
     ``decode(llrs)`` on frame-major ``(B, N)`` int8 LLRs and
     ``decode.lane_major(llr_t)`` on element-major ``(N, B)`` ones (no
-    transposes). The kernel always runs element-major; the frame-major
-    entry transposes in and out. ``style``: ``"ssa"``, ``"walk"``,
+    transposes). On the u track of a kernel with a frame-major layout
+    (``decoder_kernel.has_frames``) the frame-major entry on a card hands
+    the kernel ``(B, N)`` and takes ``(B, K)`` back; everywhere else
+    (CPU tensors, the walk, ``"scratch-bytes"``, the cw outputs) the kernel
+    runs element-major and the entry transposes in and out
+    (``fastssc.frame_major``). ``style``: ``"ssa"``, ``"walk"``,
     ``"scratch"`` (the shared-memory kernel: u output only, N <= 2^11; it
     raises ``ValueError`` otherwise, as ``make_pallas_decoder`` does) or
     ``"scratch-bytes"`` (the byte kernel it replaced, the same contract)."""
@@ -194,7 +199,27 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
         return mesg.to(output_dtype), cw.to(output_dtype)
 
     decode = frame_major(lane_major, "kernel decoder")
+    if output == "u" and decoder_kernel.has_frames(style, code.N):
+        decode = _frames_entry(decode, program, frozen, style, output_dtype)
     decode.lane_major = lane_major
+    return decode
+
+
+def _frames_entry(transposing, program, frozen, style, output_dtype):
+    """The frame-major entry of a kernel's frame-major u track: on a card
+    the kernel reads ``(B, N)`` and writes ``(B, K)`` itself, under the
+    span ``decode``; off it the ``transposing`` entry."""
+
+    def decode(llrs):
+        if llrs.device.type != "cuda":
+            return transposing(llrs)
+        if llrs.ndim != 2:
+            raise ValueError("kernel decoder expects (batch, N) LLRs")
+        with annotate("decode"):
+            mesg, _ = decoder_kernel.decode(program, frozen, llrs.contiguous(),
+                                            False, style, layout="frames")
+            return mesg.to(output_dtype)
+
     return decode
 
 

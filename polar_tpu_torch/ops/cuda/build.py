@@ -84,6 +84,7 @@ SIGNATURES = {
     "polar_encode_bits": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
                           _P),
     "polar_scratch_decode": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
+    "polar_scratch_decode_frames": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "polar_scratch_bytes_decode": (_P, _I, _I, _P, _P, _I, _P),
     "polar_scratch_bytes_subtree": (_P, _I, _I, _P, _P, _P, _I, _P),

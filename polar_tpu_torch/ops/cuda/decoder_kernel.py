@@ -31,7 +31,10 @@ Three kernels, two styles of ``polar_tpu/ops/pallas/decoder_kernel.py``'s
 :func:`decode` launches the kernel for a CUDA tensor and runs
 :func:`decode_plain` (the eager decoder) only for a CPU tensor; it keeps
 a count of its launches per kernel and track in :data:`launches`, and of
-the byte kernel's in :data:`earlier_launches`.
+the byte kernel's in :data:`earlier_launches`. The tile kernels' u track
+also takes frame-major ``(B, N)`` LLRs and writes û ``(B, K)`` itself
+(``layout="frames"``, :func:`has_frames`), counted under the kernel's key
+with ``_frames`` at the end.
 :func:`simd_selftest` holds the tile kernel's packed functions against
 the walk's scalar ones on the card.
 """
@@ -76,8 +79,10 @@ WHOLE_BLOCK_BYTES = 16384
 WHOLE_MAX_WARPS = 8
 SIMD_PRIMITIVES = ("sat_add", "qabs", "signum", "decide", "prod", "madd",
                    "hmul", "spc_flip")
+LAYOUTS = ("lanes", "frames")
 launches = {"fastssc_decoder_u": 0, "fastssc_decoder_cw": 0,
-            "walk_decoder_u": 0, "walk_decoder_cw": 0, "scratch_decoder": 0}
+            "walk_decoder_u": 0, "walk_decoder_cw": 0, "scratch_decoder": 0,
+            "fastssc_decoder_u_frames": 0, "scratch_decoder_frames": 0}
 # launches of the byte kernel that "scratch" replaced (style
 # "scratch-bytes"), apart from the tile kernel's
 earlier_launches = {"scratch_bytes_decoder": 0}
@@ -273,8 +278,26 @@ def ssa_kernel(n: int) -> str:
     return "tile" if n <= 1 << WHOLE_MAX_LEVEL else "walk"
 
 
+def has_frames(style: str, n: int) -> bool:
+    """Whether the kernel of ``style`` at code length ``n`` takes the
+    frame-major layout (its u track): the tile kernel (``"ssa"`` up to
+    :data:`WHOLE_MAX_LEVEL`) and the scratch tile kernel."""
+    return style == "scratch" or (style == "ssa" and ssa_kernel(n) == "tile")
+
+
+def _check_llrs(llr_t, n: int, frames: bool) -> None:
+    """Raises ``ValueError`` unless ``llr_t`` is a contiguous int8 tensor of
+    ``(B, N)`` (``frames``) or ``(N, B)``."""
+    rows = 1 if frames else 0
+    if (llr_t.dtype != torch.int8 or llr_t.ndim != 2
+            or llr_t.shape[rows] != n or not llr_t.is_contiguous()):
+        want = f"(B, N={n})" if frames else f"(N={n}, B)"
+        raise ValueError(f"expected contiguous {want} int8 LLRs, got "
+                         f"{tuple(llr_t.shape)} {llr_t.dtype}")
+
+
 def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
-           shape: tuple[int, int, int] | None = None):
+           shape: tuple[int, int, int] | None = None, layout: str = "lanes"):
     """Decode element-major ``(N, B)`` int8 LLRs: the kernel of ``style``
     for a CUDA tensor, :func:`decode_plain` for a CPU one.
 
@@ -284,33 +307,58 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
     :func:`ssa_kernel`; ``"walk"`` the walk at every level;
     ``"scratch"`` and ``"scratch-bytes"`` the u track only and N <= 2^11,
     on every device. ``shape``: ``(wr, vw, warps)`` of the scratch tile
-    kernel in place of :func:`scratch_shape`'s (the A/B and the tests)."""
+    kernel in place of :func:`scratch_shape`'s (the A/B and the tests).
+    ``layout="frames"``: ``llr_t`` is frame-major, a contiguous ``(B, N)``
+    int8 tensor, and û comes back ``(B, K)``, with no transpose on the
+    card; the u track of the kernels :func:`has_frames` names, on every
+    device (``ValueError`` otherwise)."""
     start = profiling.begin()
     n = int(np.asarray(frozen).size)
     if style not in STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
     if style.startswith("scratch"):
         if want_cw:
             raise ValueError("the cw track requires the SSA kernel style")
         frames = scratch_frames(n)
+    by_frame = layout == "frames"
+    if by_frame:
+        if want_cw or not has_frames(style, n):
+            raise ValueError(f"the frame-major layout is the u track of the "
+                             f"tile kernels, not style {style!r} at N={n}"
+                             f"{' with the cw track' if want_cw else ''}")
+        _check_llrs(llr_t, n, frames=True)
     if llr_t.device.type == "cpu":
+        if by_frame:
+            mesg, _ = decode_plain(program, frozen, llr_t.t(), False)
+            return mesg.t().contiguous(), None
         return decode_plain(program, frozen, llr_t, want_cw)
     if llr_t.device.type != "cuda":
         raise ValueError(f"no decoder for device {llr_t.device}")
+    if not by_frame:
+        _check_llrs(llr_t, n, frames=False)
     k = n - int(np.count_nonzero(frozen))
-    if (llr_t.dtype != torch.int8 or llr_t.ndim != 2 or llr_t.shape[0] != n
-            or not llr_t.is_contiguous()):
-        raise ValueError(f"expected contiguous (N={n}, B) int8 LLRs, got "
-                         f"{tuple(llr_t.shape)} {llr_t.dtype}")
-    b = llr_t.shape[1]
+    b = llr_t.shape[0 if by_frame else 1]
     dev = llr_t.device
-    mesg = torch.empty((k, b), dtype=torch.int8, device=dev)
+    mesg = torch.empty((b, k) if by_frame else (k, b), dtype=torch.int8,
+                       device=dev)
     cw = torch.empty((n, b), dtype=torch.int8, device=dev) if want_cw else None
     if b == 0:
         return mesg, cw
     stream = build.stream(dev)
     prog_d, frozen_d = device_tables(np.asarray(program, np.uint8),
                                      np.asarray(frozen, np.uint8), dev)
+    if by_frame:   # the tile kernel is the scratch entry's (2, 2) shape
+        wr, vw, warps = ((2, 2, tile_warps(n, False)) if style == "ssa" else
+                         shape or scratch_shape(n.bit_length() - 1, b))
+        err = build.load_library().polar_scratch_decode_frames(
+            prog_d.data_ptr(), n, k, b, llr_t.data_ptr(), mesg.data_ptr(), wr,
+            vw, warps, stream)
+        build.check(err, "polar_scratch_decode_frames")
+        profiling.launched(start, launches, "fastssc_decoder_u_frames"
+                           if style == "ssa" else "scratch_decoder_frames")
+        return mesg, None
     if style == "scratch":
         wr, vw, warps = shape or scratch_shape(n.bit_length() - 1, b)
         err = build.load_library().polar_scratch_decode(

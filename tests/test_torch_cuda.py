@@ -113,6 +113,8 @@ def test_kernel_decoder_output_modes(dev):
             before = dict(decoder_kernel.launches)
             got = make_kernel_decoder(c, output=mode, style=style)(llr)
             track = f"{route}_{'u' if mode == 'u' else 'cw'}"
+            if mode == "u" and style == "ssa":   # the (B, N) launch
+                track = "fastssc_decoder_u_frames"
             assert decoder_kernel.launches == {**before,
                                                track: before[track] + 1}
             want = pt.make_fastssc_decoder(c, output=mode,
@@ -252,8 +254,8 @@ def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
         llr = _llrs(dev, c.N, batch, batch).t().contiguous()
         before = dict(decoder_kernel.launches)
         assert torch.equal(dec(llr).cpu(), want(llr.cpu()))
-        name = ("fastssc_decoder_u" if batch < auto.BIG_BATCH
-                else "scratch_decoder")
+        name = ("fastssc_decoder_u_frames" if batch < auto.BIG_BATCH
+                else "scratch_decoder_frames")
         assert decoder_kernel.launches == {**before, name: before[name] + 1}
 
 
@@ -1778,3 +1780,145 @@ def test_front_campaign_launches_the_row_counter(dev):
     assert count_kernel.launches == {"count": steps}
     assert count_kernel.earlier_launches == {"count_bytes": 0}
     assert count_kernel.plain_calls == {"count_plain": 0}
+
+
+# -- the tile kernels' frame-major u track: (B, N) LLRs in, (B, K) out
+
+_FRAME_BATCHES = (1, 7, 8, 37, 4099, 32768)
+_EDGES = (-128, -1, 0, 1, 127)
+
+
+def _frame_arms():
+    """(style, shape, m): the tile kernel at every level it serves, each
+    scratch shape at every level where one warp's tile fits a block."""
+    arms = [("ssa", None, m)
+            for m in range(1, decoder_kernel.WHOLE_MAX_LEVEL + 1)]
+    for wr, vw in decoder_kernel.SCRATCH_SHAPES:
+        for m in range(1, decoder_kernel.SCRATCH_MAX_LEVEL + 1):
+            fit = decoder_kernel.SCRATCH_SMEM_BYTES // \
+                decoder_kernel.scratch_smem(1 << m, wr, 1)
+            if fit:
+                arms.append(("scratch", (wr, vw, min(2, fit)), m))
+    return arms
+
+
+def _frame_llrs(dev, n, b, seed):
+    """Frame-major (B, N) int8: even frames drawn from the edge values,
+    odd frames full-range."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randint(-128, 128, (b, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    edges = torch.tensor(_EDGES, dtype=torch.int8, device=dev)
+    x[::2] = edges[torch.randint(0, len(_EDGES), x[::2].shape, generator=g,
+                                 device=dev)]
+    return x
+
+
+def _frames_key(style):
+    return ("scratch_decoder_frames" if style == "scratch"
+            else "fastssc_decoder_u_frames")
+
+
+@pytest.mark.parametrize("style,shape,m", _frame_arms())
+def test_frame_major_u_track_matches_the_transposed_lane_major(dev, style,
+                                                               shape, m):
+    """The frame-major launch equals the element-major one on the
+    transposed LLRs, transposed back, bit for bit, at every batch of
+    _FRAME_BATCHES (tails of 1-7 frames, one tile, many), and counts one
+    launch under its own key."""
+    c = pt.make_code(m, rate=0.5)
+    program = pt.compile_program(c)
+    for b in _FRAME_BATCHES:
+        llrs = _frame_llrs(dev, c.N, b, 1000 * m + b)
+        want, _ = decoder_kernel.decode(program, c.frozen,
+                                        llrs.t().contiguous(), False, style,
+                                        shape)
+        before = dict(decoder_kernel.launches)
+        got, cw = decoder_kernel.decode(program, c.frozen, llrs, False, style,
+                                        shape, layout="frames")
+        key = _frames_key(style)
+        assert decoder_kernel.launches == {**before, key: before[key] + 1}
+        assert cw is None and got.shape == (b, c.K)
+        assert torch.equal(got, want.t()), b
+        if b == 37:
+            plain, _ = decoder_kernel.decode_plain(
+                program, c.frozen, llrs.t().contiguous(), False)
+            assert torch.equal(got, plain.t())
+
+
+@pytest.mark.parametrize("style", ["ssa", "scratch"])
+def test_frame_major_u_track_off_the_word(dev, style):
+    """LLR views that start off every 16-byte boundary read the same."""
+    c = pt.make_code(8, rate=0.5)
+    program = pt.compile_program(c)
+    b = 4099
+    want = None
+    for off in (0, 1, 2, 4, 8):
+        buf = torch.empty(b * c.N + off, dtype=torch.int8, device=dev)
+        llrs = buf[off:].view(b, c.N)
+        llrs.copy_(_frame_llrs(dev, c.N, b, 8))
+        assert (llrs.data_ptr() % 16 == 0) == (off == 0)
+        got, _ = decoder_kernel.decode(program, c.frozen, llrs, False, style,
+                                       layout="frames")
+        if want is None:
+            want = decoder_kernel.decode(program, c.frozen,
+                                         llrs.t().contiguous(), False,
+                                         style)[0].t()
+        assert torch.equal(got, want), off
+
+
+@pytest.mark.parametrize("m,style", [(6, "ssa"), (10, "ssa"), (13, "ssa"),
+                                     (6, "scratch"), (10, "scratch")])
+def test_frame_major_entry_runs_no_transpose(dev, m, style):
+    """The kernel decoder's frame-major entry on the u track: one launch
+    under the frame-major key a call, the span ``decode`` over the
+    kernel's span and no ``decode.transpose_*``; the same answer as the
+    element-major entry."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from polar_tpu_torch.utils import profiling
+
+    c = pt.make_code(m, rate=0.5)
+    dec = make_kernel_decoder(c, style=style)
+    llrs = _frame_llrs(dev, c.N, 32768, m)
+    key = _frames_key(style)
+    profiling.take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        before = dict(decoder_kernel.launches)
+        got = dec(llrs)
+        after = dict(decoder_kernel.launches)
+    spans, _ = profiling.take_spans()
+    assert after == {**before, key: before[key] + 1}
+    assert [s[0] for s in spans] == ["decode", f"kernel.{key}"]
+    assert torch.equal(got, dec.lane_major(llrs.t().contiguous()).t())
+
+
+def test_auto_decoder_takes_the_frame_major_kernel_at_the_bench_code(dev):
+    """make_auto_decoder at Polar(1024, 512), u, at both batches of its
+    choice: the frame-major launch and no copy span; the cw outputs and
+    the interpreter keep their transposes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from polar_tpu_torch.utils import profiling
+
+    c = pt.make_code(10, rate=0.5)
+    dec, _ = pt.make_auto_decoder(c, device=dev)
+    sys_dec, _ = pt.make_auto_decoder(c, output="systematic", device=dev)
+    big = pt.make_auto_decoder(pt.make_code(13, rate=0.5), device=dev)[0]
+    for b, key in ((4096, "fastssc_decoder_u_frames"),
+                   (32768, "scratch_decoder_frames")):
+        llrs = _frame_llrs(dev, c.N, b, b)
+        profiling.take_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = dec(llrs)
+        spans, _ = profiling.take_spans()
+        assert [s[0] for s in spans] == ["decode", f"kernel.{key}"], b
+        assert torch.equal(got, dec.lane_major(llrs.t().contiguous()).t())
+    for d, n in ((sys_dec, c.N), (big, 1 << 13)):
+        profiling.take_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            d(_frame_llrs(dev, n, 64, 3))
+        names = [s[0] for s in profiling.take_spans()[0]]
+        assert "decode.transpose_in" in names and "decode.transpose_out" \
+            in names, names

@@ -63,6 +63,10 @@ def _calls():
             program, frozen, _i8(N, B), False, "walk"),
         "scratch_decoder": lambda: decoder_kernel.decode(
             program, frozen, _i8(N, B), False, "scratch"),
+        "fastssc_decoder_u_frames": lambda: decoder_kernel.decode(
+            program, frozen, _i8(B, N), False, layout="frames"),
+        "scratch_decoder_frames": lambda: decoder_kernel.decode(
+            program, frozen, _i8(B, N), False, "scratch", layout="frames"),
         "mc_step": lambda: step_kernel.step(program, frozen, params, True,
                                             msg_t=_i8(N, B), normals_t=f32()),
         "walk_step": lambda: step_kernel.step(program, frozen, params, True,

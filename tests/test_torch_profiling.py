@@ -163,6 +163,10 @@ def _launch_calls():
             program, frozen, _i8(N, B), False, "scratch"),
         "scratch_bytes_decoder": lambda: decoder_kernel.decode(
             program, frozen, _i8(N, B), False, "scratch-bytes"),
+        "fastssc_decoder_u_frames": lambda: decoder_kernel.decode(
+            program, frozen, _i8(B, N), False, layout="frames"),
+        "scratch_decoder_frames": lambda: decoder_kernel.decode(
+            program, frozen, _i8(B, N), False, "scratch", layout="frames"),
         "mc_step": lambda: step(),
         "walk_step": lambda: step(style="walk"),
         "front_whole": lambda: step_kernel.front(
@@ -370,6 +374,27 @@ def test_torch_trace_files_hold_the_program_spans(tmp_path):
     assert {"run_point", "run_point.step", "run_point.pull",
             "step.seeds"} <= names
     assert "run_point" in _names(profiling.take_spans()[0])
+
+
+@pytest.mark.parametrize("style,key", [
+    ("ssa", "fastssc_decoder_u_frames"), ("scratch", "scratch_decoder_frames")])
+def test_torch_frame_major_kernel_entry_records_no_copies(fake_card, style,
+                                                          key):
+    """On (fake) card tensors the kernel decoder's frame-major u entry
+    hands the kernel (B, N) LLRs: ``decode`` over the kernel's span, one
+    launch under the frame-major key, a (B, K) message."""
+    dec = pt.make_kernel_decoder(CODE, style=style)
+    profiling.take_spans()
+    with _session():
+        before = _counts()
+        out = dec(_i8(B, N))
+        after = _counts()
+    spans, _ = profiling.take_spans()
+    assert _names(spans) == ["decode", f"kernel.{key}"]
+    assert [p for *_, p in spans] == [-1, 0]
+    moved = {k[2]: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {key: 1}
+    assert tuple(out.shape) == (B, K) and out.device == FAKE
 
 
 @pytest.mark.parametrize("entry", ["kernel", "interp", "hybrid"])

@@ -198,6 +198,81 @@ def test_tile_lanes_cover_every_row_word_once(shape, length):
     assert k_pass == 32 * vw // wr and k_pass in (1, 4, 8, 32)
 
 
+def _frame_reads(wr, vw, n):
+    """A numpy model of fastssc_simd.cuh's Tile with FRAMES: the byte
+    offsets into a (4 WR, n) frame-major root that each lane's gather
+    reads for every row it takes of a node of n rows (frame f + j of the
+    lane at row r: (f + j) * n + r, f = 4 w). Returns the reads by pass
+    and lane, ``(passes, 32, 4 vw)``, -1 where a lane has no row."""
+    lanes_row = wr // vw
+    k_pass = 32 // lanes_row
+    passes = -(-n // k_pass)
+    reads = np.full((passes, 32, 4 * vw), -1, dtype=np.int64)
+    for lane in range(32):
+        f = 4 * (lane % lanes_row * vw)
+        for p, r in enumerate(range(lane // lanes_row, n, k_pass)):
+            reads[p, lane] = (f + np.arange(4 * vw)) * n + r
+    return reads
+
+
+@pytest.mark.parametrize("length", [1 << k for k in range(1, 12)])
+@pytest.mark.parametrize("shape", decoder_kernel.SCRATCH_SHAPES)
+def test_frame_major_gathers_read_each_byte_once_in_runs(shape, length):
+    """Every (frame, row) byte of a tile's frame-major root is read once,
+    and in each pass the warp's bytes of one frame form one contiguous
+    run: min(length, 32 VW / WR) rows."""
+    wr, vw = shape
+    reads = _frame_reads(wr, vw, length)
+    got = np.sort(reads[reads >= 0])
+    np.testing.assert_array_equal(got, np.arange(4 * wr * length))
+    run = min(length, 32 * vw // wr)
+    for p in reads:
+        p = p[p >= 0]
+        for frame in np.unique(p // length):
+            rows = np.sort(p[p // length == frame])
+            assert len(rows) == run
+            np.testing.assert_array_equal(np.diff(rows), 1)
+
+
+@pytest.mark.parametrize("style", ["ssa", "scratch"])
+def test_frame_major_layout_refuses_what_the_kernel_cannot_read(style):
+    """The frame-major wrapper takes a contiguous (B, N) int8 tensor on the
+    u track of the tile kernels alone, on every device, and on the CPU
+    gives the plain version's message transposed."""
+    code = pt.make_code(6, rate=0.5)
+    program = pt.compile_program(code)
+    llrs = torch.from_numpy(_edge_llr_t(code.N, 40, 6).T.copy())
+
+    def run(x, **kw):
+        return decoder_kernel.decode(program, code.frozen, x,
+                                     kw.pop("want_cw", False),
+                                     kw.pop("style", style), layout="frames",
+                                     **kw)
+
+    for bad in (llrs[:, :32].contiguous(),           # N wrong
+                llrs.to(torch.int16),                 # not int8
+                llrs.t().contiguous().t(),            # strided (B, N)
+                llrs[0]):                             # not 2-D
+        with pytest.raises(ValueError, match="expected contiguous"):
+            run(bad)
+    with pytest.raises(ValueError, match="frame-major|cw track"):
+        run(llrs, want_cw=True)
+    for other in ("walk", "scratch-bytes"):
+        with pytest.raises(ValueError, match="frame-major"):
+            run(llrs, style=other)
+    with pytest.raises(ValueError, match="layout"):
+        decoder_kernel.decode(program, code.frozen, llrs, False, style,
+                              layout="rows")
+    assert decoder_kernel.has_frames(style, code.N)
+    assert not decoder_kernel.has_frames(
+        "ssa", 1 << (decoder_kernel.WHOLE_MAX_LEVEL + 1))
+    got, cw = run(llrs)
+    want, _ = decoder_kernel.decode_plain(program, code.frozen,
+                                          llrs.t().contiguous(), False)
+    assert cw is None and torch.equal(got, want.t())
+    assert got.is_contiguous()
+
+
 @pytest.mark.parametrize("style", ["scratch", "scratch-bytes"])
 def test_scratch_styles_run_plain_on_cpu(style):
     """On CPU tensors both scratch styles run the plain version and launch
