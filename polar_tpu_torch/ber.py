@@ -230,6 +230,12 @@ FRONT_WHOLE_MAX_LEVEL = 11
 FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid",
                   "block-interp")
 SYSTEMATIC_BRANCHES = ("whole", "block-count", "block-interp")
+# steps run, by the path that ran them (_step_path's names): one increment a
+# step call, whether or not a profiler session runs ("draws": the kernel
+# draws around a decoder, their plain versions on the CPU; "plain": the
+# torch draws)
+STEP_PATHS = ("draws", "plain", "front", "fused")
+steps_by_path = dict.fromkeys(STEP_PATHS, 0)
 
 
 @dataclass
@@ -328,7 +334,11 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
     int8 takes them; other dtypes keep the torch draws, as in JAX. The JAX
     package also keeps threefry where a shape does not tile
     (``channel_kernel.py:pick_blocks``, ``batch % 128``); the port's
-    kernels take any batch and any N >= 2, so it has no such fallback."""
+    kernels take any batch and any N >= 2, so it has no such fallback.
+
+    The step counts itself in :data:`steps_by_path` (``"draws"`` with the
+    kernels, else ``"plain"``), and its counters' torch work runs in the
+    span ``step.count``."""
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode {rng!r}")
     device = torch.device(device)
@@ -372,10 +382,14 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
         elif words is not None:
             raise ValueError("words= is taken by int8 rng='kernel-bits' only")
         if kernel_rng:
+            steps_by_path["draws"] += 1
             message, codeword, llrs = draw_kernels(gen, snr_db, batch, words)
         else:
+            steps_by_path["plain"] += 1
             message, codeword, llrs = draw_torch(gen, snr_db, batch)
-        return frame_counters(message, codeword, llrs, decoder(llrs))
+        decoded = decoder(llrs)
+        with annotate("step.count"):
+            return frame_counters(message, codeword, llrs, decoded)
 
     return step
 
@@ -557,6 +571,7 @@ def make_front_step(code: PolarCode, *, systematic: bool = True,
     def front_step(gen, snr_db, batch: int, *, words=None):
         if words is not None:
             raise ValueError("words= is taken by int8 rng='kernel-bits' only")
+        steps_by_path["front"] += 1
         t = chain(snr_params(snr_db), seeds=_philox_seeds(gen), call=0,
                   batch=batch, device=device)
         return _unpack(t)
@@ -644,6 +659,7 @@ def _path_step(code: PolarCode, path: str, *, systematic: bool, dtype,
     program = compile_program(code)
 
     def fused_step(gen, snr_db, batch: int):
+        steps_by_path["fused"] += 1
         t = step_kernel.step(program, code.frozen, snr_params(snr_db),
                              systematic, seeds=_philox_seeds(gen), call=0,
                              batch=batch, device=device, style=step_style)

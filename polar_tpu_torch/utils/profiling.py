@@ -16,6 +16,15 @@
 The recorder follows the profiler: it has no switch of its own. It keeps
 at most :data:`MAX_SPANS` spans between two :func:`take_spans` calls and
 counts the ones beyond. Spans nest on one host thread.
+
+The program's spans: ``run_point``, ``run_point.step`` and
+``run_point.pull`` (``ber.run_point``); ``step.seeds`` (a step's Philox
+key draw), ``step.unpack`` (the counters' views) and ``step.count`` (the
+five counters' torch work in ``ber.make_step_body``'s step);
+``decode``, ``decode.transpose_in`` and ``decode.transpose_out`` (the
+frame-major decode entries); ``kernel.<key>`` in every launching wrapper.
+Beside the wrappers' launch counters, ``ber.steps_by_path`` counts the
+steps run by the path that ran them.
 """
 
 from __future__ import annotations

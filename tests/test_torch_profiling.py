@@ -417,3 +417,56 @@ def test_torch_every_frame_major_entry_records_its_copies(entry):
                              "decode.transpose_out"]
     with pytest.raises(ValueError, match="expects"):
         dec(llrs[0])
+
+
+# -- the step's counter span and the steps counted by path
+
+from polar_tpu_torch import ber  # noqa: E402
+
+
+def _draws_step():
+    """The kernel draws around the eager u decoder (plain versions here)."""
+    return ber.make_step_body(
+        CODE, systematic=False, rng="kernel", device="cpu",
+        decoder=pt.make_fastssc_decoder(CODE, output="u",
+                                        output_dtype=torch.int8))
+
+
+def test_torch_step_count_is_recorded_only_under_a_session():
+    step = _draws_step()
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    profiling.take_spans()
+    off = step(gen, 0.0, B)
+    assert profiling.take_spans() == ([], 0)
+    with _session():
+        on = step(gen, 0.0, B)
+    spans, dropped = profiling.take_spans()
+    assert _names(spans) == ["step.seeds", "step.seeds", "step.count",
+                             "step.unpack"] and dropped == 0
+    assert [p for *_, p in spans] == [-1, -1, -1, 2]
+    assert set(on) == set(off) == set(step_kernel.COUNTERS)
+
+
+@pytest.mark.parametrize("path", ber.STEP_PATHS)
+def test_torch_steps_are_counted_by_path(path):
+    """One count a step call, under the path that ran it: the draws and the
+    torch draws around a pinned decoder, the front path and the fused step
+    (their plain versions on the CPU)."""
+    dec = pt.make_fastssc_decoder(CODE, output="systematic",
+                                  output_dtype=torch.int8)
+    step = {
+        "draws": _draws_step,
+        "plain": lambda: pt.make_step(CODE, decoder=dec, device="cpu"),
+        "front": lambda: ber.make_step_body(CODE, rng="kernel",
+                                            device="cpu"),
+        "fused": lambda: pt.make_step(CODE, device="cpu"),
+    }[path]()
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    before = dict(ber.steps_by_path)
+    step(gen, 0.5, B)
+    ber.chain_steps(step)(gen, 0.5, B, 3)
+    moved = {k: v - before[k] for k, v in ber.steps_by_path.items()
+             if v != before[k]}
+    assert moved == {path: 4}
