@@ -77,11 +77,15 @@ B = 4096 and 32768 (the tile kernel's and the scratch kernel's (B, N)
 launch, no copy) against plain and the transposing entry around the same
 kernels, bit for bit and in turns; rows 1 and 3's frame-major launches
 and each tile shape's against plain and in turns with their element-major
-launches by device time (rows 1 and 3 take their ms from it). Last,
-each kernel's bound (13, reckoned in polar_tpu_torch/utils/cost.py); the
-rows of the draws and front kernels carry the steps that made their
-launches, rows 9 A, 9 B, 10-12, 1, 3 and 4s their numbers at each shape
-("by_shape") too.
+launches by device time (rows 1 and 3 take their ms from it). Then the
+draws path's u-domain counter (18): ``count_frames_kernel`` against its
+plain version on the 16-byte and byte paths at Polar(16384, 8192),
+B = 4096 and Polar(1024, 512), B = 32768, timed in turns with it (device
+time, host hidden) beside its bound, and a non-systematic campaign on
+the draws path (one launch a step). Last, each kernel's bound (13,
+reckoned in polar_tpu_torch/utils/cost.py); the rows of the draws and
+front kernels carry the steps that made their launches, rows 9 A, 9 B,
+10-12, 1, 3 and 4s their numbers at each shape ("by_shape") too.
 Phases print one line each; any failure raises,
 so the script exits non-zero and prints no result. The last three lines
 are the card, the kernel table and the device line.
@@ -2018,6 +2022,115 @@ def frame_entry_phases(dev, card, ms) -> dict:
             "by_shape": by_shape}
 
 
+def frame_count_inputs(gen, batch: int, k: int, n: int, dev):
+    """(message, codeword, llrs, decoded) frame-major int8 for the u
+    counter: ±1 message and codeword, full-range LLRs, estimates equal to
+    the message but for about 1 % zeros and 1 % flipped signs."""
+    import torch
+
+    def rand_i8(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    msg = 1 - 2 * rand_i8((batch, k), 0, 2)
+    cw = 1 - 2 * rand_i8((batch, n), 0, 2)
+    dec = msg.clone()
+    dec[rand_i8((batch, k), 0, 100) == 0] = 0
+    dec[rand_i8((batch, k), 0, 100) == 0] *= -1
+    return msg, cw, rand_i8((batch, n), -128, 128), dec
+
+
+def count_frames_phases(dev, card, ms) -> dict:
+    """Phase 18: the draws path's u-domain counter (``count_frames_kernel``,
+    which replaces no Pallas kernel: the JAX package's draws-path counters
+    are jnp). At Polar(16384, 8192), B = 4096 and Polar(1024, 512),
+    B = 32768: the kernel against its plain version (the torch expressions
+    of ``ber.frame_counters``) on the 16-byte path and, at a one-byte
+    offset, the byte path, max abs err 0, one launch a call; then timed in
+    turns with the plain version (kernel, plain, plain, kernel), device
+    time a call with the host's hidden (``queued_seconds``: at 0.04 ms a
+    call the wrapper's host time would set the pace), beside its bound.
+    Then its main path: a non-systematic Polar(16384, 8192) campaign on
+    the draws path, counts reset just before: one launch a step, no plain
+    call."""
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.ops.cuda import count_kernel
+    from polar_tpu_torch.utils.benchmark import queued_seconds
+    from polar_tpu_torch.utils.cost import bound, row_work
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    err, by_shape = 0, {}
+
+    def moved(t):
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=dev)
+        x = buf[1:].view(t.shape)
+        x.copy_(t)
+        return x
+
+    for m, b in ((14, 4096), (10, BATCH)):
+        code = pt.make_code(m, rate=0.5)
+        n, k = code.N, code.K
+        args = frame_count_inputs(gen, b, k, n, dev)
+        want = count_kernel.count_frames_plain(*args)
+        for label, t in (("16-byte", args),
+                         ("byte", tuple(moved(x) for x in args))):
+            before = count_kernel.launches["count_frames"]
+            got = count_kernel.count_frames(*t)
+            if count_kernel.launches["count_frames"] != before + 1:
+                raise AssertionError("count_frames launched "
+                                     f"{count_kernel.launches}")
+            e = int((got - want).abs().max())
+            err = max(err, e)
+            if e:
+                raise AssertionError(f"count_frames != plain ({label} path) "
+                                     f"at Polar({n}, {k}) B={b}: "
+                                     f"{got.tolist()} against {want.tolist()}")
+        kernel = lambda: count_kernel.count_frames(*args)  # noqa: E731
+        plain = lambda: count_kernel.count_frames_plain(*args)  # noqa: E731
+        t = [queued_seconds(kernel, 20)]
+        p = [queued_seconds(plain, 20), queued_seconds(plain, 20)]
+        t.append(queued_seconds(kernel, 20))
+        t_ms, p_ms = sum(t) / 2 * 1e3, sum(p) / 2 * 1e3
+        work = row_work("count_frames", n=n, k=k, b=b)
+        b_ms, b_by = bound(*work)
+        where = f"Polar({n}, {k}) B={b}"
+        phase("18", f"count_frames == plain (16-byte and byte paths, max abs "
+              f"err 0) at {where}: {want.tolist()}; device ms a call, host "
+              f"hidden: kernel {t[0] * 1e3:.4f}, {t[1] * 1e3:.4f}; plain "
+              f"{p[0] * 1e3:.4f}, {p[1] * 1e3:.4f}; bound {b_ms:.4f} ms "
+              f"({b_by}), {t_ms / b_ms:.2f}x the bound ({card})")
+        by_shape[where] = {"ms": t_ms, "plain_ms": p_ms, "work": work,
+                           "launches": 0, "steps": None}
+
+    code = pt.make_code(14, rate=0.5)
+    b = 4096
+    _reset(count_kernel.launches, count_kernel.plain_calls)
+    res = pt.run_campaign(code, systematic=False, device=dev, seed=18,
+                          batch=b, steps_per_call=2, snr_range=(-1.5, -1.5),
+                          max_frames_per_point=2 * b,
+                          measure_throughput=False)
+    steps = sum(p.frames for p in res.points) // b
+    if (count_kernel.launches["count_frames"] != steps or steps == 0
+            or max(count_kernel.plain_calls.values())):
+        raise AssertionError(f"draws-path campaign: {steps} steps, launches "
+                             f"{count_kernel.launches}, plain calls "
+                             f"{count_kernel.plain_calls}")
+    where = f"Polar({code.N}, {code.K}) B={b}"
+    by_shape[where].update(launches=steps, steps=steps)
+    phase("18", f"non-systematic campaign at {where} on the draws path: "
+          f"{steps} steps, count_frames launches {steps}, no plain call; "
+          f"FER {res.points[0].fer:.4g}")
+    first = by_shape[where]
+    return {"err": {"count_frames": err},
+            "times": {"count_frames": (first["ms"], first["plain_ms"])},
+            "work": {"count_frames": first["work"]},
+            "launched": {"count_frames": steps},
+            "by_shape": {"count_frames": by_shape}}
+
+
 def _free_port() -> int:
     import socket
 
@@ -2846,7 +2959,8 @@ def main() -> int:
             for name in ("fastssc_decoder_u", "fastssc_decoder_cw", "mc_step")}
     library, steps, by_shape = {}, {}, {}
     for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
-                parallel_phases, module_phases, frame_entry_phases):
+                parallel_phases, module_phases, frame_entry_phases,
+                count_frames_phases):
         more = run(dev, card, ms)
         for name, e in more["err"].items():   # a row's checks in any phase
             err[name] = max(err.get(name, 0), e)
@@ -2898,6 +3012,9 @@ def main() -> int:
                            "polar_tpu/ops/pallas/interp_kernel.py:687"),
         "ring_shift": ("polar_tpu_torch/csrc/ring.cu",
                        "polar_tpu/parallel/rdma.py:61"),
+        # no Pallas kernel: the JAX package's draws-path counters are jnp
+        "count_frames": ("polar_tpu_torch/csrc/count.cu",
+                         "none (polar_tpu/ber.py:394-411, jnp)"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

@@ -182,12 +182,34 @@ STEP_KERNEL_MAX_LEVEL = 16
 # 245.9M against 185.1M). block+interp led at m = 11 from AUTO_BIG_BATCH
 # (15.63M) and at m = 12 (4.71M / 7.67M), but front_branch gives it only
 # where decode.auto's table names the interpreter (m >= 13).
+# With the draws step's five counters as one kernel (count_kernel.
+# count_frames; step_ab --levels 9-12 --arms fused,draws,whole+count,
+# block+whole twice, --levels 11-13 with block+hybrid as well, --levels
+# 13-17 --systematic-only --arms draws,block+interp; same card; the mean
+# of the readings, frames/s at B = 4096 / 32768) three plain cells moved
+# to the draws:
+# - plain m = 10 from AUTO_BIG_BATCH: 50.36M against the fused step's
+#   34.31M;
+# - plain m = 11 from AUTO_BIG_BATCH: 17.98M against the fused step's
+#   10.10M;
+# - plain m = 12 below AUTO_BIG_BATCH: 4.46M against the fused step's
+#   2.69M;
+# and every other cell stayed: plain m = 9, 10, 11 below AUTO_BIG_BATCH
+# with the fused step (13.87M, 13.39M, 9.69M against the draws' 8.09M,
+# 8.86M, 7.98M), plain m = 9 from it (94.25M against 72.34M), and every
+# systematic cell with its fused step or front, the draws 1.2-2.9x behind
+# (m = 11, 12 the front 10.74M / 11.82M, 3.69M / 3.76M against 3.66M /
+# 8.20M, 2.21M / 3.05M; m = 13, 14 block-interp 2.43M / 3.65M, 1.22M /
+# 1.72M against 1.72M / 2.72M, 0.89M / 1.30M; m = 15..17 at B = 4096 /
+# 16384 600.0k / 803.1k, 292.5k / 379.1k, 142.1k / 178.3k against 459.5k /
+# 619.8k, 239.7k / 294.4k, 116.7k / 140.6k).
 AUTO_BIG_BATCH = 16384
 AUTO_STEP_PATH = {
     **{(m, s): ("fused", "fused") for m in range(2, 12) for s in (True, False)},
     **{(m, True): ("fused", "front") for m in (8, 9, 10)},
+    **{(m, False): ("fused", "draws") for m in (10, 11)},
     (11, True): ("front", "front"), (12, True): ("front", "front"),
-    (12, False): ("fused", "draws"),
+    (12, False): ("draws", "draws"),
     **{(m, True): ("front", "front") for m in (13, 14, 15, 16)},
     **{(m, False): ("draws", "draws") for m in range(13, 18)}}
 
@@ -337,8 +359,10 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
     kernels take any batch and any N >= 2, so it has no such fallback.
 
     The step counts itself in :data:`steps_by_path` (``"draws"`` with the
-    kernels, else ``"plain"``), and its counters' torch work runs in the
-    span ``step.count``."""
+    kernels, else ``"plain"``), and its counters run in the span
+    ``step.count``: with the kernel draws one counter kernel
+    (``count_kernel.count_frames``, its plain version on the CPU), with
+    the torch draws :func:`frame_counters`."""
     if rng not in RNG_MODES:
         raise ValueError(f"unknown rng mode {rng!r}")
     device = torch.device(device)
@@ -389,6 +413,9 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
             message, codeword, llrs = draw_torch(gen, snr_db, batch)
         decoded = decoder(llrs)
         with annotate("step.count"):
+            if kernel_rng:
+                return _unpack(count_kernel.count_frames(message, codeword,
+                                                         llrs, decoded))
             return frame_counters(message, codeword, llrs, decoded)
 
     return step
@@ -396,16 +423,10 @@ def make_step_body(code: PolarCode, *, systematic: bool = True,
 
 def frame_counters(message, codeword, llrs, decoded) -> dict:
     """The five counters of frame-major ``(B, K)`` message and decoded bits
-    and ``(B, N)`` codeword and LLRs, as 0-d int64 tensors in the bool
-    domain (``polar_tpu/ber.py:394-411``): for message/codeword in {-1,+1},
-    ``decoded*message <= 0`` ⟺ ``decoded==0 ∨ sign(decoded)≠sign(message)``
-    and ``llrs*codeword < 0`` ⟺ ``llrs≠0 ∧ sign(llrs)≠sign(codeword)``."""
-    zero_d = decoded == 0
-    errs = zero_d | ((decoded < 0) != (message < 0))
-    t = (errs.sum(), errs.any(dim=-1).sum(), zero_d.sum(),
-         ((llrs != 0) & ((llrs < 0) != (codeword < 0))).sum(),
-         (llrs == 0).sum())
-    return _unpack(t)
+    and ``(B, N)`` codeword and LLRs (:func:`count_kernel.u_counters
+    <polar_tpu_torch.ops.cuda.count_kernel.u_counters>`, the bool domain of
+    ``polar_tpu/ber.py:394-411``), as 0-d int64 tensors."""
+    return _unpack(count_kernel.u_counters(message, codeword, llrs, decoded))
 
 
 def _unpack(t) -> dict:

@@ -42,6 +42,33 @@
 //     past the batch read as bytes 0x01 in all three arrays, which count
 //     nothing: ragged lanes vote "no error".
 //
+// count_frames_kernel: the five counters of the draws path's step in the
+// u domain (ber.frame_counters, polar_tpu/ber.py:394-411, jnp there: no
+// Pallas kernel) over frame-major message and decoded (B, K) and codeword
+// and llrs (B, N), all int8: errs = decoded == 0 or a sign other than the
+// message's; a frame with any errs is a frame error; decoded == 0 an
+// ambiguity erasure; llrs != 0 with a sign other than the codeword's an
+// AWGN error; llrs == 0 a quantization erasure. Bound: the four arrays
+// once, 2 (N + K) B bytes.
+//   - Frames go to lanes: a frame's row is read by a span of 2^s lanes
+//     (the least power of two that covers its 16-byte words, at most a
+//     warp), 32 / 2^s frames a warp, and the span's lanes stride over the
+//     frame's message / decoded words and then its codeword / llrs words,
+//     kFrameUnroll words of each array loaded before the first compare.
+//     Warps take frame units (32 / 2^s frames) grid-stride.
+//   - The compares are count_rows_kernel's byte-SIMD ones: zero80 and the
+//     sign bit of an XOR, __popc of the marks. A lane ORs its frame's error
+//     marks; one __ballot_sync a unit gives each span's frame its
+//     any-error bit, counted by the span's first lane.
+//   - Each CTA folds its lanes by warp shuffles and shared memory into
+//     five int64 partials; the last CTA to finish (a __threadfence, the
+//     ticket) sums them (integer sums: the counts do not depend on the
+//     order) and writes the (5,) int64 counters, then resets the ticket.
+//     One launch, no reduction after it.
+//   - STRAIGHT: K and N multiples of 16 and the four arrays 16-byte
+//     aligned (every row is then); else byte loads with a bound check per
+//     byte, the bytes past a row read as 0x01, which count nothing.
+//
 // count_bytes_kernel (style "bytes"): the design it replaced, kept by name
 // so that the two can be timed in turns. One block owns 32 frames
 // (threadIdx.x) and splits the rows among its threadIdx.y lanes; a thread
@@ -289,6 +316,152 @@ __global__ void __launch_bounds__(kWarps * 32) count_rows_kernel(
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
+constexpr int kFrameWarps = 8;   // count_frames_kernel: a CTA's warps
+constexpr int kFrameUnroll = 4;  // words of each array loaded per compare
+
+// 16-byte word w of a row of len bytes: one load, or (ragged) byte loads
+// with a bound check per byte, the bytes past the row read as kPad.
+template <bool STRAIGHT>
+__device__ __forceinline__ uint4 row_word(const int8_t* __restrict__ row,
+                                          int w, int len) {
+  if (STRAIGHT) return __ldg(reinterpret_cast<const uint4*>(row) + w);
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int at = 16 * w + 4 * i + k;
+      const uint32_t b = at < len ? (uint8_t)__ldg(row + at) : 1u;
+      v[i] |= b << (8 * k);
+    }
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool STRAIGHT>
+__global__ void __launch_bounds__(kFrameWarps * 32) count_frames_kernel(
+    const int8_t* __restrict__ msg, const int8_t* __restrict__ dec,
+    const int8_t* __restrict__ cw, const int8_t* __restrict__ llr,
+    int batch, int k, int n, int span_log2, long long* scratch,
+    unsigned int* ticket, long long* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int span = 1 << span_log2;
+  const int sub = lane & (span - 1);
+  const uint32_t seg = span == 32 ? 0xFFFFFFFFu : (1u << span) - 1u;
+  const int wk = (k + 15) >> 4, wn = (n + 15) >> 4;
+  const long long units = (batch + (32 >> span_log2) - 1) >> (5 - span_log2);
+  const long long stride = (long long)gridDim.x * kFrameWarps;
+  const uint4 pad = make_uint4(kPad, kPad, kPad, kPad);
+  int err = 0, amb = 0, awgn = 0, qz = 0, fe = 0;
+  for (long long u = (long long)blockIdx.x * kFrameWarps + warp; u < units;
+       u += stride) {
+    const long long f = (u << (5 - span_log2)) + (lane >> span_log2);
+    uint32_t any = 0u;
+    if (f < batch) {
+      const int8_t* m_row = msg + f * k;
+      const int8_t* d_row = dec + f * k;
+      for (int w = sub; w < wk; w += span * kFrameUnroll) {
+        uint4 m[kFrameUnroll], d[kFrameUnroll];
+#pragma unroll
+        for (int j = 0; j < kFrameUnroll; ++j) {
+          const int wj = w + j * span;
+          m[j] = wj < wk ? row_word<STRAIGHT>(m_row, wj, k) : pad;
+          d[j] = wj < wk ? row_word<STRAIGHT>(d_row, wj, k) : pad;
+        }
+#pragma unroll
+        for (int j = 0; j < kFrameUnroll; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t dw = word_of(d[j], i);
+            const uint32_t dz = zero80(dw);
+            const uint32_t e = dz | ((dw ^ word_of(m[j], i)) & 0x80808080u);
+            err += __popc(e);
+            amb += __popc(dz);
+            any |= e;
+          }
+        }
+      }
+      const int8_t* c_row = cw + f * n;
+      const int8_t* l_row = llr + f * n;
+      for (int w = sub; w < wn; w += span * kFrameUnroll) {
+        uint4 c[kFrameUnroll], l[kFrameUnroll];
+#pragma unroll
+        for (int j = 0; j < kFrameUnroll; ++j) {
+          const int wj = w + j * span;
+          c[j] = wj < wn ? row_word<STRAIGHT>(c_row, wj, n) : pad;
+          l[j] = wj < wn ? row_word<STRAIGHT>(l_row, wj, n) : pad;
+        }
+#pragma unroll
+        for (int j = 0; j < kFrameUnroll; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t lw = word_of(l[j], i);
+            const uint32_t lz = zero80(lw);
+            qz += __popc(lz);
+            awgn += __popc((lw ^ word_of(c[j], i)) & ~lz & 0x80808080u);
+          }
+        }
+      }
+    }
+    // bit l of hit: lane l saw an error; a span's first lane counts its
+    // frame
+    const uint32_t hit = __ballot_sync(0xFFFFFFFFu, any != 0u);
+    fe += sub == 0 && ((hit >> lane) & seg) != 0u;
+  }
+
+  // the CTA's five partials, then the fold in the last CTA to finish
+  __shared__ long long s_part[kFrameWarps][kCounters];
+  __shared__ bool s_last;
+  long long part[kCounters] = {err, fe, amb, awgn, qz};
+#pragma unroll
+  for (int c = 0; c < kCounters; ++c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part[c] += __shfl_xor_sync(0xFFFFFFFFu, part[c], off);
+    if (lane == 0) s_part[warp][c] = part[c];
+  }
+  __syncthreads();
+  if (threadIdx.x < kCounters) {
+    long long s = 0;
+#pragma unroll
+    for (int w = 0; w < kFrameWarps; ++w) s += s_part[w][threadIdx.x];
+    scratch[(long long)blockIdx.x * kCounters + threadIdx.x] = s;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  long long tot[kCounters] = {0, 0, 0, 0, 0};
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < kCounters; ++c)
+      tot[c] += __ldcg(scratch + (long long)b * kCounters + c);
+  }
+#pragma unroll
+  for (int c = 0; c < kCounters; ++c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      tot[c] += __shfl_xor_sync(0xFFFFFFFFu, tot[c], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kCounters; ++c) s_part[warp][c] = tot[c];
+  }
+  __syncthreads();
+  if (threadIdx.x < kCounters) {
+    // out: uncorrected, frame errors, ambiguity, awgn, quantization
+    long long s = 0;
+#pragma unroll
+    for (int w = 0; w < kFrameWarps; ++w) s += s_part[w][threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
 }  // namespace
 
 // The replaced design (style "bytes") on `stream`: llr, cw, hat (n, batch)
@@ -335,4 +508,44 @@ extern "C" int polar_count_rows(const void* llr, const void* cw,
         (const uint8_t*)frozen, n, batch, rows_per_chunk, words,
         (uint32_t*)scratch, (unsigned int*)ticket, (long long*)out);
   return (int)cudaGetLastError();
+}
+
+// count_frames_kernel on `stream`: msg, dec (batch, k) and cw, llr
+// (batch, n) int8 frame-major, each contiguous; a frame spans
+// 2^span_log2 lanes (0..5); blocks CTAs; scratch blocks * 5 int64; ticket
+// one 32-bit word, 0 before the launch and after it; out (5,) int64.
+// straight != 0 only when k % 16 == 0, n % 16 == 0 and the four arrays
+// are 16-byte aligned. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments out of range.
+extern "C" int polar_count_frames(const void* msg, const void* dec,
+                                  const void* cw, const void* llr, int batch,
+                                  int k, int n, int span_log2, int blocks,
+                                  int straight, void* scratch, void* ticket,
+                                  void* out, void* stream) {
+  if (batch < 1 || k < 0 || n < 1 || span_log2 < 0 || span_log2 > 5 ||
+      blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (straight)
+    count_frames_kernel<true><<<blocks, kFrameWarps * 32, 0, s>>>(
+        (const int8_t*)msg, (const int8_t*)dec, (const int8_t*)cw,
+        (const int8_t*)llr, batch, k, n, span_log2, (long long*)scratch,
+        (unsigned int*)ticket, (long long*)out);
+  else
+    count_frames_kernel<false><<<blocks, kFrameWarps * 32, 0, s>>>(
+        (const int8_t*)msg, (const int8_t*)dec, (const int8_t*)cw,
+        (const int8_t*)llr, batch, k, n, span_log2, (long long*)scratch,
+        (unsigned int*)ticket, (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of count_frames_kernel (the 16-byte instance where straight != 0,
+// else the byte one) that one SM holds at once, into *per_sm: the grid's
+// cap of one resident wave. Returns the CUDA error of the occupancy call.
+extern "C" int polar_count_frames_occupancy(int straight, int* per_sm) {
+  if (straight)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, count_frames_kernel<true>, kFrameWarps * 32, 0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, count_frames_kernel<false>, kFrameWarps * 32, 0);
 }

@@ -74,6 +74,9 @@ SIGNATURES = {
     "polar_count": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "polar_count_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P),
+    "polar_count_frames": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _P),
+    "polar_count_frames_occupancy": (_I, _P),
     "polar_symbols": (_I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_symbols_lines": (_I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_awgn": (_I, _I, _F, _F, _P, _P, _P, _U, _U, _U, _P, _I, _P),

@@ -200,6 +200,15 @@ def count_work(n: int, k: int, b: int) -> tuple[int, int]:
     return (2 * n + k) * b, 5 * n * b
 
 
+def count_frames_work(n: int, k: int, b: int) -> tuple[int, int]:
+    """(bytes, operations) of the draws path's u-domain counter at
+    Polar(n, k) and ``b`` frames: frame-major message and decoded (K a
+    frame) and codeword and LLRs (N a frame) read once; two compares an
+    LLR (its sign against the codeword's, zero) and three an estimate
+    (zero, its sign against the message's, the frame's any)."""
+    return 2 * (n + k) * b, (2 * n + 3 * k) * b
+
+
 def step_work(n: int, k: int, b: int, bits: bool = False) -> tuple[int, int]:
     """(bytes, operations) of the fused step at Polar(n, k) and ``b``
     frames: it moves nothing but its five counters when it draws its own
@@ -229,6 +238,8 @@ def row_work(name: str, *, n: int, b: int, k: int | None = None,
         return front_work(name, n, k, b)
     if name == "count":
         return count_work(n, k, b)
+    if name == "count_frames":
+        return count_frames_work(n, k, b)
     if name == "channel_symbols":        # bits: int64 words in, bytes out
         return (9 * k * b, 0) if bits else (k * b, k * b * PHILOX_OPS)
     if name == "channel_awgn":

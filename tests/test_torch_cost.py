@@ -86,6 +86,10 @@ PINNED = [
      0.06009749014925373, "bytes"),
     ("count", dict(n=131072, k=65536, b=4096), 0.4006499343283582, "bytes"),
     ("count", dict(n=8192, k=4096, b=4096), 0.02504062089552239, "bytes"),
+    ("count_frames", dict(n=16384, k=8192, b=4096), 0.06009749014925373,
+     "bytes"),
+    ("count_frames", dict(n=1024, k=512, b=32768), 0.030048745074626865,
+     "bytes"),
     ("channel_symbols", dict(n=1024, k=512, b=32768),
      0.006260155223880597, "operations"),
     ("channel_symbols", dict(n=131072, k=65536, b=4096),

@@ -1777,9 +1777,169 @@ def test_front_campaign_launches_the_row_counter(dev):
                           measure_throughput=False)
     steps = sum(p.frames for p in res.points) // 4096
     assert steps == 2
-    assert count_kernel.launches == {"count": steps}
+    assert count_kernel.launches == {"count": steps, "count_frames": 0}
     assert count_kernel.earlier_launches == {"count_bytes": 0}
-    assert count_kernel.plain_calls == {"count_plain": 0}
+    assert count_kernel.plain_calls == {"count_plain": 0,
+                                        "count_frames_plain": 0}
+
+
+# -- the draws path's u-domain counter (csrc/count.cu count_frames_kernel)
+
+
+def _frame_count_inputs(dev, batch, k, n, seed):
+    """(message, codeword, llrs, decoded) frame-major int8 on the card:
+    ±1 message and codeword, full-range LLRs and estimates with about 10 %
+    zeros and the values -128 and 0; frame 0 right, frame 1 all wrong."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rand(shape, lo=-128, hi=128):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    msg = 1 - 2 * rand((batch, k), 0, 2)
+    cw = 1 - 2 * rand((batch, n), 0, 2)
+    llr, dec = rand((batch, n)), rand((batch, k))
+    for t in (llr, dec):
+        t[rand(t.shape, 0, 10) == 0] = 0
+        t.view(-1)[::7] = -128
+    dec[0] = msg[0]
+    if batch > 1:
+        dec[1] = -msg[1]
+    return msg, cw, llr, dec
+
+
+def _off_the_word(t):
+    """The same values at a storage offset of one byte."""
+    buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=t.device)
+    x = buf[1:].view(t.shape)
+    x.copy_(t)
+    assert x.data_ptr() % 16 == (t.data_ptr() + 1) % 16 != 0
+    return x
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("batch", [1, 4097, 4096])
+@pytest.mark.parametrize("m", [4, 10, 14])
+def test_count_frames_matches_plain(dev, m, batch, aligned):
+    """The kernel == its plain version (max abs err 0) on the 16-byte
+    path and, at a one-byte offset, the byte path; m = 4 (K = 8) takes
+    the byte path either way. One launch a call."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    t = _frame_count_inputs(dev, batch, c.K, c.N, 100 * m + batch)
+    want = count_kernel.count_frames_plain(*t)
+    if not aligned:
+        t = tuple(_off_the_word(x) for x in t)
+    before = count_kernel.launches["count_frames"]
+    got = count_kernel.count_frames(*t)
+    assert count_kernel.launches["count_frames"] == before + 1
+    assert got.dtype == torch.int64 and got.shape == (5,)
+    assert int((got - want).abs().max()) == 0, (got.tolist(), want.tolist())
+    if batch > 1:
+        assert min(want.tolist()) > 0
+
+
+def test_count_frames_back_to_back_and_every_frame_wrong(dev):
+    """Three launches on one stream with no synchronisation between (the
+    ticket and a fresh scratch each), one launch each; an all-zero
+    estimate makes every frame a frame error."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    a = _frame_count_inputs(dev, 4096, c.K, c.N, 1)
+    b = _frame_count_inputs(dev, 4096, c.K, c.N, 2)
+    before = count_kernel.launches["count_frames"]
+    got = [count_kernel.count_frames(*a), count_kernel.count_frames(*b),
+           count_kernel.count_frames(*a)]
+    assert count_kernel.launches["count_frames"] == before + 3
+    want_a, want_b = (count_kernel.count_frames_plain(*x) for x in (a, b))
+    assert not torch.equal(want_a, want_b)
+    assert torch.equal(got[0], want_a) and torch.equal(got[2], want_a)
+    assert torch.equal(got[1], want_b)
+    zero = torch.zeros_like(a[3])
+    got = count_kernel.count_frames(*a[:3], zero)
+    assert got.tolist()[:3] == [4096 * c.K, 4096, 4096 * c.K]
+
+
+def test_count_frames_grid_is_one_resident_wave(dev):
+    """The runtime holds some CTAs of each instance on an SM; the byte
+    instance, with more registers, no more than the 16-byte one. A batch
+    of more frame units than a wave counts right on a grid of one wave."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    straight = count_kernel.frame_wave(dev, True)
+    byte = count_kernel.frame_wave(dev, False)
+    assert straight % sms == 0 and byte % sms == 0
+    assert sms <= byte <= straight <= 8 * sms
+    c = pt.make_code(10, rate=0.5)    # a warp a frame: a unit a frame
+    batch = 2 * count_kernel.FRAME_WARPS * straight + 5
+    _, blocks = count_kernel.count_frames_plan(batch, c.K, c.N, straight)
+    assert blocks == straight
+    t = _frame_count_inputs(dev, batch, c.K, c.N, 7)
+    assert torch.equal(count_kernel.count_frames(*t),
+                       count_kernel.count_frames_plain(*t))
+
+
+@pytest.mark.parametrize("m,batch", [(10, 32768), (11, 32768), (12, 4096)])
+def test_make_step_plain_mid_levels_take_the_draws(dev, monkeypatch, m,
+                                                   batch):
+    """``make_step``'s own plain step where ``AUTO_STEP_PATH`` names the
+    draws: one step on the draws path, one count_frames launch, and the
+    counters frame_counters gives on the step's own tensors."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    step = pt.make_step(c, systematic=False, device=dev)
+    seen = []
+    real = count_kernel.count_frames
+
+    def spy(*t):
+        seen.append(t)
+        return real(*t)
+
+    monkeypatch.setattr(count_kernel, "count_frames", spy)
+    gen = torch.Generator()
+    gen.manual_seed(m)
+    draws = pt.ber.steps_by_path["draws"]
+    before = count_kernel.launches["count_frames"]
+    got = {k: int(v) for k, v in step(gen, -1.0, batch).items()}
+    assert pt.ber.steps_by_path["draws"] == draws + 1
+    assert count_kernel.launches["count_frames"] == before + 1
+    want = {k: int(v) for k, v in pt.ber.frame_counters(*seen[-1]).items()}
+    assert got == want and got["awgn_errors"] > 0
+
+
+def test_draws_step_counts_what_the_torch_counters_count(dev, monkeypatch):
+    """The kernel-draws step at non-systematic m = 14, B = 64 around the
+    auto u decoder: one count_frames launch a step, and its counters equal
+    frame_counters on the step's own tensors, on three seeds."""
+    from polar_tpu_torch.ops.cuda import count_kernel
+
+    c = pt.make_code(14, rate=0.5)
+    dec, _ = pt.make_auto_decoder(c, output="u", output_dtype=torch.int8,
+                                  device=dev)
+    step = pt.ber.make_step_body(c, systematic=False, rng="kernel",
+                                 decoder=dec, device=dev)
+    seen = []
+    real = count_kernel.count_frames
+
+    def spy(*t):
+        seen.append(t)
+        return real(*t)
+
+    monkeypatch.setattr(count_kernel, "count_frames", spy)
+    for seed in (1, 2, 3):
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        before = count_kernel.launches["count_frames"]
+        got = {k: int(v) for k, v in step(gen, -1.5, 64).items()}
+        assert count_kernel.launches["count_frames"] == before + 1
+        want = {k: int(v) for k, v in pt.ber.frame_counters(*seen[-1]).items()}
+        assert got == want, seed
+        assert got["uncorrected_errors"] > 0 and got["awgn_errors"] > 0
 
 
 # -- the tile kernels' frame-major u track: (B, N) LLRs in, (B, K) out

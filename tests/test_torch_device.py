@@ -91,6 +91,8 @@ def _calls():
                                                            8, 8, True),
         "count": lambda: count_kernel.count(frozen, _i8(N, B), _i8(N, B),
                                             _i8(N, B)),
+        "count_frames": lambda: count_kernel.count_frames(
+            _i8(B, K), _i8(B, N), _i8(B, N), _i8(B, K)),
         "interp_decoder": lambda: interp_kernel.make_interp_decoder(
             CODE, subtree_level=3).lane_major(_i8(N, B)),
         "interp_decode_count": lambda: interp_kernel.make_interp_decode_count(

@@ -101,12 +101,12 @@ def _node(code):
 
 class _Library:
     """A stand-in for the kernels' library: every C entry returns 0
-    (success) and launches nothing; the occupancy query answers one block
+    (success) and launches nothing; the occupancy queries answer one block
     an SM."""
 
     def __getattr__(self, name):
         def entry(*args):
-            if name == "polar_interp_tile_occupancy":
+            if name.endswith("_occupancy"):
                 args[-1]._obj.value = 1
             return 0
         return entry
@@ -125,6 +125,7 @@ def fake_card(monkeypatch):
     for mod, cache in ((decoder_kernel, "_tables"), (encode_kernel, "_tables"),
                        (front_kernel, "_frozen_bits"),
                        (count_kernel, "_tickets"),
+                       (count_kernel, "_frame_waves"),
                        (interp_kernel, "_occupancy")):
         monkeypatch.setattr(mod, cache, {})
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -200,6 +201,8 @@ def _launch_calls():
                                             _i8(N, B)),
         "count_bytes": lambda: count_kernel.count(
             frozen, _i8(N, B), _i8(N, B), _i8(N, B), style="bytes"),
+        "count_frames": lambda: count_kernel.count_frames(
+            _i8(B, K), _i8(B, N), _i8(B, N), _i8(B, K)),
         "interp_decoder": lambda: interp_kernel.make_interp_decoder(
             CODE, subtree_level=3).lane_major(_i8(N, B)),
         "interp_bytes_decoder": lambda: interp_kernel._run_bytes(
