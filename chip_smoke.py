@@ -13,23 +13,18 @@ step against the walk in turns at that shape and at Polar(1024, 512) (6).
 Then the large-N path at Polar(131072, 65536) systematic int8: the tile
 subtree decoder against its plain version and the walk in every body at
 levels 1-9, and the hybrid against the whole-code kernel (7), the block
-front's kernels A and B in both styles (the row-word kernels and the frame
-kernels they replaced, style "frame") against the plain versions and each
-other, and the counter kernel (8), the large-N step against the fused step
-and a BER campaign against the JAX package's result (its default path the
-block front and the interpreter's decode+count: the row-word kernels, no
-frame kernel), a plain campaign (the draws around the hybrid: the tile
-subtree's launches), with timings, the tile subtree against
-the walk and kernels A and B against the frame kernels in turns at
-B = 4096 and the campaign's batch, and the frame kernel A timed three ways
-(9). Then the
-caller's-decoder path at both shapes of its campaigns: the symbols, AWGN
-and block-encoder kernels against their plain versions, AWGN and the
-encoder also against the kernels they replaced (style "grid", "bytes"),
-and timed, those two in turns with the replaced ones (10); the
-pinned-decoder step with the kernel draws at both codes: exact counters
-on injected words, one chained campaign a shape (its launches and steps
-counted alone, no old-style launch) against the JAX package's results,
+front's kernels A and B (the row-word kernels) against the plain versions,
+and the counter kernel (8), the large-N step against the fused step and a
+BER campaign against the JAX package's result (its default path the block
+front and the interpreter's decode+count), a plain campaign (the draws
+around the hybrid: the tile subtree's launches), with timings, the tile
+subtree against the walk in turns and kernels A and B and the counter at
+B = 4096 and the campaign's batch (9). Then the caller's-decoder path at
+both shapes of its campaigns: the symbols, AWGN and block-encoder kernels
+against their plain versions, and timed (10); the pinned-decoder step
+with the kernel draws at both codes: exact counters on injected words,
+one chained campaign a shape (its launches and steps counted alone)
+against the JAX package's results,
 step rates against the torch draws, and the SC decoder on the card (11).
 Then the element-major front step: the whole-block front (the row-word
 kernel), decode+count (the tile kernel) and the middle-stages kernel
@@ -38,25 +33,22 @@ they replaced (styles "thread" and "walk"), the front chains against the
 fused step at every level 2..16, chained campaigns through make_step's
 default path at Polar(1024, 512) up to Polar(16384, 8192) and the front
 path's own run (launches of the new kernels only) against the JAX
-package's results, and timings, rows 6 and 8 and kernels A and B in
-turns with the kernels they replaced (12). Then the decoder's
-scratch (shared-memory) and interpreter styles: the scratch whole-code
-kernel (the packed tile kernel at the shapes of its table) against the
-golden vectors, its plain version, the byte kernel it replaced (style
-"scratch-bytes") and the SSA kernel at every level and batch class of the
-table; the scratch and interpreter subtree kernels in every distinct kernel
-node of the hybrid at Polar(131072, 65536), the interpreter's tile kernel
-(style "tile") also against the bytes kernel it replaced (style "bytes");
-the hybrid in each style and the interpreter decoder (u, cw, both at
-subtree levels 5 and 10) against the SSA decoders, the plain version and
-the bytes kernel; interpreter decode+count against its plain version and
-the bytes kernel and the block-interp front chain against block-hybrid;
+package's results, and timings, rows 6 and 8 in turns with the kernels
+they replaced, kernels A and B and the counter beside their plain
+versions (12). Then the decoder's scratch (shared-memory) and interpreter
+styles: the scratch whole-code kernel (the packed tile kernel at the
+shapes of its table) against the golden vectors, its plain version and
+the SSA kernel at every level and batch class of the table; the scratch
+and interpreter subtree kernels in every distinct kernel node of the
+hybrid at Polar(131072, 65536); the hybrid in each style and the
+interpreter decoder (u, cw, both at subtree levels 5 and 10) against the
+SSA decoders and the plain version; interpreter decode+count against its
+plain version and the block-interp front chain against block-hybrid;
 the grid size, grid steps and tile runs of each interpreter program
 launched; the slice's main path through run_point; make_step's default
 path at plain Polar(32768, 16384), B = 4096, which runs the interpreter's
-tile kernel, and its decoder against the plain one; timings, the scratch
-kernels and the interpreter's rows 13, 14, 15 in turns with the kernels
-they replaced (14). Then
+tile kernel, and its decoder against the plain one; timings of the
+scratch kernels and the interpreter's rows 13, 14, 15 (14). Then
 the parallel layer over a mesh of 8 positions on the one card: the
 ring-shift kernel against its plain version; the sharded encoder; the
 element-sharded decoder at Polar(131072, 65536) against the local decoder
@@ -402,77 +394,65 @@ def large_n_phases(dev, card, ms) -> dict:
           "frame entry, and in the walk style (max abs err 0)")
 
     # -- 8. block front and counter kernel ----------------------------------
-    # kernels A and B in both styles (the row-word kernels and the frame
-    # kernels they replaced) against the plain versions and each other
+    # kernels A and B against the plain versions
     msg = (1 - 2 * rand_i8(n, b, 0, 2)).to(torch.int8)
     nrm = torch.randn((n, b), generator=gen, device=dev)
     params = snr_params(-1.5)
     blk_a = 1 << min(front_kernel.BLOCK_LEVEL, LARGE_M)
     blk_b = 1 << min(front_kernel.CHAN_BLOCK_LEVEL, LARGE_M)
-    styles = front_kernel.FRONT_STYLES
     for systematic in (True, False):
         kw = dict(msg_t=msg, normals_t=nrm)
         x = front_kernel.msg_blocks_plain(frozen, blk_a, systematic, msg_t=msg)
         want = front_kernel.chan_blocks_plain(
             front_kernel.middle_plain(x, frozen, blk_a, blk_b, systematic), blk_b,
             params, normals_t=nrm) + (() if systematic else (x,))
-        for style in styles:
-            got = front_kernel.front_blocks(frozen, params, systematic,
-                                            front_style=style, **kw)
-            e = max_err(got, want)
-            err["front_blocks_a"] = max(err["front_blocks_a"], e)
-            err["front_blocks_b"] = max(err["front_blocks_b"], e)
-            if e:
-                raise AssertionError(f"inject front ({style}) differs, "
-                                     f"sys={systematic}")
+        got = front_kernel.front_blocks(frozen, params, systematic, **kw)
+        e = max_err(got, want)
+        err["front_blocks_a"] = max(err["front_blocks_a"], e)
+        err["front_blocks_b"] = max(err["front_blocks_b"], e)
+        if e:
+            raise AssertionError(f"inject front differs, sys={systematic}")
         del got, want, x
-    phase("8", f"inject front == plain in both styles {styles} at "
+    phase("8", f"inject front == plain at "
           f"Polar({n}, {k}) B={b}, both modes, blocks "
           f"2^{front_kernel.BLOCK_LEVEL}/2^{front_kernel.CHAN_BLOCK_LEVEL}")
     kw = dict(seeds=(2024, 8), call=1)
     for systematic in (True, False):
         xp = front_kernel.msg_blocks_plain(frozen, blk_a, systematic, batch=b,
                                            device=dev, **kw)
-        xs = [front_kernel.msg_blocks(frozen, blk_a, systematic, batch=b,
-                                      device=dev, style=style, **kw)
-              for style in styles]
-        e_a = max(max_err([xa], [xp]) for xa in xs)
+        xa = front_kernel.msg_blocks(frozen, blk_a, systematic, batch=b,
+                                     device=dev, **kw)
+        e_a = max_err([xa], [xp])
         err["front_blocks_a"] = max(err["front_blocks_a"], e_a)
-        phase("8", f"native kernel A sys={systematic}, styles {styles}: max "
-              f"abs err {e_a} against plain and each other")
+        phase("8", f"native kernel A sys={systematic}: max abs err {e_a} "
+              "against plain")
         if e_a:
             raise AssertionError(f"native kernel A differs, sys={systematic}")
-        del xs, xp
+        del xa, xp
     xa = front_kernel.msg_blocks(frozen, blk_a, True, batch=b, device=dev, **kw)
     y = front_kernel.middle_plain(xa, frozen, blk_a, blk_b, True)
     want = front_kernel.chan_blocks_plain(y, blk_b, params, **kw)
-    frame = front_kernel.chan_blocks(y, blk_b, params, style="frame", **kw)
     got = front_kernel.chan_blocks(y, blk_b, params, **kw)
-    e_b = max(max_err(got, want), max_err(got, frame))
+    e_b = max_err(got, want)
     err["front_blocks_b"] = max(err["front_blocks_b"], e_b)
     moved = int((got[0] != want[0]).sum())
     phase("8", f"native kernel B on the same Philox words: max abs err {e_b} "
-          f"against plain and the frame kernel ({moved} of {n * b} LLRs "
-          "moved)")
+          f"against plain ({moved} of {n * b} LLRs moved)")
     if e_b:
-        raise AssertionError("native kernel B differs from plain or the "
-                             "frame kernel")
-    del xa, y, want, frame
+        raise AssertionError("native kernel B differs from plain")
+    del xa, y, want
     llr_c, cw_c = got
     hat = cw_c.clone()
     hat[rand_i8(n, b, 0, 100) == 0] = 0
     hat[rand_i8(n, b, 0, 100) == 0] *= -1
     got_c = count_kernel.count(frozen, llr_c, cw_c, hat)
-    old_c = count_kernel.count(frozen, llr_c, cw_c, hat, style="bytes")
     want_c = count_kernel.count_plain(frozen, llr_c, cw_c, hat)
-    e = max(int((got_c - want_c).abs().max()),
-            int((got_c - old_c).abs().max()))
+    e = int((got_c - want_c).abs().max())
     err["count"] = e
     if e:
         raise AssertionError(f"count kernel {got_c.tolist()} vs plain "
-                             f"{want_c.tolist()} vs style bytes "
-                             f"{old_c.tolist()}")
-    phase("8", f"count kernel (rows) == plain == style bytes at "
+                             f"{want_c.tolist()}")
+    phase("8", f"count kernel (rows) == plain at "
           f"Polar({n}, {k}) B={b}: {got_c.tolist()}")
 
     # -- 9. the large-N step and campaign -----------------------------------
@@ -505,9 +485,7 @@ def large_n_phases(dev, card, ms) -> dict:
     # table names the interpreter here is phase 14's), whose SSA subtree
     # kernel runs around the kernel draws
     cb = auto.BIG_BATCH
-    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches,
-            interp_kernel.earlier_launches)
-    _reset(*counts, *plains, *olds)
+    _reset(*counts, *plains)
     t0 = time.perf_counter()
     res = pt.run_campaign(code, device=dev, seed=3, batch=cb,
                           snr_range=(-1.7, -1.4), snr_step=0.1,
@@ -517,23 +495,21 @@ def large_n_phases(dev, card, ms) -> dict:
     launched = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
     new = ("front_blocks_a", "front_blocks_b", "count", "interp_decode_count")
-    old = {name: v for c in olds for name, v in c.items()}
     steps = sum(p.frames for p in res.points) // cb
     if (min(launched[name] for name in new) == 0 or max(plain.values()) != 0
-            or max(old.values()) or launched["count"] != steps
+            or launched["count"] != steps
             or launched["interp_decode_count"] != steps):
         raise AssertionError(f"large-N campaign launches {launched} in "
-                             f"{steps} steps, plain calls {plain}, old-style "
-                             f"launches {old}")
+                             f"{steps} steps, plain calls {plain}")
     phase("9", f"campaign Polar({n}, {k}) sys "
           f"({pt.ber.front_branch(code, True)}): {len(res.points)} points x "
           f"{cb} frames ({steps} steps) in {wall:.1f} s; launches "
           f"{ {name: v for name, v in launched.items() if v} }; plain calls "
-          f"{max(plain.values())}; old-style launches {max(old.values())}")
+          f"{max(plain.values())}")
     campaign_vs_reference("9", res, "n131072_sys_int8.json", k, 3)
     hybrid = pt.make_fastssc_decoder(code, output_dtype=torch.int8,
                                      kernel_level=kl)
-    _reset(*counts, *plains, *olds)
+    _reset(*counts, *plains)
     t0 = time.perf_counter()
     res_p = pt.run_campaign(code, systematic=False, device=dev, seed=4,
                             decoder=hybrid, batch=cb, snr_range=(-1.4, -1.4),
@@ -543,15 +519,13 @@ def large_n_phases(dev, card, ms) -> dict:
     wall = time.perf_counter() - t0
     launched_p = {name: v for c in counts for name, v in c.items()}
     plain = {name: v for c in plains for name, v in c.items()}
-    old = {name: v for c in olds for name, v in c.items()}
     steps_p = sum(p.frames for p in res_p.points) // cb
     if (launched_p["subtree_decoder"] == 0 or launched_p["walk_subtree"]
-            or max(plain.values()) != 0 or max(old.values())
+            or max(plain.values()) != 0
             or not all(0 < p.ber < 0.5 for p in res_p.points)):
         raise AssertionError(f"large-N plain campaign launches {launched_p} "
                              f"in {steps_p} steps, plain calls {plain}, "
-                             f"old-style launches {old}, points "
-                             f"{res_p.points}")
+                             f"points {res_p.points}")
     phase("9", f"campaign Polar({n}, {k}) plain (draws around the pinned "
           f"hybrid kl{kl}): "
           f"{len(res_p.points)} point, {steps_p * cb} frames ({steps_p} "
@@ -585,9 +559,8 @@ def large_n_phases(dev, card, ms) -> dict:
                 ms(lambda: subtree_kernel.decode_plain(
                     node, (slot,), emit_u=False, emit_cw=True), 2))
             earlier["subtree_decoder"] = sum(w) / 2
-    # kernels A and B against the frame kernels they replaced, in turns
-    # (new, old, old, new) with each output dropped as the next launch
-    # starts, at B = 4096 and at the campaign's batch; plain at B = 4096
+    # kernels A and B with each output dropped as the next launch starts,
+    # at B = 4096 and at the campaign's batch; plain at B = 4096
     kw = dict(seeds=(5, 6), call=0)
     y = front_kernel.middle_plain(msg, frozen, blk_a, blk_b, True)
     by_shape = {"front_blocks_a": {}, "front_blocks_b": {}}
@@ -596,16 +569,13 @@ def large_n_phases(dev, card, ms) -> dict:
             torch.int8)
         where = f"Polar({n}, {k}) B={batch}"
         for name, fn in (
-                ("front_blocks_a", lambda st: front_kernel.msg_blocks(
-                    frozen, blk_a, True, batch=batch, device=dev, style=st,
-                    **kw)),
-                ("front_blocks_b", lambda st: front_kernel.chan_blocks(
-                    yb, blk_b, params, style=st, **kw))):
-            t = in_turns(lambda: fn("rows"), lambda: fn("frame"), 10)
+                ("front_blocks_a", lambda: front_kernel.msg_blocks(
+                    frozen, blk_a, True, batch=batch, device=dev, **kw)),
+                ("front_blocks_b", lambda: front_kernel.chan_blocks(
+                    yb, blk_b, params, **kw))):
+            t = {"ms": ms_dropped(fn, 10)}
             by_shape[name][where] = t
-            phase("9", f"{name} at {where}: kernel {t['ms']:.4f} ms, "
-                  f"earlier (style frame) {t['earlier_ms']:.4f} ms "
-                  f"({t['turns']}; {t['earlier_ms'] / t['ms']:.2f}x) ({card})")
+            phase("9", f"{name} at {where}: kernel {t['ms']:.4f} ms ({card})")
         del yb
     times["front_blocks_a"] = (
         by_shape["front_blocks_a"][f"Polar({n}, {k}) B={b}"]["ms"],
@@ -615,63 +585,41 @@ def large_n_phases(dev, card, ms) -> dict:
         by_shape["front_blocks_b"][f"Polar({n}, {k}) B={b}"]["ms"],
         ms(lambda: front_kernel.chan_blocks_plain(y, blk_b, params, **kw), 2))
     for name in by_shape:
-        earlier[name] = by_shape[name][f"Polar({n}, {k}) B={b}"]["earlier_ms"]
-        t = by_shape[name].pop(f"Polar({n}, {k}) B={b}")
+        by_shape[name].pop(f"Polar({n}, {k}) B={b}")
         by_shape[name][f"Polar({n}, {k}) B={cb}"].update(
             launches=launched[name], steps=steps, plain_ms=None,
             work=row_work(name, n=n, k=k, b=cb))
-    # the frame kernel A read three ways: as phases 6-14 time a kernel (ten
-    # launches whose outputs stay alive, each a new allocator block after
-    # the cache is emptied), with each output dropped, and its device time
-    # in the profiler
-    frame_a = lambda: front_kernel.msg_blocks(  # noqa: E731
-        frozen, blk_a, True, batch=b, device=dev, style="frame", **kw)
-    torch.cuda.empty_cache()
-    kept = ms_kept(frame_a, 10)
-    prof = profiled_ms(frame_a, 3)
-    phase("9", f"front_blocks_a style frame at Polar({n}, {k}) B={b}: "
-          f"{kept:.4f} ms a launch with the ten outputs kept alive, "
-          f"{earlier['front_blocks_a']:.4f} ms with each dropped, "
-          f"{prof} device time in the profiler ({card})")
-    # the counter against the bytes kernel it replaced, in turns, at
-    # B = 4096 and at the campaign's batch; there first on all-wrong LLRs
-    # (llr = -cw: N B = 2^31 AWGN errors, past int32), then on the inputs
-    # timed; plain at B = 4096
+    # the counter at B = 4096 and at the campaign's batch; there first on
+    # all-wrong LLRs (llr = -cw: N B = 2^31 AWGN errors, past int32), then
+    # on the inputs timed; plain at B = 4096
     del llr_c, cw_c, hat
     count_in = {b: count_inputs(gen, n, b, dev),
                 cb: count_inputs(gen, n, cb, dev)}
     flip = count_in[b][1].repeat(1, cb // b)
     for args in ((-flip, flip, flip), count_in[cb]):
         got = count_kernel.count(frozen, *args)
-        old_c = count_kernel.count(frozen, *args, style="bytes")
         want = count_kernel.count_plain(frozen, *args)
-        e = max(int((got - want).abs().max()), int((got - old_c).abs().max()))
+        e = int((got - want).abs().max())
         err["count"] = max(err["count"], e)
-        phase("9", f"count kernel (rows) == plain == style bytes at "
+        phase("9", f"count kernel (rows) == plain at "
               f"Polar({n}, {k}) B={cb}: {got.tolist()} (max abs err {e})")
         if e:
             raise AssertionError(f"count kernel {got.tolist()} vs plain "
-                                 f"{want.tolist()} vs style bytes "
-                                 f"{old_c.tolist()} at B={cb}")
-    del flip, got, old_c, want
+                                 f"{want.tolist()} at B={cb}")
+    del flip, got, want
     by_shape["count"] = {}
     for batch in (b, cb):
         where = f"Polar({n}, {k}) B={batch}"
         args = count_in[batch]
-        t = in_turns(lambda: count_kernel.count(frozen, *args),
-                     lambda: count_kernel.count(frozen, *args, style="bytes"),
-                     10)
+        t = {"ms": ms_dropped(lambda: count_kernel.count(frozen, *args), 10)}
         by_shape["count"][where] = t
         dev_ms = profiled_ms(lambda: count_kernel.count(frozen, *args), 10)
-        phase("9", f"count at {where}: kernel {t['ms']:.4f} ms, earlier "
-              f"(style bytes) {t['earlier_ms']:.4f} ms ({t['turns']}; "
-              f"{t['earlier_ms'] / t['ms']:.2f}x), bound "
+        phase("9", f"count at {where}: kernel {t['ms']:.4f} ms, bound "
               f"{bound(*row_work('count', n=n, k=k, b=batch))[0]:.4f} ms; "
               f"device time (profiler) {dev_ms} ({card})")
     t = by_shape["count"].pop(f"Polar({n}, {k}) B={b}")
     times["count"] = (t["ms"], ms(lambda: count_kernel.count_plain(
         frozen, *count_in[b]), 2))
-    earlier["count"] = t["earlier_ms"]
     by_shape["count"][f"Polar({n}, {k}) B={cb}"].update(
         launches=launched["count"], steps=steps, plain_ms=None,
         work=row_work("count", n=n, k=k, b=cb))
@@ -743,10 +691,9 @@ def draw_phases(dev, card, ms) -> dict:
     def max_err(got, want):
         return int((got.int() - want.int()).abs().max())
 
-    # -- 10. each kernel against its plain version (and rows 11 and 12
-    # against the designs they replaced), then timed, at the shapes that
-    # both configurations of phase 11 give them; the large one last, whose
-    # codeword the noise moments below use ---------------------------------
+    # -- 10. each kernel against its plain version, then timed, at the
+    # shapes that both configurations of phase 11 give them; the large one
+    # last, whose codeword the noise moments below use -----------------------
     shapes = []
     for m, b in DRAW_SHAPES:
         code = pt.make_code(m, rate=0.5)
@@ -755,41 +702,35 @@ def draw_phases(dev, card, ms) -> dict:
         shapes.append(where)
         kw = dict(seeds=(101, 202), call=0, device=dev)
         w = words(b, k)
-        sym = {"native": lambda st: channel_kernel.symbols((b, k), **kw,
-                                                           style=st),
-               "bits": lambda st: channel_kernel.symbols(words=w, style=st)}
+        sym = {"native": lambda: channel_kernel.symbols((b, k), **kw),
+               "bits": lambda: channel_kernel.symbols(words=w)}
         for mode, p in (
                 ("native", lambda: channel_kernel.symbols_plain((b, k), **kw)),
                 ("bits", lambda: channel_kernel.symbols_plain(words=w))):
-            got = sym[mode]("lines")
-            e = max(max_err(got, p()), max_err(got, sym[mode]("quads")))
+            got = sym[mode]()
+            e = max_err(got, p())
             err["channel_symbols"] = max(err["channel_symbols"], e)
             phase("10", f"symbols {mode} {(b, k)}: max abs err {e} against "
-                  f"plain and style quads")
+                  f"plain")
             if e:
                 raise AssertionError(f"symbols kernel ({mode}) differs from "
-                                     f"plain or style quads at {(b, k)}")
+                                     f"plain at {(b, k)}")
         # bits mode is no main-path launch: timed for the record
         bits_bound = bound(*row_work("channel_symbols", n=n, k=k, b=b,
                                      bits=True))[0]
-        t = in_turns(lambda: sym["bits"]("lines"),
-                     lambda: sym["bits"]("quads"), 20)
-        phase("10", f"symbols bits {(b, k)}: kernel {t['ms']:.4f} ms, "
-              f"earlier (style quads) {t['earlier_ms']:.4f} ms "
-              f"({t['turns']}), bound {bits_bound:.4f} ms (bytes) ({card})")
+        phase("10", f"symbols bits {(b, k)}: kernel "
+              f"{ms_dropped(sym['bits'], 20):.4f} ms, bound "
+              f"{bits_bound:.4f} ms (bytes) ({card})")
         del w, got
         by_shape["channel_symbols"][where] = {
-            **in_turns(lambda: sym["native"]("lines"),
-                       lambda: sym["native"]("quads"), 20),
+            "ms": ms_dropped(sym["native"], 20),
             "plain_ms": ms(lambda: channel_kernel.symbols_plain((b, k), **kw),
                            2),
             "work": row_work("channel_symbols", n=n, k=k, b=b)}
         # the device's own time, which the host's launch rate hides in the
         # timing loop at the small shape
         phase("10", f"symbols native {(b, k)} device time (profiler): "
-              f"kernel {profiled_ms(lambda: sym['native']('lines'), 20)}, "
-              f"style quads {profiled_ms(lambda: sym['native']('quads'), 20)} "
-              f"({card})")
+              f"kernel {profiled_ms(sym['native'], 20)} ({card})")
 
         cw = (1 - 2 * torch.randint(0, 2, (b, n), generator=gen,
                                     device=dev)).to(torch.int8)
@@ -800,27 +741,23 @@ def draw_phases(dev, card, ms) -> dict:
                              ("bits", dict(words=(w1, w2)))):
                 got = channel_kernel.awgn(cw, params, **kw)
                 want = channel_kernel.awgn_plain(cw, params, **kw)
-                grid = channel_kernel.awgn(cw, params, style="grid", **kw)
-                e = max(max_err(got, want), max_err(got, grid))
+                e = max_err(got, want)
                 moved = int((got != want).sum())
                 err["channel_awgn"] = max(err["channel_awgn"], e)
                 phase("10", f"awgn {mode} {(b, n)} at {snr:+.1f} dB: max abs "
-                      f"err {e} against plain and the grid kernel ({moved} "
-                      f"of {got.numel()} LLRs moved), "
-                      f"{int((got == 0).sum())} zero LLRs")
+                      f"err {e} against plain ({moved} of {got.numel()} LLRs "
+                      f"moved), {int((got == 0).sum())} zero LLRs")
                 if e:
                     raise AssertionError(f"AWGN kernel ({mode}) differs from "
-                                         f"plain or the grid kernel at "
-                                         f"{(b, n)}")
-                del got, want, grid
+                                         f"plain at {(b, n)}")
+                del got, want
         del w1, w2
         params = snr_params(-1.5)
         kw = dict(seeds=(7, 8), call=0)
-        t = in_turns(lambda: channel_kernel.awgn(cw, params, **kw),
-                     lambda: channel_kernel.awgn(cw, params, style="grid",
-                                                 **kw), 20)
         by_shape["channel_awgn"][where] = {
-            **t, "plain_ms": ms(lambda: channel_kernel.awgn_plain(
+            "ms": ms_dropped(lambda: channel_kernel.awgn(cw, params, **kw),
+                             20),
+            "plain_ms": ms(lambda: channel_kernel.awgn_plain(
                 cw, params, **kw), 2),
             "work": row_work("channel_awgn", n=n, k=k, b=b)}
 
@@ -834,29 +771,25 @@ def draw_phases(dev, card, ms) -> dict:
                                         systematic=systematic, block_level=bl)
                 got = enc()(msg)
                 plain = encode_kernel.encode_plain(code, msg, systematic, 1 << bl)
-                e = max(max_err(got, plain), max_err(got, ref),
-                        max_err(got, enc(style="bytes")(msg)))
+                e = max(max_err(got, plain), max_err(got, ref))
                 err["block_encoder"] = max(err["block_encoder"], e)
                 if e:
                     raise AssertionError(f"encoder differs at m={m} block "
                                          f"level {bl} sys={systematic}")
-            phase("10", f"block encoder {where} sys={systematic}: == plain, "
-                  f"== encode{'_systematic' if systematic else ''} and == "
-                  f"the bytes kernel at block levels {levels} (max abs err 0)")
+            phase("10", f"block encoder {where} sys={systematic}: == plain "
+                  f"and == encode{'_systematic' if systematic else ''} at "
+                  f"block levels {levels} (max abs err 0)")
         blk = 1 << min(encode_kernel.BLOCK_LEVEL, m)
-        enc, old = (encode_kernel.make_encoder(code, style=st)
-                    for st in ("bits", "bytes"))
+        enc = encode_kernel.make_encoder(code)
         by_shape["block_encoder"][where] = {
-            **in_turns(lambda: enc(msg), lambda: old(msg), 20),
+            "ms": ms_dropped(lambda: enc(msg), 20),
             "plain_ms": ms(lambda: encode_kernel.encode_plain(
                 code, msg, True, blk), 2),
             "work": row_work("block_encoder", n=n, k=k, b=b)}
         del msg, ref, got, plain
         for name in new:
             t = by_shape[name][where]
-            old_ms = (f", earlier {t['earlier_ms']:.4f} ms ({t['turns']})"
-                      if "earlier_ms" in t else "")
-            phase("10", f"{name}: kernel {t['ms']:.4f} ms{old_ms}, plain "
+            phase("10", f"{name}: kernel {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.3f} ms at {where} ({card})")
     # native normals through the kernel itself: cw = 0, sigma = 1, scale 16
     q = channel_kernel.awgn(torch.zeros_like(cw), (1.0, 16.0), seeds=(5, 5))
@@ -910,11 +843,10 @@ def draw_phases(dev, card, ms) -> dict:
               count_kernel.launches)
     plains = (channel_kernel.plain_calls, encode_kernel.plain_calls,
               decoder_kernel.plain_calls, subtree_kernel.plain_calls)
-    olds = (channel_kernel.earlier_launches, encode_kernel.earlier_launches)
     results, launched, wall = [], dict.fromkeys(new, 0), 0.0
     for (code, b, dec, _), snr_range, where in zip(
             configs, ((-1.0, 0.0), (-1.7, -1.4)), shapes):
-        _reset(*counts, *plains, *olds)
+        _reset(*counts, *plains)
         t0 = time.perf_counter()
         res = pt.run_campaign(
             code, device=dev, decoder=dec, seed=11, batch=b, steps_per_call=4,
@@ -925,19 +857,18 @@ def draw_phases(dev, card, ms) -> dict:
         results.append(res)
         here = {name: v for c in counts for name, v in c.items()}
         plain = {name: v for c in plains for name, v in c.items()}
-        old = {name: v for c in olds for name, v in c.items()}
         steps = sum(p.frames for p in res.points) // b
         if (min(here[name] for name in new) == 0 or max(plain.values())
-                or max(old.values()) or here["channel_symbols"] != steps):
+                or here["channel_symbols"] != steps):
             raise AssertionError(f"pinned-decoder campaign at {where}: "
                                  f"launches {here} in {steps} steps, plain "
-                                 f"calls {plain}, old-style launches {old}")
+                                 f"calls {plain}")
         for name in new:
             by_shape[name][where].update(launches=here[name], steps=steps)
             launched[name] += here[name]
         phase("11", f"campaign with a pinned decoder at {where}, 4 steps per "
               f"call: {len(res.points)} points, {steps} steps; launches "
-              f"{here}; plain calls {plain}; old-style launches {old}")
+              f"{here}; plain calls {plain}")
     phase("11", f"campaigns with pinned decoders in {wall:.1f} s")
     campaign_vs_reference("11", results[0], "n1024_sys_int8.json", 512,
                           len(results[0].points))
@@ -974,9 +905,6 @@ def draw_phases(dev, card, ms) -> dict:
                              by_shape[name][shapes[-1]]["plain_ms"])
                       for name in new},
             "work": {name: by_shape[name][shapes[-1]]["work"] for name in new},
-            "earlier": {name: by_shape[name][shapes[-1]]["earlier_ms"]
-                        for name in new
-                        if "earlier_ms" in by_shape[name][shapes[-1]]},
             "steps": {name: sum(t["steps"] for t in by_shape[name].values())
                       for name in new},
             "by_shape": by_shape, "launched": launched}
@@ -1141,8 +1069,7 @@ def front_step_phases(dev, card, ms) -> dict:
               decoder_kernel.plain_calls, subtree_kernel.plain_calls,
               count_kernel.plain_calls, channel_kernel.plain_calls,
               encode_kernel.plain_calls)
-    olds = (front_kernel.earlier_launches, count_kernel.earlier_launches,
-            step_kernel.earlier_launches)
+    olds = (step_kernel.earlier_launches,)
     _reset(*counts, *plains, *olds)
     t0 = time.perf_counter()
     results, front_launches = [], {}
@@ -1300,8 +1227,8 @@ def front_step_phases(dev, card, ms) -> dict:
               f"pass(es), {front_launches[m]['front_middle']} launches in "
               f"{steps_m} steps ({card})")
         del x
-    # kernels A and B at the shape of each campaign on the block front, in
-    # turns with the frame kernels they replaced, and their launches there
+    # kernels A and B at the shape of each campaign on the block front, and
+    # their launches there
     for m in middle_ms:
         fc = pt.make_code(m, rate=0.5)
         where = f"Polar({fc.N}, {fc.K}) B={LARGE_BATCH}"
@@ -1314,48 +1241,40 @@ def front_step_phases(dev, card, ms) -> dict:
                                     device=dev, **kw)
         y = front_kernel.middle_kernel(x, fc.frozen, blk_a, blk_b, True)
         for name, fn, plain_fn in (
-                ("front_blocks_a", lambda st: front_kernel.msg_blocks(
+                ("front_blocks_a", lambda: front_kernel.msg_blocks(
                     fc.frozen, blk_a, True, batch=LARGE_BATCH, device=dev,
-                    style=st, **kw),
+                    **kw),
                  lambda: front_kernel.msg_blocks_plain(
                      fc.frozen, blk_a, True, batch=LARGE_BATCH, device=dev,
                      **kw)),
-                ("front_blocks_b", lambda st: front_kernel.chan_blocks(
-                    y, blk_b, params, style=st, **kw),
+                ("front_blocks_b", lambda: front_kernel.chan_blocks(
+                    y, blk_b, params, **kw),
                  lambda: front_kernel.chan_blocks_plain(y, blk_b, params,
                                                         **kw))):
-            t = in_turns(lambda: fn("rows"), lambda: fn("frame"), 20)
+            t = {"ms": ms_dropped(fn, 20)}
             by_shape[name][where] = {
                 **t, "plain_ms": ms(plain_fn, 2),
                 "launches": front_launches[m][name], "steps": steps_m,
                 "work": row_work(name, n=fc.N, k=fc.K, b=LARGE_BATCH)}
-            phase("12", f"{name} at {where}: kernel {t['ms']:.4f} ms, "
-                  f"earlier (style frame) {t['earlier_ms']:.4f} ms "
-                  f"({t['turns']}), plain "
+            phase("12", f"{name} at {where}: kernel {t['ms']:.4f} ms, plain "
                   f"{by_shape[name][where]['plain_ms']:.3f} ms; "
                   f"{front_launches[m][name]} launches in {steps_m} steps "
                   f"({card})")
         del x, y
         # the counter at the campaign's shape (systematic campaigns on the
-        # block front count each step), in turns with the bytes kernel
+        # block front count each step)
         args = count_inputs(gen, fc.N, LARGE_BATCH, dev)
-        t = in_turns(lambda: count_kernel.count(fc.frozen, *args),
-                     lambda: count_kernel.count(fc.frozen, *args,
-                                                style="bytes"), 20)
+        count = lambda: count_kernel.count(fc.frozen, *args)  # noqa: E731
+        t = {"ms": ms_dropped(count, 20)}
         by_shape["count"][where] = {
             **t, "plain_ms": ms(lambda: count_kernel.count_plain(
                 fc.frozen, *args), 2),
             "launches": front_launches[m]["count"], "steps": steps_m,
             "work": row_work("count", n=fc.N, k=fc.K, b=LARGE_BATCH)}
-        # the device's own time (the old style's with its torch sum)
-        dev_ms = [profiled_ms(lambda: count_kernel.count(
-            fc.frozen, *args, style=st), 20) for st in ("rows", "bytes")]
-        phase("12", f"count at {where}: kernel {t['ms']:.4f} ms, earlier "
-              f"(style bytes) {t['earlier_ms']:.4f} ms ({t['turns']}), plain "
+        phase("12", f"count at {where}: kernel {t['ms']:.4f} ms, plain "
               f"{by_shape['count'][where]['plain_ms']:.3f} ms; "
               f"{front_launches[m]['count']} launches in {steps_m} steps; "
-              f"device time (profiler) {dev_ms[0]}, style bytes "
-              f"{dev_ms[1]} ({card})")
+              f"device time (profiler) {profiled_ms(count, 20)} ({card})")
         del args
     t_k, t_p = times["front_middle"]
     phase("12", f"front_middle: kernel {t_k:.3f} ms, plain {t_p:.3f} ms at "
@@ -1370,21 +1289,20 @@ def front_step_phases(dev, card, ms) -> dict:
 def style_phases(dev, card, ms) -> dict:
     """Phase 14: the decoder's scratch and interpreter styles. The scratch
     whole-code kernel (the tile kernel at scratch_shape's shapes) against
-    the golden vectors (m = 2..11), its plain version, the byte kernel it
-    replaced (style "scratch-bytes") and the SSA kernel, at every level
-    1..11 and batch class of its shape table; the scratch and interpreter
-    subtree kernels against their plain versions (and the scratch one
-    against the byte kernel) in every distinct kernel node of the hybrid
-    kl9 at Polar(131072, 65536), the scratch one also at B = 4096 and
-    16384; the hybrid in each style against the SSA hybrid; the
+    the golden vectors (m = 2..11), its plain version and the SSA kernel,
+    at every level 1..11 and batch class of its shape table; the scratch
+    and interpreter subtree kernels against their plain versions in every
+    distinct kernel node of the hybrid kl9 at Polar(131072, 65536), the
+    scratch one also at B = 4096 and 16384; the hybrid in each style
+    against the SSA hybrid; the
     interpreter decoder against the SSA whole-code kernel and the SSA
     hybrid; interpreter decode+count against its plain version and the
     block-interp chain against block-hybrid; the slice's main path (pinned
     decoders and the block-interp front step, counts reset just before);
     make_step's default path at plain Polar(32768, 16384), B = 4096 (the
     interpreter's tile kernel; counts reset just before) and its decoder
-    against the plain one; timings, the scratch kernels and rows 13-15 in
-    turns with the byte kernels."""
+    against the plain one; timings of the scratch kernels and rows 13-15
+    beside their plain versions."""
     import numpy as np
     import torch
 
@@ -1456,14 +1374,10 @@ def style_phases(dev, card, ms) -> dict:
             gold = torch.from_numpy(vec[f"dec_{m}_{rk}_{i}"].T.copy()).to(dev)
             check("scratch_decoder", got, want, f"golden m={m} rate={rk}")
             check("scratch_decoder", got, gold, f"golden m={m} rate={rk}")
-            check("scratch_decoder", got,
-                  decoder_kernel.decode(program, gcode.frozen, llr_t, False,
-                                        "scratch-bytes")[0],
-                  f"golden m={m} rate={rk} against scratch-bytes")
             batches += 1
             levels.add(int(m))
             i += 1
-    phase("14", f"scratch decoder == plain == scratch-bytes == {batches} "
+    phase("14", f"scratch decoder == plain == {batches} "
           f"golden dec_* batches (m={min(levels)}..{max(levels)}, max abs "
           "err 0)")
     # every cell of the shape table: each level, a batch of each class
@@ -1478,12 +1392,8 @@ def style_phases(dev, card, ms) -> dict:
             check("scratch_decoder", got,
                   decoder_kernel.decode_plain(lp, lc.frozen, x, False)[0],
                   f"{what} against plain")
-            check("scratch_decoder", got,
-                  decoder_kernel.decode(lp, lc.frozen, x, False,
-                                        "scratch-bytes")[0],
-                  f"{what} against scratch-bytes")
             picked.add(decoder_kernel.scratch_shape(level, bt))
-    phase("14", f"scratch tile kernel == plain == scratch-bytes at every "
+    phase("14", f"scratch tile kernel == plain at every "
           f"level 1..{decoder_kernel.SCRATCH_MAX_LEVEL} and B in "
           f"{SCRATCH_BATCHES}, full-range int8: (wr, vw, warps) picked "
           f"{sorted(picked)} (max abs err 0)")
@@ -1497,11 +1407,7 @@ def style_phases(dev, card, ms) -> dict:
     check("scratch_decoder", got,
           decoder_kernel.decode_plain(program, code.frozen, llr_t, False)[0],
           "Polar(1024, 512) against plain")
-    check("scratch_decoder", got,
-          decoder_kernel.decode(program, code.frozen, llr_t, False,
-                                "scratch-bytes")[0],
-          "Polar(1024, 512) against scratch-bytes")
-    phase("14", f"scratch decoder == SSA kernel == scratch-bytes == plain at "
+    phase("14", f"scratch decoder == SSA kernel == plain at "
           f"Polar(1024, 512) B={BATCH}, full-range int8 (max abs err 0)")
 
     # -- the interpreter decoder against the SSA whole-code kernel ----------
@@ -1513,18 +1419,13 @@ def style_phases(dev, card, ms) -> dict:
             check("interp_decoder", got, ssa,
                   f"Polar(1024, 512) sl{sl} {output}")
             if output != "systematic":
-                check("interp_decoder", got,
-                      make_interp_decoder(code, subtree_level=sl,
-                                          output=output,
-                                          style="bytes").lane_major(llr_t),
-                      f"Polar(1024, 512) sl{sl} {output} against bytes")
                 check("interp_decoder", got, dec.plain(llr_t),
                       f"Polar(1024, 512) sl{sl} {output} against plain")
                 programs[f"Polar(1024, 512) {output} sl{sl}"] = dec.plan(
                     BATCH)
     phase("14", f"interp decoder, tile kernel (subtree levels 5, 10) == SSA "
           f"whole-code kernel at Polar(1024, 512) B={BATCH}, "
-          f"u/systematic/codeword/both, and == plain == bytes kernel "
+          f"u/systematic/codeword/both, and == plain "
           f"(u/codeword/both) (max abs err 0; {dec.program_steps} steps, "
           f"{dec.program_branches} branches at sl10)")
     del llr_t, ssa, got
@@ -1549,10 +1450,6 @@ def style_phases(dev, card, ms) -> dict:
         check("scratch_subtree",
               subtree_kernel.make_subtree_decoder(node, style="scratch")(slot),
               want_u, f"{node.kind} level {node.level}")
-        check("scratch_subtree",
-              subtree_kernel.make_subtree_decoder(
-                  node, style="scratch-bytes")(slot),
-              want_u, f"{node.kind} level {node.level} scratch-bytes")
         for sl in (5, 10):
             for emit_u in (True, False):
                 kw = dict(emit_u=emit_u, emit_cw=True, subtree_level=sl)
@@ -1560,10 +1457,6 @@ def style_phases(dev, card, ms) -> dict:
                 check("interp_subtree", got,
                       want_cw if emit_u else want_cw[1:],
                       f"{node.kind} level {node.level} sl{sl} u={emit_u}")
-                check("interp_subtree", got,
-                      make_interp_subtree(node, style="bytes", **kw)(slot),
-                      f"{node.kind} level {node.level} sl{sl} u={emit_u} "
-                      "against bytes")
         fn = make_interp_subtree(node)
         check("interp_subtree", fn(slot), want_u,
               f"{node.kind} level {node.level} u")
@@ -1571,11 +1464,10 @@ def style_phases(dev, card, ms) -> dict:
         if plan["cooperative"]:
             raise AssertionError(f"a level-{node.level} node's program has "
                                  f"grid steps: {plan}")
-    phase("14", f"scratch, scratch-bytes and interp (sl5, sl10; u, u+cw, cw) "
+    phase("14", f"scratch and interp (sl5, sl10; u, u+cw, cw) "
           f"subtree kernels == plain in all {len(nodes)} distinct kernel "
           f"nodes of the hybrid kl{kl} at Polar({n}, {k}), full-range int8 "
-          "slots, B=1024, the interp tile kernel also == its bytes kernel "
-          "(max abs err 0); each node one tile run, a plain launch of "
+          "slots, B=1024 (max abs err 0); each node one tile run, a plain launch of "
           f"{plan['warps']} warps a block, {plan['blocks']} blocks at "
           f"B={slot.shape[1]}")
     for bt in (b, 16384):
@@ -1586,11 +1478,7 @@ def style_phases(dev, card, ms) -> dict:
             check("scratch_subtree", got,
                   subtree_kernel.decode_plain(node, (slot,)),
                   f"{node.kind} level {node.level} B={bt}")
-            check("scratch_subtree", got,
-                  subtree_kernel.make_subtree_decoder(
-                      node, style="scratch-bytes")(slot),
-                  f"{node.kind} level {node.level} B={bt} scratch-bytes")
-    phase("14", f"scratch subtree kernel == plain == scratch-bytes in all "
+    phase("14", f"scratch subtree kernel == plain in all "
           f"{len(nodes)} distinct kernel nodes at B={b} and 16384, shapes "
           f"{decoder_kernel.scratch_shape(kl, b)} and "
           f"{decoder_kernel.scratch_shape(kl, 16384)} (max abs err 0)")
@@ -1616,31 +1504,24 @@ def style_phases(dev, card, ms) -> dict:
                 got = dec.lane_major(llr_t)
                 check("interp_decoder", got, want,
                       f"Polar({n}, {k}) sl{sl} {output}")
-                check("interp_decoder", got, make_interp_decoder(
-                    big, subtree_level=sl, output=output,
-                    style="bytes").lane_major(llr_t),
-                    f"Polar({n}, {k}) sl{sl} {output} against bytes")
                 programs[f"Polar({n}, {k}) {output} sl{sl}"] = dec.plan(b)
         del want
     phase("14", f"hybrid kl{kl} in the scratch and interp styles == SSA hybrid "
           f"at Polar({n}, {k}) B={b}, all outputs, lane and frame entries; "
-          f"interp decoder (sl5, sl10) == SSA hybrid == bytes kernel, u and "
-          "codeword (max abs err 0)")
+          f"interp decoder (sl5, sl10) == SSA hybrid, u and codeword (max "
+          "abs err 0)")
 
     params = snr_params(-1.5)
     llr_f, cw_f = front_kernel.front_blocks(big.frozen, params, True,
                                             seeds=(14, 1), call=0, batch=b,
                                             device=dev)
     count = make_interp_decode_count(big)
-    count_old = make_interp_decode_count(big, style="bytes")
     got = count(llr_f, cw_f)
     check("interp_decode_count", got, count.plain(llr_f, cw_f),
           f"Polar({n}, {k}) on the block front's outputs")
-    check("interp_decode_count", got, count_old(llr_f, cw_f),
-          f"Polar({n}, {k}) against the bytes kernel")
     programs[f"Polar({n}, {k}) decode+count sl10"] = count.plan(b)
     phase("14", f"interp decode+count (tile kernel, then the counter) == "
-          f"plain == bytes kernel at Polar({n}, {k}) B={b} on the block "
+          f"plain at Polar({n}, {k}) B={b} on the block "
           f"front's outputs: {got.tolist()} (max abs err 0)")
     kw = dict(seeds=(LARGE_M, 14), call=0, batch=2048, device=dev)
     counted = [pt.ber.make_front_chain(big, branch=br)(snr_params(-1.4),
@@ -1681,9 +1562,7 @@ def style_phases(dev, card, ms) -> dict:
             big, output="systematic", output_dtype=torch.int8,
             kernel_level=kl, kernel_style="interp")),
         (big, True, b, None))
-    olds = (decoder_kernel.earlier_launches, subtree_kernel.earlier_launches,
-            interp_kernel.earlier_launches)
-    _reset(*counts, *plains, *olds)
+    _reset(*counts, *plains)
     t0 = time.perf_counter()
     points = []
     for i, (c, systematic, batch, dec) in enumerate(runs):
@@ -1716,8 +1595,6 @@ def style_phases(dev, card, ms) -> dict:
           f"and the block-interp front step at Polar({n}, {k})): BER "
           f"{[round(p.ber, 5) for p in points]} in {wall:.1f} s; launches "
           f"{ {name: launched[name] for name in new} }; plain calls {plain}")
-    if max(v for c in olds for v in c.values()):
-        raise AssertionError(f"style path launched the byte kernels: {olds}")
 
     # -- make_step's default path at plain Polar(32768, 16384), B = 4096 ----
     mid = pt.make_code(MID_PATH_M, rate=0.5)
@@ -1727,17 +1604,14 @@ def style_phases(dev, card, ms) -> dict:
     step = pt.make_step(mid, systematic=False, device=dev)
     g = torch.Generator()
     g.manual_seed(MID_PATH_M)
-    _reset(*counts, *olds, *plains)
+    _reset(*counts, *plains)
     mid_steps = 2
     outs = [step(g, -1.0, b) for _ in range(mid_steps)]
     torch.cuda.synchronize()
-    mid_launched = {name: v for c in counts + olds for name, v in c.items()
-                    if v}
+    mid_launched = {name: v for c in counts for name, v in c.items() if v}
     plain = {name: v for c in plains for name, v in c.items()}
     mid_interp = interp_kernel.launches["interp_decoder"]
-    if (path != "draws" or mid_interp != mid_steps
-            or max(v for c in olds for v in c.values())
-            or max(plain.values())):
+    if path != "draws" or mid_interp != mid_steps or max(plain.values()):
         raise AssertionError(f"default path at Polar({mid.N}, {mid.K}) B={b}: "
                              f"{path}, launches {mid_launched}, plain {plain}")
     fer = [int(o["frame_errors"]) for o in outs]
@@ -1745,7 +1619,7 @@ def style_phases(dev, card, ms) -> dict:
           f"B={b} ({path} around {auto.decoder_names(MID_PATH_M, False)}"
           f"): {mid_steps} steps at -1.0 dB, frame errors {fer}; "
           f"interp_decoder {mid_interp} launches ({mid_interp / mid_steps:g} "
-          f"a step), no bytes-style launch; all launches {mid_launched}")
+          f"a step); all launches {mid_launched}")
     seen = {}
 
     def capture(llrs):
@@ -1762,38 +1636,29 @@ def style_phases(dev, card, ms) -> dict:
           "decoder on the card (max abs err 0)")
 
     # -- timings at the shapes of the path ----------------------------------
-    times, work, earlier, by_shape = {}, {}, {}, {}
+    times, work, by_shape = {}, {}, {}
 
-    def scratch_turns(name, where, new_fn, old_fn, plain_fn, reps, work_s,
-                      launches, steps):
-        """The tile kernel and the byte kernel in turns (new, old, old,
-        new), the device time of each by the profiler, the plain
-        version; a by_shape entry."""
-        t = in_turns(new_fn, old_fn, reps)
-        t_p = ms(plain_fn, 2)
-        phase("14", f"{name} at {where}: tile kernel {t['ms']:.4f} ms, "
-              f"scratch-bytes {t['earlier_ms']:.4f} ms "
-              f"({t['earlier_ms'] / t['ms']:.2f}x; {t['turns']}); device "
-              f"time {profiled_ms(new_fn, reps)} / "
-              f"{profiled_ms(old_fn, reps)}; plain {t_p:.3f} ms ({card})")
+    def scratch_times(name, where, fn, plain_fn, reps, work_s, launches,
+                      steps):
+        """The tile kernel by CUDA events (each output dropped) and by the
+        profiler's device time, the plain version; a by_shape entry."""
+        t, t_p = ms_dropped(fn, reps), ms(plain_fn, 2)
+        phase("14", f"{name} at {where}: tile kernel {t:.4f} ms; device "
+              f"time {profiled_ms(fn, reps)}; plain {t_p:.3f} ms ({card})")
         by_shape.setdefault(name, {})[where] = {
-            "ms": t["ms"], "earlier_ms": t["earlier_ms"], "plain_ms": t_p,
-            "work": work_s, "launches": launches, "steps": steps}
+            "ms": t, "plain_ms": t_p, "work": work_s, "launches": launches,
+            "steps": steps}
         return t, t_p
 
     llr_s = rand_i8(code.N, BATCH)
-    t, t_p = scratch_turns(
+    times["scratch_decoder"] = scratch_times(
         "scratch_decoder", f"Polar(1024, 512) B={BATCH} u",
         lambda: decoder_kernel.decode(program, code.frozen, llr_s, False,
                                       "scratch"),
-        lambda: decoder_kernel.decode(program, code.frozen, llr_s, False,
-                                      "scratch-bytes"),
         lambda: decoder_kernel.decode_plain(program, code.frozen, llr_s,
                                             False), 20,
         row_work("scratch_decoder", n=code.N, k=code.K, b=BATCH),
         lanes_launched, 1 if lanes_launched else None)
-    times["scratch_decoder"] = (t["ms"], t_p)
-    earlier["scratch_decoder"] = t["earlier_ms"]
     # the default path of make_auto_decoder's u track (decode/auto.py):
     # the scratch kernel at m = 6, and at m = 7 from BIG_BATCH; one decode
     # through it a shape, counts reset just before
@@ -1811,77 +1676,56 @@ def style_phases(dev, card, ms) -> dict:
         if n_s != 1:
             raise AssertionError(f"auto decoder {desc} at Polar({sc.N}, "
                                  f"{sc.K}) B={b_s}: {decoder_kernel.launches}")
-        scratch_turns(
+        scratch_times(
             "scratch_decoder", f"Polar({sc.N}, {sc.K}) B={b_s} u (auto)",
             lambda: decoder_kernel.decode(sp, sc.frozen, x, False, "scratch"),
-            lambda: decoder_kernel.decode(sp, sc.frozen, x, False,
-                                          "scratch-bytes"),
             lambda: decoder_kernel.decode_plain(sp, sc.frozen, x, False), 50,
             row_work("scratch_decoder", n=sc.N, k=sc.K, b=b_s), n_s, None)
     t_ssa = ms(lambda: decoder_kernel.decode(program, code.frozen, llr_s,
                                              False), 20)
-    def interp_turns(name, where, new_fn, old_fn, plain_fn, reps):
-        """Rows 13-15: the tile kernel and the bytes kernel it replaced in
-        turns (new, old, old, new), the device time of each by the
-        profiler, the plain version."""
-        t = in_turns(new_fn, old_fn, reps)
-        t_p = ms(plain_fn, 1)
-        phase("14", f"{name} at {where}: tile kernel {t['ms']:.4f} ms, bytes "
-              f"kernel {t['earlier_ms']:.4f} ms "
-              f"({t['earlier_ms'] / t['ms']:.2f}x; {t['turns']}); device "
-              f"time {profiled_ms(new_fn, reps)} / "
-              f"{profiled_ms(old_fn, reps)}; plain {t_p:.3f} ms ({card})")
-        times[name] = (t["ms"], t_p)
-        earlier[name] = t["earlier_ms"]
+    def interp_times(name, where, fn, plain_fn, reps):
+        """Rows 13-15: the tile kernel by CUDA events (each output dropped)
+        and by the profiler's device time, the plain version."""
+        t, t_p = ms_dropped(fn, reps), ms(plain_fn, 1)
+        phase("14", f"{name} at {where}: tile kernel {t:.4f} ms; device "
+              f"time {profiled_ms(fn, reps)}; plain {t_p:.3f} ms ({card})")
+        times[name] = (t, t_p)
 
     dec = make_interp_decoder(code)
-    dec_old = make_interp_decoder(code, style="bytes")
-    interp_turns("interp_decoder", f"Polar(1024, 512) B={BATCH} u, sl10",
-                 lambda: dec.lane_major(llr_s),
-                 lambda: dec_old.lane_major(llr_s),
-                 lambda: dec.plain(llr_s), 10)
+    interp_times("interp_decoder", f"Polar(1024, 512) B={BATCH} u, sl10",
+                 lambda: dec.lane_major(llr_s), lambda: dec.plain(llr_s), 10)
     for name in ("scratch_decoder", "interp_decoder"):
         work[name] = row_work(name, n=code.N, k=code.K, b=BATCH)
     node = max(nodes.values(), key=lambda nd: nd.mesg_bits)
     ln = 1 << node.level
     sc = subtree_kernel.make_subtree_decoder(node, style="scratch")
-    so = subtree_kernel.make_subtree_decoder(node, style="scratch-bytes")
     for bt in (b, 16384):
         slot = rand_i8(ln, bt)
-        t, t_p = scratch_turns(
+        t = scratch_times(
             "scratch_subtree", f"level-{node.level} node B={bt}",
-            lambda: sc(slot), lambda: so(slot),
+            lambda: sc(slot),
             lambda: subtree_kernel.decode_plain(node, (slot,)), 20,
             row_work("scratch_subtree", n=ln, b=bt, mesg_bits=node.mesg_bits),
             launched["scratch_subtree"] if bt == b else 0, None)
         if bt == b:
-            times["scratch_subtree"] = (t["ms"], t_p)
-            earlier["scratch_subtree"] = t["earlier_ms"]
+            times["scratch_subtree"] = t
     llr_mid = rand_i8(mid.N, b)
-    hyb = {style: pt.make_fastssc_decoder(mid, output_dtype=torch.int8,
-                                          kernel_level=kl, kernel_style=style)
-           for style in ("scratch", "scratch-bytes")}
-    t = in_turns(lambda: hyb["scratch"].lane_major(llr_mid),
-                 lambda: hyb["scratch-bytes"].lane_major(llr_mid), 3)
-    phase("14", f"u Polar({mid.N}, {mid.K}) hybrid kl{kl} decode at B={b}: "
-          f"scratch {t['ms']:.3f} ms, scratch-bytes {t['earlier_ms']:.3f} ms "
-          f"({t['turns']}); device time "
-          f"{profiled_ms(lambda: hyb['scratch'].lane_major(llr_mid), 3)} / "
-          f"{profiled_ms(lambda: hyb['scratch-bytes'].lane_major(llr_mid), 3)}"
-          f" ({card})")
+    hyb = pt.make_fastssc_decoder(mid, output_dtype=torch.int8,
+                                  kernel_level=kl, kernel_style="scratch")
+    phase("14", f"u Polar({mid.N}, {mid.K}) hybrid kl{kl} scratch decode at "
+          f"B={b}: {ms_dropped(lambda: hyb.lane_major(llr_mid), 3):.3f} ms; "
+          f"device time {profiled_ms(lambda: hyb.lane_major(llr_mid), 3)} "
+          f"({card})")
     slot = rand_i8(ln, b)
     it = make_interp_subtree(node, emit_u=False, emit_cw=True)
-    it_old = make_interp_subtree(node, emit_u=False, emit_cw=True,
-                                 style="bytes")
-    interp_turns("interp_subtree", f"level-{node.level} node B={b} cw",
-                 lambda: it(slot), lambda: it_old(slot),
-                 lambda: it.plain(slot), 10)
+    interp_times("interp_subtree", f"level-{node.level} node B={b} cw",
+                 lambda: it(slot), lambda: it.plain(slot), 10)
     work["scratch_subtree"] = row_work("scratch_subtree", n=ln, b=b,
                                        mesg_bits=node.mesg_bits)
     work["interp_subtree"] = row_work("interp_subtree", n=ln, b=b)
-    interp_turns("interp_decode_count", f"Polar({n}, {k}) B={b}, sl10",
-                 lambda: count(llr_f, cw_f), lambda: count_old(llr_f, cw_f),
-                 lambda: count.plain(llr_f, cw_f), 2)
+    interp_times("interp_decode_count", f"Polar({n}, {k}) B={b}, sl10",
+                 lambda: count(llr_f, cw_f), lambda: count.plain(llr_f, cw_f),
+                 2)
     work["interp_decode_count"] = row_work("interp_decode_count", n=n, b=b)
     phase("14", f"SSA whole-code u at Polar(1024, 512) B={BATCH}: {t_ssa:.3f} "
           f"ms ({card})")
@@ -1896,8 +1740,7 @@ def style_phases(dev, card, ms) -> dict:
           f"interp, hybrid, hybrid, interp): block-interp "
           f"{rates['block-interp']}, block-hybrid {rates['block-hybrid']} "
           f"({card})")
-    return {"err": err, "times": times, "work": work, "earlier": earlier,
-            "by_shape": by_shape,
+    return {"err": err, "times": times, "work": work, "by_shape": by_shape,
             "launched": {name: launched[name] for name in new}}
 
 

@@ -231,7 +231,7 @@ AUTO_STEP_PATH = {
 # whole-code decoder (HYBRID_MIN_LEVEL 14) block-whole is the front below
 # m = 14 (systematic m = 13, B = 4096: 673.1k against block-hybrid's
 # 361.0k). The block front + decode+count won at no level (m = 10: 1.72M /
-# 5.12M); it runs only when asked for by name. Systematic codes take the
+# 5.12M), so no branch runs it. Systematic codes take the
 # block front + the interpreter's decode+count ("block-interp", JAX's
 # _INTERP_COUNT_LEVELS branch) where decode.auto's table names the
 # interpreter on the codeword track at every batch (m = 13..17): with its
@@ -249,9 +249,8 @@ AUTO_STEP_PATH = {
 # at m = 12 (3.36M / 3.40M against 3.66M / 3.76M), so the threshold moved
 # from 8 to 11 (step_ab --levels 6-13, systematic; same card).
 FRONT_WHOLE_MAX_LEVEL = 11
-FRONT_BRANCHES = ("whole", "block-count", "block-whole", "block-hybrid",
-                  "block-interp")
-SYSTEMATIC_BRANCHES = ("whole", "block-count", "block-interp")
+FRONT_BRANCHES = ("whole", "block-whole", "block-hybrid", "block-interp")
+SYSTEMATIC_BRANCHES = ("whole", "block-interp")
 # steps run, by the path that ran them (_step_path's names): one increment a
 # step call, whether or not a profiler session runs ("draws": the kernel
 # draws around a decoder, their plain versions on the CPU; "plain": the
@@ -470,15 +469,13 @@ def _step_path(code: PolarCode, dtype, compute, decoder, fused, device,
 def front_branch(code: PolarCode, systematic: bool) -> str:
     """The front path's branch for this code (``polar_tpu/ber.py:193-279``):
     ``"whole"`` (systematic: the whole-block front, decode+count),
-    ``"block-count"`` (systematic: the block front, decode+count),
     ``"block-whole"`` (the block front, the whole-code kernel decoder's
     lane-major entry, the counter kernel or torch u-domain counters) or
     ``"block-hybrid"`` (the same with the hybrid decoder); the choice of
     decoder is :mod:`~polar_tpu_torch.decode.auto`'s, and so is
     ``"block-interp"`` (systematic: the block front, the interpreter
     decode+count), where its table names the interpreter on the codeword
-    track at every batch. ``"block-count"`` (systematic: the block front,
-    decode+count) is never the default."""
+    track at every batch."""
     if systematic and code.level <= FRONT_WHOLE_MAX_LEVEL:
         return "whole"
     if systematic and decode_auto.decoder_names(code.level, True) == (

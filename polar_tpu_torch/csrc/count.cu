@@ -13,7 +13,8 @@
 // Polar(131072, 65536), B = 4096, at 3.35 TB/s); the compares are a few
 // word operations per four bytes.
 //
-// count_rows_kernel (the default): 16 frames a lane over row chunks.
+// count_rows_kernel: 16 frames a lane over row chunks (a thread a frame
+// with a byte load a row was 5x slower; PERF.md section 6, row 7).
 //   - A warp owns a frame group of 512 frames: lane l reads frames
 //     512 g + 16 l .. + 15 of a row as one aligned 16-byte word from each
 //     array, so a warp's load is 512 contiguous bytes. A CTA's 8 warps
@@ -68,13 +69,6 @@
 //   - STRAIGHT: K and N multiples of 16 and the four arrays 16-byte
 //     aligned (every row is then); else byte loads with a bound check per
 //     byte, the bytes past a row read as 0x01, which count nothing.
-//
-// count_bytes_kernel (style "bytes"): the design it replaced, kept by name
-// so that the two can be timed in turns. One block owns 32 frames
-// (threadIdx.x) and splits the rows among its threadIdx.y lanes; a thread
-// reads one byte of each array a row (a warp one 32-byte sector), and each
-// block writes its five partial sums to its own row of a (blocks, 5) int32
-// array that the wrapper sums.
 
 #include <cuda_runtime.h>
 
@@ -82,64 +76,7 @@
 
 namespace {
 
-constexpr int kCounters = 5;
-constexpr int kFrames = 32;   // count_bytes_kernel: blockDim.x
-constexpr int kMaxLanes = 32; // count_bytes_kernel: blockDim.y at most
-
-__global__ void count_bytes_kernel(const int8_t* __restrict__ llr,
-                                   const int8_t* __restrict__ cw,
-                                   const int8_t* __restrict__ hat,
-                                   const uint8_t* __restrict__ frozen, int n,
-                                   int batch, int* out) {
-  const int f = blockIdx.x * kFrames + threadIdx.x;
-  int err = 0, amb = 0, awgn = 0, qz = 0, ferr = 0;
-  if (f < batch) {
-    const long long b = batch;
-    for (int r = threadIdx.y; r < n; r += blockDim.y) {
-      const long long i = (long long)r * b + f;
-      const int l = llr[i], c = cw[i];
-      awgn += (l != 0) & ((l < 0) != (c < 0));
-      qz += l == 0;
-      if (!__ldg(frozen + r)) {
-        const int h = hat[i];
-        const int e = h != c;
-        err += e;
-        amb += h == 0;
-        ferr |= e;
-      }
-    }
-  }
-  __shared__ int part[kCounters - 1][kMaxLanes][kFrames];
-  __shared__ int flag[kMaxLanes][kFrames];
-  const int x = threadIdx.x, y = threadIdx.y;
-  part[0][y][x] = err;
-  part[1][y][x] = amb;
-  part[2][y][x] = awgn;
-  part[3][y][x] = qz;
-  flag[y][x] = ferr;
-  __syncthreads();
-  // fixed-order sums: first over y for each frame column, then over frames
-  if (y == 0) {
-    int s[kCounters - 1] = {0, 0, 0, 0}, any = 0;
-    for (int j = 0; j < (int)blockDim.y; ++j) {
-#pragma unroll
-      for (int c = 0; c < kCounters - 1; ++c) s[c] += part[c][j][x];
-      any |= flag[j][x];
-    }
-#pragma unroll
-    for (int c = 0; c < kCounters - 1; ++c) part[c][0][x] = s[c];
-    flag[0][x] = any;
-  }
-  __syncthreads();
-  if (y == 0 && x < kCounters) {
-    // out row: uncorrected, frame errors, ambiguity, awgn, quantization
-    int s = 0;
-    for (int j = 0; j < kFrames; ++j)
-      s += x == 1 ? flag[0][j] : part[x == 0 ? 0 : x - 1][0][j];
-    out[blockIdx.x * kCounters + x] = s;
-  }
-}
-
+constexpr int kCounters = 5;                    // the (5,) counters
 constexpr int kLaneFrames = 16;                 // one 16-byte word a row
 constexpr int kGroupFrames = 32 * kLaneFrames;  // a warp's frames: 512
 constexpr int kGroupWords = kGroupFrames / 32;  // its frame-error words
@@ -463,20 +400,6 @@ __global__ void __launch_bounds__(kFrameWarps * 32) count_frames_kernel(
 }
 
 }  // namespace
-
-// The replaced design (style "bytes") on `stream`: llr, cw, hat (n, batch)
-// int8 element-major, frozen (n,) uint8, out (ceil(batch / 32), 5) int32.
-// lanes (1..32) threads share a frame's rows. Returns cudaGetLastError().
-extern "C" int polar_count(const void* llr, const void* cw, const void* hat,
-                           const void* frozen, int n, int batch, int lanes,
-                           void* out, void* stream) {
-  const int blocks = (batch + kFrames - 1) / kFrames;
-  count_bytes_kernel<<<blocks, dim3(kFrames, lanes), 0,
-                       (cudaStream_t)stream>>>(
-      (const int8_t*)llr, (const int8_t*)cw, (const int8_t*)hat,
-      (const uint8_t*)frozen, n, batch, (int*)out);
-  return (int)cudaGetLastError();
-}
 
 // count_rows_kernel on `stream`: llr, cw, hat (n, batch) int8
 // element-major, frozen (n,) uint8; chunks row chunks of rows_per_chunk

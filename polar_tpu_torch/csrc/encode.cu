@@ -14,9 +14,9 @@
 // What bounds it on this card: device memory. It must read the message
 // (or the block input) once and write the codeword once, 805 MB at
 // Polar(131072, 65536), B = 4096 (0.24 ms at 3.35 TB/s); the butterfly's
-// word operations are far below that. Two designs:
+// word operations are far below that.
 //
-// encode_bits_kernel (the default): one bit a row. +1 -> 0, -1 -> 1, so
+// encode_bits_kernel: one bit a row. +1 -> 0, -1 -> 1, so
 // the butterfly's product is XOR and 32 rows share a word (a frame of
 // Polar(131072, 65536) is 16 KB). A frame's block is W words spread over
 // T threads (T = min(W, 256), a power of two), R = W / T words a thread in
@@ -33,94 +33,15 @@
 // read 16 bytes a thread into shared memory as a bit stream; each word's
 // run of it starts at the word's first message symbol (a host table, with
 // each word's info mask) and is deposited at the mask's set bits (an
-// all-info word takes the run as it is).
-//
-// encode_kernel (style "bytes", the design it replaced, kept for timing in
-// turns): one byte a row in shared memory (b ^ 1: +1 -> 0x00, -1 -> 0xFE,
-// four rows a 32-bit word), 2^l bytes a block, every stage a shared-memory
-// pass and a barrier, the scatter byte by byte: bound by shared-memory
-// traffic and one block an SM at 2^17 rows.
+// all-info word takes the run as it is). A byte a row in shared memory,
+// every stage a pass and a barrier, was 1.9-5.2x slower (PERF.md section
+// 6, row 12).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
-
-constexpr uint32_t kOnes = 0x01010101u;
-
-// bytes [0, len) of p as a little-endian word, zero above len (< 4)
-__device__ __forceinline__ uint32_t short_word(const uint8_t* p, int len) {
-  uint32_t w = 0u;
-  for (int i = 0; i < len; ++i) w |= (uint32_t)p[i] << (8 * i);
-  return w;
-}
-
-// The stages h < blk of the words s[0, words), in the XOR domain.
-__device__ void butterfly(uint32_t* s, int blk, int words) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  for (int i = t; i < words; i += nt) {
-    uint32_t w = s[i];
-    if (blk > 1) w ^= (w >> 8) & 0x00FF00FFu;   // h = 1: bytes 0, 2 ^= 1, 3
-    if (blk > 2) w ^= (w >> 16) & 0x0000FFFFu;  // h = 2: bytes 0, 1 ^= 2, 3
-    s[i] = w;
-  }
-  __syncthreads();
-  for (int hw = 1; hw < words; hw <<= 1) {  // h = 4 hw rows
-    for (int p = t; p < words / 2; p += nt) {
-      const int i = ((p & ~(hw - 1)) << 1) | (p & (hw - 1));
-      s[i] ^= s[i + hw];
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void encode_kernel(const int8_t* __restrict__ msg, int k,
-                              const int* __restrict__ info,
-                              const int* __restrict__ kstart, int scatter,
-                              const int8_t* __restrict__ x,
-                              const uint8_t* __restrict__ frozen, int n,
-                              int blk, int systematic,
-                              int8_t* __restrict__ out) {
-  extern __shared__ uint32_t s[];
-  const int f = blockIdx.x, b = blockIdx.y;
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int r0 = b * blk;
-  const int words = (blk + 3) >> 2;
-  const long long row = (long long)f * n + r0;
-  if (scatter) {
-    for (int i = t; i < words; i += nt) s[i] = 0u;  // every row +1
-    __syncthreads();
-    uint8_t* sb = reinterpret_cast<uint8_t*>(s);
-    const long long mrow = (long long)f * k;
-    for (int j = kstart[b] + t; j < kstart[b + 1]; j += nt)
-      sb[info[j] - r0] = (uint8_t)msg[mrow + j] ^ 1u;
-  } else if (blk >= 4) {
-    const uint32_t* xw = reinterpret_cast<const uint32_t*>(x + row);
-    for (int i = t; i < words; i += nt) s[i] = xw[i] ^ kOnes;
-  } else if (t == 0) {
-    s[0] = short_word(reinterpret_cast<const uint8_t*>(x + row), blk) ^ kOnes;
-  }
-  __syncthreads();
-  butterfly(s, blk, words);
-  if (systematic) {
-    for (int i = t; i < words; i += nt) {
-      const uint32_t fw =
-          blk >= 4 ? reinterpret_cast<const uint32_t*>(frozen + r0)[i]
-                   : short_word(frozen + r0, blk);
-      s[i] &= ~(fw * 0xFFu);  // frozen bytes (0x01) -> 0x00, i.e. +1
-    }
-    __syncthreads();
-    butterfly(s, blk, words);
-  }
-  if (blk >= 4) {
-    uint32_t* ow = reinterpret_cast<uint32_t*>(out + row);
-    for (int i = t; i < words; i += nt) ow[i] = s[i] ^ kOnes;
-  } else if (t == 0) {
-    const uint32_t w = s[0] ^ kOnes;
-    for (int i = 0; i < blk; ++i) out[row + i] = (int8_t)(w >> (8 * i));
-  }
-}
 
 constexpr int kBitThreads = 256;
 
@@ -353,32 +274,6 @@ __global__ void __launch_bounds__(kBitThreads) encode_bits_kernel(
 }
 
 }  // namespace
-
-// One launch on `stream` over a (batch, n / blk) grid of blocks: out
-// (batch, n) int8. scatter != 0: the input is msg (batch, k) int8 +-1,
-// placed at the ascending info rows `info` (k int32), kstart (n / blk + 1
-// int32) being each row block's first info index; else the input is x
-// (batch, n) int8 +-1. frozen (n uint8) is read when systematic != 0.
-// blk is a power of two dividing n, at most 2^17; n is 2 or a multiple of
-// 4. Returns cudaGetLastError().
-extern "C" int polar_encode(const void* msg, int k, const void* info,
-                            const void* kstart, int scatter, const void* x,
-                            const void* frozen, int n, int batch, int blk,
-                            int systematic, void* out, int threads,
-                            void* stream) {
-  const int bytes = blk < 4 ? 4 : blk;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(batch, n / blk);
-  encode_kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(
-      (const int8_t*)msg, k, (const int*)info, (const int*)kstart, scatter,
-      (const int8_t*)x, (const uint8_t*)frozen, n, blk, systematic,
-      (int8_t*)out);
-  return (int)cudaGetLastError();
-}
 
 // The bit-packed encoder (encode_bits_kernel) on `stream`: out (batch, n)
 // int8. scatter != 0 (blk == n): the input is msg (batch, k) int8 +-1; else

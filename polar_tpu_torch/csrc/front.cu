@@ -40,7 +40,9 @@
 // four frames as one 32-bit word (a warp four rows an instruction), else
 // its frame's byte. At the ragged edge the tail lanes vote 0 and store
 // nothing. Each lane keeps its frame's Philox round keys and first round
-// (PhiloxFrame) for the whole CTA.
+// (PhiloxFrame) for the whole CTA. One thread a frame walking its rows,
+// the butterfly in device memory, was 4-14x slower (PERF.md section 6,
+// rows 9 A and 9 B).
 //
 // What bounds them on this card (the H100's 33.5 T lane instructions/s and
 // 3.35 TB/s; PERF.md section 6 has the times): kernel A moves one byte an
@@ -78,12 +80,6 @@
 // instructions (the draws, Box-Muller, quantize), with one byte of cw and
 // one of LLR out an element and nothing read back.
 //
-// style "frame" (front_msg_kernel, front_chan_kernel): the kernels these
-// replaced, kept by name so that the two can be timed in turns: one thread
-// a frame walking its rows, the butterfly in place in device memory, and
-// in kernel B each Box-Muller pair computed twice, once for each of its
-// rows.
-//
 // The middle is bound by device memory: it has to read and write the (N, B)
 // +-1 array once, 2^30 bytes at m = 17, B = 4096 (0.32 ms at 3.35 TB/s).
 // Every stage h >= h_lo pairs rows in the same residue class mod h_lo, so a
@@ -101,7 +97,6 @@
 #include <cuda_runtime.h>
 
 #include "channel.cuh"
-#include "fastssc.cuh"
 
 namespace {
 
@@ -481,64 +476,6 @@ __global__ void __launch_bounds__(256) front_rows_kernel(
   }
 }
 
-__global__ void front_msg_kernel(const uint8_t* __restrict__ frozen, int n,
-                                 int batch, int blk, int butterfly,
-                                 const int8_t* __restrict__ msg_in,
-                                 uint32_t seed0, uint32_t seed1,
-                                 uint32_t call, int8_t* out) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= batch) return;
-  const long long b = batch;
-  const int r0 = blockIdx.y * blk;
-  const polar::Col o{out + (long long)r0 * b + f, b};
-  polar::PhiloxStream words(make_uint2(seed0, seed1), (uint32_t)f, call);
-  for (int i = 0; i < blk; ++i) {
-    const int r = r0 + i;
-    int8_t sym = 1;
-    if (!__ldg(frozen + r))
-      sym = msg_in != nullptr
-                ? msg_in[(long long)r * b + f]
-                : (int8_t)(1 - 2 * (int)(words.word(n + r) & 1u));
-    o[i] = sym;
-  }
-  if (butterfly) polar::transform(o, blk);
-}
-
-__global__ void front_chan_kernel(int n, int batch, int blk, float sigma,
-                                  float scale, const int8_t* __restrict__ y,
-                                  const float* __restrict__ normals_in,
-                                  uint32_t seed0, uint32_t seed1,
-                                  uint32_t call, int8_t* llr, int8_t* cw) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= batch) return;
-  const long long b = batch;
-  const int r0 = blockIdx.y * blk;
-  const long long base = (long long)r0 * b + f;
-  const polar::Col c{cw + base, b};
-  for (int i = 0; i < blk; ++i) c[i] = y[base + (long long)i * b];
-  polar::transform(c, blk);
-  const uint2 key = make_uint2(seed0, seed1);
-  polar::PhiloxStream radius_words(key, (uint32_t)f, call);
-  polar::PhiloxStream angle_words(key, (uint32_t)f, call);
-  const int h = n >> 1;
-  for (int i = 0; i < blk; ++i) {
-    const int r = r0 + i;
-    float nz;
-    if (normals_in != nullptr) {
-      nz = normals_in[base + (long long)i * b];
-    } else {
-      const int j = r < h ? r : r - h;
-      float n0, n1;
-      polar::box_muller(radius_words.word(j), angle_words.word(h + j), &n0,
-                        &n1);
-      nz = r < h ? n0 : n1;
-    }
-    llr[base + (long long)i * b] =
-        polar::quantize((float)c[i], nz, sigma, scale);
-  }
-}
-
-
 // Window bits of frame q held as W 32-bit words: stages [lo, hi) of the
 // window (stage s pairs bit j, bit s clear, with bit j + 2^s; j ^= j + 2^s).
 template <int W>
@@ -742,35 +679,6 @@ extern "C" int polar_front_rows(const void* frozen, int n, int batch,
       (const uint8_t*)frozen, n, batch, sigma, scale, (const int8_t*)msg,
       (const float*)normals, seed0, seed1, call, (int8_t*)llr, (int8_t*)cw,
       words);
-  return (int)cudaGetLastError();
-}
-
-// style "frame": kernel A (front_msg_kernel) on `stream`, arguments as
-// polar_front_msg_rows's, with threads (frames) a CTA in place of words.
-extern "C" int polar_front_msg(const void* frozen, int n, int batch, int blk,
-                               int butterfly, const void* msg,
-                               unsigned int seed0, unsigned int seed1,
-                               unsigned int call, void* out, int threads,
-                               void* stream) {
-  const dim3 grid((batch + threads - 1) / threads, n / blk);
-  front_msg_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)frozen, n, batch, blk, butterfly, (const int8_t*)msg,
-      seed0, seed1, call, (int8_t*)out);
-  return (int)cudaGetLastError();
-}
-
-// style "frame": kernel B (front_chan_kernel) on `stream`, arguments as
-// polar_front_chan_rows's, with threads (frames) a CTA in place of words.
-extern "C" int polar_front_chan(int n, int batch, int blk, float sigma,
-                                float scale, const void* y,
-                                const void* normals, unsigned int seed0,
-                                unsigned int seed1, unsigned int call,
-                                void* llr, void* cw, int threads,
-                                void* stream) {
-  const dim3 grid((batch + threads - 1) / threads, n / blk);
-  front_chan_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      n, batch, blk, sigma, scale, (const int8_t*)y, (const float*)normals,
-      seed0, seed1, call, (int8_t*)llr, (int8_t*)cw);
   return (int)cudaGetLastError();
 }
 

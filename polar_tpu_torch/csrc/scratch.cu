@@ -1,10 +1,8 @@
 // Scratch-style Fast-SSC decoders: the soft pyramid and the hard stack of a
 // tile of frames in shared memory, the root read where it lies in device
-// memory, u output (and, for a hybrid node, the node's hard block). Two
-// designs: the packed tile kernel (the default, style "scratch") and the
-// one-frame-a-thread byte kernel it replaced (style "scratch-bytes").
+// memory, u output (and, for a hybrid node, the node's hard block).
 //
-// Both replace polar_tpu/ops/pallas/decoder_kernel.py's scratch style:
+// Replaces polar_tpu/ops/pallas/decoder_kernel.py's scratch style:
 // _decoder_kernel (:541, make_pallas_decoder(style="scratch"), u output)
 // and _subtree_kernel (:550, make_subtree_decoder(style="scratch"): u and
 // the node's hard block), both over _KernelBuilder (:112-272). The TPU
@@ -13,9 +11,9 @@
 // on chip, n soft rows (the root's LLRs are read in device memory, where
 // they lie) and n hard rows a frame, 2n bytes; the message goes straight to
 // device memory, and the subtree entry stores the hard stack's n rows after
-// the decode (signum(0)'s zeros kept). Every design here follows
-// fastssc.cuh:fastssc_decode opcode for opcode, so all agree bit for bit
-// with each other and with the SSA-style kernels (decoder.cu, subtree.cu).
+// the decode (signum(0)'s zeros kept). The kernel follows
+// fastssc.cuh:fastssc_decode opcode for opcode, so it agrees bit for bit
+// with the SSA-style kernels (decoder.cu, subtree.cu).
 //
 // The tile kernel (scratch_tile_kernel) runs fastssc_simd.cuh's Tile with
 // the root in device memory (ROOT_SMEM = false): four frames to a 32-bit
@@ -25,12 +23,13 @@
 // is decoder.cu's tile_decoder_kernel<false> instruction for instruction,
 // so polar_scratch_decode launches that instance and builds no copy); (4, 1)
 // and (8, 1), 16 and 32 frames, 8 and 4 rows a pass; (32, 1), 128 frames,
-// each lane its own 4-frame column and one row a pass, the byte kernel's
-// parallelism at a quarter of its instructions. A warp takes 2 n 4 WR bytes
-// of shared memory, so (32, 1) fits a block up to n = 512 and the narrower
-// shapes to n = 2048. The wrapper (ops/cuda/decoder_kernel.py
-// scratch_shape) picks the shape and the warps a block by level and batch,
-// so that the grid covers the card where the batch has the tiles for it.
+// each lane its own 4-frame column and one row a pass, a frame-a-thread
+// kernel's parallelism at a quarter of its instructions. A warp takes
+// 2 n 4 WR bytes of shared memory, so (32, 1) fits a block up to n = 512
+// and the narrower shapes to n = 2048. The wrapper
+// (ops/cuda/decoder_kernel.py scratch_shape) picks the shape and the warps
+// a block by level and batch, so that the grid covers the card where the
+// batch has the tiles for it.
 //
 // The u track also comes frame-major (scratch_frames_kernel, and
 // decoder.cu's tile_decoder_frames_kernel at (2, 2)): llr (batch, n) in,
@@ -43,16 +42,9 @@
 // batch of a few thousand frames gives an SM. The narrow shapes make the
 // chain short (a node's rows split over many lanes) and the tiles many;
 // the wide ones leave no lane idle on the small nodes that make up most of
-// a program's ops. The byte kernel it replaced took one frame a thread,
-// a byte a row, in blocks of scratch_frames(n) frames (128 at n <= 512):
-// at B = 4096 that is 32 blocks on the card's 132 SMs.
-//
-// The byte kernel (scratch_decoder_kernel, style "scratch-bytes"): a block
-// of T frames keeps its soft and hard rows element-major with stride T (a
-// Col over shared memory) and walks fastssc_decode with one frame a thread.
-// T is a multiple of 32; 2 n T above the 227 KB a block may take is refused
-// by the wrapper (N > 2048 at T = 32), as the TPU scratch style fails on
-// VMEM. The last block is masked.
+// a program's ops. One frame a thread, a byte a row, in blocks of up to
+// 128 frames (32 blocks on the card's 132 SMs at B = 4096) was slower at
+// every shape timed (PERF.md section 6, rows 3 and 4s).
 
 #include <cuda_runtime.h>
 
@@ -69,39 +61,6 @@ extern "C" int polar_tile_decode_frames(const void* prog, const void* llr,
                                         int warps, void* stream);
 
 namespace {
-
-__global__ void scratch_decoder_kernel(const uint8_t* __restrict__ prog,
-                                       int n, int batch, const int8_t* llr,
-                                       int8_t* mesg, int8_t* hard_out) {
-  extern __shared__ int8_t smem[];
-  const int t = threadIdx.x;
-  const int f = blockIdx.x * blockDim.x + t;
-  if (f >= batch) return;  // no barrier below: the tail threads may leave
-  const long long b = batch, frames = blockDim.x;
-  const polar::Col soft{smem + t, frames};
-  const polar::Col hard{smem + (long long)n * frames + t, frames};
-  polar::fastssc_decode(prog, n, polar::Col{const_cast<int8_t*>(llr) + f, b},
-                        soft, hard, polar::Col{mesg + f, b});
-  if (hard_out != nullptr) {
-    const polar::Col out{hard_out + f, b};
-    for (int r = 0; r < n; ++r) out[r] = hard[r];
-  }
-}
-
-int launch_bytes(const void* prog, int n, int batch, const void* llr,
-                 void* mesg, void* hard, int threads, void* stream) {
-  const int bytes = 2 * n * threads;
-  // above 48 KB a block's dynamic shared memory must be granted first
-  cudaError_t err = cudaFuncSetAttribute(
-      scratch_decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + threads - 1) / threads;
-  scratch_decoder_kernel<<<blocks, threads, bytes, (cudaStream_t)stream>>>(
-      (const uint8_t*)prog, n, batch, (const int8_t*)llr, (int8_t*)mesg,
-      (int8_t*)hard);
-  return (int)cudaGetLastError();
-}
 
 template <int WR, int VW>
 using ScratchTile = polar::simd::Tile<WR, VW, /*CW=*/false,
@@ -237,21 +196,4 @@ extern "C" int polar_scratch_subtree(const void* prog, int n, int batch,
   if (hard == nullptr) return (int)cudaErrorInvalidValue;
   return launch_shape(prog, n, batch, in, mesg, hard, wr, vw, warps, aligned,
                       stream);
-}
-
-// The byte kernel it replaced (style "scratch-bytes"), the whole code:
-// `threads` frames a block (a multiple of 32, 2 n threads bytes of shared
-// memory), otherwise as polar_scratch_decode.
-extern "C" int polar_scratch_bytes_decode(const void* prog, int n, int batch,
-                                          const void* llr, void* mesg,
-                                          int threads, void* stream) {
-  return launch_bytes(prog, n, batch, llr, mesg, nullptr, threads, stream);
-}
-
-// The byte kernel, one hybrid node, as polar_scratch_subtree.
-extern "C" int polar_scratch_bytes_subtree(const void* prog, int n, int batch,
-                                           const void* in, void* mesg,
-                                           void* hard, int threads,
-                                           void* stream) {
-  return launch_bytes(prog, n, batch, in, mesg, hard, threads, stream);
 }

@@ -100,7 +100,7 @@ HYBRID_KERNEL_LEVEL = 9
 # the scratch hybrid led frame-major (11.803 against 12.730) and trailed
 # lane-major (11.596 against 11.338). The walk hybrid led no cell.
 # With the scratch style redesigned as the packed tile kernel at the shapes
-# of decoder_kernel.SCRATCH_TABLE (its byte kernel the arm "scratch-bytes";
+# of decoder_kernel.SCRATCH_TABLE (its byte kernel, since deleted, an arm;
 # --decoders-only --levels 6-15; frame- / lane-major ms, each the mean of
 # two readings) the scratch kernel moved in for
 # - u, m = 8, 9, 10, 11 from BIG_BATCH (B = 32768): 0.149 / 0.068,
@@ -168,17 +168,16 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
     transposes). On the u track of a kernel with a frame-major layout
     (``decoder_kernel.has_frames``) the frame-major entry on a card hands
     the kernel ``(B, N)`` and takes ``(B, K)`` back; everywhere else
-    (CPU tensors, the walk, ``"scratch-bytes"``, the cw outputs) the kernel
-    runs element-major and the entry transposes in and out
-    (``fastssc.frame_major``). ``style``: ``"ssa"``, ``"walk"``,
-    ``"scratch"`` (the shared-memory kernel: u output only, N <= 2^11; it
-    raises ``ValueError`` otherwise, as ``make_pallas_decoder`` does) or
-    ``"scratch-bytes"`` (the byte kernel it replaced, the same contract)."""
+    (CPU tensors, the walk, the cw outputs) the kernel runs element-major
+    and the entry transposes in and out (``fastssc.frame_major``).
+    ``style``: ``"ssa"``, ``"walk"`` or ``"scratch"`` (the shared-memory
+    kernel: u output only, N <= 2^11; it raises ``ValueError`` otherwise,
+    as ``make_pallas_decoder`` does)."""
     if output not in OUTPUTS:
         raise ValueError(f"unknown output mode {output!r}")
     if style not in decoder_kernel.STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
-    if style.startswith("scratch"):
+    if style == "scratch":
         if output != "u":
             raise ValueError("non-u output modes require the SSA kernel style")
         decoder_kernel.scratch_frames(code.N)

@@ -39,7 +39,7 @@ from ..ops.transform import polar_transform
 from ..utils.profiling import annotate
 
 OUTPUTS = ("u", "systematic", "codeword", "both")
-KERNEL_STYLES = ("ssa", "walk", "scratch", "scratch-bytes", "interp")
+KERNEL_STYLES = ("ssa", "walk", "scratch", "interp")
 
 
 class _TreeDecoder:
@@ -320,15 +320,13 @@ def make_fastssc_decoder(
     ``kernel_fuse``: boundary fusion — a kernel-eligible left child runs
     its parent's f, a kernel-eligible right child of a branch its
     parent's g and combine (the SSA and walk styles only; ``"interp"`` raises,
-    the scratch styles ignore it, as in JAX). ``kernel_style`` picks the
+    the scratch style ignores it, as in JAX). ``kernel_style`` picks the
     subtree kernel (``polar_tpu/decode/fastssc.py:328-394``): ``"ssa"``
     (:mod:`~polar_tpu_torch.ops.cuda.subtree_kernel`: the tile kernel up to
     its ``TILE_SUBTREE_MAX_LEVEL``, the walk above), ``"walk"`` (the
     one-thread-a-frame walk at every level, for the A/B), ``"scratch"`` (its
     shared-memory twin: u blocks only, so non-u outputs re-encode û, and
-    nodes at most ``decoder_kernel.SCRATCH_MAX_LEVEL``), ``"scratch-bytes"``
-    (the same by the byte kernel ``"scratch"`` replaced, for the A/B) or
-    ``"interp"``
+    nodes at most ``decoder_kernel.SCRATCH_MAX_LEVEL``) or ``"interp"``
     (:func:`~polar_tpu_torch.ops.cuda.interp_kernel.make_interp_subtree`
     at its default ``subtree_level``, with the fused cw track). All are
     bit-exact.
@@ -354,7 +352,7 @@ def make_fastssc_decoder(
     # block); "systematic" / "codeword" then never read the u blocks, so
     # the subtrees skip them
     use_fused_cw = (hybrid and output != "u"
-                    and not kernel_style.startswith("scratch"))
+                    and kernel_style != "scratch")
     kernel_emit_u = not use_fused_cw or output == "both"
     kernel_for = (make_kernel_for(kernel_level, style=kernel_style,
                                   boundary_fusion=kernel_fuse,

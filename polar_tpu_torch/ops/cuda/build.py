@@ -56,9 +56,6 @@ SIGNATURES = {
                            _P),
     "polar_tile_step": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _U,
                         _U, _U, _P, _P, _P, _I, _I, _P),
-    "polar_front_msg": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I, _P),
-    "polar_front_chan": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P,
-                         _I, _P),
     "polar_front_msg_rows": (_P, _I, _I, _I, _I, _P, _U, _U, _U, _P, _I,
                              _P),
     "polar_front_chan_rows": (_I, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P,
@@ -71,32 +68,19 @@ SIGNATURES = {
     "polar_front_rows": (_P, _I, _I, _F, _F, _P, _P, _U, _U, _U, _P, _P, _I,
                          _I, _P),
     "polar_decode_count_tile": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P),
-    "polar_count": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "polar_count_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P),
     "polar_count_frames": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P, _P),
     "polar_count_frames_occupancy": (_I, _P),
-    "polar_symbols": (_I, _I, _P, _U, _U, _U, _P, _I, _P),
     "polar_symbols_lines": (_I, _I, _P, _U, _U, _U, _P, _I, _P),
-    "polar_awgn": (_I, _I, _F, _F, _P, _P, _P, _U, _U, _U, _P, _I, _P),
     "polar_awgn_lines": (_I, _I, _F, _F, _P, _P, _P, _U, _U, _U, _P, _I,
                          _P),
-    "polar_encode": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I,
-                     _P),
     "polar_encode_bits": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
                           _P),
     "polar_scratch_decode": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "polar_scratch_decode_frames": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
-    "polar_scratch_bytes_decode": (_P, _I, _I, _P, _P, _I, _P),
-    "polar_scratch_bytes_subtree": (_P, _I, _I, _P, _P, _P, _I, _P),
-    "polar_interp_decode": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                            _P, _P, _I, _P),
-    "polar_interp_subtree": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                             _P, _P, _I, _P),
-    "polar_interp_decode_count": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                  _P, _P, _P, _P, _I, _P),
     "polar_interp_tile": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "polar_interp_tile_occupancy": (_I, _I, _I, _I, _P),

@@ -9,19 +9,13 @@ The kernels (``csrc/channel_grid.cu``) replace
 Both work on frame-major ``(rows, cols)`` grids, as the JAX kernels do.
 
 Both kernels are bound by instruction throughput on the card. The
-symbols' default style, ``"lines"`` (``symbols_lines_kernel``), takes 16
-symbols a thread in straight-line code on a 2-D grid, four
-``PhiloxFrame`` blocks and one 16-byte store; ``style="quads"`` runs the
-four-symbols-a-thread kernel it replaced (``symbols_kernel``). AWGN needs
-about 100
-instructions an element against 2 bytes of device memory, with
-``-fmad=false`` keeping the plain version's rounding); its default style,
-``"lines"`` (``awgn_lines_kernel``), takes 16 elements a thread in
-straight-line code on a 2-D grid with no division, computes the Philox
-round keys and first round once per frame and one polynomial per normal;
-``style="grid"`` runs the four-elements-a-thread kernel it replaced
-(``awgn_kernel``). Each replaced kernel is kept so that the two can be
-timed in turns, and gives the same output bit for bit.
+symbols kernel (``symbols_lines_kernel``) takes 16 symbols a thread in
+straight-line code on a 2-D grid, four ``PhiloxFrame`` blocks and one
+16-byte store. AWGN needs about 100 instructions an element against 2
+bytes of device memory, with ``-fmad=false`` keeping the plain version's
+rounding; its kernel (``awgn_lines_kernel``) takes 16 elements a thread
+in straight-line code on a 2-D grid with no division, computes the Philox
+round keys and first round once per frame and one polynomial per normal.
 :func:`symbols_lines_twin` writes the symbols kernel's index map out in
 torch for the CPU tests; the main path does not use it.
 
@@ -55,14 +49,8 @@ from ...channel import channel_llrs
 from ...utils import profiling
 from . import build, philox
 
-THREADS = 256
 PLAIN_CHUNK = 1 << 24   # grid elements per chunk of a plain version
-SYMBOL_STYLES = ("lines", "quads")
-AWGN_STYLES = ("lines", "grid")
 launches = {"channel_symbols": 0, "channel_awgn": 0}
-# launches of the replaced kernels (styles "quads" and "grid"), apart from
-# the defaults', so that a run can show it took the new kernels
-earlier_launches = {"channel_symbols_quads": 0, "channel_awgn_grid": 0}
 plain_calls = {"symbols_plain": 0, "awgn_plain": 0}
 
 
@@ -95,15 +83,12 @@ def symbols_plain(shape=None, *, words=None, seeds=None, call: int = 0,
 
 
 def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
-            device=None, style: str = "lines") -> torch.Tensor:
+            device=None) -> torch.Tensor:
     """Random ±1 int8 symbols: ``(rows, cols)`` = ``shape``. Bits mode
     with ``words`` (rows, cols) int64; native mode with ``shape``,
-    ``seeds`` (two words), ``call`` and ``device``. ``style`` picks the
-    CUDA kernel (:data:`SYMBOL_STYLES`); both draw the same symbols, and a
-    CPU tensor runs the plain version whatever the style."""
+    ``seeds`` (two words), ``call`` and ``device``. A CPU tensor runs the
+    plain version."""
     start = profiling.begin()
-    if style not in SYMBOL_STYLES:
-        raise ValueError(f"symbols style {style!r} not in {SYMBOL_STYLES}")
     dev = words.device if words is not None else torch.device(device)
     if dev.type == "cpu":
         return symbols_plain(shape, words=words, seeds=seeds, call=call,
@@ -124,13 +109,6 @@ def symbols(shape=None, *, words=None, seeds=None, call: int = 0,
         return out
     stream = build.stream(dev)
     wptr = words.data_ptr() if words is not None else None
-    if style == "quads":
-        err = build.load_library().polar_symbols(
-            rows, cols, wptr, s0, s1, call & 0xFFFFFFFF, out.data_ptr(),
-            THREADS, stream)
-        build.check(err, "polar_symbols")
-        profiling.launched(start, earlier_launches, "channel_symbols_quads")
-        return out
     straight = cols % 16 == 0 and all(
         p % 16 == 0 for p in (out.data_ptr(), wptr) if p is not None)
     # 2: a warp's 512 columns lie in one row, read together in bits mode
@@ -249,17 +227,14 @@ def awgn_plain(codeword, params, *, words=None, seeds=None,
     return torch.cat(parts) if parts else torch.empty_like(codeword)
 
 
-def awgn(codeword, params, *, words=None, seeds=None, call: int = 0,
-         style: str = "lines") -> torch.Tensor:
+def awgn(codeword, params, *, words=None, seeds=None,
+         call: int = 0) -> torch.Tensor:
     """AWGN and quantization of ``codeword`` ``(rows, cols)`` int8 (±1):
     ``quant(scale · (cw + σ·n))`` with ``params`` = (σ, 2/σ²) as float32
     values. Bits mode with ``words`` = (radius, angle), both (rows, cols)
-    int64; native mode with ``seeds`` (two words) and ``call``. ``style``
-    picks the CUDA kernel (:data:`AWGN_STYLES`); both compute the same
-    LLRs, and a CPU tensor runs the plain version whatever the style."""
+    int64; native mode with ``seeds`` (two words) and ``call``. A CPU
+    tensor runs the plain version."""
     start = profiling.begin()
-    if style not in AWGN_STYLES:
-        raise ValueError(f"AWGN style {style!r} not in {AWGN_STYLES}")
     dev = codeword.device
     if dev.type == "cpu":
         return awgn_plain(codeword, params, words=words, seeds=seeds,
@@ -284,13 +259,6 @@ def awgn(codeword, params, *, words=None, seeds=None, call: int = 0,
     wptrs = [w.data_ptr() for w in words] if words is not None else [None, None]
     stream = build.stream(dev)
     sigma, scale = params
-    if style == "grid":
-        err = build.load_library().polar_awgn(
-            shape[0], shape[1], sigma, scale, ptrs[0], *wptrs, s0, s1,
-            call & 0xFFFFFFFF, ptrs[1], THREADS, stream)
-        build.check(err, "polar_awgn")
-        profiling.launched(start, earlier_launches, "channel_awgn_grid")
-        return llr
     straight = shape[1] % 16 == 0 and all(
         p % 16 == 0 for p in ptrs + [w for w in wptrs if w is not None])
     err = build.load_library().polar_awgn_lines(

@@ -10,18 +10,14 @@ The kernel (``csrc/count.cu``) replaces
 ``(5,)`` int64 tensor in ``step_kernel.COUNTERS`` order.
 
 The counter is bound by device memory: it reads llr and cw at every row
-and hat at the info rows, ``(2 N + K) B`` bytes. Its default style,
-``"rows"`` (``count_rows_kernel``), reads 16 frames a lane as one 16-byte
-word a row, a warp a frame group of 512 frames, on a grid of frame groups
+and hat at the info rows, ``(2 N + K) B`` bytes. Its kernel
+(``count_rows_kernel``) reads 16 frames a lane as one 16-byte word a row, a warp a frame group of 512 frames, on a grid of frame groups
 × row chunks (:func:`count_plan`); each CTA writes its group's frame-error
 bits for its chunk as 32-bit words and its partial sums into a scratch
 array, and the last CTA to finish folds them (an OR over chunks, pop
 counts, int64 sums) into the ``(5,)`` int64 result: one launch, no torch
-reduction after it. ``style="bytes"`` runs the one-byte-a-thread kernel it
-replaced (``count_bytes_kernel``), whose ``(blocks, 5)`` partials the
-wrapper sums, kept so that the two can be timed in turns. Both count the
-same. :func:`count_rows_twin` writes the default kernel's decomposition
-out in torch for the CPU tests; the main path does not use it.
+reduction after it. :func:`count_rows_twin` writes the kernel's
+decomposition out in torch for the CPU tests; the main path does not use it.
 
 :func:`count_frames` counts the draws path's step in the u domain
 (``ber.frame_counters``) over frame-major message and decoded ``(B, K)``
@@ -52,9 +48,6 @@ from . import build
 from .decoder_kernel import device_mask
 from .step_kernel import COUNTERS, cw_counts
 
-STYLES = ("rows", "bytes")
-FRAMES_PER_BLOCK = 32  # csrc/count.cu kFrames (style "bytes")
-LANES = 32             # style "bytes": threads sharing one frame's rows
 GROUP_FRAMES = 512     # csrc/count.cu kGroupFrames: a warp's frames
 LANE_FRAMES = 16       # kLaneFrames: one 16-byte word a row
 SUMS = 4               # kSums: a CTA's partial sums (err, amb, awgn, qz)
@@ -62,9 +55,6 @@ CTAS_PER_SM = 8        # the grid's aim: CTAs of 8 warps an SM
 MIN_CHUNK_ROWS = 256   # a chunk's least rows: 32 a warp
 FRAME_WARPS = 8        # csrc/count.cu kFrameWarps: count_frames' CTA
 launches = {"count": 0, "count_frames": 0}
-# launches of the replaced kernel (style "bytes"), apart from the
-# default's, so that a run can show it took the new kernel
-earlier_launches = {"count_bytes": 0}
 plain_calls = {"count_plain": 0, "count_frames_plain": 0}
 _tickets: dict = {}
 _frame_waves: dict = {}
@@ -79,7 +69,7 @@ def count_plain(frozen, llr_t, cw_t, hat_t) -> torch.Tensor:
 
 
 def count_plan(n: int, batch: int, sms: int) -> tuple[int, int, int]:
-    """``(groups, chunks, rows_per_chunk)`` of the default kernel's grid:
+    """``(groups, chunks, rows_per_chunk)`` of the kernel's grid:
     frame groups of :data:`GROUP_FRAMES` × row chunks, about
     :data:`CTAS_PER_SM` CTAs an SM on ``sms`` SMs, each chunk at least
     :data:`MIN_CHUNK_ROWS` rows (but one), at most 65535 chunks."""
@@ -100,14 +90,10 @@ def _ticket(dev, stream: int) -> torch.Tensor:
     return _tickets[key]
 
 
-def count(frozen, llr_t, cw_t, hat_t, style: str = "rows") -> torch.Tensor:
+def count(frozen, llr_t, cw_t, hat_t) -> torch.Tensor:
     """The counters of one step (arguments as :func:`count_plain`): the
-    kernel for CUDA tensors, :func:`count_plain` for CPU ones. ``style``
-    picks the CUDA kernel (:data:`STYLES`); both count the same, and a CPU
-    tensor runs the plain version whatever the style."""
+    kernel for CUDA tensors, :func:`count_plain` for CPU ones."""
     start = profiling.begin()
-    if style not in STYLES:
-        raise ValueError(f"count style {style!r} not in {STYLES}")
     dev = llr_t.device
     if dev.type == "cpu":
         return count_plain(frozen, llr_t, cw_t, hat_t)
@@ -127,15 +113,6 @@ def count(frozen, llr_t, cw_t, hat_t, style: str = "rows") -> torch.Tensor:
     stream = build.stream(dev)
     ptrs = [t.data_ptr() for t in tensors]
     mask = device_mask(frozen, dev).data_ptr()
-    if style == "bytes":
-        blocks = -(-batch // FRAMES_PER_BLOCK)
-        out = torch.empty((blocks, len(COUNTERS)), dtype=torch.int32,
-                          device=dev)
-        err = build.load_library().polar_count(*ptrs, mask, n, batch, LANES,
-                                               out.data_ptr(), stream)
-        build.check(err, "polar_count")
-        profiling.launched(start, earlier_launches, "count_bytes")
-        return out.sum(dim=0, dtype=torch.int64)
     groups, chunks, rows = count_plan(
         n, batch, torch.cuda.get_device_properties(dev).multi_processor_count)
     words = -(-batch // 32)

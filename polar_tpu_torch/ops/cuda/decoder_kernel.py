@@ -23,15 +23,12 @@ Three kernels, two styles of ``polar_tpu/ops/pallas/decoder_kernel.py``'s
   the root read in device memory, at a tile shape and block that
   :func:`scratch_shape` picks by level and batch from
   :data:`SCRATCH_SHAPES`; N is at most 2^:data:`SCRATCH_MAX_LEVEL`
-  (:func:`scratch_frames` raises above);
-* ``"scratch-bytes"``, the same function by the one-frame-a-thread byte
-  kernel that ``"scratch"`` replaced, in blocks of :func:`scratch_frames`
-  frames: by name, for the A/B.
+  (:func:`scratch_frames` raises above).
 
 :func:`decode` launches the kernel for a CUDA tensor and runs
 :func:`decode_plain` (the eager decoder) only for a CPU tensor; it keeps
-a count of its launches per kernel and track in :data:`launches`, and of
-the byte kernel's in :data:`earlier_launches`. The tile kernels' u track
+a count of its launches per kernel and track in :data:`launches`. The
+tile kernels' u track
 also takes frame-major ``(B, N)`` LLRs and writes û ``(B, K)`` itself
 (``layout="frames"``, :func:`has_frames`), counted under the kernel's key
 with ``_frames`` at the end.
@@ -50,14 +47,13 @@ from ...decode.fastssc import make_fastssc_decoder
 from ...utils import profiling
 from . import build
 
-# Frames (threads) per block of the walk and the scratch byte kernel. On an
-# H100 at Polar(1024, 512) 128 was as fast as or faster than 64 at B = 4096,
+# Frames (threads) per block of the walk. On an H100 at Polar(1024, 512) 128 was as fast as or faster than 64 at B = 4096,
 # 32768 and 131072; 256 was faster still at B = 32768 but a third slower at
 # B = 4096 (PERF.md).
 THREADS = 128
-STYLES = ("ssa", "walk", "scratch", "scratch-bytes")
-# The shared memory a block may take on an H100 (227 KB). The scratch byte
-# kernel holds a multiple of 32 frames (at most 128), 2N bytes each.
+STYLES = ("ssa", "walk", "scratch")
+# The shared memory a block may take on an H100 (227 KB). The scratch style
+# takes N up to the largest at which 32 frames of 2N bytes fit a block.
 SCRATCH_SMEM_BYTES = 232448
 SCRATCH_MAX_FRAMES = 128
 SCRATCH_MAX_LEVEL = (SCRATCH_SMEM_BYTES // (2 * 32)).bit_length() - 1   # 11
@@ -83,9 +79,6 @@ LAYOUTS = ("lanes", "frames")
 launches = {"fastssc_decoder_u": 0, "fastssc_decoder_cw": 0,
             "walk_decoder_u": 0, "walk_decoder_cw": 0, "scratch_decoder": 0,
             "fastssc_decoder_u_frames": 0, "scratch_decoder_frames": 0}
-# launches of the byte kernel that "scratch" replaced (style
-# "scratch-bytes"), apart from the tile kernel's
-earlier_launches = {"scratch_bytes_decoder": 0}
 plain_calls = {"decode_plain": 0}
 _tables: dict = {}
 
@@ -305,8 +298,7 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
     mask, both numpy uint8. Returns ``(u (K, B), cw (N, B) or None)``.
     ``style="ssa"`` takes the tile kernel or the walk by
     :func:`ssa_kernel`; ``"walk"`` the walk at every level;
-    ``"scratch"`` and ``"scratch-bytes"`` the u track only and N <= 2^11,
-    on every device. ``shape``: ``(wr, vw, warps)`` of the scratch tile
+    ``"scratch"`` the u track only and N <= 2^11, on every device. ``shape``: ``(wr, vw, warps)`` of the scratch tile
     kernel in place of :func:`scratch_shape`'s (the A/B and the tests).
     ``layout="frames"``: ``llr_t`` is frame-major, a contiguous ``(B, N)``
     int8 tensor, and û comes back ``(B, K)``, with no transpose on the
@@ -318,10 +310,10 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
         raise ValueError(f"unknown kernel style {style!r}")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
-    if style.startswith("scratch"):
+    if style == "scratch":
         if want_cw:
             raise ValueError("the cw track requires the SSA kernel style")
-        frames = scratch_frames(n)
+        scratch_frames(n)
     by_frame = layout == "frames"
     if by_frame:
         if want_cw or not has_frames(style, n):
@@ -366,13 +358,6 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
             warps, int(scratch_aligned(b, vw, (llr_t, mesg))), stream)
         build.check(err, "polar_scratch_decode")
         profiling.launched(start, launches, "scratch_decoder")
-        return mesg, None
-    if style == "scratch-bytes":
-        err = build.load_library().polar_scratch_bytes_decode(
-            prog_d.data_ptr(), n, b, llr_t.data_ptr(), mesg.data_ptr(), frames,
-            stream)
-        build.check(err, "polar_scratch_bytes_decode")
-        profiling.launched(start, earlier_launches, "scratch_bytes_decoder")
         return mesg, None
     track = "cw" if want_cw else "u"
     if style == "ssa" and ssa_kernel(n) == "tile":

@@ -11,8 +11,8 @@ block transforms. The stages commute, so with the top stages P outside
     encode_systematic(u) = P(B(mask · B(P(scatter(u)))))
 
 On the card the kernel is bound by device memory: the message in once,
-the codeword out once. Its default style, ``"bits"``
-(``encode_bits_kernel``), holds one bit a row (+1 → 0, −1 → 1, so the
+the codeword out once. Its kernel (``encode_bits_kernel``) holds one
+bit a row (+1 → 0, −1 → 1, so the
 butterfly's product is XOR), 32 rows a word: a frame's 2^l-row block is
 spread over up to 256 threads, the stages run inside words, across lanes
 (shuffles), across registers and, only across warps, through shared
@@ -20,9 +20,7 @@ memory; rows are packed on load and unpacked on store 32 bytes a thread.
 When the block is the whole code the kernel scatters the message too,
 each word from its run of message bytes by the host tables of
 :func:`bit_tables`, and the encode is one launch with no torch stages.
-``style="bytes"`` runs the kernel it replaced (``encode_kernel``: one byte
-a row in shared memory), kept so that the two can be timed in turns; both
-give the same codeword. The JAX block level (13) and frame tile (128) are
+The JAX block level (13) and frame tile (128) are
 VMEM facts and do not carry over; the port takes any batch.
 
 :func:`make_encoder` returns ``enc(message)``, which launches the kernel
@@ -42,19 +40,12 @@ from ...encode import _scatter_message
 from ...ops.transform import polar_transform_stages
 from ...utils import profiling
 from . import build
-from .decoder_kernel import device_mask
 
 # Row-block level of the kernel, cut to the code's level, and the largest
-# it takes: the bytes style holds 2^17 bytes, the largest power of two
-# within the 227 KB of shared memory a block may take; the bits style
-# holds a 2^17-row block as 16 words a thread over 256 threads.
+# it takes: a 2^17-row block is 16 words a thread over 256 threads.
 BLOCK_LEVEL = 17
-STYLES = ("bits", "bytes")
-BIT_THREADS = 256   # threads of a bits-style thread block (encode.cu)
+BIT_THREADS = 256   # threads of a thread block (encode.cu kBitThreads)
 launches = {"block_encoder": 0}
-# launches of the replaced kernel (style "bytes"), apart from the
-# default's, so that a run can show it took the new kernel
-earlier_launches = {"block_encoder_bytes": 0}
 plain_calls = {"encode_plain": 0}
 _tables: dict = {}
 
@@ -84,19 +75,8 @@ def encode_plain(code: PolarCode, message, systematic: bool, blk: int):
     return x
 
 
-def _device_tables(code: PolarCode, blk: int, dev):
-    """(info rows, per-block first info index) as int32 on ``dev``."""
-    key = (code.frozen.tobytes(), blk, str(dev))
-    if key not in _tables:
-        info = np.asarray(code.info_indices, np.int32)
-        kstart = np.searchsorted(info, np.arange(0, code.N + 1, blk))
-        _tables[key] = (torch.tensor(info, device=dev),
-                        torch.tensor(kstart.astype(np.int32), device=dev))
-    return _tables[key]
-
-
 def bit_layout(blk: int) -> tuple[int, int, int, int]:
-    """(u, words, threads, regs) of the bits style for a ``blk``-row block:
+    """(u, words, threads, regs) of the kernel for a ``blk``-row block:
     u rows a word (32, or the block when smaller), ``words`` = blk / u
     words a frame block, spread over ``threads`` (a power of two, at most
     :data:`BIT_THREADS`) holding ``regs`` words each, word i·threads + t
@@ -108,7 +88,7 @@ def bit_layout(blk: int) -> tuple[int, int, int, int]:
 
 
 def bit_tables(code: PolarCode, blk: int) -> tuple[np.ndarray, np.ndarray]:
-    """The bits style's host tables for row blocks of ``blk`` rows, one
+    """The kernel's host tables for row blocks of ``blk`` rows, one
     entry per u-row word of the code (u = min(32, blk)): ``imask``
     (uint32), bit j set when row u·w + j is an info row (the scatter's
     deposit mask and the refreeze's AND), and ``kfirst`` (int32), the index
@@ -130,8 +110,7 @@ def _device_bit_tables(code: PolarCode, blk: int, dev):
     return _tables[key]
 
 
-def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
-                 style: str = "bits"):
+def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int):
     start = profiling.begin()
     n, k, dev = code.N, code.K, message.device
     batch = message.shape[0] if message.ndim == 2 else -1
@@ -139,8 +118,6 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
             or not message.is_contiguous()):
         raise ValueError(f"message: expected contiguous (B, {k}) int8, got "
                          f"{tuple(message.shape)} {message.dtype}")
-    if style == "bytes" and n // blk > 65535:
-        raise ValueError(f"{n // blk} row blocks of {blk}: more than 65535")
     out = torch.empty((batch, n), dtype=torch.int8, device=dev)
     if batch == 0:
         return out
@@ -148,43 +125,25 @@ def _encode_cuda(code: PolarCode, message, systematic: bool, blk: int,
     x = None if whole else polar_transform_stages(
         _scatter_message(code, message), blk, n).contiguous()
     stream = build.stream(dev)
-    if style == "bits":
-        imask, kfirst = _device_bit_tables(code, blk, dev)
-        vec = all(t.data_ptr() % 16 == 0
-                  for t in (out, x) if t is not None)
-        err = build.load_library().polar_encode_bits(
-            message.data_ptr(), k, imask.data_ptr(), kfirst.data_ptr(),
-            int(whole), x.data_ptr() if x is not None else None, n, batch,
-            blk, int(systematic), int(vec), out.data_ptr(), stream)
-        build.check(err, "polar_encode_bits")
-        profiling.launched(start, launches, "block_encoder")
-        if systematic and not whole:
-            out = polar_transform_stages(out, blk, n)
-        return out
-    info, kstart = _device_tables(code, blk, dev)
-    words = max(blk // 4, 1)
-    threads = min(1024, max(32, -(-words // 2 // 32) * 32))
-    err = build.load_library().polar_encode(
-        message.data_ptr(), k, info.data_ptr(), kstart.data_ptr(), int(whole),
-        x.data_ptr() if x is not None else None,
-        device_mask(code.frozen, dev).data_ptr(), n, batch, blk,
-        int(systematic), out.data_ptr(), threads, stream)
-    build.check(err, "polar_encode")
-    profiling.launched(start, earlier_launches, "block_encoder_bytes")
+    imask, kfirst = _device_bit_tables(code, blk, dev)
+    vec = all(t.data_ptr() % 16 == 0 for t in (out, x) if t is not None)
+    err = build.load_library().polar_encode_bits(
+        message.data_ptr(), k, imask.data_ptr(), kfirst.data_ptr(),
+        int(whole), x.data_ptr() if x is not None else None, n, batch, blk,
+        int(systematic), int(vec), out.data_ptr(), stream)
+    build.check(err, "polar_encode_bits")
+    profiling.launched(start, launches, "block_encoder")
     if systematic and not whole:
         out = polar_transform_stages(out, blk, n)
     return out
 
 
 def make_encoder(code: PolarCode, *, systematic: bool = True,
-                 block_level: int | None = None, style: str = "bits"):
+                 block_level: int | None = None):
     """``enc(message)``: ``(B, K)`` ±1 int8 → ``(B, N)`` int8 codeword,
     equal to ``encode`` / ``encode_systematic``. ``block_level``: the
     kernel's row-block level, by default :data:`BLOCK_LEVEL`, cut to the
-    code's level. ``style`` picks the CUDA kernel (:data:`STYLES`); a CPU
-    message runs the plain version whatever the style."""
-    if style not in STYLES:
-        raise ValueError(f"encoder style {style!r} not in {STYLES}")
+    code's level. A CPU message runs the plain version."""
     blk = _block(code, block_level)
 
     def enc(message):
@@ -193,6 +152,6 @@ def make_encoder(code: PolarCode, *, systematic: bool = True,
             return encode_plain(code, message, systematic, blk)
         if dev.type != "cuda":
             raise ValueError(f"no encoder kernel for device {dev}")
-        return _encode_cuda(code, message, systematic, blk, style)
+        return _encode_cuda(code, message, systematic, blk)
 
     return enc

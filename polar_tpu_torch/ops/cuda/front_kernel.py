@@ -25,10 +25,7 @@ warp's 32 frames are one 32-bit word made by a warp ballot (bit set for
 each lane keeps its frame's Philox keys for the whole CTA, kernel A draws
 no Philox block for four frozen rows, and kernel B pairs row block R
 below N/2 with its partner above, so that each Box-Muller pair is drawn
-once for both of its rows. ``style="frame"`` runs the kernels these
-replaced (one thread a frame, the butterfly in device memory), kept so
-that the two can be timed in turns; they count in
-:data:`earlier_launches`. :func:`msg_rows_twin`, :func:`chan_rows_twin`
+once for both of its rows. :func:`msg_rows_twin`, :func:`chan_rows_twin`
 and the helpers above them are torch twins of the row-word kernels' data
 flow (row words, the XOR butterfly, kernel A's Philox blocks with the
 frozen skip, kernel B's pairing plan), for the CPU tests only.
@@ -63,16 +60,10 @@ MIDDLE_MODES = ("kernel", "torch")
 # frames as bits (csrc/front.cu takes at most 8); more stages take more
 # passes.
 MIDDLE_MAX_LOG = 8
-# Kernels A and B: "rows" (32 frames a row word, the default) or "frame"
-# (one thread a frame, the kernels it replaced).
-FRONT_STYLES = ("rows", "frame")
 # Row words a CTA of the row-word kernels holds in shared memory (128 KB):
 # kernel A's block, kernel B's two paired blocks.
 ROWS_MAX_WORDS = 1 << 15
 launches = {"front_blocks_a": 0, "front_blocks_b": 0, "front_middle": 0}
-# launches of the replaced kernels (style "frame"), apart from the
-# default's, so that a run can show it took the new kernels
-earlier_launches = {"front_blocks_a_frame": 0, "front_blocks_b_frame": 0}
 plain_calls = {"msg_blocks_plain": 0, "chan_blocks_plain": 0,
                "middle_plain": 0}
 _frozen_bits: dict = {}
@@ -83,19 +74,14 @@ def _check_blk(n: int, blk: int) -> None:
         raise ValueError(f"block of {blk} rows does not tile N={n}")
 
 
-def _check_style(style: str) -> None:
-    if style not in FRONT_STYLES:
-        raise ValueError(f"front style {style!r} not in {FRONT_STYLES}")
-
-
 def _rows_words(n: int, blk: int, chan: bool) -> int:
     """Row words a CTA of the row-word kernel holds; raises above
     :data:`ROWS_MAX_WORDS`."""
     s = 2 * min(blk, n // 2) if chan else blk
     if s > ROWS_MAX_WORDS:
         raise ValueError(f"a block of {blk} rows puts {s} row words on one "
-                         f"CTA, more than {ROWS_MAX_WORDS}: style 'frame' "
-                         "takes it")
+                         f"CTA, more than {ROWS_MAX_WORDS}: take a lower "
+                         "block level")
     return s
 
 
@@ -127,16 +113,12 @@ def msg_blocks_plain(frozen, blk: int, butterfly: bool, *, msg_t=None,
 
 
 def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
-               call: int = 0, batch: int = 0, device=None,
-               style: str = "rows"):
+               call: int = 0, batch: int = 0, device=None):
     """Kernel A: message symbols per ``blk``-row block, frozen rows +1,
     the block's bottom butterfly stages when ``butterfly``. Inject mode
     with ``msg_t`` (N, B) ±1 int8; native mode with ``seeds``, ``call``,
-    ``batch`` and ``device``. ``style`` picks the CUDA kernel
-    (:data:`FRONT_STYLES`); both give the same symbols, and a CPU tensor
-    runs the plain version whatever the style."""
+    ``batch`` and ``device``. A CPU tensor runs the plain version."""
     start = profiling.begin()
-    _check_style(style)
     dev = msg_t.device if msg_t is not None else torch.device(device)
     if dev.type == "cpu":
         return msg_blocks_plain(frozen, blk, butterfly, msg_t=msg_t,
@@ -147,8 +129,7 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     frozen = np.asarray(frozen, dtype=np.uint8)
     n = frozen.size
     _check_blk(n, blk)
-    if style == "rows":
-        _rows_words(n, blk, chan=False)
+    _rows_words(n, blk, chan=False)
     s0 = s1 = 0
     if msg_t is not None:
         batch = msg_t.shape[1] if msg_t.ndim == 2 else -1
@@ -162,11 +143,6 @@ def msg_blocks(frozen, blk: int, butterfly: bool, *, msg_t=None, seeds=None,
     args = (device_mask(frozen, dev).data_ptr(), n, batch, blk,
             int(butterfly), msg_t.data_ptr() if msg_t is not None else None,
             s0, s1, call & 0xFFFFFFFF, out.data_ptr())
-    if style == "frame":
-        err = build.load_library().polar_front_msg(*args, THREADS, stream)
-        build.check(err, "polar_front_msg")
-        profiling.launched(start, earlier_launches, "front_blocks_a_frame")
-        return out
     words = _word_io(batch, out, *(() if msg_t is None else (msg_t,)))
     err = build.load_library().polar_front_msg_rows(*args, words, stream)
     build.check(err, "polar_front_msg_rows")
@@ -189,14 +165,13 @@ def chan_blocks_plain(y, blk: int, params, *, normals_t=None, seeds=None,
 
 
 def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
-                call: int = 0, style: str = "rows"):
+                call: int = 0):
     """Kernel B: the bottom butterfly stages of each ``blk``-row block of
     ``y`` (N, B) int8 ±1, AWGN and quantization with ``params`` = (σ,
     2/σ²). Inject mode with ``normals_t`` (N, B) float32; native mode with
-    ``seeds`` and ``call``. ``style`` as :func:`msg_blocks`'s. Returns
+    ``seeds`` and ``call``. A CPU tensor runs the plain version. Returns
     ``(llr_t, cw_t)``."""
     start = profiling.begin()
-    _check_style(style)
     dev = y.device
     if dev.type == "cpu":
         return chan_blocks_plain(y, blk, params, normals_t=normals_t,
@@ -205,8 +180,7 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
         raise ValueError(f"no front kernel for device {dev}")
     n, batch = y.shape
     _check_blk(n, blk)
-    if style == "rows":
-        _rows_words(n, blk, chan=True)
+    _rows_words(n, blk, chan=True)
     _check(y, "y", (n, batch), torch.int8, dev)
     s0 = s1 = 0
     if normals_t is not None:
@@ -222,11 +196,6 @@ def chan_blocks(y, blk: int, params, *, normals_t=None, seeds=None,
     args = (n, batch, blk, sigma, scale, y.data_ptr(),
             normals_t.data_ptr() if normals_t is not None else None, s0, s1,
             call & 0xFFFFFFFF, llr.data_ptr(), cw.data_ptr())
-    if style == "frame":
-        err = build.load_library().polar_front_chan(*args, THREADS, stream)
-        build.check(err, "polar_front_chan")
-        profiling.launched(start, earlier_launches, "front_blocks_b_frame")
-        return llr, cw
     err = build.load_library().polar_front_chan_rows(
         *args, _word_io(batch, y, cw), stream)
     build.check(err, "polar_front_chan_rows")
@@ -335,7 +304,7 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
                  normals_t=None, seeds=None, call: int = 0, batch: int = 0,
                  device=None, block_level: int | None = None,
                  chan_block_level: int | None = None,
-                 middle_mode: str = "kernel", front_style: str = "rows"):
+                 middle_mode: str = "kernel"):
     """The large-N front: message, encode, AWGN, quantize.
 
     Returns ``(llr_t, cw_t)`` when ``systematic``, else ``(llr_t, cw_t,
@@ -344,8 +313,7 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
     ``normals_t``, native mode with ``seeds``, ``call``, ``batch`` and
     ``device``. ``middle_mode``: ``"kernel"`` (:func:`middle_kernel`) or
     ``"torch"`` (:func:`middle_plain`, the JAX package's ``"xla"``); the
-    same result in either mode. ``front_style`` goes to kernels A and B
-    (:data:`FRONT_STYLES`)."""
+    same result in either mode."""
     if middle_mode not in MIDDLE_MODES:
         raise ValueError(f"unknown middle_mode {middle_mode!r}")
     frozen = np.asarray(frozen, dtype=np.uint8)
@@ -355,7 +323,7 @@ def front_blocks(frozen, params, systematic: bool, *, msg_t=None,
                      level)
     blk_b = 1 << min(CHAN_BLOCK_LEVEL if chan_block_level is None
                      else chan_block_level, level)
-    kw = dict(seeds=seeds, call=call, style=front_style)
+    kw = dict(seeds=seeds, call=call)
     x = msg_blocks(frozen, blk_a, systematic, msg_t=msg_t, batch=batch,
                    device=device, **kw)
     mid = middle_kernel if middle_mode == "kernel" else middle_plain

@@ -32,15 +32,13 @@ p owns rows ``[p, p + 2^l)``. Rate-0 nodes emit no step, so hard, cw and
 u start at +1 where the JAX kernel prefills them (``:548-553``,
 ``:676-681``).
 
-Two kernel styles. ``"tile"`` (the default, ``interp_tile_kernel``) runs
-the program as :func:`schedule` cuts it at the grid level
+One kernel, ``interp_tile_kernel``, runs the program as :func:`schedule` cuts it at the grid level
 :data:`INTERP_GRID_LEVEL`: grid entries (the words at or above it, over
 rows × 16-frame chunks of the whole batch, a grid barrier between
 dependent entries) and tile runs (each subtree below it, one warp's tile
 of :data:`TILE_FRAMES` frames at a time, on the tile core of
 ``csrc/fastssc_simd.cuh``); its message is written compacted, so u needs
-no gather. ``"bytes"`` runs the one-frame-a-thread kernels it replaced,
-counted in :data:`earlier_launches`.
+no gather.
 
 Every wrapper takes any batch, launches the kernel for CUDA tensors and
 runs :func:`interp_plain` only for CPU tensors; :data:`launches` and
@@ -65,7 +63,6 @@ from ...ops.arith import Int8Arith
 from ...ops.transform import polar_transform
 from ...utils import profiling
 from . import build, count_kernel
-from .decoder_kernel import THREADS
 from .step_kernel import COUNTERS, cw_counts
 
 LEAF_KINDS = ("rate0", "rate1", "rep", "spc")
@@ -505,13 +502,8 @@ def schedule(words, desc, table, level: int, kl: int, mask, *,
 
 # -- the kernels --------------------------------------------------------------
 
-STYLES = ("tile", "bytes")
 launches = {"interp_decoder": 0, "interp_decode_count": 0,
             "interp_subtree": 0}
-# launches of the one-frame-a-thread kernels that style "tile" replaced
-# (style "bytes"), apart from the tile kernel's
-earlier_launches = {"interp_bytes_decoder": 0, "interp_bytes_decode_count": 0,
-                    "interp_bytes_subtree": 0}
 plain_calls = {"interp_plain": 0}
 _occupancy: dict = {}
 
@@ -519,7 +511,7 @@ _occupancy: dict = {}
 @dataclass
 class _Compiled:
     """A program ready to run: words, descriptors, table, its level and
-    ``kl``, the mask its message is gathered by, and its schedule."""
+    ``kl``, the frozen mask of its code or node, and its schedule."""
 
     words: np.ndarray
     desc: np.ndarray
@@ -537,12 +529,12 @@ class _Compiled:
     _dev: dict = field(default_factory=dict)
 
     def device_args(self, dev):
-        """Device copies of words, descriptors, table and mask (the bytes
-        kernel's), the schedule and the message rows, once per device."""
+        """Device copies of words, descriptors, table, the schedule and the
+        message rows, once per device."""
         key = str(dev)
         if key not in self._dev:
             self._dev[key] = tuple(torch.tensor(a, device=dev) for a in (
-                self.words, self.desc.reshape(-1), self.table, self.mask,
+                self.words, self.desc.reshape(-1), self.table,
                 self.sched.entries.reshape(-1), self.sched.mrows))
         return self._dev[key]
 
@@ -648,8 +640,8 @@ def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str):
     pyr = (torch.empty((n + 1, b), dtype=torch.int8, device=dev)
            if coop else None)
     plan = _plan(c, dev, b)
-    words, desc, table, _, sched, mrows = (a.data_ptr()
-                                           for a in c.device_args(dev))
+    words, desc, table, sched, mrows = (a.data_ptr()
+                                        for a in c.device_args(dev))
     arrays = [t for t in (llr_t, pyr, hard, cw, u) if t is not None]
     aligned = b % CHUNK_FRAMES == 0 and all(t.data_ptr() % 16 == 0
                                             for t in arrays)
@@ -665,39 +657,9 @@ def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str):
     return hard, cw, u
 
 
-def _run_bytes(c: _Compiled, llr_t, *, entry: str, what: str):
-    """Launch the bytes kernel through C entry ``entry``: returns ``(hard,
-    cw, u)``, u gathered into its first K rows by ``c.mask``."""
-    start = profiling.begin()
-    dev = llr_t.device
-    n, b = 1 << c.level, llr_t.shape[1]
-    hard, cw, u = (torch.empty((n, b), dtype=torch.int8, device=dev)
-                   if on else None for on in (True, c.want_cw, c.want_u))
-    if b == 0:
-        return hard, cw, u
-    stream = build.stream(dev)
-    pyr = torch.empty((n, b), dtype=torch.int8, device=dev)
-    words, desc, table, mask = c.device_args(dev)[:4]
-    err = getattr(build.load_library(), entry)(
-        words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
-        mask.data_ptr(), c.level, c.kl, b, int(c.prefill), llr_t.data_ptr(),
-        pyr.data_ptr(), hard.data_ptr(),
-        cw.data_ptr() if c.want_cw else None,
-        u.data_ptr() if c.want_u else None, THREADS, stream)
-    build.check(err, entry)
-    profiling.launched(start, earlier_launches, what)
-    return hard, cw, u
-
-
-def _style(style: str) -> str:
-    if style not in STYLES:
-        raise ValueError(f"unknown interp kernel style {style!r}")
-    return style
-
-
 def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
                         subtree_level: int = 10, output: str = "u",
-                        output_dtype=torch.int8, style: str = "tile"):
+                        output_dtype=torch.int8):
     """The interpreter whole-code decoder, with the eager decoder's
     contract: ``decode(llrs (B, N))`` → u ``(B, K)`` / systematic
     ``(B, K)`` / codeword ``(B, N)`` / both, and ``decode.lane_major(llr_t
@@ -706,19 +668,16 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
     and ``decode.program_branches`` give the program's size,
     ``decode.schedule`` its tile-kernel schedule and ``decode.plan(batch)``
     its launch. ``subtree_level``: nodes at or below it are bodies;
-    ``output_dtype`` casts the outputs; ``style``: ``"tile"`` (grid steps
-    and tile runs, ``csrc/interp.cu`` ``interp_tile_kernel``) or
-    ``"bytes"`` (the one-frame-a-thread kernel it replaced). Any batch."""
+    ``output_dtype`` casts the outputs. Any batch."""
     if tree is None:
         tree = compile_code(code)
     if output not in ("u", "systematic", "codeword", "both"):
         raise ValueError(f"unknown output mode {output!r}")
-    style = _style(style)
     want_cw = output != "u"
     want_u = output in ("u", "both")
     c = _compile(tree, code.frozen, subtree_level, want_cw, want_u,
                  prefill_all=want_u)
-    n, k = code.N, code.K
+    n = code.N
 
     def by_mode(u, cw):
         if output == "u":
@@ -743,10 +702,6 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
             return plain(llr_t)
         if llr_t.device.type != "cuda":
             raise ValueError(f"no interp decoder for device {llr_t.device}")
-        if style == "bytes":
-            _, cw, u = _run_bytes(c, llr_t, entry="polar_interp_decode",
-                                  what="interp_bytes_decoder")
-            return by_mode(u[:k] if want_u else None, cw)
         _, cw, u = _run_tile(c, llr_t, hard_out=False, what="interp_decoder")
         return by_mode(u, cw)
 
@@ -762,18 +717,16 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
 
 
 def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
-                             subtree_level: int = 10, style: str = "tile"):
+                             subtree_level: int = 10):
     """``count(llr_t, cw_t)`` → the five counters (``(5,)`` int64, in
     ``step_kernel.COUNTERS`` order) of the interpreter decode on the
     codeword-estimate track against ``cw_t`` at the info rows, with the
     AWGN and quantization counters of ``llr_t``; both ``(N, B)`` int8.
-    ``count.plain`` is its plain version on any device. Style ``"tile"``:
-    the tile kernel's cw track, then the counter kernel
-    (``count_kernel.count``, ``csrc/count.cu``) on the same stream;
-    ``"bytes"``: the one-frame-a-thread kernel with its own counters."""
+    ``count.plain`` is its plain version on any device. On a card: the
+    tile kernel's cw track, then the counter kernel
+    (``count_kernel.count``, ``csrc/count.cu``) on the same stream."""
     if tree is None:
         tree = compile_code(code)
-    style = _style(style)
     c = _compile(tree, code.frozen, subtree_level, True, False)
     n = code.N
 
@@ -786,7 +739,6 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
         return cw_counts(frz, llr_t, cw_t, cw_hat)
 
     def count(llr_t, cw_t):
-        start = profiling.begin()
         _check_llr(llr_t, n, "llr_t")
         _check_llr(cw_t, n, "cw_t")
         if cw_t.shape != llr_t.shape or cw_t.device != llr_t.device:
@@ -798,25 +750,9 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
             raise ValueError(f"no interp decode+count for device {dev}")
         if b == 0:
             return torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
-        if style == "tile":
-            _, cw_hat, _ = _run_tile(c, llr_t, hard_out=False,
-                                     what="interp_decode_count")
-            return count_kernel.count(code.frozen, llr_t, cw_t, cw_hat)
-        stream = build.stream(dev)
-        out = torch.empty((-(-b // THREADS), len(COUNTERS)), dtype=torch.int32,
-                          device=dev)
-        pyr, hard, cw = (torch.empty((n, b), dtype=torch.int8, device=dev)
-                         for _ in range(3))
-        words, desc, table, mask = c.device_args(dev)[:4]
-        err = build.load_library().polar_interp_decode_count(
-            words.data_ptr(), c.steps, desc.data_ptr(), table.data_ptr(),
-            mask.data_ptr(), c.level, c.kl, b, int(c.prefill),
-            llr_t.data_ptr(), cw_t.data_ptr(), pyr.data_ptr(),
-            hard.data_ptr(), cw.data_ptr(), out.data_ptr(), THREADS, stream)
-        build.check(err, "polar_interp_decode_count")
-        profiling.launched(start, earlier_launches,
-                           "interp_bytes_decode_count")
-        return out.sum(dim=0, dtype=torch.int64)
+        _, cw_hat, _ = _run_tile(c, llr_t, hard_out=False,
+                                 what="interp_decode_count")
+        return count_kernel.count(code.frozen, llr_t, cw_t, cw_hat)
 
     count.plain = plain
     count.schedule = c.info()
@@ -827,24 +763,22 @@ def make_interp_decode_count(code: PolarCode, tree: Node | None = None, *,
 
 def make_interp_subtree(node: Node, *, emit_u: bool = True,
                         emit_cw: bool = False, subtree_level: int = 10,
-                        fuse: str | None = None, style: str = "tile"):
+                        fuse: str | None = None):
     """The interpreter decoder of one hybrid node, with the contract of
     :func:`.subtree_kernel.make_subtree_decoder`: ``run(slot (2^l, B))`` →
     ``(u (k, B))?``, ``hard (2^l, B)``, ``(cw (2^l, B))?``, u at the node's
     :func:`info_positions`; ``run.plain`` is its plain version on any
     device. The root's hard is always kept (``root_need_hard``). No
-    boundary fusion. ``style`` as :func:`make_interp_decoder`'s. Any
-    batch."""
+    boundary fusion. Any batch."""
     if fuse is not None:
         raise ValueError("the interp kernel style has no boundary fusion")
     if node.mesg_bits < 1:
         raise ValueError("only nodes that emit message bits take a kernel")
     if not emit_u and not emit_cw:
         raise ValueError("emit_u=False needs emit_cw")
-    style = _style(style)
     c = _compile(node, node_frozen(node), subtree_level, emit_cw, emit_u,
                  root_need_hard=True)
-    n, k = 1 << node.level, node.mesg_bits
+    n = 1 << node.level
     info = info_positions(node)
 
     def outs(hard, cw, u):
@@ -864,10 +798,6 @@ def make_interp_subtree(node: Node, *, emit_u: bool = True,
         if slot.device.type != "cuda":
             raise ValueError(f"no interp subtree decoder for device "
                              f"{slot.device}")
-        if style == "bytes":
-            hard, cw, u = _run_bytes(c, slot, entry="polar_interp_subtree",
-                                     what="interp_bytes_subtree")
-            return outs(hard, cw, u[:k] if emit_u else None)
         return outs(*_run_tile(c, slot, hard_out=True, what="interp_subtree"))
 
     run.plain = plain

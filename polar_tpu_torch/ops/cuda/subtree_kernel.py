@@ -34,14 +34,11 @@ Styles:
   (no copy on chip), on the tile core at the shape and block that
   ``decoder_kernel.scratch_shape`` picks for the node's level and the
   call's batch (level at most ``decoder_kernel.SCRATCH_MAX_LEVEL``; above
-  it, as the other refusals, ``ValueError`` when the decoder is made);
-* ``"scratch-bytes"`` — the one-frame-a-thread byte kernel that
-  ``"scratch"`` replaced, by name for the A/B, with its contract.
+  it, as the other refusals, ``ValueError`` when the decoder is made).
 
 The function launches the kernel for CUDA tensors and runs
 :func:`decode_plain` (the eager recursion over the node) only for CPU
-tensors; :data:`launches` counts the launches per kernel, and
-:data:`earlier_launches` the byte kernel's.
+tensors; :data:`launches` counts the launches per kernel.
 """
 
 from __future__ import annotations
@@ -67,8 +64,6 @@ FUSE_CODES = {None: 0, "f": 1, "g": 2}
 TILE_SUBTREE_MAX_LEVEL = tile_max_level(root=True)
 # "subtree_decoder": the tile kernel, "walk_subtree": the walk
 launches = {"subtree_decoder": 0, "walk_subtree": 0, "scratch_subtree": 0}
-# launches of the byte kernel that "scratch" replaced (style "scratch-bytes")
-earlier_launches = {"scratch_bytes_subtree": 0}
 plain_calls = {"subtree_plain": 0}
 
 
@@ -115,10 +110,10 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
     if style not in STYLES:
         raise ValueError(f"unknown kernel style {style!r}")
     n, k = 1 << node.level, node.mesg_bits
-    if style.startswith("scratch"):
+    if style == "scratch":
         if emit_cw or fuse:
             raise ValueError("emit_cw and fuse require the SSA kernel style")
-        frames = scratch_frames(n)
+        scratch_frames(n)
     if fuse == "g":
         in_rows = (2 * n, n) + ((n,) if emit_cw else ())
     else:
@@ -163,14 +158,6 @@ def make_subtree_decoder(node: Node, *, emit_u: bool = True,
                 int(scratch_aligned(b, vw, (blocks[0], mesg, hard))), stream)
             build.check(err, "polar_scratch_subtree")
             profiling.launched(start, launches, "scratch_subtree")
-            return outs
-        if style == "scratch-bytes":
-            err = lib.polar_scratch_bytes_subtree(
-                prog_d.data_ptr(), n, b, blocks[0].data_ptr(), mesg.data_ptr(),
-                hard.data_ptr(), frames, stream)
-            build.check(err, "polar_scratch_bytes_subtree")
-            profiling.launched(start, earlier_launches,
-                               "scratch_bytes_subtree")
             return outs
         ptr = [t.data_ptr() for t in blocks] + [None] * (3 - len(blocks))
         if style == "ssa" and ssa_kernel(node.level) == "tile":

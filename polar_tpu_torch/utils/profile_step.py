@@ -99,8 +99,9 @@ def profile_steps(multi, gen, batch: int, steps: int) -> list[str]:
 
 
 def _launch_counters() -> list:
-    """The launch counters of every kernel wrapper (``launches`` and, where
-    a wrapper keeps a replaced kernel by name, ``earlier_launches``)."""
+    """The launch counters of every kernel wrapper (``launches`` and, for
+    ``step_kernel``, ``earlier_launches``: the walk and the thread front,
+    run above the tile kernels' levels)."""
     from ..ops.cuda import (channel_kernel, count_kernel, decoder_kernel,
                             encode_kernel, front_kernel, interp_kernel,
                             ring_kernel, step_kernel, subtree_kernel)

@@ -8,13 +8,12 @@ the elements a thread takes is its instructions per element; times the
 elements over the card's instruction rate it gives the instruction-rate
 floor of a launch. Needs the CUDA toolkit (``cuobjdump`` beside ``nvcc``):
 
-    python -m polar_tpu_torch.utils.sass_count awgn encode_bits encode_kernel
+    python -m polar_tpu_torch.utils.sass_count awgn encode_bits
     python -m polar_tpu_torch.utils.sass_count front_msg front_chan
 
 prints one JSON line per function (the block front's kernels A and B:
 ``front_msg_rows_kernel`` / ``front_chan_rows_kernel``, one instance each
-for blocks of at least four rows and for smaller ones, beside the frame
-kernels they replaced).
+for blocks of at least four rows and for smaller ones).
 """
 
 from __future__ import annotations

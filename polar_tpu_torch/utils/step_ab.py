@@ -12,8 +12,6 @@ that applies:
 * ``fused walk`` — the fused step's walk by name, where ``fused`` is the
   tile step (the design the tile step replaced);
 * ``whole+count`` — the whole-block front, then decode+count (systematic);
-* ``block+count`` — the block front with the kernel middle, then
-  decode+count (systematic);
 * ``block+whole`` — the block front, the whole-code kernel decoder's
   lane-major entry, the counter kernel (systematic) or torch u counters
   (plain), m <= 14;
@@ -37,9 +35,8 @@ that applies:
 Arms run in order, then in reverse order (a drift shows as two readings
 apart). Then, at B = 4096, the fronts alone by CUDA events: the
 whole-block front, the block front with the kernel middle and with the
-torch middle, the block front with the frame kernels A and B that the
-row-word kernels replaced (``front_style="frame"``) and with the row-word
-kernels at block levels 8 and 12 as well as the default
+torch middle, the block front at block levels 8 and 12 as well as the
+default
 (``front_kernel.BLOCK_LEVEL``), and each middle by itself
 (``--fronts-only`` for these alone). Before the steps, the decoders alone, the
 choice of :data:`~polar_tpu_torch.decode.auto.HYBRID_MIN_LEVEL` and of a
@@ -49,12 +46,10 @@ the whole-code kernel (m <= 14: the tile kernel up to
 ``decoder_kernel.WHOLE_MAX_LEVEL``, the walk above), the walk by name (m <=
 ``WHOLE_MAX_LEVEL``), the hybrid at
 :func:`~polar_tpu_torch.decode.auto.hybrid_kernel_level`, the scratch
-whole-code kernel and the byte kernel it replaced (``scratch-bytes``; u,
-m <= 11), the interpreter's tile kernel at subtree levels 9 and 10 (m =
-9..17) and the
-hybrid at kernel level 9 in the walk, scratch, scratch-bytes and
-interpreter styles (m = 13..17; the SSA style's subtree kernel is the tile
-kernel, the walk the one it replaced). ``--scratch-shapes`` times the
+whole-code kernel (u, m <= 11), the interpreter's tile kernel at subtree
+levels 9 and 10 (m = 9..17) and the hybrid at kernel level 9 in the walk,
+scratch and interpreter styles (m = 13..17; the SSA style's subtree kernel
+is the tile kernel, the walk the one it replaced). ``--scratch-shapes`` times the
 scratch tile kernel alone at every shape and block size
 (:func:`scratch_shape_rows`), the source of
 ``decoder_kernel.SCRATCH_TABLE``. ``--arms`` times only the step arms it
@@ -127,11 +122,11 @@ def arms(code, systematic: bool, device) -> dict:
     if level <= WHOLE_DECODER_MAX_LEVEL:
         branches.insert(0, "block-whole")
     if systematic:
-        branches[:0] = ["whole", "block-count"]
+        branches.insert(0, "whole")
         branches.append("block-interp")
     for branch in branches:
-        name = {"whole": "whole+count", "block-count": "block+count"}.get(
-            branch, branch.replace("-", "+"))
+        name = ("whole+count" if branch == "whole"
+                else branch.replace("-", "+"))
         out[name] = ber.make_front_step(code, systematic=systematic,
                                         branch=branch, middle_mode="kernel",
                                         device=device)
@@ -192,9 +187,6 @@ def front_times(code, device, ms) -> dict:
         out[f"block front, {mode} middle"] = ms(
             lambda: front_kernel.front_blocks(frozen, params, True,
                                               middle_mode=mode, **kw))
-    out["block front, frame kernels"] = ms(
-        lambda: front_kernel.front_blocks(frozen, params, True,
-                                          front_style="frame", **kw))
     for level in (8, 12):
         if level < code.level:
             out[f"block front, blocks 2^{level}"] = ms(
@@ -300,13 +292,12 @@ def decoders(code, output: str) -> dict:
     if level <= decoder_kernel.WHOLE_MAX_LEVEL:   # whole-code is the tile kernel
         out["walk"] = make_kernel_decoder(code, output=output, style="walk")
     if output == "u" and level <= decoder_kernel.SCRATCH_MAX_LEVEL:
-        for style in ("scratch", "scratch-bytes"):
-            out[style] = make_kernel_decoder(code, style=style)
+        out["scratch"] = make_kernel_decoder(code, style="scratch")
     if INTERP_LEVELS[0] <= level <= INTERP_LEVELS[1]:
         for sl in INTERP_SUBTREE_LEVELS:
             out[f"interp sl{sl}"] = make_interp_decoder(
                 code, subtree_level=sl, output=output)
-    styles = (("ssa", "walk", "scratch", "scratch-bytes", "interp")
+    styles = (("ssa", "walk", "scratch", "interp")
               if level >= STYLE_HYBRID_MIN_LEVEL else ("ssa",))
     for style in styles:
         name = f"hybrid kl{kl}" + ("" if style == "ssa" else f" {style}")
@@ -334,8 +325,7 @@ def scratch_arms(level: int) -> list:
 
 def scratch_shape_rows(levels, device, reps: int = 20) -> list[dict]:
     """Device ms of one scratch decode (u) by every arm of
-    :func:`scratch_arms`, the byte kernel (``scratch-bytes``) and the SSA
-    style's kernel: the whole code Polar(2^m, 2^(m-1)) at
+    :func:`scratch_arms` and the SSA style's kernel: the whole code Polar(2^m, 2^(m-1)) at
     :data:`SHAPE_BATCHES` for m in ``levels`` (m <= 11), then the largest
     level-9 node of Polar(131072, 65536)'s hybrid at
     :data:`SHAPE_NODE_BATCHES`. Each arm is timed in order and in reverse
@@ -359,7 +349,7 @@ def scratch_shape_rows(levels, device, reps: int = 20) -> list[dict]:
             def arm(style, shape=None, code=code, program=program):
                 return lambda x: dk.decode(program, code.frozen, x, False,
                                            style, shape)
-            arms = {"bytes": arm("scratch-bytes"), "ssa": arm("ssa")}
+            arms = {"ssa": arm("ssa")}
             arms.update({f"{wr}x{vw} w{warps}": arm("scratch",
                                                     (wr, vw, warps))
                          for wr, vw, warps in scratch_arms(level)})
@@ -376,8 +366,7 @@ def scratch_shape_rows(levels, device, reps: int = 20) -> list[dict]:
         stack.extend(c for c in (nd.left, nd.right) if c is not None)
     for batch in SHAPE_NODE_BATCHES:
         sub = subtree_kernel.make_subtree_decoder
-        arms = {"bytes": sub(node, style="scratch-bytes"),
-                "ssa": sub(node, style="ssa")}
+        arms = {"ssa": sub(node, style="ssa")}
         arms.update({f"{wr}x{vw} w{warps}": sub(node, style="scratch",
                                                 shape=(wr, vw, warps))
                      for wr, vw, warps in scratch_arms(node.level)})

@@ -186,38 +186,39 @@ def test_one_polynomial_cosine_equals_sincos_bit_for_bit(chunk):
 
 
 def test_awgn_styles_on_the_cpu():
-    """A CPU tensor runs the plain version in either style; an unknown
-    style is refused."""
+    """A CPU tensor runs the plain version, counted as a plain run; the
+    wrapper has one kernel and takes no style."""
     cw = (1 - 2 * (torch.arange(6 * 32).reshape(6, 32) % 5 == 0)).to(torch.int8)
     params = snr_params(0.0)
-    want = channel_kernel.awgn(cw, params, seeds=(1, 2), call=3)
-    assert torch.equal(want, channel_kernel.awgn(cw, params, seeds=(1, 2),
-                                                 call=3, style="grid"))
-    with pytest.raises(ValueError, match="style"):
-        channel_kernel.awgn(cw, params, seeds=(1, 2), style="rows")
-    assert channel_kernel.earlier_launches == {"channel_symbols_quads": 0,
-                                               "channel_awgn_grid": 0}
+    before = channel_kernel.plain_calls["awgn_plain"]
+    got = channel_kernel.awgn(cw, params, seeds=(1, 2), call=3)
+    assert torch.equal(got, channel_kernel.awgn_plain(cw, params, seeds=(1, 2),
+                                                      call=3))
+    assert channel_kernel.plain_calls["awgn_plain"] == before + 2
+    with pytest.raises(TypeError, match="style"):
+        channel_kernel.awgn(cw, params, seeds=(1, 2), style=None)
+    assert [c for c in vars(channel_kernel) if c.endswith("launches")] == [
+        "launches"]
 
 
 def test_symbols_styles_on_the_cpu():
-    """A CPU tensor runs the plain version in either symbols style; an
-    unknown style is refused."""
+    """A CPU tensor runs the plain version and launches nothing; the
+    wrapper has one kernel and takes no style."""
     kw = dict(seeds=(1, 2), call=3, device="cpu")
-    want = channel_kernel.symbols((7, 40), **kw)
-    assert torch.equal(want, channel_kernel.symbols((7, 40), **kw,
-                                                    style="quads"))
-    with pytest.raises(ValueError, match="style"):
-        channel_kernel.symbols((7, 40), **kw, style="grid")
-    assert channel_kernel.launches == {"channel_symbols": 0, "channel_awgn": 0}
+    launched = dict(channel_kernel.launches)
+    want = channel_kernel.symbols_plain((7, 40), **kw)
+    assert torch.equal(want, channel_kernel.symbols((7, 40), **kw))
+    with pytest.raises(TypeError, match="style"):
+        channel_kernel.symbols((7, 40), **kw, style=None)
+    assert channel_kernel.launches == launched
 
 
 class _Asked(Exception):
     pass
 
 
-@pytest.mark.parametrize("style", channel_kernel.SYMBOL_STYLES)
-def test_symbols_styles_ask_for_their_tensors_device(monkeypatch, style):
-    """On fake ``cuda:1`` words either symbols style asks ``build.stream``
+def test_symbols_styles_ask_for_their_tensors_device(monkeypatch):
+    """On fake ``cuda:1`` words the symbols wrapper asks ``build.stream``
     for that device before it loads the library."""
     asked = []
 
@@ -232,5 +233,5 @@ def test_symbols_styles_ask_for_their_tensors_device(monkeypatch, style):
         words = torch.empty((8, 32), dtype=torch.int64,
                             device=torch.device("cuda", 1))
         with pytest.raises(_Asked):
-            channel_kernel.symbols(words=words, style=style)
+            channel_kernel.symbols(words=words)
     assert [(d.type, d.index) for d in asked] == [("cuda", 1)]

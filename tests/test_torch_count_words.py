@@ -4,7 +4,7 @@ twin in ``ops/cuda/count_kernel.py`` (frame groups of 512, byte words and
 their marks, row chunks, per-chunk 32-bit frame-error words, the ragged
 lanes' vote and the fold with its int64 sums) against the plain version
 and the JAX package's ``make_pallas_count`` in interpret mode, bit for
-bit; the grid plan; the wrapper's styles on the CPU.
+bit; the grid plan; the wrapper on the CPU.
 
 Inputs are made with numpy from a seed. The card tests of the kernel
 itself are in ``tests/test_torch_cuda.py``.
@@ -151,27 +151,28 @@ def test_count_plan_covers_the_rows(n, batch, sms):
 
 
 def test_count_styles_on_the_cpu():
-    """A CPU tensor runs the plain version in either style; an unknown
-    style is refused; no kernel launch is counted."""
+    """A CPU tensor runs the plain version; the wrapper has one kernel and
+    takes no style; no kernel launch is counted."""
     c = pt.make_code(7, rate=0.5)
     t = [torch.from_numpy(x) for x in _inputs(c.N, 40, 3)]
     before = dict(count_kernel.plain_calls)
-    want = count_kernel.count(c.frozen, *t)
-    assert torch.equal(want, count_kernel.count(c.frozen, *t, style="bytes"))
+    launched = dict(count_kernel.launches)
+    got = count_kernel.count(c.frozen, *t)
+    assert torch.equal(got, count_kernel.count_plain(c.frozen, *t))
     assert count_kernel.plain_calls["count_plain"] == before["count_plain"] + 2
-    with pytest.raises(ValueError, match="style"):
-        count_kernel.count(c.frozen, *t, style="words")
-    assert count_kernel.launches == {"count": 0, "count_frames": 0}
-    assert count_kernel.earlier_launches == {"count_bytes": 0}
+    with pytest.raises(TypeError, match="style"):
+        count_kernel.count(c.frozen, *t, style=None)
+    assert count_kernel.launches == launched
+    assert [c for c in vars(count_kernel) if c.endswith("launches")] == [
+        "launches"]
 
 
 class _Asked(Exception):
     pass
 
 
-@pytest.mark.parametrize("style", count_kernel.STYLES)
-def test_both_styles_ask_for_their_tensors_device(monkeypatch, style):
-    """On fake ``cuda:1`` tensors either style asks ``build.stream`` for
+def test_both_styles_ask_for_their_tensors_device(monkeypatch):
+    """On fake ``cuda:1`` tensors the counter asks ``build.stream`` for
     that device before it loads the library."""
     asked = []
 
@@ -188,5 +189,5 @@ def test_both_styles_ask_for_their_tensors_device(monkeypatch, style):
         t = [torch.empty((c.N, 8), dtype=torch.int8, device=dev)
              for _ in range(3)]
         with pytest.raises(_Asked):
-            count_kernel.count(c.frozen, *t, style=style)
+            count_kernel.count(c.frozen, *t)
     assert [(d.type, d.index) for d in asked] == [("cuda", 1)]

@@ -577,7 +577,7 @@ def test_front_chains_count_what_the_fused_step_counts(dev, m, systematic):
     kw = dict(seeds=(m, 5), call=0, batch=2000, device=dev)
     want = step_kernel.step(pt.compile_program(c), c.frozen, snr_params(0.0),
                             systematic, **kw)
-    branches = (("whole", "block-count", "block-whole", "block-hybrid")
+    branches = (("whole", "block-whole", "block-hybrid", "block-interp")
                 if systematic else ("block-whole", "block-hybrid"))
     for branch in branches:
         for mode in ("kernel", "torch"):
@@ -643,8 +643,8 @@ def test_scratch_refuses_what_its_shared_memory_cannot_hold(dev):
         subtree_kernel.make_subtree_decoder(pt.compile_code(big),
                                             style="scratch")
     # a launch above the block's shared memory is refused and reported, by
-    # the byte kernel (256 frames) and the tile kernel ((32, 1) at n = 2048);
-    # so is a tile shape that was not built
+    # the tile kernel ((32, 1) at n = 2048); so is a tile shape that was not
+    # built
     c = pt.make_code(decoder_kernel.SCRATCH_MAX_LEVEL, rate=0.5)
     prog, _ = decoder_kernel.device_tables(pt.compile_program(c), c.frozen, dev)
     llr = _llrs(dev, c.N, 256, 2)
@@ -652,8 +652,6 @@ def test_scratch_refuses_what_its_shared_memory_cannot_hold(dev):
     lib, stream = build.load_library(), torch.cuda.current_stream(dev).cuda_stream
     args = (prog.data_ptr(), c.N, 256, llr.data_ptr(), mesg.data_ptr())
     for name, err in (
-            ("polar_scratch_bytes_decode",
-             lib.polar_scratch_bytes_decode(*args, 256, stream)),
             ("polar_scratch_decode",
              lib.polar_scratch_decode(*args, 32, 1, 1, 1, stream)),
             ("polar_scratch_decode",
@@ -720,10 +718,10 @@ def _scratch_want(dev, level, batch):
 
 @pytest.mark.parametrize("shape", decoder_kernel.SCRATCH_SHAPES)
 @pytest.mark.parametrize("batch", [1, 3, 31, 4096, 4099])
-def test_scratch_tile_shapes_match_plain_and_bytes(dev, shape, batch):
+def test_scratch_tile_shapes_match_plain(dev, shape, batch):
     """Each tile shape, at 1 and 2 warps a block where a block holds them,
     at every level where one fits (whole code, u): equal to the plain
-    version and to the byte kernel on full-range and tie-heavy LLRs."""
+    version on full-range and tie-heavy LLRs."""
     wr, vw = shape
     levels = 0
     for level in range(1, decoder_kernel.SCRATCH_MAX_LEVEL + 1):
@@ -731,9 +729,6 @@ def test_scratch_tile_shapes_match_plain_and_bytes(dev, shape, batch):
                 decoder_kernel.SCRATCH_SMEM_BYTES:
             continue
         c, program, llr, want = _scratch_want(dev, level, batch)
-        old, _ = decoder_kernel.decode(program, c.frozen, llr, False,
-                                       "scratch-bytes")
-        assert torch.equal(old, want), level
         for warps in (1, 2):
             if decoder_kernel.scratch_smem(c.N, wr, warps) > \
                     decoder_kernel.SCRATCH_SMEM_BYTES:
@@ -747,10 +742,10 @@ def test_scratch_tile_shapes_match_plain_and_bytes(dev, shape, batch):
 
 @pytest.mark.parametrize("shape", decoder_kernel.SCRATCH_SHAPES)
 @pytest.mark.parametrize("batch", [1, 3, 31, 4096, 4099])
-def test_scratch_tile_subtree_shapes_match_plain_and_bytes(dev, shape, batch):
+def test_scratch_tile_subtree_shapes_match_plain(dev, shape, batch):
     """Each shape on every composite node kind of Polar(4096, 2048) at
     levels 1..11 where it fits: u and the hard block (signum(0)'s zeros)
-    equal the plain version and the byte kernel."""
+    equal the plain version."""
     from polar_tpu_torch.ops.cuda import subtree_kernel
 
     wr, vw = shape
@@ -763,13 +758,10 @@ def test_scratch_tile_subtree_shapes_match_plain_and_bytes(dev, shape, batch):
             slot = _tie_llrs(dev, 1 << level, max(batch, 2),
                              level)[:, :batch].contiguous()
             want = subtree_kernel.decode_plain(node, [slot])
-            old = subtree_kernel.make_subtree_decoder(
-                node, style="scratch-bytes")(slot)
             got = subtree_kernel.make_subtree_decoder(
                 node, style="scratch", shape=(wr, vw, 1))(slot)
-            for a, b, o in zip(got, want, old, strict=True):
+            for a, b in zip(got, want, strict=True):
                 assert torch.equal(a, b), (node.kind, level)
-                assert torch.equal(o, b), (node.kind, level)
             nodes += 1
     assert nodes >= 8
 
@@ -816,21 +808,19 @@ def test_scratch_tile_kernel_off_the_word_and_back_to_back(dev):
 
 @pytest.mark.parametrize("m", [13, 14, 15])
 def test_scratch_hybrid_matches_the_plain_hybrid(dev, m):
-    """The hybrid kl9 in the scratch style (the tile kernel) and in the
-    byte style, u output, equal the eager decoder on the CPU."""
+    """The hybrid kl9 in the scratch style (the tile kernel), u output,
+    equals the eager decoder on the CPU."""
     c = pt.make_code(m, rate=0.5)
     llr = _tie_llrs(dev, c.N, 257, m)
     want = pt.make_fastssc_decoder(c, output_dtype=torch.int8).lane_major(
         llr.cpu())
-    for style in ("scratch", "scratch-bytes"):
-        got = pt.make_fastssc_decoder(c, output_dtype=torch.int8,
-                                      kernel_level=9,
-                                      kernel_style=style).lane_major(llr)
-        assert torch.equal(got.cpu(), want), style
+    got = pt.make_fastssc_decoder(c, output_dtype=torch.int8, kernel_level=9,
+                                  kernel_style="scratch").lane_major(llr)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_scratch_styles_count_their_own_launches(dev):
-    """Each scratch style moves its own counter and no other, in both
+    """The scratch style moves its own counter and no other, in both
     entries."""
     from polar_tpu_torch.ops.cuda import subtree_kernel
 
@@ -839,21 +829,17 @@ def test_scratch_styles_count_their_own_launches(dev):
     llr = _llrs(dev, c.N, 100, 8)
     node = _subtree_nodes(12, 7)[0]
     slot = _llrs(dev, 128, 100, 7)
-    counts = (decoder_kernel.launches, decoder_kernel.earlier_launches,
-              subtree_kernel.launches, subtree_kernel.earlier_launches,
+    counts = (decoder_kernel.launches, subtree_kernel.launches,
               decoder_kernel.plain_calls, subtree_kernel.plain_calls)
-    for style, name in (("scratch", "scratch_decoder"),
-                        ("scratch-bytes", "scratch_bytes_decoder"),
-                        ("scratch", "scratch_subtree"),
-                        ("scratch-bytes", "scratch_bytes_subtree")):
+    for name in ("scratch_decoder", "scratch_subtree"):
         before = [dict(x) for x in counts]
         if name.endswith("decoder"):
-            decoder_kernel.decode(program, c.frozen, llr, False, style)
+            decoder_kernel.decode(program, c.frozen, llr, False, "scratch")
         else:
-            subtree_kernel.make_subtree_decoder(node, style=style)(slot)
+            subtree_kernel.make_subtree_decoder(node, style="scratch")(slot)
         moved = {k: x[k] - b[k] for x, b in zip(counts, before) for k in x
                  if x[k] != b[k]}
-        assert moved == {name: 1}, (style, moved)
+        assert moved == {name: 1}, moved
 
 
 @pytest.mark.parametrize("m,kl", [(4, 2), (9, 5), (12, 10), (12, 4)])
@@ -922,22 +908,22 @@ def test_interp_subtree_matches_plain(dev, level, batch):
 
 
 def _interp_pair(code, output, sl):
-    """The interp decoder in the tile style and in the bytes style."""
+    """The interp decoder and, to hold it against, the SSA-style kernel
+    decoder (the tile kernel, or the walk above its levels)."""
     from polar_tpu_torch.ops.cuda import interp_kernel
 
     return (interp_kernel.make_interp_decoder(code, subtree_level=sl,
                                               output=output),
-            interp_kernel.make_interp_decoder(code, subtree_level=sl,
-                                              output=output, style="bytes"))
+            pt.make_kernel_decoder(code, output=output))
 
 
 @pytest.mark.parametrize("m", [4, 9, 12, 15])
 @pytest.mark.parametrize("sl", [3, 5, 9, 10])
 @pytest.mark.parametrize("batch", [1, 3, 31, 4096, 4099])
-def test_interp_tile_matches_plain_and_bytes(dev, m, sl, batch):
-    """The tile kernel against the bytes kernel it replaced and (B <= 31,
-    m <= 12) the plain version, u / cw / both; column 0 all -128, column 1 all
-    zero, and every fifth LLR zero (ties)."""
+def test_interp_tile_matches_plain(dev, m, sl, batch):
+    """The tile kernel against the SSA-style kernel decoder and (B <= 31,
+    m <= 12) the plain version, u / cw / both; column 0 all -128, column 1
+    all zero, and every fifth LLR zero (ties)."""
     from polar_tpu_torch.ops.cuda import interp_kernel
 
     c = pt.make_code(m, rate=0.5)
@@ -949,10 +935,7 @@ def test_interp_tile_matches_plain_and_bytes(dev, m, sl, batch):
         got = dec.lane_major(llr)
         assert interp_kernel.launches == {
             **before, "interp_decoder": before["interp_decoder"] + 1}
-        olds = dict(interp_kernel.earlier_launches)
         want = old.lane_major(llr)
-        assert interp_kernel.earlier_launches["interp_bytes_decoder"] == (
-            olds["interp_bytes_decoder"] + 1)
         got, want = ((x,) if output != "both" else x for x in (got, want))
         for a, b in zip(got, want, strict=True):
             assert torch.equal(a, b), output
@@ -993,10 +976,10 @@ def test_interp_tile_grid_entries_match_plain(dev, m, rate, sl, grid_level,
 
 def test_interp_tile_subtree_in_every_hybrid_node(dev):
     """Every distinct kernel node of the m = 17 hybrid (kl9) at B = 4096:
-    the tile style against the bytes style and the plain version on the
-    card, u / u+cw / cw."""
+    the tile kernel against the SSA-style subtree kernel and the plain
+    version on the card, u / u+cw / cw."""
     from polar_tpu_torch.code.compiler import emit_program
-    from polar_tpu_torch.ops.cuda import interp_kernel
+    from polar_tpu_torch.ops.cuda import interp_kernel, subtree_kernel
 
     nodes, stack = {}, [pt.compile_code(pt.make_code(17, rate=0.5))]
     while stack:
@@ -1013,8 +996,7 @@ def test_interp_tile_subtree_in_every_hybrid_node(dev):
             kw = dict(emit_u=emit_u, emit_cw=emit_cw)
             fn = interp_kernel.make_interp_subtree(node, **kw)
             got = fn(slot)
-            old = interp_kernel.make_interp_subtree(node, style="bytes",
-                                                    **kw)(slot)
+            old = subtree_kernel.make_subtree_decoder(node, **kw)(slot)
             for a, b, p in zip(got, old, fn.plain(slot), strict=True):
                 assert torch.equal(a, b), (node.kind, node.level, kw)
                 assert torch.equal(a, p), (node.kind, node.level, kw)
@@ -1022,7 +1004,7 @@ def test_interp_tile_subtree_in_every_hybrid_node(dev):
 
 def test_interp_decode_count_back_to_back(dev):
     """Decode+count twice on one stream (the counter's ticket resets
-    between launches), against the bytes style's own counters."""
+    between launches), against the tile decode+count's counters."""
     from polar_tpu_torch.ops.cuda import count_kernel, interp_kernel
 
     c = pt.make_code(14, rate=0.5)
@@ -1035,7 +1017,7 @@ def test_interp_decode_count_back_to_back(dev):
     first, second = count(llr, cw), count(llr, cw)
     assert (interp_kernel.launches["interp_decode_count"],
             count_kernel.launches["count"]) == (before[0] + 2, before[1] + 2)
-    want = interp_kernel.make_interp_decode_count(c, style="bytes")(llr, cw)
+    want = step_kernel.decode_count(pt.compile_program(c), c.frozen, llr, cw)
     assert torch.equal(first, want) and torch.equal(second, want)
     assert int(want[0]) > 0
 
@@ -1347,7 +1329,7 @@ def test_tile_step_counts_errors_and_rows_off_the_word(dev):
 @pytest.mark.parametrize("cols", [2, 6, 1024, 131072])
 @pytest.mark.parametrize("rows", [1, 4099])
 @pytest.mark.parametrize("snr_db", [-1.5, 3.0])
-def test_awgn_lines_matches_grid_and_plain(dev, cols, rows, snr_db):
+def test_awgn_lines_matches_plain(dev, cols, rows, snr_db):
     from polar_tpu_torch.ops.cuda import channel_kernel
 
     g = torch.Generator(device=dev)
@@ -1359,14 +1341,9 @@ def test_awgn_lines_matches_grid_and_plain(dev, cols, rows, snr_db):
                   for _ in range(2))
     params = snr_params(snr_db)
     for kw in (dict(words=words), dict(seeds=(7, 9), call=3)):
-        before = (channel_kernel.launches["channel_awgn"],
-                  channel_kernel.earlier_launches["channel_awgn_grid"])
+        before = channel_kernel.launches["channel_awgn"]
         got = channel_kernel.awgn(cw, params, **kw)
-        grid = channel_kernel.awgn(cw, params, style="grid", **kw)
-        assert (channel_kernel.launches["channel_awgn"],
-                channel_kernel.earlier_launches["channel_awgn_grid"]) == (
-                    before[0] + 1, before[1] + 1)
-        assert torch.equal(got, grid)
+        assert channel_kernel.launches["channel_awgn"] == before + 1
         want = channel_kernel.awgn_plain(cw, params, **kw)
         # the same words; an ulp of log/sqrt between the card and torch
         # may move an LLR by one step
@@ -1391,12 +1368,10 @@ def test_awgn_lines_takes_unaligned_tensors(dev):
     got = channel_kernel.awgn(cw, params, seeds=(5, 6), call=1)
     assert torch.equal(got, channel_kernel.awgn(cw.clone(), params,
                                                 seeds=(5, 6), call=1))
-    assert torch.equal(got, channel_kernel.awgn(cw, params, seeds=(5, 6),
-                                                call=1, style="grid"))
 
 
 @pytest.mark.parametrize("m", range(1, 18))
-def test_bits_encoder_matches_bytes_plain_and_encode(dev, m):
+def test_bits_encoder_matches_plain_and_encode(dev, m):
     from polar_tpu_torch.ops.cuda import encode_kernel
 
     c = pt.make_code(m, rate=0.5)
@@ -1416,10 +1391,6 @@ def test_bits_encoder_matches_bytes_plain_and_encode(dev, m):
                 assert torch.equal(got, want), (batch, systematic, bl)
                 assert torch.equal(got, encode_kernel.encode_plain(
                     c, msg, systematic, 1 << bl))
-                if c.N >> bl <= 65535:     # the bytes kernel's grid limit
-                    assert torch.equal(got, encode_kernel.make_encoder(
-                        c, systematic=systematic, block_level=bl,
-                        style="bytes")(msg))
 
 
 def test_bits_encoder_takes_a_message_off_the_word(dev):
@@ -1442,14 +1413,12 @@ def test_bits_encoder_takes_a_message_off_the_word(dev):
 
 def test_draw_campaign_launches_the_redesigned_kernels(dev):
     """The pinned-decoder campaign (chip_smoke.py phase 11) runs the
-    straight-line AWGN pass and the bits encoder: no old-style launch, no
-    plain call."""
+    straight-line AWGN pass and the bits encoder: no plain call."""
     from polar_tpu_torch.ops.cuda import channel_kernel, encode_kernel
 
     c = pt.make_code(10, rate=0.5)
     dec, _ = pt.make_auto_decoder(c, output="systematic", device=dev)
     counts = (channel_kernel.launches, encode_kernel.launches,
-              channel_kernel.earlier_launches, encode_kernel.earlier_launches,
               channel_kernel.plain_calls, encode_kernel.plain_calls)
     for count in counts:
         for k in count:
@@ -1463,30 +1432,24 @@ def test_draw_campaign_launches_the_redesigned_kernels(dev):
     assert channel_kernel.launches == {"channel_symbols": steps,
                                        "channel_awgn": steps}
     assert encode_kernel.launches == {"block_encoder": steps}
-    assert channel_kernel.earlier_launches == {"channel_symbols_quads": 0,
-                                               "channel_awgn_grid": 0}
-    assert encode_kernel.earlier_launches == {"block_encoder_bytes": 0}
     assert max(channel_kernel.plain_calls.values()) == 0
     assert encode_kernel.plain_calls["encode_plain"] == 0
 
 
 # -- row 9 redesigned: kernels A and B on row words of 32 frames, against
-# the frame kernels they replaced and the plain versions
+# the plain versions
 
 
 def _front_counts(front_kernel):
     return (front_kernel.launches["front_blocks_a"],
-            front_kernel.launches["front_blocks_b"],
-            front_kernel.earlier_launches["front_blocks_a_frame"],
-            front_kernel.earlier_launches["front_blocks_b_frame"])
+            front_kernel.launches["front_blocks_b"])
 
 
 @pytest.mark.parametrize("m", range(1, 13))
-def test_row_word_front_kernels_match_frame_and_plain(dev, m):
-    """Both kernels, both styles, inject and native, systematic and plain,
-    at blocks {1, 4, 16, 2^10, N}: max abs err 0 against each other and
-    the plain versions (native LLRs included: the same box_muller on the
-    same words). Batches 1, 33, 999, 4099 take the byte route, 36 and 4096
+def test_row_word_front_kernels_match_plain(dev, m):
+    """Both kernels, inject and native, systematic and plain, at blocks
+    {1, 4, 16, 2^10, N}: max abs err 0 against the plain versions (native
+    LLRs included: the same box_muller on the same words). Batches 1, 33, 999, 4099 take the byte route, 36 and 4096
     the word route (36 with a ragged last group of 32)."""
     from polar_tpu_torch.ops.cuda import front_kernel
 
@@ -1506,28 +1469,24 @@ def test_row_word_front_kernels_match_frame_and_plain(dev, m):
                     before = _front_counts(front_kernel)
                     got = front_kernel.msg_blocks(c.frozen, blk, systematic,
                                                   **kw)
-                    old = front_kernel.msg_blocks(c.frozen, blk, systematic,
-                                                  style="frame", **kw)
-                    a, b_, fa, fb = before
-                    assert _front_counts(front_kernel) == (a + 1, b_, fa + 1,
-                                                           fb)
+                    a, b_ = before
+                    assert _front_counts(front_kernel) == (a + 1, b_)
                     want = front_kernel.msg_blocks_plain(c.frozen, blk,
                                                          systematic, **kw)
-                    assert torch.equal(got, old), (batch, blk, systematic)
                     assert torch.equal(got, want), (batch, blk, systematic)
             for kw in (dict(normals_t=nrm), dict(seeds=(5, 6), call=2)):
+                before = _front_counts(front_kernel)
                 got = front_kernel.chan_blocks(msg, blk, params, **kw)
-                old = front_kernel.chan_blocks(msg, blk, params,
-                                               style="frame", **kw)
+                assert _front_counts(front_kernel) == (before[0],
+                                                       before[1] + 1)
                 want = front_kernel.chan_blocks_plain(msg, blk, params, **kw)
-                for a, b_ in ((got, old), (got, want)):
-                    assert torch.equal(a[1], b_[1]), (batch, blk, list(kw))
-                    assert torch.equal(a[0], b_[0]), (batch, blk, list(kw))
+                assert torch.equal(got[1], want[1]), (batch, blk, list(kw))
+                assert torch.equal(got[0], want[0]), (batch, blk, list(kw))
 
 
 def test_row_word_front_kernels_take_unaligned_tensors(dev):
     """Rows that start off a 4-byte boundary take the byte route with the
-    same result as the frame kernels."""
+    same result as aligned rows and the plain versions."""
     from polar_tpu_torch.ops.cuda import front_kernel
 
     c = pt.make_code(10, rate=0.5)
@@ -1541,45 +1500,50 @@ def test_row_word_front_kernels_take_unaligned_tensors(dev):
     assert x.data_ptr() % 4 == 1
     for blk in (4, 1 << 10):
         got = front_kernel.chan_blocks(x, blk, snr_params(0.0), seeds=(1, 2))
-        old = front_kernel.chan_blocks(x, blk, snr_params(0.0), seeds=(1, 2),
-                                       style="frame")
-        assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+        for want in (front_kernel.chan_blocks(x.clone(), blk, snr_params(0.0),
+                                              seeds=(1, 2)),
+                     front_kernel.chan_blocks_plain(x, blk, snr_params(0.0),
+                                                    seeds=(1, 2))):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
         for systematic in (True, False):
             got = front_kernel.msg_blocks(c.frozen, blk, systematic, msg_t=x)
             assert torch.equal(got, front_kernel.msg_blocks(
-                c.frozen, blk, systematic, msg_t=x, style="frame"))
+                c.frozen, blk, systematic, msg_t=x.clone()))
             assert torch.equal(got, front_kernel.msg_blocks_plain(
                 c.frozen, blk, systematic, msg_t=x))
 
 
 @pytest.mark.parametrize("systematic", [True, False])
 def test_front_blocks_styles_agree(dev, systematic):
-    """front_blocks passes front_style through: both styles give the same
-    outputs, native, at Polar(16384, 8192)."""
+    """front_blocks on the card, with either middle, gives the plain
+    versions' outputs on the CPU, native, at Polar(16384, 8192)."""
     from polar_tpu_torch.ops.cuda import front_kernel
 
     c = pt.make_code(14, rate=0.5)
-    kw = dict(seeds=(3, 4), call=1, batch=1000, device=dev)
-    got = front_kernel.front_blocks(c.frozen, snr_params(-1.2), systematic,
-                                    **kw)
-    old = front_kernel.front_blocks(c.frozen, snr_params(-1.2), systematic,
-                                    front_style="frame", **kw)
-    assert len(got) == len(old) == (2 if systematic else 3)
-    for a, b in zip(got, old):
-        assert torch.equal(a, b)
+    kw = dict(seeds=(3, 4), call=1, batch=1000)
+    want = front_kernel.front_blocks(c.frozen, snr_params(-1.2), systematic,
+                                     device="cpu", **kw)
+    assert len(want) == (2 if systematic else 3)
+    for mode in ("kernel", "torch"):
+        got = front_kernel.front_blocks(c.frozen, snr_params(-1.2),
+                                        systematic, device=dev,
+                                        middle_mode=mode, **kw)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), mode
 
 
 def test_front_campaign_launches_the_row_word_kernels(dev):
     """A campaign through make_step's default path on the block front
     (Polar(16384, 8192), B = 4096) launches kernels A and B once a step:
-    no frame kernel, no plain call."""
+    no plain call."""
     from polar_tpu_torch.ops.cuda import front_kernel
 
     c = pt.make_code(14, rate=0.5)
     assert pt.ber._step_path(c, torch.int8, None, None, "auto", dev,
                              batch=4096) == "front"
-    for count in (front_kernel.launches, front_kernel.earlier_launches,
-                  front_kernel.plain_calls):
+    for count in (front_kernel.launches, front_kernel.plain_calls):
         for k in count:
             count[k] = 0
     res = pt.run_campaign(c, device=dev, seed=14, batch=4096,
@@ -1590,14 +1554,12 @@ def test_front_campaign_launches_the_row_word_kernels(dev):
     assert steps == 2
     assert front_kernel.launches["front_blocks_a"] == steps
     assert front_kernel.launches["front_blocks_b"] == steps
-    assert front_kernel.earlier_launches == {"front_blocks_a_frame": 0,
-                                             "front_blocks_b_frame": 0}
     assert max(front_kernel.plain_calls.values()) == 0
 
 
 # -- rows 7 and 10 redesigned: the counter on 16 frames a lane over row
 # chunks with a one-launch fold, and 16 symbols a thread from PhiloxFrame,
-# against the kernels they replaced and the plain versions
+# against the plain versions
 
 
 def _count_code(m, k):
@@ -1621,34 +1583,25 @@ def _count_inputs(dev, n, batch, seed):
 
 
 def _count_both(c, llr, cw, hat):
-    """The rows kernel, checked to launch once, beside the bytes kernel,
-    checked to count in earlier_launches."""
+    """The rows kernel, checked to launch once, and the plain version."""
     from polar_tpu_torch.ops.cuda import count_kernel
 
-    before = (count_kernel.launches["count"],
-              count_kernel.earlier_launches["count_bytes"])
+    before = count_kernel.launches["count"]
     got = count_kernel.count(c.frozen, llr, cw, hat)
-    old = count_kernel.count(c.frozen, llr, cw, hat, style="bytes")
-    assert (count_kernel.launches["count"],
-            count_kernel.earlier_launches["count_bytes"]) == (
-                before[0] + 1, before[1] + 1)
-    return got, old
+    assert count_kernel.launches["count"] == before + 1
+    return got, count_kernel.count_plain(c.frozen, llr, cw, hat)
 
 
 @pytest.mark.parametrize("m,k", [(1, None), (2, None), (11, None), (11, 1),
                                  (11, 2047), (14, None)])
 @pytest.mark.parametrize("batch", [1, 15, 16, 17, 33, 511, 512, 513, 4096,
                                    4099])
-def test_count_rows_matches_bytes_and_plain(dev, m, k, batch):
-    from polar_tpu_torch.ops.cuda import count_kernel
-
+def test_count_rows_matches_plain(dev, m, k, batch):
     c = _count_code(m, k)
     llr, cw, hat = _count_inputs(dev, c.N, batch, m + batch)
-    got, old = _count_both(c, llr, cw, hat)
-    want = count_kernel.count_plain(c.frozen, llr, cw, hat)
+    got, want = _count_both(c, llr, cw, hat)
     assert got.dtype == torch.int64 and got.shape == (5,)
     assert torch.equal(got, want), (got.tolist(), want.tolist())
-    assert torch.equal(old, want)
 
 
 @pytest.mark.parametrize("batch", [16, 4096, 4099])
@@ -1665,9 +1618,9 @@ def test_count_rows_takes_tensors_off_the_word(dev, batch):
         x.copy_(t)
         assert x.data_ptr() % 16 == (t.data_ptr() + 1) % 16 != 0
         moved.append(x)
-    got, old = _count_both(c, *moved)
+    got, moved_plain = _count_both(c, *moved)
     assert torch.equal(got, count_kernel.count_plain(c.frozen, llr, cw, hat))
-    assert torch.equal(old, got)
+    assert torch.equal(moved_plain, got)
 
 
 def test_count_rows_frame_errors_across_chunks(dev):
@@ -1687,15 +1640,13 @@ def test_count_rows_frame_errors_across_chunks(dev):
     hat[1, 5] *= -1                              # chunk 0, group 0
     hat[c.N - 1, batch - 1] *= -1                # the last chunk and group
     hat[2, :] = 0                                # a frozen row
-    got, old = _count_both(c, llr, cw, hat)
-    want = count_kernel.count_plain(c.frozen, llr, cw, hat)
+    got, want = _count_both(c, llr, cw, hat)
     assert got.tolist()[:3] == [2, 2, 0]
-    assert torch.equal(got, want) and torch.equal(old, want)
+    assert torch.equal(got, want)
     zero = torch.zeros_like(hat)
-    got, old = _count_both(c, llr, cw, zero)
+    got, want = _count_both(c, llr, cw, zero)
     assert got.tolist()[:3] == [c.K * batch, batch, c.K * batch]
-    assert torch.equal(got, count_kernel.count_plain(c.frozen, llr, cw, zero))
-    assert torch.equal(old, got)
+    assert torch.equal(got, want)
 
 
 def test_count_rows_back_to_back(dev):
@@ -1720,7 +1671,7 @@ def test_count_rows_back_to_back(dev):
 @pytest.mark.parametrize("shape", [(1, 1), (1, 3), (63, 70), (1000, 512),
                                    (65537, 16), (3, 65540), (7, 1536),
                                    (5, 4608)])
-def test_symbols_lines_matches_quads_and_plain(dev, shape):
+def test_symbols_lines_matches_plain(dev, shape):
     from polar_tpu_torch.ops.cuda import channel_kernel
 
     g = torch.Generator(device=dev)
@@ -1730,16 +1681,12 @@ def test_symbols_lines_matches_quads_and_plain(dev, shape):
     for kw in (dict(words=words), dict(seeds=(12, 34), call=5)):
         args = () if "words" in kw else (shape,)
         dev_kw = {} if "words" in kw else dict(device=dev)
-        before = (channel_kernel.launches["channel_symbols"],
-                  channel_kernel.earlier_launches["channel_symbols_quads"])
+        before = channel_kernel.launches["channel_symbols"]
         got = channel_kernel.symbols(*args, **kw, **dev_kw)
-        old = channel_kernel.symbols(*args, **kw, **dev_kw, style="quads")
-        assert (channel_kernel.launches["channel_symbols"],
-                channel_kernel.earlier_launches["channel_symbols_quads"]) == (
-                    before[0] + 1, before[1] + 1)
+        assert channel_kernel.launches["channel_symbols"] == before + 1
         want = channel_kernel.symbols_plain(*args, **kw, **dev_kw)
         assert got.shape == shape and got.dtype == torch.int8
-        assert torch.equal(got, want) and torch.equal(old, want)
+        assert torch.equal(got, want)
 
 
 def test_symbols_lines_takes_words_off_the_word(dev):
@@ -1757,18 +1704,15 @@ def test_symbols_lines_takes_words_off_the_word(dev):
     got = channel_kernel.symbols(words=words)
     assert torch.equal(got, channel_kernel.symbols_plain(words=words))
     assert torch.equal(got, channel_kernel.symbols(words=words.clone()))
-    assert torch.equal(got, channel_kernel.symbols(words=words,
-                                                   style="quads"))
 
 
 def test_front_campaign_launches_the_row_counter(dev):
     """A campaign on the block front (Polar(16384, 8192), B = 4096) counts
-    each step with the rows kernel: no bytes launch, no plain call."""
+    each step with the rows kernel: no plain call."""
     from polar_tpu_torch.ops.cuda import count_kernel
 
     c = pt.make_code(14, rate=0.5)
-    for count in (count_kernel.launches, count_kernel.earlier_launches,
-                  count_kernel.plain_calls):
+    for count in (count_kernel.launches, count_kernel.plain_calls):
         for k in count:
             count[k] = 0
     res = pt.run_campaign(c, device=dev, seed=15, batch=4096,
@@ -1778,7 +1722,6 @@ def test_front_campaign_launches_the_row_counter(dev):
     steps = sum(p.frames for p in res.points) // 4096
     assert steps == 2
     assert count_kernel.launches == {"count": steps, "count_frames": 0}
-    assert count_kernel.earlier_launches == {"count_bytes": 0}
     assert count_kernel.plain_calls == {"count_plain": 0,
                                         "count_frames_plain": 0}
 

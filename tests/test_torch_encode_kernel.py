@@ -194,8 +194,8 @@ def test_bit_tables_and_layout():
     assert encode_kernel.bit_layout(2) == (2, 1, 1, 1)
     assert encode_kernel.bit_layout(1 << 10) == (32, 32, 32, 1)
     assert encode_kernel.bit_layout(1 << 17) == (32, 4096, 256, 16)
-    with pytest.raises(ValueError, match="style"):
-        encode_kernel.make_encoder(code, style="nibbles")
+    with pytest.raises(TypeError, match="style"):   # one kernel, no style
+        encode_kernel.make_encoder(code, style=None)
 
 
 def _deposit_parallel_suffix(x, m):

@@ -163,12 +163,10 @@ class _Asked(Exception):
 
 
 @pytest.mark.parametrize("kernel", ["a", "b"])
-@pytest.mark.parametrize("style", front_kernel.FRONT_STYLES)
-def test_both_styles_launch_on_their_tensors_device(monkeypatch, kernel,
-                                                    style):
-    """On fake ``cuda:1`` tensors each style asks ``build.stream`` for that
-    device before its launch, as ``tests/test_torch_device.py`` checks the
-    default style."""
+def test_both_styles_launch_on_their_tensors_device(monkeypatch, kernel):
+    """On fake ``cuda:1`` tensors kernels A and B ask ``build.stream`` for
+    that device before their launch, as ``tests/test_torch_device.py``
+    checks the whole front."""
     asked = []
 
     def stream(device):
@@ -184,37 +182,34 @@ def test_both_styles_launch_on_their_tensors_device(monkeypatch, kernel,
         x = torch.empty((c.N, 40), dtype=torch.int8, device=dev)
         with pytest.raises(_Asked):
             if kernel == "a":
-                front_kernel.msg_blocks(c.frozen, 16, True, msg_t=x,
-                                        style=style)
+                front_kernel.msg_blocks(c.frozen, 16, True, msg_t=x)
             else:
-                front_kernel.chan_blocks(x, 16, (0.5, 8.0), seeds=(1, 2),
-                                         style=style)
+                front_kernel.chan_blocks(x, 16, (0.5, 8.0), seeds=(1, 2))
     assert [(d.type, d.index) for d in asked] == [("cuda", 1)]
 
 
 def test_styles_and_the_on_chip_limit_are_checked():
-    """An unknown style raises on any device; on a card the row-word
+    """The wrappers take no style on any device; on a card the row-word
     kernels refuse a CTA of more than ROWS_MAX_WORDS row words before any
-    launch, where style "frame" takes the block."""
+    launch."""
     c = pt.make_code(4, rate=0.5)
     x, _ = _inputs(c.N, 8, 0)
-    with pytest.raises(ValueError, match="front style"):
-        front_kernel.msg_blocks(c.frozen, 4, True, msg_t=x, style="tile")
-    with pytest.raises(ValueError, match="front style"):
-        front_kernel.chan_blocks(x, 4, (0.5, 8.0), seeds=(1, 2),
-                                 style="tile")
-    with pytest.raises(ValueError, match="front style"):
+    with pytest.raises(TypeError, match="style"):
+        front_kernel.msg_blocks(c.frozen, 4, True, msg_t=x, style=None)
+    with pytest.raises(TypeError, match="style"):
+        front_kernel.chan_blocks(x, 4, (0.5, 8.0), seeds=(1, 2), style=None)
+    with pytest.raises(TypeError, match="front_style"):
         front_kernel.front_blocks(c.frozen, (0.5, 8.0), True, msg_t=x,
                                   normals_t=torch.zeros(c.N, 8),
-                                  front_style="tile")
+                                  front_style=None)
     n = 4 * front_kernel.ROWS_MAX_WORDS
     frozen = np.zeros(n, bool)
     with FakeTensorMode(allow_non_fake_inputs=True):
         big = torch.empty((n, 4), dtype=torch.int8, device="cuda")
-        with pytest.raises(ValueError, match="style 'frame'"):
+        with pytest.raises(ValueError, match="lower block level"):
             front_kernel.msg_blocks(frozen, 2 * front_kernel.ROWS_MAX_WORDS,
                                     True, msg_t=big)
-        with pytest.raises(ValueError, match="style 'frame'"):
+        with pytest.raises(ValueError, match="lower block level"):
             front_kernel.chan_blocks(big, front_kernel.ROWS_MAX_WORDS,
                                      (0.5, 8.0), seeds=(1, 2))
     # the largest CTA the kernels take

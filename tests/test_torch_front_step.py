@@ -144,10 +144,10 @@ def _jax_whole_count_chain(jc):
 def test_front_chain_inject_matches_pallas_whole_front_chain(m):
     """The port's front chain on injected inputs counts what JAX's
     ``make_pallas_front`` → ``make_pallas_decode_count`` counts; at m = 9
-    the block-front branches too, by name: block + decode+count (no level
-    takes it by default) and block + whole-code decoder + counter kernel
-    (JAX's by moving its threshold, as ``tests/test_step_kernel.py``
-    does)."""
+    the block-front branches too, by name: block + the interpreter's
+    decode+count (the default from m = 13) and block + whole-code decoder
+    + counter kernel (JAX's by moving its threshold, as
+    ``tests/test_step_kernel.py`` does)."""
     jc = jpt.make_code(m, rate=0.5)
     code = pt.code_from_jax(jc)
     jchain = _jax_whole_count_chain(jc)
@@ -160,7 +160,7 @@ def test_front_chain_inject_matches_pallas_whole_front_chain(m):
         "whole" if m <= ber.FRONT_WHOLE_MAX_LEVEL else "block-whole")
     branches = [None]                      # the default: whole
     if m == 9:
-        branches += ["block-whole", "block-count"]
+        branches += ["block-whole", "block-interp"]
     for branch in branches:
         chain = ber.make_front_chain(code, systematic=True, branch=branch)
         for (snr, msg, nrm), want in zip(inputs, wants):
@@ -200,7 +200,7 @@ def test_front_branch_follows_the_thresholds(monkeypatch):
     with pytest.raises(ValueError, match="branch"):
         ber.make_front_chain(c, branch="hybrid")
     with pytest.raises(ValueError, match="kernel_level"):
-        ber.make_front_chain(c, branch="block-count", kernel_level=5)
+        ber.make_front_chain(c, branch="whole", kernel_level=5)
     with pytest.raises(ValueError, match="middle_mode"):
         front_kernel.front_blocks(c.frozen, (1.0, 2.0), True, batch=4,
                                   device="cpu", middle_mode="xla")

@@ -162,8 +162,6 @@ def _launch_calls():
             program, frozen, _i8(N, B), False, "walk"),
         "scratch_decoder": lambda: decoder_kernel.decode(
             program, frozen, _i8(N, B), False, "scratch"),
-        "scratch_bytes_decoder": lambda: decoder_kernel.decode(
-            program, frozen, _i8(N, B), False, "scratch-bytes"),
         "fastssc_decoder_u_frames": lambda: decoder_kernel.decode(
             program, frozen, _i8(B, N), False, layout="frames"),
         "scratch_decoder_frames": lambda: decoder_kernel.decode(
@@ -185,67 +183,45 @@ def _launch_calls():
             node, style="walk")(slot()),
         "scratch_subtree": lambda: subtree_kernel.make_subtree_decoder(
             node, style="scratch")(slot()),
-        "scratch_bytes_subtree": lambda: subtree_kernel.make_subtree_decoder(
-            node, style="scratch-bytes")(slot()),
         "front_blocks_a": lambda: front_kernel.msg_blocks(
             frozen, 16, True, msg_t=_i8(N, B)),
-        "front_blocks_a_frame": lambda: front_kernel.msg_blocks(
-            frozen, 16, True, msg_t=_i8(N, B), style="frame"),
         "front_blocks_b": lambda: front_kernel.chan_blocks(
             _i8(N, B), 16, params, normals_t=f32()),
-        "front_blocks_b_frame": lambda: front_kernel.chan_blocks(
-            _i8(N, B), 16, params, normals_t=f32(), style="frame"),
         "front_middle": lambda: front_kernel.middle_kernel(
             _i8(N, B), frozen, 4, 4, True),
         "count": lambda: count_kernel.count(frozen, _i8(N, B), _i8(N, B),
                                             _i8(N, B)),
-        "count_bytes": lambda: count_kernel.count(
-            frozen, _i8(N, B), _i8(N, B), _i8(N, B), style="bytes"),
         "count_frames": lambda: count_kernel.count_frames(
             _i8(B, K), _i8(B, N), _i8(B, N), _i8(B, K)),
         "interp_decoder": lambda: interp_kernel.make_interp_decoder(
             CODE, subtree_level=3).lane_major(_i8(N, B)),
-        "interp_bytes_decoder": lambda: interp_kernel._run_bytes(
-            interp_kernel.make_interp_decoder(
-                CODE, subtree_level=3, style="bytes").compiled, _i8(N, B),
-            entry="polar_interp_decode", what="interp_bytes_decoder"),
         "interp_decode_count": lambda: interp_kernel._run_tile(
             interp_kernel.make_interp_decode_count(
                 CODE, subtree_level=3).compiled, _i8(N, B), hard_out=False,
             what="interp_decode_count"),
-        "interp_bytes_decode_count": lambda: (
-            interp_kernel.make_interp_decode_count(
-                CODE, subtree_level=3, style="bytes")(_i8(N, B), _i8(N, B))),
         "interp_subtree": lambda: interp_kernel.make_interp_subtree(
             node, subtree_level=3)(slot()),
-        "interp_bytes_subtree": lambda: interp_kernel._run_bytes(
-            interp_kernel.make_interp_subtree(
-                node, subtree_level=3, style="bytes").compiled, slot(),
-            entry="polar_interp_subtree", what="interp_bytes_subtree"),
         "channel_symbols": lambda: channel_kernel.symbols(words=i64(B, K)),
-        "channel_symbols_quads": lambda: channel_kernel.symbols(
-            words=i64(B, K), style="quads"),
         "channel_awgn": lambda: channel_kernel.awgn(
             _i8(B, N), params, words=(i64(B, N), i64(B, N))),
-        "channel_awgn_grid": lambda: channel_kernel.awgn(
-            _i8(B, N), params, words=(i64(B, N), i64(B, N)), style="grid"),
         "block_encoder": lambda: encode_kernel.make_encoder(CODE)(_i8(B, K)),
-        "block_encoder_bytes": lambda: encode_kernel.make_encoder(
-            CODE, style="bytes")(_i8(B, K)),
         "ring_shift": lambda: ring_kernel.ring_shift([_i8(4, B), _i8(4, B)],
                                                      1),
     }
 
 
 def _counts():
-    return {(mod.__name__, attr, key): v for mod in MODULES
-            for attr in ("launches", "earlier_launches")
-            for key, v in getattr(mod, attr, {}).items()}
+    """Every wrapper's ``launches``, and step_kernel's counter of the
+    kernels its tile kernels replaced (the walk and the thread front, run
+    above the tile kernels' levels)."""
+    counters = [(mod.__name__, mod.launches) for mod in MODULES]
+    counters.append(("step_kernel.earlier", step_kernel.earlier_launches))
+    return {(name, key): v for name, c in counters for key, v in c.items()}
 
 
 def test_torch_every_counter_has_a_launching_call():
     """The calls above reach every key of every wrapper's counters."""
-    assert set(_launch_calls()) == {key for _, _, key in _counts()}
+    assert set(_launch_calls()) == {key for _, key in _counts()}
 
 
 @pytest.mark.parametrize("key", sorted(_launch_calls()))
@@ -266,7 +242,7 @@ def test_torch_a_counted_launch_records_one_kernel_span(fake_card, key):
         after = _counts()
     spans, dropped = profiling.take_spans()
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert [k for _, _, k in moved] == [key]
+    assert [k for _, k in moved] == [key]
     want = (len(front_kernel.middle_passes(N, 4, 4, True))
             if key == "front_middle" else 1)
     assert list(moved.values()) == [want]
@@ -395,7 +371,7 @@ def test_torch_frame_major_kernel_entry_records_no_copies(fake_card, style,
     spans, _ = profiling.take_spans()
     assert _names(spans) == ["decode", f"kernel.{key}"]
     assert [p for *_, p in spans] == [-1, 0]
-    moved = {k[2]: after[k] - before[k] for k in after if after[k] != before[k]}
+    moved = {k[1]: after[k] - before[k] for k in after if after[k] != before[k]}
     assert moved == {key: 1}
     assert tuple(out.shape) == (B, K) and out.device == FAKE
 

@@ -45,24 +45,18 @@ def _check_decoder_against_jax(m, rate, style):
         jc, frame_tile=128, style="scratch", interpret=True)(
             jnp.asarray(llr_t.T.copy())))
     dec = make_kernel_decoder(pt.code_from_jax(jc), style=style)
-    before = (dict(decoder_kernel.launches),
-              dict(decoder_kernel.earlier_launches))
+    before = dict(decoder_kernel.launches)
     got = dec(torch.from_numpy(llr_t.T.copy()))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         dec.lane_major(torch.from_numpy(llr_t)).numpy(), want.T)
-    assert (decoder_kernel.launches, decoder_kernel.earlier_launches) == before
+    assert decoder_kernel.launches == before
 
 
-@pytest.mark.parametrize("m,rate", [(4, 0.5), (6, 0.25), (8, 0.5)])
+@pytest.mark.parametrize("m,rate", [(4, 0.5), (6, 0.25), (8, 0.5),
+                                    (5, 0.75), (7, 0.5), (9, 0.25)])
 def test_scratch_decoder_matches_jax_scratch_kernel(m, rate):
     _check_decoder_against_jax(m, rate, "scratch")
-
-
-@pytest.mark.parametrize("m,rate", [(4, 0.5), (6, 0.25), (8, 0.5)])
-def test_scratch_bytes_decoder_matches_jax_scratch_kernel(m, rate):
-    """The kept byte style, as the default scratch style above."""
-    _check_decoder_against_jax(m, rate, "scratch-bytes")
 
 
 def _nodes(tree, levels):
@@ -93,14 +87,9 @@ def _check_subtree_against_jax(level, style):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("level", [4, 7])
+@pytest.mark.parametrize("level", [4, 7, 5, 6])
 def test_scratch_subtree_matches_jax_scratch_kernel(level):
     _check_subtree_against_jax(level, "scratch")
-
-
-@pytest.mark.parametrize("level", [4, 7])
-def test_scratch_bytes_subtree_matches_jax_scratch_kernel(level):
-    _check_subtree_against_jax(level, "scratch-bytes")
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,10 +102,11 @@ def _jax_xla_m9():
                        "codeword": (cw,), "both": (u, cw)}
 
 
-def _check_hybrid_against_jax(output, entry, style):
+def _check_hybrid_against_jax(output, entry, style, kernel_level=6):
     jc, llr_t, wants = _jax_xla_m9()
     dec = pt.make_fastssc_decoder(pt.code_from_jax(jc), output=output,
-                                  output_dtype=torch.int8, kernel_level=6,
+                                  output_dtype=torch.int8,
+                                  kernel_level=kernel_level,
                                   kernel_style=style,
                                   kernel_fuse=entry == "lane")
     x = torch.from_numpy(llr_t)
@@ -127,18 +117,14 @@ def _check_hybrid_against_jax(output, entry, style):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
-@pytest.mark.parametrize("entry", ["lane", "frame"])
-@pytest.mark.parametrize("output", OUTPUTS)
-def test_scratch_hybrid_matches_jax_xla(output, entry):
+@pytest.mark.parametrize("output,entry,kernel_level", [
+    pytest.param(output, entry, kl,
+                 id=f"{output}-{entry}" + ("" if kl == 6 else f"-kl{kl}"))
+    for kl in (6, 5) for entry in ("lane", "frame") for output in OUTPUTS])
+def test_scratch_hybrid_matches_jax_xla(output, entry, kernel_level):
     """kernel_fuse is ignored by the scratch style, as in JAX; non-u
     outputs re-encode û."""
-    _check_hybrid_against_jax(output, entry, "scratch")
-
-
-@pytest.mark.parametrize("entry", ["lane", "frame"])
-@pytest.mark.parametrize("output", OUTPUTS)
-def test_scratch_bytes_hybrid_matches_jax_xla(output, entry):
-    _check_hybrid_against_jax(output, entry, "scratch-bytes")
+    _check_hybrid_against_jax(output, entry, "scratch", kernel_level)
 
 
 def test_scratch_frames_follow_the_shared_memory():
@@ -257,9 +243,8 @@ def test_frame_major_layout_refuses_what_the_kernel_cannot_read(style):
             run(bad)
     with pytest.raises(ValueError, match="frame-major|cw track"):
         run(llrs, want_cw=True)
-    for other in ("walk", "scratch-bytes"):
-        with pytest.raises(ValueError, match="frame-major"):
-            run(llrs, style=other)
+    with pytest.raises(ValueError, match="frame-major"):
+        run(llrs, style="walk")
     with pytest.raises(ValueError, match="layout"):
         decoder_kernel.decode(program, code.frozen, llrs, False, style,
                               layout="rows")
@@ -273,15 +258,14 @@ def test_frame_major_layout_refuses_what_the_kernel_cannot_read(style):
     assert got.is_contiguous()
 
 
-@pytest.mark.parametrize("style", ["scratch", "scratch-bytes"])
-def test_scratch_styles_run_plain_on_cpu(style):
-    """On CPU tensors both scratch styles run the plain version and launch
+def test_scratch_styles_run_plain_on_cpu():
+    """On CPU tensors the scratch style runs the plain version and launches
     nothing, in both entries."""
+    style = "scratch"
     code = pt.make_code(7, rate=0.5)
     node = pt.compile_code(code).left
     llr_t = torch.from_numpy(_edge_llr_t(code.N, 40, 3))
-    counts = (decoder_kernel.launches, decoder_kernel.earlier_launches,
-              subtree_kernel.launches, subtree_kernel.earlier_launches)
+    counts = (decoder_kernel.launches, subtree_kernel.launches)
     before = [dict(c) for c in counts]
     plain = (decoder_kernel.plain_calls["decode_plain"],
              subtree_kernel.plain_calls["subtree_plain"])
@@ -298,9 +282,11 @@ def test_scratch_styles_run_plain_on_cpu(style):
                                                              plain[1] + 1)
 
 
-@pytest.mark.parametrize("style", ["scratch", "scratch-bytes"])
-def test_scratch_styles_refuse_alike(style):
-    """Each refusal of the scratch style holds for the kept byte style."""
+def test_scratch_styles_refuse_alike():
+    """The scratch style refuses the cw track, fusion and N above its
+    shared memory alike in the whole-code decoder, the subtree decoder and
+    the hybrid."""
+    style = "scratch"
     code = pt.make_code(8, rate=0.5)
     node = pt.compile_code(code).left
     llr_t = torch.zeros(code.N, 4, dtype=torch.int8)
@@ -409,4 +395,4 @@ def test_front_chain_decoders_take_the_style_by_batch_or_by_name():
         assert torch.equal(got, counted[0])
     assert int(counted[0][3]) > 0
     with pytest.raises(ValueError, match="kernel_style"):
-        ber.make_front_chain(code, branch="block-count", kernel_style="ssa")
+        ber.make_front_chain(code, branch="block-interp", kernel_style="ssa")
