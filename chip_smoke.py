@@ -74,7 +74,11 @@ draws path's u-domain counter (18): ``count_frames_kernel`` against its
 plain version on the 16-byte and byte paths at Polar(16384, 8192),
 B = 4096 and Polar(1024, 512), B = 32768, timed in turns with it (device
 time, host hidden) beside its bound, and a non-systematic campaign on
-the draws path (one launch a step). Last, each kernel's bound (13,
+the draws path (one launch a step). Then the interpreter's frame-major u
+track (19), row 13's main path: its (B, N) launch at Polar(8192, 4096),
+Polar(16384, 8192) and Polar(131072, 65536), B = 64 to 16384, against
+plain and in turns with the element-major launch and the transposing
+entry around it. Last, each kernel's bound (13,
 reckoned in polar_tpu_torch/utils/cost.py); the rows of the draws and
 front kernels carry the steps that made their launches, rows 9 A, 9 B,
 10-12, 1, 3 and 4s their numbers at each shape ("by_shape") too.
@@ -1610,7 +1614,7 @@ def style_phases(dev, card, ms) -> dict:
     torch.cuda.synchronize()
     mid_launched = {name: v for c in counts for name, v in c.items() if v}
     plain = {name: v for c in plains for name, v in c.items()}
-    mid_interp = interp_kernel.launches["interp_decoder"]
+    mid_interp = interp_kernel.launches["interp_decoder_frames"]
     if path != "draws" or mid_interp != mid_steps or max(plain.values()):
         raise AssertionError(f"default path at Polar({mid.N}, {mid.K}) B={b}: "
                              f"{path}, launches {mid_launched}, plain {plain}")
@@ -1618,7 +1622,8 @@ def style_phases(dev, card, ms) -> dict:
     phase("14", f"make_step's default path at plain Polar({mid.N}, {mid.K}) "
           f"B={b} ({path} around {auto.decoder_names(MID_PATH_M, False)}"
           f"): {mid_steps} steps at -1.0 dB, frame errors {fer}; "
-          f"interp_decoder {mid_interp} launches ({mid_interp / mid_steps:g} "
+          f"interp_decoder_frames {mid_interp} launches "
+          f"({mid_interp / mid_steps:g} "
           f"a step); all launches {mid_launched}")
     seen = {}
 
@@ -1863,6 +1868,88 @@ def frame_entry_phases(dev, card, ms) -> dict:
                   (wr, vw, warps), 0, f"({wr}, {vw}) x{warps} frame-major")
     return {"err": err, "times": times, "work": {}, "launched": {},
             "by_shape": by_shape}
+
+
+def interp_frames_phases(dev, card, ms) -> dict:
+    """Phase 19: the interpreter's frame-major u track, the main path of
+    row 13 (the u entry of the interpreter decoder, which
+    ``AUTO_DECODERS`` picks for u at m = 13..17, hands the kernel (B, N)
+    LLRs and takes (B, K) back). At m = 14, B = 64, 256, 2048, 4096 and
+    16384, and at m = 13 and 17 a small and a larger batch, subtree level
+    ``INTERP_SUBTREE_LEVEL``: the entry's u equal bit for
+    bit to the plain version and to the element-major launch, one
+    frame-major launch a call and nothing else; then timed in turns by
+    CUDA events (frame-major, element-major on the transposed LLRs, the
+    transposing entry around it; then the other way round), and the blocks
+    an SM of both instantiations at the launch's region and warps. Each is
+    a by_shape entry of row 13 with its bound."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.decode.auto import INTERP_SUBTREE_LEVEL
+    from polar_tpu_torch.decode.fastssc import frame_major
+    from polar_tpu_torch.ops.cuda import build, interp_kernel
+    from polar_tpu_torch.utils.cost import row_work
+
+    rng = np.random.default_rng(19)
+    by_shape = {}
+    shapes = ((14, 64), (14, 256), (14, 2048), (14, 4096), (14, 16384),
+              (13, 256), (13, 4096), (17, 64), (17, 1024))
+    for m, b in shapes:
+        code = pt.make_code(m, rate=0.5)
+        n, k = code.N, code.K
+        dec = interp_kernel.make_interp_decoder(
+            code, subtree_level=INTERP_SUBTREE_LEVEL)
+        old = frame_major(dec.lane_major, "transposing entry")
+        llrs = torch.from_numpy(
+            rng.integers(-128, 128, (b, n)).astype(np.int8)).to(dev)
+        llrs[:, ::7] = 0
+        llr_t = llrs.t().contiguous()
+        before = dict(interp_kernel.launches)
+        got = dec(llrs)
+        moved = {x: interp_kernel.launches[x] - before[x] for x in before
+                 if interp_kernel.launches[x] != before[x]}
+        if moved != {"interp_decoder_frames": 1}:
+            raise AssertionError(f"frame-major u entry at B={b} launched "
+                                 f"{moved}")
+        t_p0 = time.perf_counter()
+        want = dec.plain(llr_t).t()
+        t_p = (time.perf_counter() - t_p0) * 1e3
+        if not (torch.equal(got, want) and torch.equal(got, old(llrs))):
+            raise AssertionError(f"interp frame-major u != plain at "
+                                 f"Polar({n}, {k}) B={b}")
+        frames = lambda: dec(llrs)  # noqa: E731
+        lanes = lambda: dec.lane_major(llr_t)  # noqa: E731
+        entry = lambda: old(llrs)  # noqa: E731
+        t = {"frames": [], "lanes": [], "entry": []}
+        for name in ("frames", "lanes", "entry", "entry", "lanes", "frames"):
+            t[name].append(ms_dropped({"frames": frames, "lanes": lanes,
+                                       "entry": entry}[name], 20))
+        plan = dec.plan(b, dev)
+        per_sm = {}
+        for layout in (0, 1):
+            got_sm = ctypes.c_int(0)
+            build.check(build.load_library().polar_interp_tile_occupancy(
+                0, 1, layout, dec.compiled.sched.region_level, plan["warps"],
+                ctypes.byref(got_sm)), "polar_interp_tile_occupancy")
+            per_sm["frames" if layout else "lanes"] = got_sm.value
+        where = f"Polar({n}, {k}) B={b} u, sl{INTERP_SUBTREE_LEVEL}"
+        phase("19", f"interp_decoder at {where}, ms a call: frame-major "
+              f"{t['frames'][0]:.4f}, {t['frames'][1]:.4f}; element-major "
+              f"{t['lanes'][0]:.4f}, {t['lanes'][1]:.4f}; transposing entry "
+              f"{t['entry'][0]:.4f}, {t['entry'][1]:.4f}; == plain "
+              f"({t_p:.0f} ms); blocks an SM {per_sm} at {plan['warps']} "
+              f"warps, grid {plan['blocks']} ({card})")
+        by_shape[where] = {
+            "ms": sum(t["frames"]) / 2, "lanes_ms": sum(t["lanes"]) / 2,
+            "earlier_ms": sum(t["entry"]) / 2, "plain_ms": t_p,
+            "work": row_work("interp_decoder", n=n, k=k, b=b),
+            "launches": 0, "steps": None}
+    return {"err": {"interp_decoder": 0}, "times": {}, "work": {},
+            "launched": {}, "by_shape": {"interp_decoder": by_shape}}
 
 
 def frame_count_inputs(gen, batch: int, k: int, n: int, dev):
@@ -2380,7 +2467,8 @@ def module_phases(dev, card, ms) -> dict:
         # the single frame measure_decode_fps decodes first to learn K
         kernel, probe = ({"scratch": "scratch_decoder_frames",
                           "ssa": "fastssc_decoder_u_frames",
-                          "interp": "interp_decoder"}[name] for name in (
+                          "interp": "interp_decoder_frames"}[name]
+                         for name in (
             auto.decoder_names(code.level, False)[
                 llrs.shape[0] >= auto.BIG_BATCH],
             auto.decoder_names(code.level, False)[0]))
@@ -2803,7 +2891,7 @@ def main() -> int:
     library, steps, by_shape = {}, {}, {}
     for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
                 parallel_phases, module_phases, frame_entry_phases,
-                count_frames_phases):
+                count_frames_phases, interp_frames_phases):
         more = run(dev, card, ms)
         for name, e in more["err"].items():   # a row's checks in any phase
             err[name] = max(err.get(name, 0), e)

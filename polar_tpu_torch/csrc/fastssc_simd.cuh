@@ -69,7 +69,11 @@
 // H100 (PERF.md) a 4-byte load of four rows a lane, transposed among four
 // lanes by __shfl_xor_sync, ran 6-19 % slower than this; an L2 prefetch of
 // the tile's root, __ldg loads and a register pointer for the message as
-// well gained nothing or lost.
+// well gained nothing or lost. With INTERP, the interpreter's frame-major u
+// track: the message is frame-major, and the root too where root_f is set
+// (a run rooted at the code's root); else the root lies in the
+// interpreter's element-major pyramid, and the hard rows go back
+// element-major (put).
 //
 // What bounds it on the card: the latency of each op's dependent chain
 // (shared-memory loads, the emulated byte-SIMD arithmetic, a warp barrier)
@@ -190,11 +194,12 @@ constexpr int kTileWR = 2, kTileVW = 2;
 // rows are stored; INTERP: the interpreter's tile runs (csrc/interp.cu),
 // whose bodies lie in one level-positional pyramid: a body's root input
 // is the on-chip rows at `root` where that is set, else device memory;
-// FRAMES: the root and the message in device memory are frame-major.
+// FRAMES: the root and the message in device memory are frame-major (with
+// INTERP the root only where root_f is set).
 template <int WR, int VW, bool CW, bool ROOT_SMEM = false, bool EMIT_U = true,
           bool INTERP = false, bool FRAMES = false>
 struct Tile {
-  static_assert(!FRAMES || (!CW && !ROOT_SMEM && EMIT_U && !INTERP),
+  static_assert(!FRAMES || (!CW && !ROOT_SMEM && EMIT_U),
                 "the frame-major layout serves the u track alone");
   using V = Vec<VW>;
   static constexpr int kFrames = 4 * WR;        // frames a tile
@@ -212,6 +217,7 @@ struct Tile {
   int8_t* mesg;        // the message (k, batch); FRAMES: (batch, k)
   long long batch;
   const int8_t* root_f;  // FRAMES: this lane's first frame of the root
+                         // (INTERP: null where the root is element-major)
   int in_stride;         // FRAMES: bytes a frame of the root (n)
   int out_stride;        // FRAMES: bytes a frame of the message (k)
   int f;               // this lane's first frame
@@ -266,7 +272,9 @@ struct Tile {
   // explicitly: frames at or past `batch` read as 0 and are never stored.
   // FRAMES: load reads the root and store writes the message.
   __device__ __forceinline__ V load(const int8_t* base, int r) const {
-    if constexpr (FRAMES) return gather(r);
+    if constexpr (FRAMES && !INTERP) return gather(r);
+    if constexpr (FRAMES && INTERP)
+      if (root_f != nullptr) return gather(r);
     const int8_t* p = base + (long long)r * batch + f;
     if (aligned && f < batch) return *reinterpret_cast<const V*>(p);
     V v = splat<VW>(0u);
@@ -276,6 +284,10 @@ struct Tile {
   }
   __device__ __forceinline__ void store(int8_t* base, int r, V v) const {
     if constexpr (FRAMES) return scatter(r, v);
+    put(base, r, v);
+  }
+  // A lane's words of an element-major device row, whatever the layout
+  __device__ __forceinline__ void put(int8_t* base, int r, V v) const {
     int8_t* p = base + (long long)r * batch + f;
     if (aligned && f < batch) {
       *reinterpret_cast<V*>(p) = v;
@@ -382,7 +394,7 @@ struct Tile {
         case OP_LEFT: {
           const int half = len >> 1;
           for (int i = r0; i < half; i += kPass) {
-            if constexpr (FRAMES) {
+            if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(xb, i, half + i, a, b);
               at(soft, half + i) = prod(a, b);
@@ -397,7 +409,7 @@ struct Tile {
           const int half = len;
           const int pb = 2 * half == n ? 0 : 2 * half;
           for (int i = r0; i < half; i += kPass) {
-            if constexpr (FRAMES) {
+            if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(pb, i, half + i, a, b);
               at(soft, half + i) = madd(at(hard, hoff + i), a, b);
@@ -446,7 +458,7 @@ struct Tile {
         case OP_REP: {  // saturating fold in halves, in that order
           int h = len >> 1;
           for (int i = r0; i < h; i += kPass) {
-            if constexpr (FRAMES) {
+            if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(xb, i, h + i, a, b);
               at(soft, i) = sat_add(a, b);
@@ -508,7 +520,7 @@ struct Tile {
         case OP_RATE0_RIGHT: {  // all-frozen left half: g is a plain sat add
           const int half = len >> 1;
           for (int i = r0; i < half; i += kPass) {
-            if constexpr (FRAMES) {
+            if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(xb, i, half + i, a, b);
               at(soft, half + i) = sat_add(a, b);
@@ -536,7 +548,7 @@ struct Tile {
           for (int i = r0; i < half; i += kPass) {
             const V hl = at(hard, hoff + i);
             V hr;
-            if constexpr (FRAMES) {
+            if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(pb, i, half + i, a, b);
               hr = signum(madd(hl, a, b));

@@ -57,6 +57,22 @@
 // take about equal times (utils/interp_probe.py times each apart). One
 // thread a frame, every row in device memory, was 5-29x slower (PERF.md
 // section 6, rows 13-15).
+//
+// The frame-major u track (FRAMES): the root LLRs are (batch, 2^level) and
+// u (batch, K), as the decoder's callers hold them, so no transpose runs
+// around the kernel; the pyramid and hard stay element-major. The host's
+// u-only schedule (interp_kernel.schedule) reads the root only in the
+// columns a and b of an entry and writes u only in d and e, and never
+// reads u (grate1s and rate-1 leaves transform in the pyramid's free rows,
+// the last stage into u). Such an entry is by_row: a warp takes 32
+// consecutive rows of one 16-frame chunk, a lane one row. It reads the
+// root (on 16 bytes, its grid entries at level 6 and up: the host's
+// checks) as 16-byte row segments of 16 frames, turned into the lanes'
+// rows through shared memory (root_load), and writes u a byte a frame
+// (mesg_store), each byte store of the warp 32 contiguous bytes of one
+// frame, one sector; every other access is the element-major item's. A
+// tile run takes the message frame-major (Tile's FRAMES scatter), and its
+// root frame-major where that is the code's root (a lone run).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,6 +108,7 @@ struct TileArgs {
   int level, kl, batch, prefill, aligned;
   int region;                    // log2 of a warp's region rows
   int8_t* arr[kArrays];          // in (read only), pyr, hard, cw, u
+  int k;                         // FRAMES: bytes a frame of u
 };
 
 using polar::simd::Vec;
@@ -110,10 +127,56 @@ __device__ __forceinline__ int8_t* row_ptr(const TileArgs& a, int v) {
   return base + (long long)(v & ((1 << kRowBits) - 1)) * a.batch;
 }
 
+// FRAMES: root_load gives 16 frames from frame f of root row `row` of
+// (batch, 2^level), packed as an element-major item; frames past the batch
+// read as 0. A by_row warp's lanes hold 32 consecutive rows of one chunk,
+// each half-warp's 16 rows starting on 16 bytes: lane l of a half-warp
+// fetches the half's 16 bytes of frame f + l (root_fetch), then writes
+// them as column l of a 16 x 16 block in the warp's 512 bytes of shared
+// memory (free in a grid entry) and reads back row l (root_stage). (In the
+// A/B on an H100, PERF.md section 6, the stage equalled a transpose by
+// __shfl_xor_sync and beat a byte a frame.)
+__device__ __forceinline__ V4 root_fetch(const TileArgs& a, int row, int f) {
+  const unsigned l = threadIdx.x & 15;
+  const int fr = f + (int)l;
+  return fr < a.batch ? *reinterpret_cast<const V4*>(
+                            a.arr[0] + ((long long)fr << a.level) + row - l)
+                      : polar::simd::splat<4>(0u);
+}
+__device__ __forceinline__ V4 root_stage(const V4& w) {
+  extern __shared__ uint32_t smem[];
+  const unsigned lane = threadIdx.x & 31, l = lane & 15;
+  uint8_t* s = reinterpret_cast<uint8_t*>(smem + (threadIdx.x >> 5) * 128) +
+               (lane & 16) * 16;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    s[j * 16 + l] = (uint8_t)(w.x[j >> 2] >> (8 * (j & 3)));
+  __syncwarp();
+  return *reinterpret_cast<const V4*>(s + l * 16);
+}
+__device__ __forceinline__ V4 root_load(const TileArgs& a, int row, int f) {
+  return root_stage(root_fetch(a, row, f));
+}
+// FRAMES: an item to column `row` of u (batch, k), byte j to frame f + j
+__device__ __forceinline__ void mesg_store(const TileArgs& a, int row, int f,
+                                           const V4& x) {
+  int8_t* p = a.arr[4] + (long long)f * a.k + row;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (f + j < a.batch)
+      p[(long long)j * a.k] = (int8_t)(x.x[j >> 2] >> (8 * (j & 3)));
+}
+
 // 16 frames from frame f of a row: one 16-byte access on the fast path,
 // else a byte at a time, the frames past the batch read as 0 and never
-// stored
+// stored; FRAMES: the root's and u's rows are frame-major (RAW: a root
+// row's fetch alone)
+template <bool FRAMES, bool RAW = false>
 __device__ __forceinline__ V4 gload(const TileArgs& a, int v, int f) {
+  if constexpr (FRAMES)
+    if ((v >> kRowBits) == 0)
+      return RAW ? root_fetch(a, v, f) : root_load(a, v, f);
   const int8_t* p = row_ptr(a, v) + f;
   if (a.aligned) return *reinterpret_cast<const V4*>(p);
   V4 x = polar::simd::splat<4>(0u);
@@ -121,8 +184,12 @@ __device__ __forceinline__ V4 gload(const TileArgs& a, int v, int f) {
     if (f + j < a.batch) x.x[j >> 2] |= (uint32_t)(uint8_t)p[j] << (8 * (j & 3));
   return x;
 }
+template <bool FRAMES>
 __device__ __forceinline__ void gstore(const TileArgs& a, int v, int f,
                                        const V4& x) {
+  if constexpr (FRAMES)
+    if ((v >> kRowBits) == 4)
+      return mesg_store(a, v & ((1 << kRowBits) - 1), f, x);
   int8_t* p = row_ptr(a, v) + f;
   if (a.aligned) {
     *reinterpret_cast<V4*>(p) = x;
@@ -150,17 +217,42 @@ __device__ __forceinline__ V4 key_comb(const V4& a, const V4& b) {
   return o;
 }
 
+// Item i's row r and first frame f. Element-major, a warp's threads take
+// consecutive 16-frame chunks of a row (512 contiguous bytes); by_row
+// (FRAMES: an entry that reads the root or writes u) a warp takes one
+// chunk of 32 consecutive rows, the next warp the next chunk of them, r
+// past the entry's rows being no item.
+template <bool FRAMES>
+__device__ __forceinline__ void item(unsigned i, unsigned chunks, bool by_row,
+                                     int& r, int& f) {
+  if constexpr (FRAMES)
+    if (by_row) {
+      const unsigned w = i >> 5;
+      r = (int)((w / chunks) << 5 | (i & 31));
+      f = (int)(w % chunks) << 4;
+      return;
+    }
+  r = (int)(i / chunks);
+  f = (int)(i - (unsigned)r * chunks) << 4;
+}
+
 // A chain op's pass (f, g, add, hmul, copy: d = op(a, b[, c]) row by
 // row), kUnroll items a thread at a time, every load before any store: a
 // pass is latency-bound at the few threads the tile runs' shared memory
-// leaves an SM, so each thread keeps kUnroll items' loads in flight.
+// leaves an SM, so each thread keeps kUnroll items' loads in flight. A
+// frame-major root is fetched for all of them before any is staged: a
+// stage's __syncwarp kept the next fetch from starting (2-4 % of a batch
+// at Polar(16384, 8192) on an H100, PERF.md section 6).
 constexpr int kUnroll = 4;
 
+template <bool FRAMES>
 __device__ __forceinline__ void chain_pass(const TileArgs& A, int op, int ra,
                                            int rb, int rc,
-                           int rd, unsigned items, unsigned chunks) {
+                           int rd, unsigned items, unsigned chunks,
+                           bool by_row, int rows) {
   using namespace polar::simd;
   const unsigned stride = gridDim.x * blockDim.x;
+  const bool hoist = FRAMES && by_row;
   for (unsigned i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < items;
        i0 += kUnroll * stride) {
     V4 a[kUnroll], b[kUnroll], c[kUnroll];
@@ -170,11 +262,29 @@ __device__ __forceinline__ void chain_pass(const TileArgs& A, int op, int ra,
       const unsigned i = i0 + k * stride;
       r[k] = -1;
       if (i >= items) continue;
-      r[k] = (int)(i / chunks);
-      f[k] = (int)(i - (unsigned)r[k] * chunks) << 4;
-      a[k] = gload(A, ra + r[k], f[k]);
-      if (op != kSCopy) b[k] = gload(A, rb + r[k], f[k]);
-      if (op == kSG) c[k] = gload(A, rc + r[k], f[k]);
+      item<FRAMES>(i, chunks, by_row, r[k], f[k]);
+      if (FRAMES && r[k] >= rows) {
+        r[k] = -1;
+        continue;
+      }
+      if (hoist) {
+        a[k] = gload<FRAMES, true>(A, ra + r[k], f[k]);
+        if (op != kSCopy) b[k] = gload<FRAMES, true>(A, rb + r[k], f[k]);
+      } else {
+        a[k] = gload<FRAMES>(A, ra + r[k], f[k]);
+        if (op != kSCopy) b[k] = gload<FRAMES>(A, rb + r[k], f[k]);
+      }
+      if (op == kSG) c[k] = gload<FRAMES>(A, rc + r[k], f[k]);
+    }
+    if constexpr (FRAMES) {
+      if (hoist) {
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (r[k] < 0) continue;
+          if ((ra >> kRowBits) == 0) a[k] = root_stage(a[k]);
+          if (op != kSCopy && (rb >> kRowBits) == 0) b[k] = root_stage(b[k]);
+        }
+      }
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
@@ -187,83 +297,92 @@ __device__ __forceinline__ void chain_pass(const TileArgs& A, int op, int ra,
         case kSHmul: o = hmul(a[k], b[k]); break;
         default: o = a[k]; break;  // kSCopy
       }
-      gstore(A, rd + r[k], f[k], o);
+      gstore<FRAMES>(A, rd + r[k], f[k], o);
     }
   }
 }
 
 // One grid entry: its rows x 16-frame chunks spread over the whole grid.
+template <bool FRAMES>
 __device__ __forceinline__ void grid_pass(const TileArgs& A, const int* e) {
   using namespace polar::simd;
   const int op = __ldg(e) & 0xFF, rows = __ldg(e + 1);
   const int ra = __ldg(e + 2), rb = __ldg(e + 3), rc = __ldg(e + 4),
             rd = __ldg(e + 5), re = __ldg(e + 6), x = __ldg(e + 7);
   const unsigned chunks = (unsigned)(A.batch + 15) >> 4;
-  const unsigned items = (unsigned)rows * chunks;
+  const bool by_row =
+      FRAMES && ((ra >= 0 && (ra >> kRowBits) == 0) ||
+                 (rb >= 0 && (rb >> kRowBits) == 0) ||
+                 (rd >> kRowBits) == 4 || (re >> kRowBits) == 4);
+  const unsigned items = by_row ? ((unsigned)(rows + 31) >> 5) * 32 * chunks
+                                : (unsigned)rows * chunks;
   if (op >= kSF && op <= kSCopy) {
-    chain_pass(A, op, ra, rb, rc, rd, items, chunks);
+    chain_pass<FRAMES>(A, op, ra, rb, rc, rd, items, chunks, by_row, rows);
     return;
   }
   const V4 ones = splat<4>(kOnes);
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
        i += gridDim.x * blockDim.x) {
-    const int r = (int)(i / chunks);
-    const int f = (int)(i - (unsigned)r * chunks) << 4;
+    int r, f;
+    item<FRAMES>(i, chunks, by_row, r, f);
+    if (FRAMES && r >= rows) continue;
     switch (op) {
       case kSGrate1: {  // g, sign, combine: hr to the message (or cw) rows
-        const V4 hl = gload(A, rc + r, f);
-        const V4 hr =
-            signum(madd(hl, gload(A, ra + r, f), gload(A, rb + r, f)));
+        const V4 hl = gload<FRAMES>(A, rc + r, f);
+        const V4 hr = signum(madd(hl, gload<FRAMES>(A, ra + r, f),
+                                  gload<FRAMES>(A, rb + r, f)));
         if (re >= 0) {
-          gstore(A, rc + r, f, hmul(hl, hr));
-          gstore(A, re + r, f, hr);
+          gstore<FRAMES>(A, rc + r, f, hmul(hl, hr));
+          gstore<FRAMES>(A, re + r, f, hr);
         }
-        gstore(A, rd + r, f, hr);
+        gstore<FRAMES>(A, rd + r, f, hr);
         break;
       }
       case kSStage: {  // butterfly stage x on pair r, from ra into rd
         const int hs = 1 << x;
         const int j = ((r >> x) << (x + 1)) | (r & (hs - 1));
-        const V4 hi = gload(A, ra + j + hs, f);
-        gstore(A, rd + j, f, hmul(gload(A, ra + j, f), hi));
-        if (rd != ra) gstore(A, rd + j + hs, f, hi);
+        const V4 hi = gload<FRAMES>(A, ra + j + hs, f);
+        gstore<FRAMES>(A, rd + j, f, hmul(gload<FRAMES>(A, ra + j, f), hi));
+        if (rd != ra) gstore<FRAMES>(A, rd + j + hs, f, hi);
         break;
       }
       case kSRate1: {
-        const V4 h = signum(gload(A, ra + r, f));
-        if (rc >= 0) gstore(A, rc + r, f, h);
-        gstore(A, rd + r, f, h);
+        const V4 h = signum(gload<FRAMES>(A, ra + r, f));
+        if (rc >= 0) gstore<FRAMES>(A, rc + r, f, h);
+        gstore<FRAMES>(A, rd + r, f, h);
         break;
       }
       case kSKey:
-        gstore(A, rd + r, f,
-               key_comb(spc_key(gload(A, ra + r, f)),
-                        spc_key(gload(A, rb + r, f))));
+        gstore<FRAMES>(A, rd + r, f,
+                       key_comb(spc_key(gload<FRAMES>(A, ra + r, f)),
+                                spc_key(gload<FRAMES>(A, rb + r, f))));
         break;
       case kSKeyRed:
-        gstore(A, rd + r, f,
-               key_comb(gload(A, ra + r, f), gload(A, rb + r, f)));
+        gstore<FRAMES>(A, rd + r, f,
+                       key_comb(gload<FRAMES>(A, ra + r, f),
+                                gload<FRAMES>(A, rb + r, f)));
         break;
       case kSFlip: {  // Wagner's flip by the frame's key in row rb
-        const V4 k = gload(A, rb, f), s = gload(A, ra + r, f);
+        const V4 k = gload<FRAMES>(A, rb, f),
+                 s = gload<FRAMES>(A, ra + r, f);
         V4 h;
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           h.x[q] = spc_flip(s.x[q], k.x[q] & 0x7F7F7F7Fu,
                             __vcmpne4(k.x[q] & 0x80808080u, 0u));
-        if (rc >= 0) gstore(A, rc + r, f, h);
-        gstore(A, rd + r, f, h);
+        if (rc >= 0) gstore<FRAMES>(A, rc + r, f, h);
+        gstore<FRAMES>(A, rd + r, f, h);
         break;
       }
       case kSRepBc: {  // the bit of the fold in row rb, on every row
-        const V4 bit = signum(gload(A, rb, f));
-        if (rc >= 0) gstore(A, rc + r, f, bit);
-        if (rd >= 0) gstore(A, rd + r, f, bit);
-        if (re >= 0 && r == 0) gstore(A, re, f, bit);
+        const V4 bit = signum(gload<FRAMES>(A, rb, f));
+        if (rc >= 0) gstore<FRAMES>(A, rc + r, f, bit);
+        if (rd >= 0) gstore<FRAMES>(A, rd + r, f, bit);
+        if (re >= 0 && r == 0) gstore<FRAMES>(A, re, f, bit);
         break;
       }
       case kSFill:
-        gstore(A, rd + r, f, ones);
+        gstore<FRAMES>(A, rd + r, f, ones);
         break;
       default:
         break;
@@ -271,24 +390,25 @@ __device__ __forceinline__ void grid_pass(const TileArgs& A, const int* e) {
   }
 }
 
-template <bool CW, bool U>
+template <bool CW, bool U, bool FRAMES>
 using InterpTile = polar::simd::Tile<polar::simd::kTileWR,
                                      polar::simd::kTileVW, CW,
-                                     /*ROOT_SMEM=*/false, U, /*INTERP=*/true>;
+                                     /*ROOT_SMEM=*/false, U, /*INTERP=*/true,
+                                     FRAMES>;
 
 // One tile run on one tile: words [ws, we) of the subtree rooted at level R,
 // position P. The soft pyramid below R (level-positional, rows [2^l,
 // 2^(l+1)) the input of level l), and hard and cw rows [P, P + 2^R) lie in
 // the warp's regions; the root slot is read where it lies; the message
-// goes to device memory, compacted, at each body's row of mrows.
-// Inlined, as every device function of the kernel: the Tile's members then
-// stay in registers, not in a stack frame each access reads.
-template <bool CW, bool U>
+// goes to device memory, compacted, at each body's row of mrows (FRAMES:
+// its column). Inlined, as every device function of the kernel: the Tile's
+// members then stay in registers, not in a stack frame each access reads.
+template <bool CW, bool U, bool FRAMES>
 __device__ __forceinline__ void run_on_tile(const TileArgs& A,
-                                            InterpTile<CW, U>& t, int ws,
-                            int we, int R, int P) {
+                                            InterpTile<CW, U, FRAMES>& t,
+                                            int ws, int we, int R, int P) {
   using namespace polar::simd;
-  using T = InterpTile<CW, U>;
+  using T = InterpTile<CW, U, FRAMES>;
   using V = typename T::V;
   uint32_t* const soft = t.soft;
   uint32_t* const hb = t.hard;
@@ -303,8 +423,12 @@ __device__ __forceinline__ void run_on_tile(const TileArgs& A,
     const int* d = A.desc + (w & 0xFFFF) * kDescCols;
     const int kind = __ldg(d), lv = __ldg(d + 1);
     const bool need_hard = __ldg(d + 3), do_cw = CW && __ldg(d + 4);
-    if (U && (kind == kBody || kind == kGrate1))
-      t.mesg = A.arr[4] + (long long)__ldg(A.mrows + i) * A.batch;
+    if (U && (kind == kBody || kind == kGrate1)) {
+      if constexpr (FRAMES)
+        t.mesg = A.arr[4] + __ldg(A.mrows + i);
+      else
+        t.mesg = A.arr[4] + (long long)__ldg(A.mrows + i) * A.batch;
+    }
     if (kind == kBody) {  // the tile core on the body's rows
       const int n = 1 << lv;
       t.root = lv == R ? nullptr : soft + n * kTileWR;
@@ -381,18 +505,18 @@ __device__ __forceinline__ void run_on_tile(const TileArgs& A,
   int8_t* hard = A.arr[2];
   int8_t* cw = A.arr[3];
   for (int r = t.r0; r < (1 << R); r += T::kPass) {
-    if (hard != nullptr) t.store(hard + (long long)P * A.batch, r, t.at(hb, r));
+    if (hard != nullptr) t.put(hard + (long long)P * A.batch, r, t.at(hb, r));
     if (CW && cw != nullptr)
-      t.store(cw + (long long)P * A.batch, r, t.at(cb, r));
+      t.put(cw + (long long)P * A.batch, r, t.at(cb, r));
   }
   __syncwarp();
 }
 
 // A run entry: the warps of the grid walk over the tiles of the batch.
-template <bool CW, bool U>
+template <bool CW, bool U, bool FRAMES>
 __device__ __forceinline__ void tile_runs(const TileArgs& A, const int* e,
                                           uint32_t* smem) {
-  using T = InterpTile<CW, U>;
+  using T = InterpTile<CW, U, FRAMES>;
   const int ws = __ldg(e + 2), we = __ldg(e + 3), R = __ldg(e + 4),
             P = __ldg(e + 5);
   const int nreg = 1 << A.region;
@@ -406,15 +530,20 @@ __device__ __forceinline__ void tile_runs(const TileArgs& A, const int* e,
   for (long long tile = (long long)blockIdx.x * warps + warp; tile < tiles;
        tile += (long long)gridDim.x * warps) {
     T t;
-    t.place(base, nreg, tile, root, A.arr[4], A.batch, A.aligned);
-    run_on_tile<CW, U>(A, t, ws, we, R, P);
+    t.place(base, nreg, tile, root, A.arr[4], A.batch, A.aligned, A.k);
+    if constexpr (FRAMES) {  // the root is frame-major where it is the code's
+      t.in_stride = 1 << A.level;
+      t.root_f = R == A.level ? A.arr[0] + (long long)t.f * t.in_stride
+                              : nullptr;
+    }
+    run_on_tile<CW, U, FRAMES>(A, t, ws, we, R, P);
   }
 }
 
 // The schedule in order, a grid barrier after every entry that is not
 // chained to the next. A schedule of one tile run has no barrier and
 // launches as a plain grid; any other is launched cooperatively.
-template <bool CW, bool U>
+template <bool CW, bool U, bool FRAMES>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     interp_tile_kernel(TileArgs A) {
   extern __shared__ uint32_t smem[];
@@ -422,9 +551,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     const int* e = A.sched + k * kSchedCols;
     const int op = __ldg(e);
     if ((op & 0xFF) == kRun)
-      tile_runs<CW, U>(A, e, smem);
+      tile_runs<CW, U, FRAMES>(A, e, smem);
     else
-      grid_pass(A, e);
+      grid_pass<FRAMES>(A, e);
     if (!(op & kChain) && k + 1 < A.n_sched) cg::this_grid().sync();
   }
 }
@@ -432,35 +561,44 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 int region_bytes(int cw, int region, int warps) {
   return warps * (2 + cw) * (1 << region) * polar::simd::kTileWR * 4;
 }
-
-template <bool CW, bool U>
-int tile_occupancy(int region, int warps, int* per_sm) {
+// A block's dynamic shared memory: the warps' regions, and with FRAMES at
+// least 512 bytes a warp for root_load's stage
+template <bool CW, bool FRAMES>
+int launch_bytes(int region, int warps) {
   const int bytes = region_bytes(CW, region, warps);
+  return FRAMES && bytes < 512 * warps ? 512 * warps : bytes;
+}
+
+template <bool CW, bool U, bool FRAMES>
+int tile_occupancy(int region, int warps, int* per_sm) {
+  const int bytes = launch_bytes<CW, FRAMES>(region, warps);
   cudaError_t err = cudaFuncSetAttribute(
-      interp_tile_kernel<CW, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      interp_tile_kernel<CW, U, FRAMES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, interp_tile_kernel<CW, U>, 32 * warps, bytes);
+      per_sm, interp_tile_kernel<CW, U, FRAMES>, 32 * warps, bytes);
 }
 
-template <bool CW, bool U>
+template <bool CW, bool U, bool FRAMES>
 int launch_tile(TileArgs a, int blocks, int warps, int coop,
                 cudaStream_t stream) {
-  const int bytes = region_bytes(CW, a.region, warps);
+  const int bytes = launch_bytes<CW, FRAMES>(a.region, warps);
   // above 48 KB a block's dynamic shared memory must be granted first
   cudaError_t err = cudaFuncSetAttribute(
-      interp_tile_kernel<CW, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      interp_tile_kernel<CW, U, FRAMES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
   if (coop) {  // refused (cudaErrorCooperativeLaunchTooLarge) if the grid
                // is not resident at once: the error goes to the caller
     void* args[] = {&a};
     return (int)cudaLaunchCooperativeKernel(
-        (const void*)interp_tile_kernel<CW, U>, dim3(blocks),
+        (const void*)interp_tile_kernel<CW, U, FRAMES>, dim3(blocks),
         dim3(32 * warps), args, (size_t)bytes, stream);
   }
-  interp_tile_kernel<CW, U><<<blocks, 32 * warps, bytes, stream>>>(a);
+  interp_tile_kernel<CW, U, FRAMES><<<blocks, 32 * warps, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -468,7 +606,7 @@ TileArgs tile_args(const void* words, const void* desc, const void* table,
                    const void* mrows, const void* sched, int n_sched,
                    int level, int kl, int batch, int prefill, int aligned,
                    int region, const void* llr, void* pyr, void* hard,
-                   void* cw, void* u) {
+                   void* cw, void* u, int k) {
   TileArgs a;
   a.words = (const int*)words;
   a.desc = (const int*)desc;
@@ -487,6 +625,7 @@ TileArgs tile_args(const void* words, const void* desc, const void* table,
   a.arr[2] = (int8_t*)hard;
   a.arr[3] = (int8_t*)cw;
   a.arr[4] = (int8_t*)u;
+  a.k = k;
   return a;
 }
 
@@ -498,40 +637,59 @@ TileArgs tile_args(const void* words, const void* desc, const void* table,
 // in; pyr (2^level + 1, batch) scratch (null without grid entries); hard
 // (2^level, batch) scratch or out (null: not kept), cw (2^level, batch) out
 // when cw_track, u (K, batch) out, compacted, when u_track; all int8
-// element-major. region: log2 of the rows of a warp's shared regions;
-// aligned != 0: batch % 16 == 0 and every array on 16 bytes; `blocks` of
+// element-major; frames != 0 (the u track alone): llr (batch, 2^level) on
+// 16 bytes and u (batch, k) frame-major, grid entries from level 6 (the
+// host checks both). region: log2 of the
+// rows of a warp's shared regions; aligned != 0: batch % 16 == 0 and every
+// element-major array on 16 bytes; `blocks` of
 // `warps` (1..4) tiles; coop != 0: a cooperative launch (every entry but a
 // lone tile run needs one). Returns the CUDA error of the attribute call or
 // the launch (cudaErrorCooperativeLaunchTooLarge where the card cannot hold
-// the grid at once), or cudaErrorInvalidValue for a track pair not built.
+// the grid at once), or cudaErrorInvalidValue for a track pair (and
+// layout) not built.
 extern "C" int polar_interp_tile(const void* words, const void* desc,
                                  const void* table, const void* mrows,
                                  const void* sched, int n_sched, int level,
                                  int kl, int batch, int prefill, int aligned,
                                  int region, const void* llr, void* pyr,
                                  void* hard, void* cw, void* u, int cw_track,
-                                 int u_track, int blocks, int warps, int coop,
-                                 void* stream) {
+                                 int u_track, int frames, int k, int blocks,
+                                 int warps, int coop, void* stream) {
   if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
   const TileArgs a = tile_args(words, desc, table, mrows, sched, n_sched,
                                level, kl, batch, prefill, aligned, region,
-                               llr, pyr, hard, cw, u);
+                               llr, pyr, hard, cw, u, k);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (cw_track && u_track) return launch_tile<true, true>(a, blocks, warps, coop, st);
-  if (cw_track) return launch_tile<true, false>(a, blocks, warps, coop, st);
-  if (u_track) return launch_tile<false, true>(a, blocks, warps, coop, st);
+  if (frames)
+    return cw_track || !u_track
+               ? (int)cudaErrorInvalidValue
+               : launch_tile<false, true, true>(a, blocks, warps, coop, st);
+  if (cw_track && u_track)
+    return launch_tile<true, true, false>(a, blocks, warps, coop, st);
+  if (cw_track)
+    return launch_tile<true, false, false>(a, blocks, warps, coop, st);
+  if (u_track)
+    return launch_tile<false, true, false>(a, blocks, warps, coop, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of `warps` warps of the tile kernel (tracks as polar_interp_tile,
-// shared regions of 2^region rows) that one SM holds at once, into
-// *per_sm. Returns the CUDA error of the attribute or occupancy call.
+// Blocks of `warps` warps of the tile kernel (tracks and layout as
+// polar_interp_tile, shared regions of 2^region rows) that one SM holds at
+// once, into *per_sm. Returns the CUDA error of the attribute or occupancy
+// call.
 extern "C" int polar_interp_tile_occupancy(int cw_track, int u_track,
-                                           int region, int warps,
+                                           int frames, int region, int warps,
                                            int* per_sm) {
   if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
-  if (cw_track && u_track) return tile_occupancy<true, true>(region, warps, per_sm);
-  if (cw_track) return tile_occupancy<true, false>(region, warps, per_sm);
-  if (u_track) return tile_occupancy<false, true>(region, warps, per_sm);
+  if (frames)
+    return cw_track || !u_track
+               ? (int)cudaErrorInvalidValue
+               : tile_occupancy<false, true, true>(region, warps, per_sm);
+  if (cw_track && u_track)
+    return tile_occupancy<true, true, false>(region, warps, per_sm);
+  if (cw_track)
+    return tile_occupancy<true, false, false>(region, warps, per_sm);
+  if (u_track)
+    return tile_occupancy<false, true, false>(region, warps, per_sm);
   return (int)cudaErrorInvalidValue;
 }

@@ -82,8 +82,9 @@ SIGNATURES = {
     "polar_scratch_decode_frames": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "polar_interp_tile": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "polar_interp_tile_occupancy": (_I, _I, _I, _I, _P),
+                          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
+    "polar_interp_tile_occupancy": (_I, _I, _I, _I, _I, _P),
     "polar_set_device": (_I,),
     "polar_get_device": (_P,),
     "polar_ring_shift": (_P, _P, _I, _L, _I, _P),

@@ -38,7 +38,10 @@ rows × 16-frame chunks of the whole batch, a grid barrier between
 dependent entries) and tile runs (each subtree below it, one warp's tile
 of :data:`TILE_FRAMES` frames at a time, on the tile core of
 ``csrc/fastssc_simd.cuh``); its message is written compacted, so u needs
-no gather.
+no gather. The whole-code decoder's u track also runs frame-major on a
+card: the kernel reads ``(B, N)`` LLRs and writes u ``(B, K)`` (a u-only
+schedule reads the root only as an entry's rows a and b and never reads
+u, so it serves either layout).
 
 Every wrapper takes any batch, launches the kernel for CUDA tensors and
 runs :func:`interp_plain` only for CPU tensors; :data:`launches` and
@@ -285,6 +288,11 @@ TILE_FRAMES = 8        # csrc/interp.cu: Tile<2, 2>, 8 frames a warp
 TILE_MAX_WARPS = 4     # warps (tiles) a block
 CHUNK_FRAMES = 16      # a grid item: one row of 16 frames, 16 bytes
 SMEM_BYTES = 232448    # the shared memory an H100 block may take
+# the frame-major u track (csrc/interp.cu): a warp stages the root through
+# 512 bytes of shared memory, 16 bytes of a frame a lane, so the root is on
+# 16 bytes and its grid entries take 32 rows a half (level 6 and up)
+STAGE_BYTES = 512
+FRAMES_GRID_LEVEL = 6
 # schedule entry kinds, column 0 (csrc/interp.cu); CHAIN: the next entry
 # runs without a grid barrier before it (it reads nothing this one writes)
 (RUN, S_F, S_G, S_ADD, S_HMUL, S_COPY, S_GRATE1, S_STAGE, S_RATE1, S_KEY,
@@ -332,27 +340,35 @@ class Schedule:
         return bool(self.grid_steps)
 
 
-def _transform(out: list, src: int, dst: int, rows: int) -> None:
+def _transform(out: list, src: int, dst: int, rows: int,
+               to: int | None = None) -> None:
     """Entries of the polar transform of ``rows`` rows from ``src`` into
-    ``dst`` (in place when equal): one butterfly stage each."""
+    ``dst`` (in place when equal): one butterfly stage each; with ``to``
+    the last stage (a copy of one row) writes ``to`` in place of ``dst``."""
     stages = rows.bit_length() - 1
-    if stages == 0 and src != dst:
-        out.append([S_COPY, 1, src, -1, -1, dst, -1, 0])
+    end = dst if to is None else to
+    if stages == 0 and src != end:
+        out.append([S_COPY, 1, src, -1, -1, end, -1, 0])
     for s in range(stages):
-        out.append([S_STAGE, rows // 2, src if s == 0 else dst, -1, -1, dst,
-                    -1, s])
+        out.append([S_STAGE, rows // 2, src if s == 0 else dst, -1, -1,
+                    end if s == stages - 1 else dst, -1, s])
 
 
 def _leaf_entries(kind: str, lv: int, p: int, mrow: int, level: int,
                   need_hard: bool, do_cw: bool, do_u: bool) -> list:
     """Grid entries of a leaf body at or above G: the node's rows × chunks
-    in passes, its reductions by halving, its transforms by stages."""
+    in passes, its reductions by halving, its transforms by stages (u
+    alone: by the last stage, so that no entry reads u)."""
     n = 1 << lv
     s = _row(IN, 0) if lv == level else _row(PYR, n)
     hard = _row(HARD, p) if need_hard else -1
     cw, u = _row(CW, p), _row(U, mrow)
     out = []
-    if kind == "rate1":       # u = T(signum(x)), cw = T(u)
+    if kind == "rate1" and do_u and not do_cw:  # in the free rows below
+        t = _row(PYR, 0)
+        out.append([S_RATE1, n, s, -1, hard, t, -1, 0])
+        _transform(out, t, t, n, to=u)
+    elif kind == "rate1":     # u = T(signum(x)), cw = T(u)
         t = u if do_u else cw
         out.append([S_RATE1, n, s, -1, hard, t, -1, 0])
         _transform(out, t, t, n)
@@ -397,8 +413,13 @@ def schedule(words, desc, table, level: int, kl: int, mask, *,
     below G (one subtree, since the walk is depth-first) is a tile run: a
     warp runs it on its tile of frames, state on chip, its root slot read
     in device memory. With ``prefill`` the rows of hard and cw that no tile
-    run writes back start at +1. Raises ``ValueError`` where a tile run's
-    regions exceed a block's shared memory."""
+    run writes back start at +1. On the u track alone no entry reads u,
+    the root is read only as an entry's rows a and b, and u written only
+    as its rows d and e (grate1s and rate-1 leaves transform in the
+    pyramid's free rows ``[0, 2^l)`` below their slot, the last stage into
+    u), so the kernel may hold the root and u either way round. Raises
+    ``ValueError`` where a tile run's regions exceed a block's shared
+    memory."""
     words = np.asarray(words, np.int64)
     desc = np.asarray(desc)
     n = 1 << level
@@ -461,10 +482,12 @@ def schedule(words, desc, table, level: int, kl: int, mask, *,
                 both[0][0] |= CHAIN
             entries += both
         elif kind == GRATE1:
-            t = _row(U, int(mrows[i])) if do_u else _row(CW, p + h)
+            u = _row(U, int(mrows[i]))
+            t = (u if do_cw else _row(PYR, 0)) if do_u else _row(CW, p + h)
             entries.append([S_GRATE1, h, s, s + h, _row(HARD, p), t,
                             _row(HARD, p + h) if need_hard else -1, 0])
-            _transform(entries, t, t, h)              # u = T(hr)
+            _transform(entries, t, t, h,              # u = T(hr)
+                       to=None if do_cw or not do_u else u)
             if do_cw:                                 # cw_r = T(T(hr))
                 _transform(entries, t, _row(CW, p + h), h)
                 entries.append([S_HMUL, h, _row(CW, p), _row(CW, p + h), -1,
@@ -494,6 +517,12 @@ def schedule(words, desc, table, level: int, kl: int, mask, *,
                          f"a block's shared memory: lower grid_level")
     table_ = np.asarray(entries, np.int32).reshape(-1, SCHED_COLS)
     grid = table_[:, 0] & 0xFF != RUN
+    if want_u and not want_cw:   # csrc/interp.cu's frame-major accesses
+        arrays = np.where(table_[grid, 2:7] >= 0,
+                          table_[grid, 2:7] >> ROW_BITS, -1)
+        if (arrays[:, 2:] == IN).any() or (arrays[:, :3] == U).any():
+            raise AssertionError(  # pragma: no cover
+                "a frame-major entry reads u or the root out of place")
     barriers = int(((table_[:-1, 0] & CHAIN) == 0).sum()) if grid.any() else 0
     max_rows = int(table_[grid, 1].max()) if grid.any() else 0
     return Schedule(table_, mrows, g, region, runs, grid_steps, barriers,
@@ -502,8 +531,8 @@ def schedule(words, desc, table, level: int, kl: int, mask, *,
 
 # -- the kernels --------------------------------------------------------------
 
-launches = {"interp_decoder": 0, "interp_decode_count": 0,
-            "interp_subtree": 0}
+launches = {"interp_decoder": 0, "interp_decoder_frames": 0,
+            "interp_decode_count": 0, "interp_subtree": 0}
 plain_calls = {"interp_plain": 0}
 _occupancy: dict = {}
 
@@ -572,36 +601,41 @@ def _compile(tree: Node, mask, subtree_level: int, want_cw: bool,
                      sched, prefill, want_cw, want_u)
 
 
-def _check_llr(llr_t, n, what):
-    if (llr_t.dtype != torch.int8 or llr_t.ndim != 2 or llr_t.shape[0] != n
-            or not llr_t.is_contiguous()):
-        raise ValueError(f"{what}: expected contiguous (N={n}, B) int8, got "
+def _check_llr(llr_t, n, what, frames: bool = False):
+    """Raises ``ValueError`` unless ``llr_t`` is a contiguous int8 tensor
+    of ``(N, B)`` (``frames``: ``(B, N)`` on 16 bytes)."""
+    if (llr_t.dtype != torch.int8 or llr_t.ndim != 2
+            or llr_t.shape[int(frames)] != n or not llr_t.is_contiguous()
+            or frames and llr_t.data_ptr() % 16):
+        want = f"(B, N={n}) on 16 bytes" if frames else f"(N={n}, B)"
+        raise ValueError(f"{what}: expected contiguous {want} int8, got "
                          f"{tuple(llr_t.shape)} {llr_t.dtype}")
 
 
-def _plan(c: _Compiled, dev, b: int) -> dict:
-    """The tile kernel's launch for ``b`` frames on ``dev``: warps (tiles)
-    a block, blocks, dynamic shared memory, cooperative or not. A
-    cooperative grid holds no more blocks than the card keeps resident at
-    once (the occupancy the runtime reports for this kernel and block), and
-    no more than its tiles or its largest grid entry's items need. Call
-    after ``build.stream(dev)``."""
+def _plan(c: _Compiled, dev, b: int, frames: bool = False) -> dict:
+    """The tile kernel's launch for ``b`` frames on ``dev`` (``frames``:
+    the frame-major u track's): warps (tiles) a block, blocks, dynamic
+    shared memory, cooperative or not. A cooperative grid holds no more
+    blocks than the card keeps resident at once (the occupancy the runtime
+    reports for this kernel and block), and no more than its tiles or its
+    largest grid entry's items need. Call after ``build.stream(dev)``."""
     s = c.sched
     per_warp = (2 + c.want_cw) * (TILE_FRAMES << s.region_level)
     warps = max(1, min(TILE_MAX_WARPS, SMEM_BYTES // per_warp))
+    smem = max(per_warp, STAGE_BYTES if frames else 0)   # bytes a warp
     tiles = -(-b // TILE_FRAMES)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not s.cooperative:   # one warp a tile while few tiles a block
         if tiles < 2 * TILE_MAX_WARPS * sms:
             warps = 1
         return {"warps": warps, "blocks": -(-tiles // warps),
-                "smem": warps * per_warp, "cooperative": False}
-    key = (str(dev), c.want_cw, c.want_u, s.region_level, warps)
+                "smem": warps * smem, "cooperative": False}
+    key = (str(dev), c.want_cw, c.want_u, frames, s.region_level, warps)
     if key not in _occupancy:
         per_sm = ctypes.c_int(0)
         build.check(build.load_library().polar_interp_tile_occupancy(
-            int(c.want_cw), int(c.want_u), s.region_level, warps,
-            ctypes.byref(per_sm)), "polar_interp_tile_occupancy")
+            int(c.want_cw), int(c.want_u), int(frames), s.region_level,
+            warps, ctypes.byref(per_sm)), "polar_interp_tile_occupancy")
         if per_sm.value < 1:
             raise RuntimeError("the interp tile kernel's block does not fit "
                                "an SM")
@@ -609,49 +643,65 @@ def _plan(c: _Compiled, dev, b: int) -> dict:
     items = s.max_rows * -(-b // CHUNK_FRAMES)
     need = max(-(-tiles // warps), -(-items // (32 * warps)))
     return {"warps": warps, "blocks": min(_occupancy[key], need),
-            "smem": warps * per_warp, "cooperative": True}
+            "smem": warps * smem, "cooperative": True}
 
 
-def _launch_plan(c: _Compiled, batch: int, dev="cuda") -> dict:
-    """:func:`_plan` of ``c`` for ``batch`` frames on CUDA device ``dev``,
-    with its schedule's size."""
+def _launch_plan(c: _Compiled, batch: int, dev="cuda",
+                 frames: bool = False) -> dict:
+    """:func:`_plan` of ``c`` for ``batch`` frames on CUDA device ``dev``
+    (``frames``: the frame-major u track's), with its schedule's size."""
     dev = torch.device(dev)
     build.stream(dev)
-    return {**c.info(), **_plan(c, dev, batch)}
+    return {**c.info(), **_plan(c, dev, batch, frames)}
 
 
-def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str):
+def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str,
+              frames: bool = False):
     """Launch the tile kernel on ``c``'s schedule: returns ``(hard, cw,
     u)``, u compacted into K rows, hard None unless ``hard_out`` (or the
-    grid steps need it)."""
+    grid steps need it). ``frames``: ``llr_t`` is frame-major, a contiguous
+    ``(B, N)`` int8 tensor on 16 bytes, and u comes back ``(B, K)``; the u
+    track alone, its grid entries from level ``FRAMES_GRID_LEVEL``
+    (``ValueError`` else)."""
     start = profiling.begin()
+    n = 1 << c.level
+    if frames:
+        if c.want_cw or hard_out:
+            raise ValueError("the frame-major layout is the interpreter's u "
+                             "track alone: no cw track, no hard rows")
+        if c.sched.cooperative and c.level < FRAMES_GRID_LEVEL:
+            raise ValueError(f"the frame-major layout's grid entries start "
+                             f"at level {FRAMES_GRID_LEVEL}, not {c.level}")
+        _check_llr(llr_t, n, what, frames=True)
     dev = llr_t.device
-    n, b = 1 << c.level, llr_t.shape[1]
+    b = llr_t.shape[0 if frames else 1]
     k = int(np.count_nonzero(c.mask == 0))
-    coop = c.sched.cooperative
+    sched = c.sched
+    coop = sched.cooperative
     hard = (torch.empty((n, b), dtype=torch.int8, device=dev)
             if hard_out or coop else None)
     cw = (torch.empty((n, b), dtype=torch.int8, device=dev)
           if c.want_cw else None)
-    u = torch.empty((k, b), dtype=torch.int8, device=dev) if c.want_u else None
+    u = (torch.empty((b, k) if frames else (k, b), dtype=torch.int8,
+                     device=dev) if c.want_u else None)
     if b == 0:
         return hard, cw, u
     stream = build.stream(dev)
     pyr = (torch.empty((n + 1, b), dtype=torch.int8, device=dev)
            if coop else None)
-    plan = _plan(c, dev, b)
-    words, desc, table, sched, mrows = (a.data_ptr()
-                                        for a in c.device_args(dev))
-    arrays = [t for t in (llr_t, pyr, hard, cw, u) if t is not None]
+    plan = _plan(c, dev, b, frames)
+    words, desc, table, entries, mrows = (
+        a.data_ptr() for a in c.device_args(dev))
+    lanes = (pyr, hard, cw) if frames else (llr_t, pyr, hard, cw, u)
     aligned = b % CHUNK_FRAMES == 0 and all(t.data_ptr() % 16 == 0
-                                            for t in arrays)
+                                            for t in lanes if t is not None)
     err = build.load_library().polar_interp_tile(
-        words, desc, table, mrows, sched, len(c.sched.entries), c.level,
-        c.kl, b, int(c.prefill), int(aligned), c.sched.region_level,
+        words, desc, table, mrows, entries, len(sched.entries), c.level,
+        c.kl, b, int(c.prefill), int(aligned), sched.region_level,
         llr_t.data_ptr(), *(t.data_ptr() if t is not None else None
                             for t in (pyr, hard, cw, u)),
-        int(c.want_cw), int(c.want_u), plan["blocks"], plan["warps"],
-        int(plan["cooperative"]), stream)
+        int(c.want_cw), int(c.want_u), int(frames), k, plan["blocks"],
+        plan["warps"], int(plan["cooperative"]), stream)
     build.check(err, "polar_interp_tile")
     profiling.launched(start, launches, what)
     return hard, cw, u
@@ -668,7 +718,15 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
     and ``decode.program_branches`` give the program's size,
     ``decode.schedule`` its tile-kernel schedule and ``decode.plan(batch)``
     its launch. ``subtree_level``: nodes at or below it are bodies;
-    ``output_dtype`` casts the outputs. Any batch."""
+    ``output_dtype`` casts the outputs. Any batch.
+
+    With the u output, ``decode`` on a card hands the kernel the ``(B,
+    N)`` LLRs as given (made contiguous, copied if off 16 bytes) and takes
+    u ``(B, K)`` back: the
+    kernel's frame-major u track, counted under ``interp_decoder_frames``,
+    with no transpose. The cw outputs and CPU tensors go through the
+    element-major entry and a transpose in and out
+    (``fastssc.frame_major``)."""
     if tree is None:
         tree = compile_code(code)
     if output not in ("u", "systematic", "codeword", "both"):
@@ -705,7 +763,21 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
         _, cw, u = _run_tile(c, llr_t, hard_out=False, what="interp_decoder")
         return by_mode(u, cw)
 
-    decode = frame_major(lane_major, "interp decoder")
+    transposing = frame_major(lane_major, "interp decoder")
+
+    def decode(llrs):
+        if output != "u" or llrs.device.type != "cuda":
+            return transposing(llrs)
+        if llrs.ndim != 2:
+            raise ValueError("interp decoder expects (batch, N) LLRs")
+        with profiling.annotate("decode"):
+            x = llrs.contiguous()
+            if x.data_ptr() % 16:   # a view off 16 bytes
+                x = x.clone()
+            _, _, u = _run_tile(c, x, hard_out=False,
+                                what="interp_decoder_frames", frames=True)
+            return u.to(output_dtype)
+
     decode.lane_major = lane_major
     decode.plain = plain
     decode.program_steps = c.steps

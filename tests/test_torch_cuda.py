@@ -974,6 +974,88 @@ def test_interp_tile_grid_entries_match_plain(dev, m, rate, sl, grid_level,
                 assert torch.equal(a.cpu(), b), output
 
 
+def _at_offset(x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` bytes into a fresh
+    block (off a 16-byte boundary unless 0)."""
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = flat[offset:offset + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("m", [4, 9, 12, 14])
+@pytest.mark.parametrize("sl", [4, 10])
+@pytest.mark.parametrize("batch", [1, 63, 2048, 4099])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_interp_decoder_frames_matches_plain(dev, m, sl, batch, offset):
+    """The u decoder's frame-major entry on a card: one launch of the tile
+    kernel's frame-major u track on the (B, N) LLRs as given (``offset``
+    3: off a 16-byte boundary, so copied first) and nothing else, u (B, K)
+    equal bit for bit to the plain version and to the element-major launch
+    on the transposed LLRs; ties in every fifth row. A (B, N) view that is
+    not contiguous is made contiguous."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    c = pt.make_code(m, rate=0.5)
+    llr_t = _llrs(dev, c.N, max(batch, 2), 1000 * m + sl)[:, :batch]
+    llr_t = llr_t.contiguous()
+    llr_t[::5] = 0
+    llrs = _at_offset(llr_t.t().contiguous(), offset)
+    assert (llrs.data_ptr() % 16 != 0) == bool(offset)
+    dec = interp_kernel.make_interp_decoder(c, subtree_level=sl)
+    before = dict(interp_kernel.launches)
+    plain = dict(interp_kernel.plain_calls)
+    got = dec(llrs)
+    assert interp_kernel.launches == {
+        **before, "interp_decoder_frames": before["interp_decoder_frames"] + 1}
+    assert interp_kernel.plain_calls == plain
+    assert got.shape == (batch, c.K) and got.is_contiguous()
+    assert torch.equal(got, dec.plain(llr_t).t())
+    assert torch.equal(got, dec.lane_major(llr_t).t())
+    assert torch.equal(dec(llr_t.t()), got)
+
+
+def _frame_grid_codes():
+    """Polar(512, .) codes whose root is a rate-1, REP or SPC leaf, a
+    rate0_right or a rate1_comb node, or a branch: at grid level 4 their
+    frame-major schedules read the root and write u from the grid in every
+    way the kernel has (f, g, add, copy, grate1, stage, rate-1, key, flip,
+    rep broadcast)."""
+    n, half = 512, pt.make_code(9, rate=0.5).frozen
+    rep = np.ones(n, np.uint8)
+    rep[-1] = 0
+    spc = np.zeros(n, np.uint8)
+    spc[0] = 1
+    r0_right, r1_comb = half.copy(), half.copy()
+    r0_right[:n // 2] = 1
+    r1_comb[n // 2:] = 0
+    return {"rate1": np.zeros(n, np.uint8), "rep": rep, "spc": spc,
+            "rate0_right": r0_right, "rate1_comb": r1_comb, "branch": half}
+
+
+@pytest.mark.parametrize("root", sorted(_frame_grid_codes()))
+@pytest.mark.parametrize("batch", [3, 31, 4099])
+def test_interp_decoder_frames_grid_entries_match_plain(dev, root, batch,
+                                                        monkeypatch):
+    """Grid level 4, so that the frame-major schedule's grid entries read
+    the (B, N) root and write u (B, K) in each way; against the plain
+    version and the element-major launch, on LLRs off a 16-byte boundary
+    (which the entry copies)."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    monkeypatch.setattr(interp_kernel, "INTERP_GRID_LEVEL", 4)
+    c = pt.PolarCode(9, _frame_grid_codes()[root])
+    llr_t = _llrs(dev, c.N, max(batch, 2), batch)[:, :batch].contiguous()
+    llr_t[1::3] = 0
+    dec = interp_kernel.make_interp_decoder(c, subtree_level=2)
+    assert dec.schedule["grid_steps"] > 0
+    before = interp_kernel.launches["interp_decoder_frames"]
+    got = dec(_at_offset(llr_t.t().contiguous(), 5))
+    assert interp_kernel.launches["interp_decoder_frames"] == before + 1
+    assert torch.equal(got, dec.plain(llr_t).t())
+    assert torch.equal(got, dec.lane_major(llr_t).t())
+
+
 def test_interp_tile_subtree_in_every_hybrid_node(dev):
     """Every distinct kernel node of the m = 17 hybrid (kl9) at B = 4096:
     the tile kernel against the SSA-style subtree kernel and the plain
@@ -1999,8 +2081,9 @@ def test_frame_major_entry_runs_no_transpose(dev, m, style):
 
 def test_auto_decoder_takes_the_frame_major_kernel_at_the_bench_code(dev):
     """make_auto_decoder at Polar(1024, 512), u, at both batches of its
-    choice: the frame-major launch and no copy span; the cw outputs and
-    the interpreter keep their transposes."""
+    choice: the frame-major launch and no copy span; the cw outputs keep
+    their transposes, and the interpreter's u track (Polar(8192, 4096))
+    takes its own frame-major launch."""
     from torch.profiler import ProfilerActivity, profile
 
     from polar_tpu_torch.utils import profiling
@@ -2018,10 +2101,14 @@ def test_auto_decoder_takes_the_frame_major_kernel_at_the_bench_code(dev):
         spans, _ = profiling.take_spans()
         assert [s[0] for s in spans] == ["decode", f"kernel.{key}"], b
         assert torch.equal(got, dec.lane_major(llrs.t().contiguous()).t())
-    for d, n in ((sys_dec, c.N), (big, 1 << 13)):
-        profiling.take_spans()
-        with profile(activities=[ProfilerActivity.CPU]):
-            d(_frame_llrs(dev, n, 64, 3))
-        names = [s[0] for s in profiling.take_spans()[0]]
-        assert "decode.transpose_in" in names and "decode.transpose_out" \
-            in names, names
+    profiling.take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sys_dec(_frame_llrs(dev, c.N, 64, 3))
+    names = [s[0] for s in profiling.take_spans()[0]]
+    assert "decode.transpose_in" in names and "decode.transpose_out" \
+        in names, names
+    profiling.take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        big(_frame_llrs(dev, 1 << 13, 64, 3))
+    names = [s[0] for s in profiling.take_spans()[0]]
+    assert names == ["decode", "kernel.interp_decoder_frames"], names

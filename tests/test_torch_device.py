@@ -95,6 +95,8 @@ def _calls():
             _i8(B, K), _i8(B, N), _i8(B, N), _i8(B, K)),
         "interp_decoder": lambda: interp_kernel.make_interp_decoder(
             CODE, subtree_level=3).lane_major(_i8(N, B)),
+        "interp_decoder_frames": lambda: interp_kernel.make_interp_decoder(
+            CODE, subtree_level=3)(_i8(B, N)),
         "interp_decode_count": lambda: interp_kernel.make_interp_decode_count(
             CODE, subtree_level=3)(_i8(N, B), _i8(N, B)),
         "interp_subtree": lambda: interp_kernel.make_interp_subtree(

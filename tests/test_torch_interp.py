@@ -284,3 +284,59 @@ def test_interp_refuses_fusion_and_rate0():
         interp_kernel.make_interp_decoder(code, output="hard")
     with pytest.raises(ValueError, match="style"):
         pt.make_fastssc_decoder(code, kernel_level=5, kernel_style="unrolled")
+
+
+@pytest.mark.parametrize("m,kl", [(6, 3), (9, 4)])
+def test_interp_u_entry_on_cpu_is_the_transposing_one(m, kl):
+    """On CPU tensors the u decoder's frame-major entry is the transposing
+    one around the plain version, bit for bit: no launch, one plain call,
+    equal to JAX's XLA decoder."""
+    jc = jpt.make_code(m, rate=0.5)
+    code = pt.code_from_jax(jc)
+    llr_t = _edge_llr_t(jc.N, 96, 70 + m)
+    want = jax.jit(j_fastssc(jc, output="u", output_dtype=jnp.int8)
+                   .lane_major)(jnp.asarray(llr_t))
+    dec = interp_kernel.make_interp_decoder(code, subtree_level=kl)
+    before = dict(interp_kernel.launches)
+    plain = interp_kernel.plain_calls["interp_plain"]
+    got = dec(torch.from_numpy(llr_t.T.copy()))
+    assert interp_kernel.launches == before
+    assert interp_kernel.plain_calls["interp_plain"] == plain + 1
+    assert got.shape == (96, code.K) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy().T, np.asarray(want))
+    frames = pt.decode.fastssc.frame_major(dec.lane_major, "interp decoder")
+    assert torch.equal(got, frames(torch.from_numpy(llr_t.T.copy())))
+
+
+def test_interp_frames_launch_refuses_the_cw_track():
+    """The frame-major launch is the u track alone: asked for the cw track
+    or the hard rows, for a code below level 6 with grid entries, or given
+    LLRs that are not contiguous (B, N) int8 on 16 bytes, it raises
+    ValueError before it touches a device."""
+    before = dict(interp_kernel.launches)
+    code = pt.make_code(6, rate=0.5)
+    llrs = torch.zeros((8, code.N), dtype=torch.int8)
+    for output in ("systematic", "codeword", "both"):
+        c = interp_kernel.make_interp_decoder(code, subtree_level=3,
+                                              output=output).compiled
+        with pytest.raises(ValueError, match="u track alone"):
+            interp_kernel._run_tile(c, llrs, hard_out=False, what="x",
+                                    frames=True)
+    c = interp_kernel.make_interp_decoder(code, subtree_level=3).compiled
+    with pytest.raises(ValueError, match="u track alone"):
+        interp_kernel._run_tile(c, llrs, hard_out=True, what="x", frames=True)
+    flat = torch.zeros(8 * code.N + 16, dtype=torch.int8)
+    for bad in (llrs.t(), llrs[:, :-1], llrs.to(torch.int16),
+                torch.zeros((8, 2 * code.N), dtype=torch.int8)[:, ::2],
+                flat[3:3 + 8 * code.N].view(8, code.N)):
+        with pytest.raises(ValueError, match="contiguous"):
+            interp_kernel._run_tile(c, bad, hard_out=False, what="x",
+                                    frames=True)
+    small = pt.make_code(5, rate=0.5)
+    c = interp_kernel._compile(pt.compile_code(small), small.frozen, 2, False,
+                               True, prefill_all=True, grid_level=4)
+    assert c.sched.cooperative
+    with pytest.raises(ValueError, match="level 6"):
+        interp_kernel._run_tile(c, torch.zeros((8, small.N), dtype=torch.int8),
+                                hard_out=False, what="x", frames=True)
+    assert interp_kernel.launches == before

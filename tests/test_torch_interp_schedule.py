@@ -497,3 +497,80 @@ def test_message_rows_are_the_info_positions(key):
                 got[row:row + len(want)] = want
             assert got.tolist() == info.tolist()
     assert bodies > 20
+
+
+def _frames(c):
+    """The u schedule's arrays of each grid entry's rows a..e (-1: none),
+    and its entry kinds."""
+    e = c.sched.entries
+    grid = (e[:, 0] & 0xFF) != ik.RUN
+    return (np.where(e[grid, 2:7] >= 0, e[grid, 2:7] >> ik.ROW_BITS, -1),
+            e[grid, 0] & 0xFF)
+
+
+@pytest.mark.parametrize("case", sorted(KIND_CASES))
+def test_u_schedule_twin_equals_plain_in_grid_leaves(case):
+    """(b) the u track's schedule (u left to the transforms' last stages)
+    run by the twin equals interp_plain, at B = 31 and 17; its grid
+    entries read the root only as rows a and b, write u only as rows d
+    and e, and never read u, so that the kernel may hold the root and u
+    frame-major."""
+    code, sl, g = KIND_CASES[case]
+    tree = pt.compile_code(code)
+    info = torch.as_tensor(code.info_indices)
+    c = _compile(code, sl, "u", g, tree)
+    arrays, _ = _frames(c)
+    assert not (arrays[:, 2:] == ik.IN).any()
+    assert not (arrays[:, :3] == ik.U).any()
+    for batch in (31, 17):
+        x = torch.from_numpy(_ties(code.N, batch, 3 * code.N + batch))
+        _, _, u = schedule_twin(c, c.sched, x, want_cw=False,
+                                want_u=True, prefill=c.prefill)
+        assert torch.equal(u, _plain(c, x, "u")[2][info]), batch
+
+
+def _root_codes():
+    """Polar(512, .) codes whose root is a REP or SPC leaf, a rate0_right
+    or a rate1_comb node: with the rate-1 case of KIND_CASES, every way
+    the grid reads the frame-major root (as tests/test_torch_cuda.py's
+    frame-major grid entries)."""
+    n, half = 512, pt.make_code(9, rate=0.5).frozen
+    rep, spc = np.ones(n, np.uint8), np.zeros(n, np.uint8)
+    rep[-1], spc[0] = 0, 1
+    r0_right, r1_comb = half.copy(), half.copy()
+    r0_right[:n // 2], r1_comb[n // 2:] = 1, 0
+    return {k: pt.PolarCode(9, v) for k, v in (
+        ("rep", rep), ("spc", spc), ("rate0_right", r0_right),
+        ("rate1_comb", r1_comb))}
+
+
+ROOT_CASES = _root_codes()
+
+
+@pytest.mark.parametrize("root", sorted(ROOT_CASES))
+def test_u_schedule_twin_equals_plain_at_the_root(root):
+    """(b) the u schedule at grid level 4, where the root's own entries
+    read the root LLRs, at B = 31."""
+    code = ROOT_CASES[root]
+    assert pt.compile_code(code).kind == root
+    x = torch.from_numpy(_ties(code.N, 31, 5))
+    c = _compile(code, 2, "u", 4)
+    _, _, u = schedule_twin(c, c.sched, x, want_cw=False, want_u=True,
+                            prefill=c.prefill)
+    assert torch.equal(u, _plain(c, x, "u")[2][
+        torch.as_tensor(code.info_indices)])
+
+
+def test_u_schedule_cases_reach_every_frame_major_access():
+    """The grid-leaf and root cases' u schedules read the root in f, g,
+    add, grate1, rate-1, key and flip entries, and write u in copy, stage
+    and rep-broadcast entries."""
+    reads, writes = set(), set()
+    cases = list(KIND_CASES.values()) + [(c, 2, 4) for c in ROOT_CASES.values()]
+    for code, sl, g in cases:
+        arrays, kinds = _frames(_compile(code, sl, "u", g))
+        reads |= set(kinds[(arrays[:, :2] == ik.IN).any(1)].tolist())
+        writes |= set(kinds[(arrays[:, 3:] == ik.U).any(1)].tolist())
+    assert reads == {ik.S_F, ik.S_G, ik.S_ADD, ik.S_GRATE1, ik.S_RATE1,
+                     ik.S_KEY, ik.S_FLIP}
+    assert writes == {ik.S_COPY, ik.S_STAGE, ik.S_REPBC}

@@ -128,6 +128,11 @@ def fake_card(monkeypatch):
                        (count_kernel, "_frame_waves"),
                        (interp_kernel, "_occupancy")):
         monkeypatch.setattr(mod, cache, {})
+    # the fake launches count on copies: other tests read the real counters
+    for mod in MODULES:
+        monkeypatch.setattr(mod, "launches", dict(mod.launches))
+    monkeypatch.setattr(step_kernel, "earlier_launches",
+                        dict(step_kernel.earlier_launches))
     with FakeTensorMode(allow_non_fake_inputs=True):
         yield
 
@@ -195,6 +200,10 @@ def _launch_calls():
             _i8(B, K), _i8(B, N), _i8(B, N), _i8(B, K)),
         "interp_decoder": lambda: interp_kernel.make_interp_decoder(
             CODE, subtree_level=3).lane_major(_i8(N, B)),
+        "interp_decoder_frames": lambda: interp_kernel._run_tile(
+            interp_kernel.make_interp_decoder(
+                CODE, subtree_level=3).compiled, _i8(B, N), hard_out=False,
+            what="interp_decoder_frames", frames=True),
         "interp_decode_count": lambda: interp_kernel._run_tile(
             interp_kernel.make_interp_decode_count(
                 CODE, subtree_level=3).compiled, _i8(N, B), hard_out=False,
@@ -374,6 +383,50 @@ def test_torch_frame_major_kernel_entry_records_no_copies(fake_card, style,
     moved = {k[1]: after[k] - before[k] for k in after if after[k] != before[k]}
     assert moved == {key: 1}
     assert tuple(out.shape) == (B, K) and out.device == FAKE
+
+
+def test_torch_frame_major_interp_entry_records_no_copies(fake_card):
+    """On (fake) card tensors the interpreter's u entry hands the kernel
+    (B, N) LLRs: ``decode`` over the kernel's span, one launch under
+    ``interp_decoder_frames``, a (B, K) message."""
+    dec = interp_kernel.make_interp_decoder(CODE, subtree_level=3)
+    profiling.take_spans()
+    with _session():
+        before = _counts()
+        out = dec(_i8(B, N))
+        after = _counts()
+    spans, _ = profiling.take_spans()
+    assert _names(spans) == ["decode", "kernel.interp_decoder_frames"]
+    assert [p for *_, p in spans] == [-1, 0]
+    moved = {k[1]: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"interp_decoder_frames": 1}
+    assert tuple(out.shape) == (B, K) and out.device == FAKE
+
+
+def test_torch_interp_cw_outputs_keep_the_transposing_entry(fake_card,
+                                                           monkeypatch):
+    """On (fake) card tensors the interpreter's cw outputs still enter
+    through ``fastssc.frame_major`` (the transposing entry, stood in for
+    here: a CPU build of torch refuses to copy a fake card tensor), and the
+    u output does not."""
+    entered = []
+
+    def transposing(lane_major, what):
+        def decode(llrs):
+            entered.append(tuple(llrs.shape))
+            return "transposed"
+        return decode
+
+    monkeypatch.setattr(interp_kernel, "frame_major", transposing)
+    for output in ("systematic", "codeword", "both"):
+        before = _counts()
+        dec = interp_kernel.make_interp_decoder(CODE, subtree_level=3,
+                                                output=output)
+        assert dec(_i8(B, N)) == "transposed", output
+        assert _counts() == before
+    assert entered == [(B, N)] * 3
+    out = interp_kernel.make_interp_decoder(CODE, subtree_level=3)(_i8(B, N))
+    assert tuple(out.shape) == (B, K) and len(entered) == 3
 
 
 @pytest.mark.parametrize("entry", ["kernel", "interp", "hybrid"])
