@@ -78,7 +78,10 @@ the draws path (one launch a step). Then the interpreter's frame-major u
 track (19), row 13's main path: its (B, N) launch at Polar(8192, 4096),
 Polar(16384, 8192) and Polar(131072, 65536), B = 64 to 16384, against
 plain and in turns with the element-major launch and the transposing
-entry around it. Last, each kernel's bound (13,
+entry around it. Then the float32 u track (20): the float kernel against
+the eager float decoder at Polar(1024, 512), B = 32768, through the auto
+decoder's u entry too, and timed in turns with the eager decoder. Last,
+each kernel's bound (13,
 reckoned in polar_tpu_torch/utils/cost.py); the rows of the draws and
 front kernels carry the steps that made their launches, rows 9 A, 9 B,
 10-12, 1, 3 and 4s their numbers at each shape ("by_shape") too.
@@ -2061,6 +2064,76 @@ def count_frames_phases(dev, card, ms) -> dict:
             "by_shape": {"count_frames": by_shape}}
 
 
+def f32_decode_phases(dev, card, ms) -> dict:
+    """Phase 20: the float32 u track (``decoder_kernel.decode_f32``, which
+    replaces no Pallas kernel: the JAX package's float path is eager jnp).
+    At Polar(1024, 512), B = BATCH, float32 LLRs of the -1.0 dB channel
+    with ±0, exact-zero sums and tied minima planted in some frames: the
+    kernel against its plain version (the eager float decoder on the
+    card), max abs err 0, one launch a call, then through
+    ``make_auto_decoder``'s u entry (one launch a call, its main path);
+    timed by CUDA events in turns with the eager float decoder (kernel,
+    eager, eager, kernel), beside its bound."""
+    import torch
+
+    import polar_tpu_torch as pt
+    from polar_tpu_torch.channel import snr_params
+    from polar_tpu_torch.ops.cuda import decoder_kernel
+    from polar_tpu_torch.utils.cost import bound, row_work
+
+    code = pt.make_code(10, rate=0.5)
+    n, k, b = code.N, code.K, BATCH
+    program = pt.compile_program(code)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    sigma, scale = snr_params(-1.0)
+    cw = 1 - 2 * torch.randint(0, 2, (b, n), generator=gen, device=dev)
+    llrs = scale * (cw + sigma * torch.randn((b, n), generator=gen,
+                                             device=dev))
+    llrs[0] = -0.0
+    llrs[1] = 0.0
+    llrs[2:64] = torch.randint(-2, 3, (62, n), generator=gen,
+                               device=dev).float()
+    llrs[64:128] = (torch.randint(1, 4, (64, n), generator=gen, device=dev)
+                    * (1 - 2 * torch.randint(0, 2, (64, n), generator=gen,
+                                             device=dev))).float() / 2
+    llrs = llrs.contiguous()
+    eager = pt.make_fastssc_decoder(code, output="u", output_dtype=torch.int8)
+    want = eager(llrs)
+    _reset(decoder_kernel.launches, decoder_kernel.plain_calls)
+    got = decoder_kernel.decode_f32(program, code.frozen, llrs)
+    direct = dict(decoder_kernel.launches)
+    dec, _ = pt.make_auto_decoder(code, output="u", device=dev)
+    _reset(decoder_kernel.launches)
+    auto = dec(llrs)
+    main = dict(decoder_kernel.launches)
+    launched = main["f32_decoder_frames"]
+    err = max(int((x.int() - want.int()).abs().max()) for x in (got, auto))
+    if (err or direct["f32_decoder_frames"] != 1 or launched != 1
+            or sum(main.values()) != 1
+            or max(decoder_kernel.plain_calls.values())):
+        raise AssertionError(f"f32 decoder: max abs err {err}, launches "
+                             f"direct {direct}, main path {main}, plain "
+                             f"calls {decoder_kernel.plain_calls}")
+    kernel = lambda: decoder_kernel.decode_f32(program, code.frozen, llrs)  # noqa: E731
+    t = [ms(kernel, 20)]
+    e = [ms(lambda: eager(llrs), 3), ms(lambda: eager(llrs), 3)]
+    t.append(ms(kernel, 20))
+    t_ms, e_ms = sum(t) / 2, sum(e) / 2
+    work = row_work("f32_decoder", n=n, k=k, b=b)
+    b_ms, b_by = bound(*work)
+    phase("20", f"f32 decoder == eager float decoder (max abs err 0, "
+          f"{int((want == 0).sum())} zero bits) at Polar({n}, {k}) B={b} "
+          f"float32; auto decoder: one launch a call; ms a call: kernel "
+          f"{t[0]:.4f}, {t[1]:.4f}; eager {e[0]:.3f}, {e[1]:.3f} "
+          f"({e_ms / t_ms:.1f}x); bound {b_ms:.4f} ms ({b_by}), "
+          f"{t_ms / b_ms:.1f}x the bound ({card})")
+    return {"err": {"f32_decoder": err},
+            "times": {"f32_decoder": (t_ms, e_ms)},
+            "work": {"f32_decoder": work},
+            "launched": {"f32_decoder": launched}}
+
+
 def _free_port() -> int:
     import socket
 
@@ -2891,7 +2964,7 @@ def main() -> int:
     library, steps, by_shape = {}, {}, {}
     for run in (large_n_phases, draw_phases, front_step_phases, style_phases,
                 parallel_phases, module_phases, frame_entry_phases,
-                count_frames_phases, interp_frames_phases):
+                count_frames_phases, interp_frames_phases, f32_decode_phases):
         more = run(dev, card, ms)
         for name, e in more["err"].items():   # a row's checks in any phase
             err[name] = max(err.get(name, 0), e)
@@ -2946,6 +3019,9 @@ def main() -> int:
         # no Pallas kernel: the JAX package's draws-path counters are jnp
         "count_frames": ("polar_tpu_torch/csrc/count.cu",
                          "none (polar_tpu/ber.py:394-411, jnp)"),
+        # no Pallas kernel: the JAX package's float decode is eager jnp
+        "f32_decoder": ("polar_tpu_torch/csrc/decoder.cu",
+                        "none (polar_tpu/decode/fastssc.py, FloatArith)"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

@@ -34,6 +34,18 @@
 // (batch, k) out, the decode in shared memory as it is element-major, so
 // the frame-major entry (decode/auto.py) runs no transpose around it.
 //
+// The float kernel (f32_frames_kernel) is the same u track in float32
+// min-sum (fastssc_simd.cuh F32Lanes: polar_helper.hh:63-111, as the eager
+// decoder computes it with float LLRs): one frame to a 32-bit word, so a
+// tile of W words is W frames and a row of a region 4 W bytes; the root
+// (batch, n) float32 in, the message (batch, k) int8 in {-1, 0, +1} out.
+// The schedule and the shared-memory layout are the int8 tile's; only the
+// lane arithmetic, the gather of a float a frame and the message byte
+// differ. A tile takes 8 n bytes a frame (two regions of n float rows), so
+// a tile of one frame fits a block up to n = 2^14; the wrapper
+// (ops/cuda/decoder_kernel.py f32_tile) takes tiles of 4, 2 and 1 frames
+// as the level grows.
+//
 // Both read the code's byte program at run time, so one build serves every
 // code. polar_simd_selftest holds every packed function of
 // fastssc_simd.cuh against its scalar namesake in fastssc.cuh.
@@ -96,6 +108,32 @@ __global__ void tile_decoder_frames_kernel(const uint8_t* __restrict__ prog,
   // a whole warp returns: no barrier below
   if (!t.bind(smem, n, llr, mesg, batch, 0, k)) return;
   t.decode(prog, n);
+}
+
+template <int W>
+using F32Tile = polar::simd::Tile<W, W, /*CW=*/false, /*ROOT_SMEM=*/false,
+                                  /*EMIT_U=*/true, /*INTERP=*/false,
+                                  /*FRAMES=*/true, polar::simd::F32Lanes>;
+
+// The u track in float32 on frame-major arrays: llr (batch, n) float32
+// in, mesg (batch, k) int8 out; a tile W frames, W words a lane.
+template <int W>
+__global__ void f32_frames_kernel(const uint8_t* __restrict__ prog,
+                                  const float* llr, int8_t* mesg, int n,
+                                  int k, int batch) {
+  extern __shared__ uint32_t smem[];
+  F32Tile<W> t;
+  // a whole warp returns: no barrier below
+  if (!t.bind(smem, n, llr, mesg, batch, 0, k)) return;
+  t.decode(prog, n);
+}
+
+template <int W>
+int launch_f32(const void* prog, const void* llr, void* mesg, int n, int k,
+               int batch, int warps, cudaStream_t stream) {
+  return polar::simd::launch_tiles<F32Tile<W>>(
+      f32_frames_kernel<W>, n, batch, warps, stream, (const uint8_t*)prog,
+      (const float*)llr, (int8_t*)mesg, n, k, batch);
 }
 
 // Each thread packs four (a, b) pairs of the 65,536 into words and checks
@@ -194,6 +232,23 @@ extern "C" int polar_tile_decode_frames(const void* prog, const void* llr,
   return polar::simd::launch_tiles<FramesTile>(
       tile_decoder_frames_kernel, n, batch, warps, (cudaStream_t)stream,
       prog, llr, mesg, n, k, batch);
+}
+
+// The float32 u track on `stream`: llr (batch, n) float32 in, mesg (batch,
+// k) int8 out, frame-major, any alignment of a float; tiles of w frames (w
+// one of 1, 2, 4), `warps` tiles a block, warps * 8 n w bytes of shared
+// memory. Returns the CUDA error of the attribute call or of the launch,
+// or cudaErrorInvalidValue for a w not built.
+extern "C" int polar_f32_decode_frames(const void* prog, const void* llr,
+                                       void* mesg, int n, int k, int batch,
+                                       int w, int warps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (w) {
+    case 1: return launch_f32<1>(prog, llr, mesg, n, k, batch, warps, st);
+    case 2: return launch_f32<2>(prog, llr, mesg, n, k, batch, warps, st);
+    case 4: return launch_f32<4>(prog, llr, mesg, n, k, batch, warps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The packed-primitive self-test on `stream`: bad (8) int32, zeroed by the

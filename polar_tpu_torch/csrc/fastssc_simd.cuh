@@ -75,6 +75,13 @@
 // interpreter's element-major pyramid, and the hard rows go back
 // element-major (put).
 //
+// FLOAT32. The tile also decodes float32 LLRs in the test bench's other
+// arithmetic, min-sum with no saturation (Tile's last parameter,
+// F32Lanes below): one frame to a 32-bit word, so a tile of WR words is
+// WR frames, and the same schedule, layout and program walk as int8; only
+// the lane functions, the gather of a float a frame and the message byte
+// differ (decoder.cu f32_frames_kernel, the frame-major u track alone).
+//
 // What bounds it on the card: the latency of each op's dependent chain
 // (shared-memory loads, the emulated byte-SIMD arithmetic, a warp barrier)
 // with the few warps an SM can hold: a tile takes 2 n (u) or 3 n (cw) bytes
@@ -184,6 +191,115 @@ POLAR_SIMD_LIFT3(spc_flip)
 #undef POLAR_SIMD_LIFT2
 #undef POLAR_SIMD_LIFT3
 
+// The lane arithmetic of a tile, one struct a number format, each
+// function on one 32-bit word. Int8Lanes: the saturating int8 above, four
+// frames to a word. F32Lanes: float32 min-sum (polar_helper.hh:63-111, as
+// ops/arith.py FloatArith and decode/fastssc.py compute it), one frame to
+// a word held as its bits; each operation rounded on its own, in torch's
+// order, so the signs of zeros come out as the eager decoder's do: signum
+// and prod give +0 for a zero operand (prod: -0 where the other operand is
+// negative), hard values are {-1, -0, +0, +1} and meet by products.
+// SPC: decide is copysign(1, x) (-0 decides -1), the parity the sign bits'
+// xor, weak the least |x| (bit patterns of non-negative floats order as
+// the floats do), every tied weakest flips.
+struct Int8Lanes {
+  using In = int8_t;
+  static constexpr int kPerWord = 4;
+  static constexpr uint32_t kOne = kOnes;
+  static constexpr uint32_t kWeak = 0x7F7F7F7Fu;   // qabs's largest
+  static __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
+    return sat_add(a, b);
+  }
+  static __device__ __forceinline__ uint32_t prod(uint32_t a, uint32_t b) {
+    return simd::prod(a, b);
+  }
+  static __device__ __forceinline__ uint32_t madd(uint32_t h, uint32_t a,
+                                                  uint32_t b) {
+    return simd::madd(h, a, b);
+  }
+  static __device__ __forceinline__ uint32_t signum(uint32_t x) {
+    return simd::signum(x);
+  }
+  static __device__ __forceinline__ uint32_t hmul(uint32_t x, uint32_t y) {
+    return simd::hmul(x, y);
+  }
+  // SPC: the parity's mask, the magnitude, the least of two magnitudes
+  static __device__ __forceinline__ uint32_t sign(uint32_t x) {
+    return neg_mask(x);
+  }
+  static __device__ __forceinline__ uint32_t mag(uint32_t x) {
+    return qabs(x);
+  }
+  static __device__ __forceinline__ uint32_t least(uint32_t a, uint32_t b) {
+    return __vminu4(a, b);
+  }
+  static __device__ __forceinline__ uint32_t spc(uint32_t x, uint32_t weak,
+                                                 uint32_t odd) {
+    return spc_flip(x, weak, odd);
+  }
+  // the message byte of frame j of a word
+  static __device__ __forceinline__ int8_t byte(uint32_t w, int j) {
+    return (int8_t)(w >> (8 * j));
+  }
+};
+
+struct F32Lanes {
+  using In = float;
+  static constexpr int kPerWord = 1;
+  static constexpr uint32_t kOne = 0x3F800000u;    // 1.0f
+  static constexpr uint32_t kWeak = 0x7F800000u;   // +inf
+  static constexpr uint32_t kSign = 0x80000000u;
+  static __device__ __forceinline__ float fl(uint32_t w) {
+    return __uint_as_float(w);
+  }
+  static __device__ __forceinline__ uint32_t bits(float x) {
+    return __float_as_uint(x);
+  }
+  // torch.sign: (x > 0) - (x < 0), +0 for either zero
+  static __device__ __forceinline__ float sgn(float x) {
+    return x > 0.0f ? 1.0f : x < 0.0f ? -1.0f : 0.0f;
+  }
+  static __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
+    return bits(__fadd_rn(fl(a), fl(b)));
+  }
+  // sign(a) * sign(b) * min(|a|, |b|), the two products in that order
+  static __device__ __forceinline__ uint32_t prod(uint32_t a, uint32_t b) {
+    const float s = __fmul_rn(sgn(fl(a)), sgn(fl(b)));
+    return bits(__fmul_rn(s, fminf(fabsf(fl(a)), fabsf(fl(b)))));
+  }
+  // h * a + b with h in {-1, -0, +0, +1}: h * a is exact, so the fused
+  // multiply-add rounds once where torch rounds the sum, to the same value
+  // and the same signed zero
+  static __device__ __forceinline__ uint32_t madd(uint32_t h, uint32_t a,
+                                                  uint32_t b) {
+    return bits(__fmaf_rn(fl(h), fl(a), fl(b)));
+  }
+  static __device__ __forceinline__ uint32_t signum(uint32_t x) {
+    return bits(sgn(fl(x)));
+  }
+  static __device__ __forceinline__ uint32_t hmul(uint32_t x, uint32_t y) {
+    return bits(__fmul_rn(fl(x), fl(y)));
+  }
+  static __device__ __forceinline__ uint32_t sign(uint32_t x) {
+    return x & kSign;
+  }
+  static __device__ __forceinline__ uint32_t mag(uint32_t x) {
+    return x & ~kSign;
+  }
+  static __device__ __forceinline__ uint32_t least(uint32_t a, uint32_t b) {
+    return min(a, b);
+  }
+  // copysign(1, x), negated where |x| is the weakest and the parity `odd`
+  // (the xor of the node's sign bits) is set
+  static __device__ __forceinline__ uint32_t spc(uint32_t x, uint32_t weak,
+                                                 uint32_t odd) {
+    return ((x & kSign) | kOne) ^ (mag(x) == weak ? odd : 0u);
+  }
+  static __device__ __forceinline__ int8_t byte(uint32_t w, int) {
+    return (int8_t)__float2int_rz(fl(w));
+  }
+};
+
 // The one tile shape the kernels build: a row of a tile is 2 words (8
 // frames), both on one lane. Why this shape: WHOLE_FRAMES in
 // ops/cuda/decoder_kernel.py.
@@ -195,14 +311,22 @@ constexpr int kTileWR = 2, kTileVW = 2;
 // whose bodies lie in one level-positional pyramid: a body's root input
 // is the on-chip rows at `root` where that is set, else device memory;
 // FRAMES: the root and the message in device memory are frame-major (with
-// INTERP the root only where root_f is set).
+// INTERP the root only where root_f is set); A: the lane arithmetic
+// (Int8Lanes; F32Lanes, float32 root LLRs, one frame to a word, on the
+// frame-major u track alone: WR frames a tile, a word's row four times
+// the bytes).
 template <int WR, int VW, bool CW, bool ROOT_SMEM = false, bool EMIT_U = true,
-          bool INTERP = false, bool FRAMES = false>
+          bool INTERP = false, bool FRAMES = false, typename A = Int8Lanes>
 struct Tile {
   static_assert(!FRAMES || (!CW && !ROOT_SMEM && EMIT_U),
                 "the frame-major layout serves the u track alone");
+  static_assert(A::kPerWord == 4 || (FRAMES && !INTERP),
+                "a word of one frame serves the frame-major u track alone");
   using V = Vec<VW>;
-  static constexpr int kFrames = 4 * WR;        // frames a tile
+  using In = typename A::In;
+  static constexpr int kPerWord = A::kPerWord;  // frames a word
+  static constexpr int kFrames = kPerWord * WR; // frames a tile
+  static constexpr int kRowBytes = 4 * WR;      // bytes a row of a region
   static constexpr int kLanesRow = WR / VW;     // lanes that share a row
   static constexpr int kPass = 32 / kLanesRow;  // rows a warp covers a pass
   // shared regions of n rows a warp: soft, hard, cw (CW), root (ROOT_SMEM)
@@ -212,11 +336,11 @@ struct Tile {
   uint32_t* cw;     // n rows: the codeword stack (CW only)
   uint32_t* root;   // n rows: the root input (ROOT_SMEM; INTERP: a body's
                     // on-chip root, or null)
-  const int8_t* llr;   // the root LLRs (n, batch), device memory (else);
+  const In* llr;       // the root LLRs (n, batch), device memory (else);
                        // FRAMES: (batch, n)
   int8_t* mesg;        // the message (k, batch); FRAMES: (batch, k)
   long long batch;
-  const int8_t* root_f;  // FRAMES: this lane's first frame of the root
+  const In* root_f;      // FRAMES: this lane's first frame of the root
                          // (INTERP: null where the root is element-major)
   int in_stride;         // FRAMES: bytes a frame of the root (n)
   int out_stride;        // FRAMES: bytes a frame of the message (k)
@@ -232,7 +356,7 @@ struct Tile {
   // when the whole tile lies past the batch (the warp has no frame).
   // FRAMES: k is the message's rows (aligned_ is not read).
   __device__ __forceinline__ bool bind(uint32_t* smem, int n,
-                                       const int8_t* llr_, int8_t* mesg_,
+                                       const In* llr_, int8_t* mesg_,
                                        int batch_, int aligned_, int k = 0) {
     const int warp = threadIdx.x >> 5;
     const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
@@ -245,7 +369,7 @@ struct Tile {
   // of n rows from `base`, in the order of kRegions: bind's work, for a
   // warp that walks over tiles itself.
   __device__ __forceinline__ void place(uint32_t* base, int n, long long tile,
-                                        const int8_t* llr_, int8_t* mesg_,
+                                        const In* llr_, int8_t* mesg_,
                                         int batch_, int aligned_, int k = 0) {
     const int lane = threadIdx.x & 31;
     soft = base;
@@ -257,7 +381,7 @@ struct Tile {
     batch = batch_;
     w = lane % kLanesRow * VW;
     r0 = lane / kLanesRow;
-    f = (int)(tile * kFrames) + 4 * w;
+    f = (int)(tile * kFrames) + kPerWord * w;
     aligned = aligned_ != 0;
     if constexpr (FRAMES) {
       in_stride = n;
@@ -266,21 +390,25 @@ struct Tile {
     }
   }
   // the tile's first frame
-  __device__ __forceinline__ int first() const { return f - 4 * w; }
+  __device__ __forceinline__ int first() const { return f - kPerWord * w; }
 
   // A lane's words of a device row. The tail of the last tile is masked
   // explicitly: frames at or past `batch` read as 0 and are never stored.
   // FRAMES: load reads the root and store writes the message.
-  __device__ __forceinline__ V load(const int8_t* base, int r) const {
-    if constexpr (FRAMES && !INTERP) return gather(r);
-    if constexpr (FRAMES && INTERP)
-      if (root_f != nullptr) return gather(r);
-    const int8_t* p = base + (long long)r * batch + f;
-    if (aligned && f < batch) return *reinterpret_cast<const V*>(p);
-    V v = splat<VW>(0u);
-    for (int j = 0; j < 4 * VW; ++j)
-      if (f + j < batch) v.x[j / 4] |= (uint32_t)(uint8_t)p[j] << (8 * (j % 4));
-    return v;
+  __device__ __forceinline__ V load(const In* base, int r) const {
+    if constexpr (FRAMES && !INTERP) {
+      return gather(r);
+    } else {
+      if constexpr (FRAMES && INTERP)
+        if (root_f != nullptr) return gather(r);
+      const int8_t* p = base + (long long)r * batch + f;
+      if (aligned && f < batch) return *reinterpret_cast<const V*>(p);
+      V v = splat<VW>(0u);
+      for (int j = 0; j < 4 * VW; ++j)
+        if (f + j < batch)
+          v.x[j / 4] |= (uint32_t)(uint8_t)p[j] << (8 * (j % 4));
+      return v;
+    }
   }
   __device__ __forceinline__ void store(int8_t* base, int r, V v) const {
     if constexpr (FRAMES) return scatter(r, v);
@@ -296,36 +424,86 @@ struct Tile {
     for (int j = 0; j < 4 * VW; ++j)
       if (f + j < batch) p[j] = (int8_t)(v.x[j / 4] >> (8 * (j % 4)));
   }
-  // FRAMES: byte r of each of the lane's frames of the root, packed four
-  // frames to a word as load's words are; frames past the batch read 0
+  // FRAMES: element r of each of the lane's frames of the root, a byte
+  // each packed four frames to a word as load's words are (int8), or a
+  // float's bits a word; frames past the batch read 0
   __device__ __forceinline__ V gather(int r) const {
-    const int8_t* p = root_f + r;
-    const bool full = f + 4 * VW <= batch;
+    const In* p = root_f + r;
+    const bool full = f + kPerWord * VW <= batch;
     V v;
+    if constexpr (kPerWord == 1) {   // a float a frame
 #pragma unroll
-    for (int k = 0; k < VW; ++k) {
-      uint32_t b[4];
+      for (int k = 0; k < VW; ++k)
+        v.x[k] = full || f + k < batch
+                     ? __float_as_uint(p[(long long)k * in_stride])
+                     : 0u;
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int fr = 4 * k + j;
-        b[j] = full || f + fr < batch
-                   ? (uint32_t)(uint8_t)p[(long long)fr * in_stride]
-                   : 0u;
+      for (int k = 0; k < VW; ++k) {
+        uint32_t b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int fr = 4 * k + j;
+          b[j] = full || f + fr < batch
+                     ? (uint32_t)(uint8_t)p[(long long)fr * in_stride]
+                     : 0u;
+        }
+        v.x[k] = __byte_perm(__byte_perm(b[0], b[1], 0x0040),
+                             __byte_perm(b[2], b[3], 0x0040), 0x5410);
       }
-      v.x[k] = __byte_perm(__byte_perm(b[0], b[1], 0x0040),
-                           __byte_perm(b[2], b[3], 0x0040), 0x5410);
     }
     return v;
   }
   // FRAMES: byte r of each of the lane's frames of the message
   __device__ __forceinline__ void scatter(int r, V v) const {
     int8_t* p = mesg + (long long)f * out_stride + r;
-    const bool full = f + 4 * VW <= batch;
+    const bool full = f + kPerWord * VW <= batch;
 #pragma unroll
-    for (int j = 0; j < 4 * VW; ++j)
+    for (int j = 0; j < kPerWord * VW; ++j)
       if (full || f + j < batch)
-        p[(long long)j * out_stride] = (int8_t)(v.x[j / 4] >> (8 * (j % 4)));
+        p[(long long)j * out_stride] =
+            A::byte(v.x[j / kPerWord], j % kPerWord);
   }
+  // A's functions on each word of a lane's Vec
+  static __device__ __forceinline__ V add(const V& a, const V& b) {
+    V o;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) o.x[k] = A::add(a.x[k], b.x[k]);
+    return o;
+  }
+  static __device__ __forceinline__ V prod(const V& a, const V& b) {
+    V o;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) o.x[k] = A::prod(a.x[k], b.x[k]);
+    return o;
+  }
+  static __device__ __forceinline__ V hmul(const V& a, const V& b) {
+    V o;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) o.x[k] = A::hmul(a.x[k], b.x[k]);
+    return o;
+  }
+  static __device__ __forceinline__ V madd(const V& h, const V& a,
+                                           const V& b) {
+    V o;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) o.x[k] = A::madd(h.x[k], a.x[k], b.x[k]);
+    return o;
+  }
+  static __device__ __forceinline__ V signum(const V& a) {
+    V o;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) o.x[k] = A::signum(a.x[k]);
+    return o;
+  }
+  static __device__ __forceinline__ V spc(const V& x, const V& weak,
+                                          const V& odd) {
+    V o;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) o.x[k] = A::spc(x.x[k], weak.x[k], odd.x[k]);
+    return o;
+  }
+
   __device__ __forceinline__ V& at(uint32_t* a, int r) const {
     return *reinterpret_cast<V*>(a + r * WR + w);
   }
@@ -382,7 +560,7 @@ struct Tile {
   }
 
   __device__ void decode(const uint8_t* __restrict__ prog, int n) {
-    const V ones = splat<VW>(kOnes);
+    const V ones = splat<VW>(A::kOne);
     int lvl = __ldg(prog);
     int hoff = 0, moff = 0;
     for (int pc = 1;; ++pc) {
@@ -461,16 +639,16 @@ struct Tile {
             if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(xb, i, h + i, a, b);
-              at(soft, i) = sat_add(a, b);
+              at(soft, i) = add(a, b);
             } else {
-              at(soft, i) = sat_add(in(xb, i), in(xb, h + i));
+              at(soft, i) = add(in(xb, i), in(xb, h + i));
             }
           }
           __syncwarp();
           while (h > 1) {
             h >>= 1;
             for (int i = r0; i < h; i += kPass)
-              at(soft, i) = sat_add(at(soft, i), at(soft, h + i));
+              at(soft, i) = add(at(soft, i), at(soft, h + i));
             __syncwarp();
           }
           const V bit = signum(at(soft, 0));
@@ -481,25 +659,25 @@ struct Tile {
           break;
         }
         case OP_SPC: {  // Wagner: decide, parity, flip every weakest row
-          V odd = splat<VW>(0u), weak = splat<VW>(0x7F7F7F7Fu);
+          V odd = splat<VW>(0u), weak = splat<VW>(A::kWeak);
           for (int i = r0; i < len; i += kPass) {
             const V s = in(xb, i);
 #pragma unroll
             for (int k = 0; k < VW; ++k) {
-              odd.x[k] ^= neg_mask(s.x[k]);
-              weak.x[k] = __vminu4(weak.x[k], qabs(s.x[k]));
+              odd.x[k] ^= A::sign(s.x[k]);
+              weak.x[k] = A::least(weak.x[k], A::mag(s.x[k]));
             }
           }
           for (int o = kLanesRow; o < 32; o <<= 1) {  // across the rows' lanes
 #pragma unroll
             for (int k = 0; k < VW; ++k) {
               odd.x[k] ^= __shfl_xor_sync(0xFFFFFFFFu, odd.x[k], o);
-              weak.x[k] = __vminu4(
+              weak.x[k] = A::least(
                   weak.x[k], __shfl_xor_sync(0xFFFFFFFFu, weak.x[k], o));
             }
           }
           for (int i = r0; i < len; i += kPass) {
-            const V h = spc_flip(in(xb, i), weak, odd);
+            const V h = spc(in(xb, i), weak, odd);
             at(hard, hoff + i) = h;
             at(soft, i) = h;
           }
@@ -523,9 +701,9 @@ struct Tile {
             if constexpr (FRAMES && !INTERP) {
               V a, b;
               in2(xb, i, half + i, a, b);
-              at(soft, half + i) = sat_add(a, b);
+              at(soft, half + i) = add(a, b);
             } else {
-              at(soft, half + i) = sat_add(in(xb, i), in(xb, half + i));
+              at(soft, half + i) = add(in(xb, i), in(xb, half + i));
             }
           }
           hoff += half;
@@ -591,8 +769,7 @@ template <typename T, typename... P, typename... A>
 int launch_tiles(void (*kernel)(P...), int n, int batch, int warps,
                  cudaStream_t stream, A... args) {
   static_assert(sizeof...(P) == sizeof...(A), "one argument a parameter");
-  // a row of a region: one byte a frame of the tile
-  const int bytes = warps * T::kRegions * n * T::kFrames;
+  const int bytes = warps * T::kRegions * n * T::kRowBytes;
   // above 48 KB a block's dynamic shared memory must be granted first
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

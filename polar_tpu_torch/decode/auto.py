@@ -13,6 +13,12 @@
   ahead;
 * CPU — the eager decoder (:func:`~polar_tpu_torch.decode.fastssc.make_fastssc_decoder`).
 
+The input's dtype picks the arithmetic, as the eager decoder's does:
+integer LLRs saturating int8, float ones min-sum. On a card float32 LLRs
+of the u track go to the float kernel (``decoder_kernel.decode_f32``, up
+to its ``F32_MAX_LEVEL``); higher levels and the codeword outputs in
+float32 run the eager decoder, and other float dtypes raise.
+
 All are bit-exact with each other and with ``polar_tpu``; the choice is
 speed only. The JAX package's per-level tile, VMEM and hybrid tables
 (``_HYBRID_KL_*``, ``_HYBRID_MIN_LEVEL``) are facts about the TPU and do
@@ -274,12 +280,61 @@ def _by_batch(small, big):
     return decode
 
 
+def _by_dtype(int8, code: PolarCode, output: str, output_dtype):
+    """The card's decoder ``int8`` for integer LLRs, and the route of
+    float32 ones: ``(decode, "cuda-f32")`` where the float kernel takes
+    them (the u track up to ``decoder_kernel.F32_MAX_LEVEL``, frame-major
+    ``(B, N)`` only), else ``(decode, "eager")``: the eager decoder in
+    float min-sum, built at its first call. Other float dtypes, and float32
+    that is not 2-D, raise ``ValueError``."""
+    kernel = output == "u" and code.level <= decoder_kernel.F32_MAX_LEVEL
+    built = {}
+
+    def plain():
+        if "eager" not in built:
+            built["eager"] = make_fastssc_decoder(code, output=output,
+                                                  output_dtype=output_dtype)
+        return built["eager"]
+
+    def check(llrs):
+        if llrs.dtype != torch.float32 or llrs.ndim != 2:
+            raise ValueError(f"float LLRs on a card are 2-D float32, got "
+                             f"{tuple(llrs.shape)} {llrs.dtype}")
+
+    def decode(llrs):
+        if not llrs.is_floating_point():
+            return int8(llrs)
+        check(llrs)
+        if not kernel:
+            return plain()(llrs)
+        if "program" not in built:
+            built["program"] = compile_program(code)
+        with annotate("decode"):
+            return decoder_kernel.decode_f32(
+                built["program"], code.frozen,
+                llrs.contiguous()).to(output_dtype)
+
+    def lane_major(llr_t):
+        if not llr_t.is_floating_point():
+            return int8.lane_major(llr_t)
+        check(llr_t)
+        if kernel:
+            raise ValueError("the float kernel reads frame-major (B, N) "
+                             "LLRs: call decode(llrs)")
+        return plain().lane_major(llr_t)
+
+    decode.lane_major = lane_major
+    return decode, "cuda-f32" if kernel else "eager"
+
+
 def make_auto_decoder(code: PolarCode, *, output: str = "u",
                       output_dtype=torch.int8, device):
     """Best decoder for ``code`` on ``device``: returns ``(decode_fn,
-    description)``. Inputs are int8 LLRs. On a card the decoder is
+    description)``. The LLRs' dtype picks the arithmetic: integer LLRs
+    saturating int8, float ones min-sum. On a card the int8 decoder is
     :data:`AUTO_DECODERS`' for the output's track, by the batch of each
-    call."""
+    call, and float32 LLRs take :func:`_by_dtype`'s route; the
+    description names both ("...; float32 LLRs: cuda-f32")."""
     device = torch.device(device)
     if device.type != "cuda":
         return (make_fastssc_decoder(code, output=output,
@@ -288,9 +343,12 @@ def make_auto_decoder(code: PolarCode, *, output: str = "u",
         raise ValueError(f"unknown output mode {output!r}")
     small, big = decoder_names(code.level, output != "u")
     if small == big:
-        return make_named_decoder(code, small, output, output_dtype)
-    (dec_s, desc_s), (dec_b, desc_b) = (
-        make_named_decoder(code, name, output, output_dtype)
-        for name in (small, big))
-    return (_by_batch(dec_s, dec_b),
-            f"{desc_s} below {BIG_BATCH} frames, {desc_b} from it")
+        dec, desc = make_named_decoder(code, small, output, output_dtype)
+    else:
+        (dec_s, desc_s), (dec_b, desc_b) = (
+            make_named_decoder(code, name, output, output_dtype)
+            for name in (small, big))
+        dec, desc = (_by_batch(dec_s, dec_b),
+                     f"{desc_s} below {BIG_BATCH} frames, {desc_b} from it")
+    dec, route = _by_dtype(dec, code, output, output_dtype)
+    return dec, f"{desc}; float32 LLRs: {route}"

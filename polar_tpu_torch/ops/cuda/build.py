@@ -80,6 +80,7 @@ SIGNATURES = {
                           _P),
     "polar_scratch_decode": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
     "polar_scratch_decode_frames": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
+    "polar_f32_decode_frames": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "polar_scratch_subtree": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "polar_interp_tile": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -32,6 +32,10 @@ tile kernels' u track
 also takes frame-major ``(B, N)`` LLRs and writes û ``(B, K)`` itself
 (``layout="frames"``, :func:`has_frames`), counted under the kernel's key
 with ``_frames`` at the end.
+:func:`decode_f32` is the u track in float32 min-sum (the eager decoder's
+arithmetic on float LLRs, ``polar_helper.hh:63-111``): the tile core with
+one frame to a 32-bit word, frame-major ``(B, N)`` float32 in, ``(B, K)``
+int8 out, up to level :data:`F32_MAX_LEVEL`.
 :func:`simd_selftest` holds the tile kernel's packed functions against
 the walk's scalar ones on the card.
 """
@@ -78,7 +82,8 @@ SIMD_PRIMITIVES = ("sat_add", "qabs", "signum", "decide", "prod", "madd",
 LAYOUTS = ("lanes", "frames")
 launches = {"fastssc_decoder_u": 0, "fastssc_decoder_cw": 0,
             "walk_decoder_u": 0, "walk_decoder_cw": 0, "scratch_decoder": 0,
-            "fastssc_decoder_u_frames": 0, "scratch_decoder_frames": 0}
+            "fastssc_decoder_u_frames": 0, "scratch_decoder_frames": 0,
+            "f32_decoder_frames": 0}
 plain_calls = {"decode_plain": 0}
 _tables: dict = {}
 
@@ -246,13 +251,17 @@ def tile_bytes(n: int, want_cw: bool, root: bool = False) -> int:
     return (2 + want_cw + root) * n * WHOLE_FRAMES
 
 
+def _warps_for(nbytes: int) -> int:
+    """Tiles (warps) a block whose tiles take ``nbytes`` of shared
+    memory each: as many as fit :data:`WHOLE_BLOCK_BYTES`, at least one, at
+    most :data:`WHOLE_MAX_WARPS`; small codes so fill an SM's warps before
+    its limit of 32 blocks."""
+    return max(1, min(WHOLE_MAX_WARPS, WHOLE_BLOCK_BYTES // nbytes))
+
+
 def tile_warps(n: int, want_cw: bool, root: bool = False) -> int:
-    """Tiles (warps) a block of a tile kernel: as many as fit
-    :data:`WHOLE_BLOCK_BYTES`, at least one, at most
-    :data:`WHOLE_MAX_WARPS`; small codes so fill an SM's warps before its
-    limit of 32 blocks."""
-    return max(1, min(WHOLE_MAX_WARPS,
-                      WHOLE_BLOCK_BYTES // tile_bytes(n, want_cw, root)))
+    """Tiles (warps) a block of an int8 tile kernel (:func:`_warps_for`)."""
+    return _warps_for(tile_bytes(n, want_cw, root))
 
 
 def tile_max_level(root: bool) -> int:
@@ -379,6 +388,78 @@ def decode(program, frozen, llr_t, want_cw: bool, style: str = "ssa",
     build.check(err, "polar_decode")
     profiling.launched(start, launches, f"walk_decoder_{track}")
     return mesg, cw
+
+
+# The float kernel (csrc/decoder.cu f32_frames_kernel): W frames a tile,
+# one to a word, all W words of a row on one lane (W = 1, 2, 4 are built);
+# a tile's shared memory is two regions of n float rows, 8 n bytes a frame.
+# The tile by level, from the tile A/B (NVIDIA H100 80GB HBM3, 700 W;
+# Polar(2^m, 2^(m-1)), device ms of one decode by CUDA events, the better
+# of two readings, warps by _warps_for; tiles 1 / 2 / 4):
+#   m    B=4096                    B=32768
+#   6    .0266 / .0286 / .0261     .1073 / .0704 / .0521
+#   8    .0489 / .0358 / .0340     .3209 / .2020 / .1509
+#   9    .0864 / .0619 / .0572     .5584 / .3655 / .3197
+#   10   .2059 / .1923 / .1920     1.2901 / 1.0566 / 1.1178
+#   11   .5414 / .5370 / .5506     3.7095 / 3.8205 / 3.8964
+#   12   1.8069 / 1.8820 / 2.6688  12.8162 / 13.2063 / 21.0505
+#   13   6.0503 / 9.2824 / -       -
+# (m = 4, 5, 7 as m = 6: tile 4 ahead.) Wide tiles win while a frame's 8 n
+# bytes are few, one-frame tiles once they bound the warps an SM holds.
+
+
+def f32_tile(level: int) -> int:
+    """Frames a tile of the float kernel at this level (the A/B above)."""
+    return 4 if level <= 9 else 2 if level <= 11 else 1
+
+
+def f32_tile_bytes(n: int, w: int) -> int:
+    """Shared memory of one tile of the float kernel at code length
+    ``n``: the soft pyramid and the hard stack, ``w`` float words a row."""
+    return 2 * n * 4 * w
+
+
+F32_MAX_LEVEL = max(m for m in range(1, 20)
+                    if f32_tile_bytes(1 << m, f32_tile(m))
+                    <= SCRATCH_SMEM_BYTES)   # 14
+
+
+def decode_f32(program, frozen, llrs):
+    """û ``(B, K)`` int8 in {-1, 0, +1} of frame-major ``(B, N)`` float32
+    LLRs in float32 min-sum: the float kernel for a CUDA tensor (up to
+    level :data:`F32_MAX_LEVEL`, tiles of :func:`f32_tile`'s frames),
+    :func:`decode_plain` for a CPU one. Raises
+    ``ValueError`` for another dtype, shape or stride, or a level above
+    :data:`F32_MAX_LEVEL` on a card."""
+    start = profiling.begin()
+    n = int(np.asarray(frozen).size)
+    if (llrs.dtype != torch.float32 or llrs.ndim != 2 or llrs.shape[1] != n
+            or not llrs.is_contiguous()):
+        raise ValueError(f"expected contiguous (B, N={n}) float32 LLRs, got "
+                         f"{tuple(llrs.shape)} {llrs.dtype}")
+    if llrs.device.type == "cpu":
+        mesg, _ = decode_plain(program, frozen, llrs.t(), False)
+        return mesg.t().contiguous()
+    if llrs.device.type != "cuda":
+        raise ValueError(f"no decoder for device {llrs.device}")
+    if n > 1 << F32_MAX_LEVEL:
+        raise ValueError(f"the float kernel keeps 8N bytes a frame in shared "
+                         f"memory: N <= {1 << F32_MAX_LEVEL}, not {n}")
+    tile = f32_tile(n.bit_length() - 1)
+    k = n - int(np.count_nonzero(frozen))
+    b = llrs.shape[0]
+    mesg = torch.empty((b, k), dtype=torch.int8, device=llrs.device)
+    if b == 0:
+        return mesg
+    stream = build.stream(llrs.device)
+    prog_d, _ = device_tables(np.asarray(program, np.uint8),
+                              np.asarray(frozen, np.uint8), llrs.device)
+    err = build.load_library().polar_f32_decode_frames(
+        prog_d.data_ptr(), llrs.data_ptr(), mesg.data_ptr(), n, k, b, tile,
+        _warps_for(f32_tile_bytes(n, tile)), stream)
+    build.check(err, "polar_f32_decode_frames")
+    profiling.launched(start, launches, "f32_decoder_frames")
+    return mesg
 
 
 def simd_selftest(device) -> dict:

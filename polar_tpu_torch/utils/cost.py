@@ -228,6 +228,8 @@ def row_work(name: str, *, n: int, b: int, k: int | None = None,
     ring's positions, ``bits`` the bits mode (step, symbols)."""
     if name in ("fastssc_decoder_u", "scratch_decoder", "interp_decoder"):
         return (n + k) * b, decode_ops(n) * b
+    if name == "f32_decoder":           # float32 LLRs in, int8 u out
+        return (4 * n + k) * b, decode_ops(n) * b
     if name == "fastssc_decoder_cw":
         return (2 * n + k) * b, (decode_ops(n) + transform_ops(n)) * b
     if name == "mc_step":

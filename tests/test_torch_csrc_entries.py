@@ -27,7 +27,8 @@ ENTRIES = {
     "count.cu": {"polar_count_rows", "polar_count_frames",
                  "polar_count_frames_occupancy"},
     "decoder.cu": {"polar_decode", "polar_tile_decode",
-                   "polar_tile_decode_frames", "polar_simd_selftest"},
+                   "polar_tile_decode_frames", "polar_f32_decode_frames",
+                   "polar_simd_selftest"},
     "device.cu": {"polar_set_device", "polar_get_device"},
     "encode.cu": {"polar_encode_bits"},
     "front.cu": {"polar_front_msg_rows", "polar_front_chan_rows",

@@ -125,11 +125,11 @@ def test_kernel_decoder_output_modes(dev):
     from polar_tpu_torch.decode import auto
 
     _, desc = pt.make_auto_decoder(c, output="codeword", device=dev)
-    assert desc == "cuda-fastssc"                            # the tile kernel
+    assert desc == "cuda-fastssc; float32 LLRs: eager"       # the tile kernel
     # u: the same below BIG_BATCH, the scratch style from it
     _, desc = pt.make_auto_decoder(c, device=dev)
     assert desc == f"cuda-fastssc below {auto.BIG_BATCH} frames, " \
-                   "cuda-scratch from it"
+                   "cuda-scratch from it; float32 LLRs: cuda-f32"
 
 
 def test_decoder_rejects_bad_input(dev):
@@ -244,11 +244,14 @@ def test_auto_decoder_picks_the_hybrid_from_its_level(dev):
             (18, "u", f"cuda-hybrid-kl{kl}")):
         _, desc = pt.make_auto_decoder(pt.make_code(m, rate=0.5),
                                        output=output, device=dev)
-        assert desc == want
+        f32 = ("cuda-f32" if output == "u"
+               and m <= decoder_kernel.F32_MAX_LEVEL else "eager")
+        assert desc == f"{want}; float32 LLRs: {f32}"
     # the u track of m = 7 by batch: the tile kernel, then the scratch kernel
     c = pt.make_code(7, rate=0.5)
     dec, desc = pt.make_auto_decoder(c, device=dev)
-    assert desc == f"cuda-fastssc below {big} frames, cuda-scratch from it"
+    assert desc == (f"cuda-fastssc below {big} frames, cuda-scratch from "
+                    "it; float32 LLRs: cuda-f32")
     want = pt.make_fastssc_decoder(c, output_dtype=torch.int8)
     for batch in (100, auto.BIG_BATCH):
         llr = _llrs(dev, c.N, batch, batch).t().contiguous()
@@ -2112,3 +2115,158 @@ def test_auto_decoder_takes_the_frame_major_kernel_at_the_bench_code(dev):
         big(_frame_llrs(dev, 1 << 13, 64, 3))
     names = [s[0] for s in profiling.take_spans()[0]]
     assert names == ["decode", "kernel.interp_decoder_frames"], names
+
+
+# -- the float32 u track (decoder_kernel.decode_f32, csrc/decoder.cu) ------
+
+def _float_reference():
+    """``perfbench/reference/float32.py``, the benchmark's plain float
+    Fast-SSC (it imports nothing of the program)."""
+    import sys
+    from pathlib import Path
+
+    bench = str(Path(__file__).resolve().parents[1] / "perfbench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from reference import float32
+
+    return float32
+
+
+def _float_llrs(dev, n, b, seed):
+    """float32 (B, N) LLRs with the float decode's edge cases planted: a
+    frame all -0.0, one all +0.0, one of small integers (exact-zero
+    repetition sums and g updates, signed zeros), one of magnitudes from
+    {0.5, 1, 1.5} (tied SPC minima); the rest normal, a third of their
+    entries ±0.0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((b, n), generator=g, device=dev) * 2.5
+    zero = torch.rand((b, n), generator=g, device=dev) < 1 / 3
+    neg = torch.rand((b, n), generator=g, device=dev) < 0.5
+    signed_zero = torch.where(neg, -0.0, 0.0)
+    x = torch.where(zero, signed_zero, x)
+    small = torch.randint(-2, 3, (b, n), generator=g, device=dev).float()
+    small = torch.where(small == 0, signed_zero, small)
+    tie = torch.randint(1, 4, (b, n), generator=g, device=dev).float() / 2
+    tie = torch.where(neg, -tie, tie)
+    rows = (torch.full((n,), -0.0, device=dev), torch.zeros(n, device=dev),
+            small[2 % b], tie[3 % b])
+    for f, row in enumerate(rows[:b]):
+        x[f] = row
+    if b > 8:
+        x[4:b // 2:2] = small[4:b // 2:2]
+        x[5:b // 2:2] = tie[5:b // 2:2]
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("m", [6, 7, 8, 9, 10])
+@pytest.mark.parametrize("batch", [1, 33, 4097, 32768])
+def test_f32_kernel_matches_the_reference_and_eager(dev, m, batch):
+    """The float kernel equals the eager float decoder and the benchmark's
+    float reference bit for bit, one launch a call, on the planted ±0,
+    zero-sum and tie frames."""
+    ref = _float_reference()
+    c = pt.make_code(m, rate=0.5)
+    program = pt.compile_program(c)
+    llrs = _float_llrs(dev, c.N, batch, 100 * m + batch)
+    before = dict(decoder_kernel.launches)
+    got = decoder_kernel.decode_f32(program, c.frozen, llrs)
+    assert decoder_kernel.launches == {
+        **before, "f32_decoder_frames": before["f32_decoder_frames"] + 1}
+    eager = pt.make_fastssc_decoder(c, output="u", output_dtype=torch.int8)
+    want = ref.Decoder(c.frozen).decode(llrs.t()).t()
+    assert torch.equal(got, eager(llrs))
+    assert torch.equal(got, want)
+    if batch >= 4:
+        assert (got[:4] == 0).any()
+
+
+@pytest.mark.parametrize("m", [1, 4, 9, 11, 12, decoder_kernel.F32_MAX_LEVEL])
+def test_f32_kernel_tiles_and_levels(dev, m):
+    """Every tile width at the smallest and largest levels it takes
+    (``decoder_kernel.f32_tile``), against the eager float decoder."""
+    c = pt.make_code(m, rate=0.5)
+    program = pt.compile_program(c)
+    llrs = _float_llrs(dev, c.N, 999, m)
+    got = decoder_kernel.decode_f32(program, c.frozen, llrs)
+    eager = pt.make_fastssc_decoder(c, output="u", output_dtype=torch.int8)
+    assert torch.equal(got, eager(llrs))
+
+
+def test_f32_kernel_off_the_word(dev):
+    """LLR views that start off a 16-byte boundary (by 4, 8 and 12 bytes)
+    read the same."""
+    c = pt.make_code(10, rate=0.5)
+    program = pt.compile_program(c)
+    b = 4099
+    src = _float_llrs(dev, c.N, b, 10)
+    want = decoder_kernel.decode_f32(program, c.frozen, src)
+    for off in (1, 2, 3):
+        buf = torch.empty(b * c.N + off, dtype=torch.float32, device=dev)
+        llrs = buf[off:].view(b, c.N)
+        llrs.copy_(src)
+        assert llrs.data_ptr() % 16 != 0
+        assert torch.equal(
+            decoder_kernel.decode_f32(program, c.frozen, llrs), want), off
+
+
+def test_f32_kernel_refuses_above_its_level(dev):
+    c = pt.make_code(decoder_kernel.F32_MAX_LEVEL + 1, rate=0.5)
+    with pytest.raises(ValueError, match="N <="):
+        decoder_kernel.decode_f32(pt.compile_program(c), c.frozen,
+                                  torch.zeros((2, c.N), device=dev))
+
+
+def test_auto_decoder_routes_by_dtype(dev):
+    """make_auto_decoder's u track on a card: float32 (B, N) LLRs take one
+    launch of the float kernel under the spans ``decode`` and
+    ``kernel.f32_decoder_frames``; int8 LLRs the kernels they took before;
+    the cw outputs in float32 and float32 above the kernel's level run the
+    eager float decoder, which launches nothing; other float dtypes,
+    float32 that is not 2-D and element-major float32 on the kernel's
+    track raise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from polar_tpu_torch.utils import profiling
+
+    c = pt.make_code(10, rate=0.5)
+    dec, desc = pt.make_auto_decoder(c, device=dev)
+    eager = pt.make_fastssc_decoder(c, output="u", output_dtype=torch.int8)
+    llrs = _float_llrs(dev, c.N, 32768, 3)
+    profiling.take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        before = dict(decoder_kernel.launches)
+        got = dec(llrs)
+        after = dict(decoder_kernel.launches)
+    spans, _ = profiling.take_spans()
+    assert after == {**before, "f32_decoder_frames":
+                     before["f32_decoder_frames"] + 1}
+    assert [s[0] for s in spans] == ["decode", "kernel.f32_decoder_frames"]
+    assert torch.equal(got, eager(llrs))
+    for b, key in ((4096, "fastssc_decoder_u_frames"),
+                   (32768, "scratch_decoder_frames")):
+        q = _frame_llrs(dev, c.N, b, b)
+        before = dict(decoder_kernel.launches)
+        dec(q)
+        assert dict(decoder_kernel.launches) == {**before,
+                                                 key: before[key] + 1}
+    sys_dec, _ = pt.make_auto_decoder(c, output="systematic", device=dev)
+    big = pt.make_code(decoder_kernel.F32_MAX_LEVEL + 1, rate=0.5)
+    big_dec, _ = pt.make_auto_decoder(big, device=dev)
+    before = dict(decoder_kernel.launches)
+    for bad in (llrs[:64].double(), llrs[:64].half(), llrs[:64].bfloat16(),
+                llrs[:64].reshape(64, 2, -1)):
+        with pytest.raises(ValueError, match="2-D float32"):
+            dec(bad)
+    with pytest.raises(ValueError, match="frame-major"):
+        dec.lane_major(llrs[:64].t().contiguous())
+    sys_want = pt.make_fastssc_decoder(c, output="systematic",
+                                       output_dtype=torch.int8)(llrs[:64])
+    assert torch.equal(sys_dec(llrs[:64]), sys_want)
+    assert torch.equal(sys_dec.lane_major(llrs[:64].t().contiguous()),
+                       sys_want.t())
+    big_llrs = torch.randn((3, big.N), device=dev)
+    assert torch.equal(big_dec(big_llrs), pt.make_fastssc_decoder(
+        big, output="u", output_dtype=torch.int8)(big_llrs))
+    assert dict(decoder_kernel.launches) == before

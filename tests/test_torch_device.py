@@ -67,6 +67,9 @@ def _calls():
             program, frozen, _i8(B, N), False, layout="frames"),
         "scratch_decoder_frames": lambda: decoder_kernel.decode(
             program, frozen, _i8(B, N), False, "scratch", layout="frames"),
+        "f32_decoder_frames": lambda: decoder_kernel.decode_f32(
+            program, frozen, torch.empty((B, N), dtype=torch.float32,
+                                         device=DEV)),
         "mc_step": lambda: step_kernel.step(program, frozen, params, True,
                                             msg_t=_i8(N, B), normals_t=f32()),
         "walk_step": lambda: step_kernel.step(program, frozen, params, True,

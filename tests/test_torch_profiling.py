@@ -171,6 +171,9 @@ def _launch_calls():
             program, frozen, _i8(B, N), False, layout="frames"),
         "scratch_decoder_frames": lambda: decoder_kernel.decode(
             program, frozen, _i8(B, N), False, "scratch", layout="frames"),
+        "f32_decoder_frames": lambda: decoder_kernel.decode_f32(
+            program, frozen, torch.empty((B, N), dtype=torch.float32,
+                                         device=FAKE)),
         "mc_step": lambda: step(),
         "walk_step": lambda: step(style="walk"),
         "front_whole": lambda: step_kernel.front(
