@@ -145,6 +145,13 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
+def stages(counts: dict) -> str:
+    """The register block's counter (``ops/cuda/tile_stages.py``): a
+    tile's transform and fold stages in registers and in shared memory."""
+    return (f"stages in registers {counts['reg_stages']}, in shared memory "
+            f"{counts['smem_stages']}")
+
+
 def bounds_ok(f1, n1, f2, n2) -> tuple[bool, float]:
     """|p1 - p2| within SIGMAS pooled binomial standard deviations."""
     p = (f1 + f2) / (n1 + n2)
@@ -937,7 +944,7 @@ def front_step_phases(dev, card, ms) -> dict:
     from polar_tpu_torch.ops.cuda import (channel_kernel, count_kernel,
                                           decoder_kernel, encode_kernel,
                                           front_kernel, step_kernel,
-                                          subtree_kernel)
+                                          subtree_kernel, tile_stages)
     from polar_tpu_torch.utils.cost import bound, row_work
 
     new = ("front_whole", "decode_count", "front_middle")
@@ -1190,7 +1197,9 @@ def front_step_phases(dev, card, ms) -> dict:
                   f"(profiler) {dev_ms[0]}, style {old_st} {dev_ms[1]}; "
                   f"{by_shape[name][where]['launches']} launches on the "
                   f"front path"
-                  + (f"; the cw-track tile decoder alone {decode_ms:.4f} ms"
+                  + (f"; the cw-track tile decoder alone {decode_ms:.4f} ms; "
+                     + stages(tile_stages.program_stages(
+                         program, tile_stages.block_rows(2, 2), True))
                      if name == "decode_count" else "") + f" ({card})")
             if main:
                 times[name] = (t["ms"], by_shape[name][where]["plain_ms"])
@@ -1544,7 +1553,7 @@ def style_phases(dev, card, ms) -> dict:
         phase("14", f"interp program {what}: {plan['steps']} steps, grid "
               f"level {plan['grid_level']}, {plan['grid_steps']} grid steps, "
               f"{plan['tile_runs']} tile runs, {plan['entries']} entries, "
-              f"{plan['barriers']} grid barriers; "
+              f"{plan['barriers']} grid barriers; {stages(plan)}; "
               + (f"cooperative grid of {plan['blocks']} blocks"
                  if plan["cooperative"] else f"plain grid of {plan['blocks']}"
                  " blocks")
@@ -1773,7 +1782,7 @@ def frame_entry_phases(dev, card, ms) -> dict:
 
     import polar_tpu_torch as pt
     from polar_tpu_torch.decode.fastssc import frame_major
-    from polar_tpu_torch.ops.cuda import decoder_kernel
+    from polar_tpu_torch.ops.cuda import decoder_kernel, tile_stages
     from polar_tpu_torch.utils.benchmark import queued_seconds
     from polar_tpu_torch.utils.cost import row_work
 
@@ -1813,6 +1822,7 @@ def frame_entry_phases(dev, card, ms) -> dict:
             raise AssertionError(f"frame-major entry at B={b} launched "
                                  f"{moved}")
         entry[b] = key.removesuffix("_frames")
+        style = "ssa" if key.startswith("fastssc") else "scratch"
         check(entry[b], got, plain_u(program, code.frozen, llrs),
               f"auto decoder Polar({n}, {k}) B={b}")
         if not torch.equal(got, old(llrs)):
@@ -1823,7 +1833,8 @@ def frame_entry_phases(dev, card, ms) -> dict:
               f"{t['ms']:.4f} ms, transposing entry {t['earlier_ms']:.4f} ms "
               f"({t['earlier_ms'] / t['ms']:.2f}x; {t['turns']}); "
               f"{b / t['ms'] * 1e3:.4g} against "
-              f"{b / t['earlier_ms'] * 1e3:.4g} frames/s ({card})")
+              f"{b / t['earlier_ms'] * 1e3:.4g} frames/s; "
+              f"{stages(decoder_kernel.plan(program, b, style))} ({card})")
 
     def turns(name, c, prog, llrs, style, shape, launched, what):
         """The frame-major launch against plain, then in turns with the
@@ -1842,10 +1853,14 @@ def frame_entry_phases(dev, card, ms) -> dict:
         e = [queued_seconds(lanes, 20), queued_seconds(lanes, 20)]
         f.append(queued_seconds(frames, 20))
         t_p = ms(lambda: plain_u(*run, llrs), 2)
+        counts = (decoder_kernel.plan(prog, b, style) if shape is None else
+                  tile_stages.program_stages(
+                      prog, tile_stages.block_rows(*shape[:2]), False,
+                      folds=False))
         phase("17", f"{name} at {where}, device ms a call: frame-major "
               f"{f[0] * 1e3:.4f}, {f[1] * 1e3:.4f}; element-major "
-              f"{e[0] * 1e3:.4f}, {e[1] * 1e3:.4f}; plain {t_p:.3f} ms "
-              f"({card})")
+              f"{e[0] * 1e3:.4f}, {e[1] * 1e3:.4f}; plain {t_p:.3f} ms; "
+              f"{stages(counts)} ({card})")
         by_shape.setdefault(name, {})[where] = row = {
             "ms": sum(f) / 2 * 1e3, "lanes_ms": sum(e) / 2 * 1e3,
             "plain_ms": t_p, "work": row_work(name, n=c.N, k=c.K, b=b),
@@ -1945,7 +1960,7 @@ def interp_frames_phases(dev, card, ms) -> dict:
               f"{t['lanes'][0]:.4f}, {t['lanes'][1]:.4f}; transposing entry "
               f"{t['entry'][0]:.4f}, {t['entry'][1]:.4f}; == plain "
               f"({t_p:.0f} ms); blocks an SM {per_sm} at {plan['warps']} "
-              f"warps, grid {plan['blocks']} ({card})")
+              f"warps, grid {plan['blocks']}; {stages(plan)} ({card})")
         by_shape[where] = {
             "ms": sum(t["frames"]) / 2, "lanes_ms": sum(t["lanes"]) / 2,
             "earlier_ms": sum(t["entry"]) / 2, "plain_ms": t_p,
@@ -2127,7 +2142,8 @@ def f32_decode_phases(dev, card, ms) -> dict:
           f"float32; auto decoder: one launch a call; ms a call: kernel "
           f"{t[0]:.4f}, {t[1]:.4f}; eager {e[0]:.3f}, {e[1]:.3f} "
           f"({e_ms / t_ms:.1f}x); bound {b_ms:.4f} ms ({b_by}), "
-          f"{t_ms / b_ms:.1f}x the bound ({card})")
+          f"{t_ms / b_ms:.1f}x the bound; "
+          f"{stages(decoder_kernel.plan(program, b, f32=True))} ({card})")
     return {"err": {"f32_decoder": err},
             "times": {"f32_decoder": (t_ms, e_ms)},
             "work": {"f32_decoder": work},
@@ -2693,7 +2709,7 @@ def main() -> int:
     from polar_tpu_torch.decode.auto import make_kernel_decoder
     from polar_tpu_torch.ops.cuda import (build, count_kernel, decoder_kernel,
                                           front_kernel, step_kernel,
-                                          subtree_kernel)
+                                          subtree_kernel, tile_stages)
     from polar_tpu_torch.utils.benchmark import measure_decode_fps
     from polar_tpu_torch.utils.cost import bound, row_work
 
@@ -2933,13 +2949,18 @@ def main() -> int:
         times[name] = (
             sum(t) / 2,
             ms(lambda: decoder_kernel.decode_plain(program, frozen, llr_t, want_cw), 3))
+        counts = decoder_kernel.plan(program, BATCH, want_cw=want_cw,
+                                     layout="lanes")
         earlier[name] = sum(w) / 2
         phase("6", f"{name}: tile kernel {t[0]:.3f}, {t[1]:.3f} ms; walk "
               f"{w[0]:.3f}, {w[1]:.3f} ms ({earlier[name] / times[name][0]:.2f}x) "
-              f"at Polar({n}, {k}) B={BATCH} ({card})")
+              f"at Polar({n}, {k}) B={BATCH}; "
+              f"{stages(counts)} ({card})")
     # the fused step: the tile step and the walk it replaces in turns, at
     # the default path's shape (B = BATCH, the kernels line) and at
     # B = 4096, the batch of phase 12's campaign at this code
+    counts = tile_stages.step_stages(program, n, True,
+                                     tile_stages.block_rows(2, 2))
     for b_t in (4096, BATCH):
         kw = dict(seeds=(99, 98), call=1, batch=b_t, device=dev)
         run = (program, frozen, snr_params(1.0), True)
@@ -2950,7 +2971,8 @@ def main() -> int:
         t.append(ms(tile, 20))
         phase("6", f"mc_step: tile step {t[0]:.3f}, {t[1]:.3f} ms; walk "
               f"{w[0]:.3f}, {w[1]:.3f} ms ({sum(w) / sum(t):.2f}x) at "
-              f"Polar({n}, {k}) B={b_t} systematic ({card})")
+              f"Polar({n}, {k}) B={b_t} systematic; "
+              f"{stages(counts)} ({card})")
     times["mc_step"] = (
         sum(t) / 2, ms(lambda: step_kernel.step_plain(*run, **kw), 3))
     earlier["mc_step"] = sum(w) / 2

@@ -259,3 +259,24 @@ extern "C" int polar_simd_selftest(void* bad, void* stream) {
       (int*)bad);
   return (int)cudaGetLastError();
 }
+
+// The register block of the tile core's instances (fastssc_simd.cuh
+// reg_passes): the rows of a node whose transform stages and REP folds a
+// tile of shape (wr, vw) keeps in registers, int8 lanes (f32 == 0) or
+// float32 ones; -1 for a shape not built.
+extern "C" int polar_tile_block_rows(int wr, int vw, int f32) {
+  namespace s = polar::simd;
+  if (f32) {
+    switch (wr == vw ? wr : 0) {
+      case 1: return F32Tile<1>::kBlock;
+      case 2: return F32Tile<2>::kBlock;
+      case 4: return F32Tile<4>::kBlock;
+      default: return -1;
+    }
+  }
+  if (wr == 2 && vw == 2) return s::Tile<2, 2, false>::kBlock;
+  if (wr == 4 && vw == 1) return s::Tile<4, 1, false>::kBlock;
+  if (wr == 8 && vw == 1) return s::Tile<8, 1, false>::kBlock;
+  if (wr == 32 && vw == 1) return s::Tile<32, 1, false>::kBlock;
+  return -1;
+}

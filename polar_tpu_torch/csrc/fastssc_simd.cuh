@@ -20,11 +20,26 @@
 // consecutive accesses, free of bank conflicts, and a node of len rows
 // takes len WR / (32 VW) passes. Nodes of fewer rows than a pass leave
 // lanes idle. Every op ends with __syncwarp, since the next one reads rows
-// other lanes wrote. The wrapper's shape, 8 frames a tile and a lane (WR =
-// VW = 2, 32 rows a pass), was chosen over six others on an H100: a lane's
-// two words are two independent chains, and the small tile keeps more
-// warps on an SM. Unrolling a lane's rows four at a time, all loads before
-// any store, ran slower there.
+// other lanes wrote. Inside an op, the polar transforms (rate-1, SPC,
+// RATE1_COMB, the cw track's second one, the step's encode) and REP's
+// folds run in a register block, with no barrier: a lane keeps its rows of
+// up to kP passes in registers (reg_passes, by shape at compile time);
+// stage s pairs rows i and i + 2^s, two of the lane's own registers
+// where 2^s >= kPass, else the lane kLanesRow << s away by __shfl_xor_sync
+// (REP: __shfl_down_sync, the bit broadcast from row 0's lane), and the
+// message and cw rows go out from the registers. A node of more rows than
+// the block (kBlock) runs its stages below kBlock in register chunks and
+// those from kBlock up in shared memory, one pass and one barrier a stage,
+// as every stage ran before. The frame-major instances keep REP's folds in
+// shared memory (kRegFolds). The block of one pass of words a lane
+// (kRegWords = 2) and those choices came from an A/B on an H100 against
+// blocks of 2 and 4 passes (slower: more registers, spills in the
+// interpreter) and REP's folds in registers everywhere (PERF.md).
+// The wrapper's shape, 8 frames a tile and a lane (WR = VW = 2, 32 rows a
+// pass), was chosen over six others on an H100: a lane's two words are two
+// independent chains, and the small tile keeps more warps on an SM.
+// Unrolling a lane's rows four at a time, all loads before any store, ran
+// slower there.
 //
 // The program: the code's byte program (code/compiler.py emit_program), the
 // same for every lane, read with one broadcast load per opcode; the walk
@@ -305,6 +320,15 @@ struct F32Lanes {
 // ops/cuda/decoder_kernel.py.
 constexpr int kTileWR = 2, kTileVW = 2;
 
+// The register block: the words of a node's rows a lane keeps in
+// registers for its transform stages and REP's folds, kRegWords / VW
+// passes (at least one) of a lane holding VW words of a row.
+// ops/cuda/tile_stages.py reg_passes mirrors it.
+constexpr int kRegWords = 2;
+constexpr int reg_passes(int vw) {
+  return kRegWords / vw > 0 ? kRegWords / vw : 1;
+}
+
 // One warp's tile: WR words a row, VW of them a lane; CW: the codeword
 // track is on; ROOT_SMEM: the root input is on chip; EMIT_U: the message
 // rows are stored; INTERP: the interpreter's tile runs (csrc/interp.cu),
@@ -331,6 +355,14 @@ struct Tile {
   static constexpr int kPass = 32 / kLanesRow;  // rows a warp covers a pass
   // shared regions of n rows a warp: soft, hard, cw (CW), root (ROOT_SMEM)
   static constexpr int kRegions = 2 + CW + ROOT_SMEM;
+  // the register block: passes a lane keeps in registers, the rows they
+  // cover
+  static constexpr int kP = reg_passes(VW);
+  static constexpr int kBlock = kP * kPass;
+  static_assert((kP & (kP - 1)) == 0, "passes a power of two");
+  // REP's folds in the register block too (the frame-major instances keep
+  // them in shared memory: there the register folds ran slower)
+  static constexpr bool kRegFolds = !FRAMES;
   uint32_t* soft;   // n rows: a node of len < n reads rows [len, 2 len)
   uint32_t* hard;   // n rows: the hard-decision stack
   uint32_t* cw;     // n rows: the codeword stack (CW only)
@@ -532,10 +564,102 @@ struct Tile {
     }
   }
 
-  // In-place polar transform of rows [0, len) of t: every stage's pairs
-  // spread over the lanes.
+  // Passes of the register block a node (or fold) of len rows takes: 1
+  // below a pass, len / kPass from it (at most kP where len <= kBlock)
+  static __device__ __forceinline__ int passes(int len) {
+    return len > kPass ? len / kPass : 1;
+  }
+
+  // The transform's stages on np passes of a register block, rows
+  // [0, len) (np > 1: len = np kPass), low to high: stage s pairs row i
+  // with i + 2^s, the lower row keeping the product; below kPass the
+  // partner is the lane kLanesRow << s away (both lanes exchange), from
+  // kPass up the lane's own pass p + 2^s / kPass.
+  __device__ __forceinline__ void reg_transform(V (&x)[kP], int np,
+                                                int len) const {
+    const int lim = np > 1 ? kPass : len;
+#pragma unroll
+    for (int s = 0; (1 << s) < kPass; ++s) {
+      if ((1 << s) >= lim) break;
+      const bool lower = !(r0 & (1 << s));
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if (p >= np) break;
+        V o;
+#pragma unroll
+        for (int k = 0; k < VW; ++k)
+          o.x[k] = __shfl_xor_sync(0xFFFFFFFFu, x[p].x[k], kLanesRow << s);
+        const V m = hmul(x[p], o);
+        if (lower) x[p] = m;
+      }
+    }
+#pragma unroll
+    for (int d = 1; d < kP; d <<= 1) {
+      if (d >= np) break;
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        if (!(p & d) && p + d < kP && p + d < np) x[p] = hmul(x[p], x[p + d]);
+    }
+  }
+
+  // REP's folds on np passes of a register block holding rows [0, h)
+  // (np > 1: h = np kPass), in fastssc_decode's order: row i += row
+  // i + h/2, then i + h/4, ..., the lane's own passes first, then by
+  // __shfl_down_sync (kLanesRow << s lanes). Returns signum of row 0 on
+  // every lane of its words.
+  __device__ __forceinline__ V reg_fold(V (&x)[kP], int np, int h) const {
+#pragma unroll
+    for (int d = kP / 2; d >= 1; d >>= 1) {
+      if (d >= np) continue;
+#pragma unroll
+      for (int p = 0; p < d; ++p) x[p] = add(x[p], x[p + d]);
+    }
+    const int lim = np > 1 ? kPass : h;
+#pragma unroll
+    for (int s = kPass / 2; s >= 1; s >>= 1) {
+      if (s >= lim) continue;
+      V o;
+#pragma unroll
+      for (int k = 0; k < VW; ++k)
+        o.x[k] = __shfl_down_sync(0xFFFFFFFFu, x[0].x[k], s * kLanesRow);
+      x[0] = add(x[0], o);
+    }
+    V bit = signum(x[0]);
+    const int src = (threadIdx.x & 31) % kLanesRow;
+#pragma unroll
+    for (int k = 0; k < VW; ++k)
+      bit.x[k] = __shfl_sync(0xFFFFFFFFu, bit.x[k], src);
+    return bit;
+  }
+
+  // In-place polar transform of rows [0, len) of t, ending with
+  // __syncwarp: the stages below kBlock in register chunks of kBlock rows
+  // (the rows a lane loads are its own), those from kBlock up one pass of
+  // the node's pairs spread over the lanes a stage.
   __device__ __forceinline__ void transform(uint32_t* t, int len) const {
-    for (int s = 0; (1 << s) < len; ++s) {
+    V x[kP];
+    if (len <= kBlock) {
+      const int np = passes(len);
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        if (p < np)
+          x[p] = r0 + p * kPass < len ? at(t, r0 + p * kPass) : splat<VW>(0u);
+      reg_transform(x, np, len);
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        if (p < np && r0 + p * kPass < len) at(t, r0 + p * kPass) = x[p];
+      __syncwarp();
+      return;
+    }
+    for (int c = 0; c < len; c += kBlock) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) x[p] = at(t, c + r0 + p * kPass);
+      reg_transform(x, kP, kBlock);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) at(t, c + r0 + p * kPass) = x[p];
+    }
+    __syncwarp();
+    for (int s = __ffs(kBlock) - 1; (1 << s) < len; ++s) {
       const int h = 1 << s;
       for (int i = r0; i < len / 2; i += kPass) {
         const int j = ((i >> s) << (s + 1)) | (i & (h - 1));  // lower row
@@ -545,12 +669,56 @@ struct Tile {
     }
   }
 
-  // Rows [from, len) of the scratch `t` to the message rows from moff on
-  __device__ __forceinline__ void emit(uint32_t* t, int from, int len,
-                                       int moff) const {
+  // Message row i of a node whose message starts at moff, its rows before
+  // `from` frozen
+  __device__ __forceinline__ void emit_row(int i, int from, int moff,
+                                           const V& v) const {
     if constexpr (EMIT_U)
-      for (int i = r0 + from; i < len; i += kPass)
-        store(mesg, moff + i - from, at(t, i));
+      if (i >= from) store(mesg, moff + i - from, v);
+  }
+
+  // A node's polar transform: row i of its rows [0, len) is get(i) (called
+  // once for each of the lane's rows), row i of T goes to put(i, v); with
+  // `twice`, row 0 of T made +1 where `one`, T again to put2(i, v). In the
+  // register block up to kBlock rows (nothing in shared memory but what
+  // get and the puts write), else through the soft rows [0, len).
+  template <typename Get, typename Put, typename Put2>
+  __device__ __forceinline__ void node_transform(int len, Get&& get,
+                                                 Put&& put, bool twice,
+                                                 bool one, Put2&& put2) {
+    if (len <= kBlock) {
+      const V ones = splat<VW>(A::kOne);
+      const int np = passes(len);
+      V x[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        if (p < np) x[p] = r0 + p * kPass < len ? get(r0 + p * kPass) : ones;
+      reg_transform(x, np, len);
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        if (p < np && r0 + p * kPass < len) put(r0 + p * kPass, x[p]);
+      if (twice) {
+        if (one && r0 == 0) x[0] = ones;
+        reg_transform(x, np, len);
+#pragma unroll
+        for (int p = 0; p < kP; ++p)
+          if (p < np && r0 + p * kPass < len) put2(r0 + p * kPass, x[p]);
+      }
+      return;
+    }
+    for (int i = r0; i < len; i += kPass) at(soft, i) = get(i);
+    for (int round = 0;; ++round) {  // one transform's code for both
+      __syncwarp();
+      transform(soft, len);
+      if (round == 1) {
+        for (int i = r0; i < len; i += kPass) put2(i, at(soft, i));
+        break;
+      }
+      for (int i = r0; i < len; i += kPass) put(i, at(soft, i));
+      if (!twice) break;
+      __syncwarp();
+      if (one && r0 == 0) at(soft, 0) = splat<VW>(A::kOne);
+    }
   }
 
   // Rows [o, o + len) of `a`, all `v`
@@ -616,42 +784,70 @@ struct Tile {
           if (CW) fill(cw, hoff, len, ones);
           break;
         case OP_RATE1: {  // hard = signum(x), message = T(hard)
-          for (int i = r0; i < len; i += kPass) {
-            const V h = signum(in(xb, i));
-            at(hard, hoff + i) = h;
-            at(soft, i) = h;
-          }
-          __syncwarp();
-          transform(soft, len);
-          emit(soft, 0, len, moff);
+          node_transform(
+              len,
+              [&](int i) {
+                const V h = signum(in(xb, i));
+                at(hard, hoff + i) = h;
+                return h;
+              },
+              [&](int i, const V& u) { emit_row(i, 0, moff, u); }, CW,
+              false,  // cw = T(T(hard))
+              [&](int i, const V& c) { at(cw, hoff + i) = c; });
           moff += len;
-          if (CW) {  // cw = T(T(hard))
-            __syncwarp();
-            transform(soft, len);
-            for (int i = r0; i < len; i += kPass)
-              at(cw, hoff + i) = at(soft, i);
-          }
           break;
         }
         case OP_REP: {  // saturating fold in halves, in that order
           int h = len >> 1;
-          for (int i = r0; i < h; i += kPass) {
-            if constexpr (FRAMES && !INTERP) {
-              V a, b;
-              in2(xb, i, h + i, a, b);
-              at(soft, i) = add(a, b);
+          V bit;
+          if (kRegFolds && h <= kBlock) {
+            const int np = passes(h);
+            V x[kP];
+#pragma unroll
+            for (int p = 0; p < kP; ++p) {
+              const int i = r0 + p * kPass;
+              if (p < np && i < h) {
+                if constexpr (FRAMES && !INTERP) {
+                  V a, b;
+                  in2(xb, i, h + i, a, b);
+                  x[p] = add(a, b);
+                } else {
+                  x[p] = add(in(xb, i), in(xb, h + i));
+                }
+              }
+            }
+            bit = reg_fold(x, np, h);
+          } else {
+            for (int i = r0; i < h; i += kPass) {
+              if constexpr (FRAMES && !INTERP) {
+                V a, b;
+                in2(xb, i, h + i, a, b);
+                at(soft, i) = add(a, b);
+              } else {
+                at(soft, i) = add(in(xb, i), in(xb, h + i));
+              }
+            }
+            __syncwarp();
+            // to 2 kBlock rows for the register block (else to 1 row)
+            while (h > (kRegFolds ? 2 * kBlock : 1)) {
+              h >>= 1;
+              for (int i = r0; i < h; i += kPass)
+                at(soft, i) = add(at(soft, i), at(soft, h + i));
+              __syncwarp();
+            }
+            if constexpr (kRegFolds) {
+              h >>= 1;
+              V x[kP];
+#pragma unroll
+              for (int p = 0; p < kP; ++p) {
+                const int i = r0 + p * kPass;
+                x[p] = add(at(soft, i), at(soft, h + i));
+              }
+              bit = reg_fold(x, kP, h);
             } else {
-              at(soft, i) = add(in(xb, i), in(xb, h + i));
+              bit = signum(at(soft, 0));
             }
           }
-          __syncwarp();
-          while (h > 1) {
-            h >>= 1;
-            for (int i = r0; i < h; i += kPass)
-              at(soft, i) = add(at(soft, i), at(soft, h + i));
-            __syncwarp();
-          }
-          const V bit = signum(at(soft, 0));
           fill(hard, hoff, len, bit);
           if (CW) fill(cw, hoff, len, bit);
           if (EMIT_U && r0 == 0) store(mesg, moff, bit);
@@ -659,9 +855,10 @@ struct Tile {
           break;
         }
         case OP_SPC: {  // Wagner: decide, parity, flip every weakest row
-          V odd = splat<VW>(0u), weak = splat<VW>(A::kWeak);
+          V odd = splat<VW>(0u), weak = splat<VW>(A::kWeak), x0;
           for (int i = r0; i < len; i += kPass) {
             const V s = in(xb, i);
+            if (i == r0) x0 = s;  // the lane's first row: read once
 #pragma unroll
             for (int k = 0; k < VW; ++k) {
               odd.x[k] ^= A::sign(s.x[k]);
@@ -676,23 +873,17 @@ struct Tile {
                   weak.x[k], __shfl_xor_sync(0xFFFFFFFFu, weak.x[k], o));
             }
           }
-          for (int i = r0; i < len; i += kPass) {
-            const V h = spc(in(xb, i), weak, odd);
-            at(hard, hoff + i) = h;
-            at(soft, i) = h;
-          }
-          __syncwarp();
-          transform(soft, len);
-          emit(soft, 1, len, moff);
+          node_transform(
+              len,
+              [&](int i) {
+                const V h = spc(i == r0 ? x0 : in(xb, i), weak, odd);
+                at(hard, hoff + i) = h;
+                return h;
+              },
+              [&](int i, const V& u) { emit_row(i, 1, moff, u); }, CW,
+              true,  // cw = T([+1, v_1..v_{len-1}])
+              [&](int i, const V& c) { at(cw, hoff + i) = c; });
           moff += len - 1;
-          if (CW) {  // cw = T([+1, v_1..v_{len-1}])
-            __syncwarp();
-            if (r0 == 0) at(soft, 0) = ones;
-            __syncwarp();
-            transform(soft, len);
-            for (int i = r0; i < len; i += kPass)
-              at(cw, hoff + i) = at(soft, i);
-          }
           break;
         }
         case OP_RATE0_RIGHT: {  // all-frozen left half: g is a plain sat add
@@ -723,33 +914,29 @@ struct Tile {
         case OP_RATE1_COMB: {  // at the left child: g, sign, comb, T
           const int half = len;
           const int pb = 2 * half == n ? 0 : 2 * half;
-          for (int i = r0; i < half; i += kPass) {
-            const V hl = at(hard, hoff + i);
-            V hr;
-            if constexpr (FRAMES && !INTERP) {
-              V a, b;
-              in2(pb, i, half + i, a, b);
-              hr = signum(madd(hl, a, b));
-            } else {
-              hr = signum(madd(hl, in(pb, i), in(pb, half + i)));
-            }
-            at(hard, hoff + half + i) = hr;
-            at(hard, hoff + i) = hmul(hl, hr);
-            at(soft, i) = hr;
-          }
-          __syncwarp();
-          transform(soft, half);
-          emit(soft, 0, half, moff);
+          node_transform(
+              half,
+              [&](int i) {
+                const V hl = at(hard, hoff + i);
+                V hr;
+                if constexpr (FRAMES && !INTERP) {
+                  V a, b;
+                  in2(pb, i, half + i, a, b);
+                  hr = signum(madd(hl, a, b));
+                } else {
+                  hr = signum(madd(hl, in(pb, i), in(pb, half + i)));
+                }
+                at(hard, hoff + half + i) = hr;
+                at(hard, hoff + i) = hmul(hl, hr);
+                return hr;
+              },
+              [&](int i, const V& u) { emit_row(i, 0, moff, u); }, CW,
+              false,  // cw_r = T(T(hr)), cw = [cw_l * cw_r, cw_r]
+              [&](int i, const V& c) {
+                at(cw, hoff + half + i) = c;
+                at(cw, hoff + i) = hmul(at(cw, hoff + i), c);
+              });
           moff += half;
-          if (CW) {  // cw_r = T(T(hr)), cw = [cw_l * cw_r, cw_r]
-            __syncwarp();
-            transform(soft, half);
-            for (int i = r0; i < half; i += kPass) {
-              const V c = at(soft, i);
-              at(cw, hoff + half + i) = c;
-              at(cw, hoff + i) = hmul(at(cw, hoff + i), c);
-            }
-          }
           ++lvl;
           break;
         }

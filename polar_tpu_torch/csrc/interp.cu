@@ -52,11 +52,18 @@
 // launch returns its error to the wrapper, which raises). What bounds it:
 // the grid entries' bytes (every row of the levels at or above G passes
 // through device memory; utils/interp_probe.py counts the bytes) and
-// one barrier each; the tile runs' op latency (as the tile decoders'), one
-// run after another. On an H100 at that code and B = 4096 the two halves
-// take about equal times (utils/interp_probe.py times each apart). One
-// thread a frame, every row in device memory, was 5-29x slower (PERF.md
-// section 6, rows 13-15).
+// one barrier each; the tile runs' op latency, one run after another: a
+// warp walks its tile's byte programs op by op, each op a chain of
+// dependent shared-memory accesses and emulated byte arithmetic (its
+// transforms and REP folds in the register block, fastssc_simd.cuh). The
+// tile runs are one warp a tile, one wave, so they take the same time at
+// any batch up to the card's tiles: on an H100 at Polar(16384, 8192) the
+// cw track's tile runs alone take 1.82 / 1.90 ms of its 2.22 / 2.73 ms at
+// B = 2048 / 4096, its grid entries 0.49 / 0.95 ms; at Polar(131072,
+// 65536), B = 4096, the two halves took about equal times
+// (utils/interp_probe.py times each apart; PERF.md section 5). One thread
+// a frame, every row in device memory, was 5-29x slower (PERF.md section
+// 6, rows 13-15).
 //
 // The frame-major u track (FRAMES): the root LLRs are (batch, 2^level) and
 // u (batch, K), as the decoder's callers hold them, so no transpose runs
@@ -97,6 +104,10 @@ constexpr int kSchedCols = 8;
 constexpr int kRowBits = 20;     // a schedule row: array << 20 | row
 constexpr int kArrays = 5;       // in, pyr, hard, cw, u
 constexpr int kMaxWarps = 4;     // warps (tiles) a block
+// blocks an SM holds at the tile runs' shared memory (2^10 rows a region);
+// declared, so that the compiler may give the register block the registers
+// of two blocks an SM rather than spill
+constexpr int kMinBlocks = 2;
 
 struct TileArgs {
   const int* words;
@@ -473,30 +484,26 @@ __device__ __forceinline__ void run_on_tile(const TileArgs& A,
           if (do_cw) t.at(cb, q + r) = t.at(cb, q + h + r);
         }
         break;
-      case kGrate1: {  // hr in soft rows [0, h) (free: below the slot)
-        for (int r = t.r0; r < h; r += T::kPass) {
-          const V hl = t.at(hb, q + r);
-          const V hr = signum(madd(hl, slot(r), slot(h + r)));
-          if (need_hard) {
-            t.at(hb, q + r) = hmul(hl, hr);
-            t.at(hb, q + h + r) = hr;
-          }
-          t.at(soft, r) = hr;
-        }
-        __syncwarp();
-        t.transform(soft, h);  // u = T(hr)
-        t.emit(soft, 0, h, 0);
-        if (do_cw) {  // cw_r = T(T(hr)), cw = [cw_l * cw_r, cw_r]
-          __syncwarp();
-          t.transform(soft, h);
-          for (int r = t.r0; r < h; r += T::kPass) {
-            const V c = t.at(soft, r);
-            t.at(cb, q + h + r) = c;
-            t.at(cb, q + r) = hmul(t.at(cb, q + r), c);
-          }
-        }
+      case kGrate1:  // u = T(hr) in the register block (or soft rows
+                     // [0, h), free: below the slot)
+        t.node_transform(
+            h,
+            [&](int r) {
+              const V hl = t.at(hb, q + r);
+              const V hr = signum(madd(hl, slot(r), slot(h + r)));
+              if (need_hard) {
+                t.at(hb, q + r) = hmul(hl, hr);
+                t.at(hb, q + h + r) = hr;
+              }
+              return hr;
+            },
+            [&](int r, const V& u) { t.emit_row(r, 0, 0, u); }, do_cw,
+            false,  // cw_r = T(T(hr)), cw = [cw_l * cw_r, cw_r]
+            [&](int r, const V& c) {
+              t.at(cb, q + h + r) = c;
+              t.at(cb, q + r) = hmul(t.at(cb, q + r), c);
+            });
         break;
-      }
       default:
         break;
     }
@@ -544,7 +551,7 @@ __device__ __forceinline__ void tile_runs(const TileArgs& A, const int* e,
 // chained to the next. A schedule of one tile run has no barrier and
 // launches as a plain grid; any other is launched cooperatively.
 template <bool CW, bool U, bool FRAMES>
-__global__ void __launch_bounds__(32 * kMaxWarps)
+__global__ void __launch_bounds__(32 * kMaxWarps, kMinBlocks)
     interp_tile_kernel(TileArgs A) {
   extern __shared__ uint32_t smem[];
   for (int k = 0; k < A.n_sched; ++k) {

@@ -27,6 +27,8 @@ not carry over.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..code.compiler import compile_program
@@ -207,6 +209,8 @@ def make_kernel_decoder(code: PolarCode, *, output: str = "u",
     if output == "u" and decoder_kernel.has_frames(style, code.N):
         decode = _frames_entry(decode, program, frozen, style, output_dtype)
     decode.lane_major = lane_major
+    decode.plan = functools.partial(decoder_kernel.plan, program,
+                                    style=style, want_cw=want_cw)
     return decode
 
 

@@ -48,6 +48,7 @@ SIGNATURES = {
     "polar_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "polar_tile_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "polar_simd_selftest": (_P, _P),
+    "polar_tile_block_rows": (_I, _I, _I),
     "polar_step": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _U, _U, _U,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "polar_subtree": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -49,7 +49,7 @@ from ...code.compiler import build_tree, emit_program
 from ...code.construction import PolarCode
 from ...decode.fastssc import make_fastssc_decoder
 from ...utils import profiling
-from . import build
+from . import build, tile_stages
 
 # Frames (threads) per block of the walk. On an H100 at Polar(1024, 512) 128 was as fast as or faster than 64 at B = 4096,
 # 32768 and 131072; 256 was faster still at B = 32768 but a third slower at
@@ -460,6 +460,37 @@ def decode_f32(program, frozen, llrs):
     build.check(err, "polar_f32_decode_frames")
     profiling.launched(start, launches, "f32_decoder_frames")
     return mesg
+
+
+def plan(program, batch: int, style: str = "ssa", want_cw: bool = False,
+         f32: bool = False, layout: str | None = None) -> dict:
+    """The launch of the tile kernel that :func:`decode` (``f32``:
+    :func:`decode_f32`) runs for ``batch`` frames of the byte program's
+    code in ``layout`` (by default the frame-major u track wherever
+    :func:`has_frames`, the entries' main path): the kernel, its tile shape
+    ``(wr, vw)`` and warps a block, the rows of its register block, and
+    the transform and fold stages a tile runs in registers and in shared
+    memory (:func:`tile_stages.program_stages`). The walk has no tile:
+    ``{"kernel": "walk"}``."""
+    level = int(np.asarray(program)[0])
+    n = 1 << level
+    if layout is None:
+        layout = ("frames" if f32 or not want_cw and has_frames(style, n)
+                  else "lanes")
+    if f32:
+        w = f32_tile(level)
+        wr, vw, warps = w, w, _warps_for(f32_tile_bytes(n, w))
+    elif style == "scratch":
+        wr, vw, warps = scratch_shape(level, batch)
+    elif style == "ssa" and ssa_kernel(n) == "tile":
+        wr, vw, warps = 2, 2, tile_warps(n, want_cw)
+    else:
+        return {"kernel": "walk"}
+    block = tile_stages.block_rows(wr, vw)
+    return {"kernel": "f32" if f32 else "tile" if style == "ssa" else style,
+            "wr": wr, "vw": vw, "warps": warps, "block_rows": block,
+            **tile_stages.program_stages(program, block, want_cw,
+                                         folds=layout != "frames")}
 
 
 def simd_selftest(device) -> dict:

@@ -65,7 +65,7 @@ from ...decode.fastssc import _TreeDecoder, frame_major
 from ...ops.arith import Int8Arith
 from ...ops.transform import polar_transform
 from ...utils import profiling
-from . import build, count_kernel
+from . import build, count_kernel, tile_stages
 from .step_kernel import COUNTERS, cw_counts
 
 LEAF_KINDS = ("rate0", "rate1", "rep", "spc")
@@ -285,6 +285,7 @@ def interp_plain(words, desc, table, level: int, kl: int, llr_t, *,
 # frames, enough items to fill the card.
 INTERP_GRID_LEVEL = 11
 TILE_FRAMES = 8        # csrc/interp.cu: Tile<2, 2>, 8 frames a warp
+TILE_WR = TILE_VW = 2
 TILE_MAX_WARPS = 4     # warps (tiles) a block
 CHUNK_FRAMES = 16      # a grid item: one row of 16 frames, 16 bytes
 SMEM_BYTES = 232448    # the shared memory an H100 block may take
@@ -568,12 +569,35 @@ class _Compiled:
         return self._dev[key]
 
     def info(self) -> dict:
-        """The schedule's size, for the reports."""
+        """The schedule's size, for the reports, with the transform and
+        fold stages a tile runs in its tile runs' bodies and grate1s in
+        registers and in shared memory (:func:`tile_stages.program_stages`
+        at the tile's shape)."""
         s = self.sched
         return {"steps": self.steps, "grid_level": s.grid_level,
                 "grid_steps": len(s.grid_steps), "tile_runs": len(s.runs),
                 "entries": len(s.entries), "barriers": s.barriers,
-                "region_level": s.region_level}
+                "region_level": s.region_level, **self.tile_stages()}
+
+    def tile_stages(self, frames: bool = False) -> dict:
+        """``{"reg_stages", "smem_stages"}`` of one tile over every tile
+        run of the schedule (``frames``: the frame-major u track's
+        instance, REP's folds in shared memory)."""
+        block = tile_stages.block_rows(TILE_WR, TILE_VW)
+        counts = []
+        for ws, we, _, _ in self.sched.runs:
+            for w in self.words[ws:we].tolist():
+                kind, lv, _, _, cw, _, off, _ = self.desc[w & 0xFFFF].tolist()
+                do_cw = self.want_cw and bool(cw)
+                if kind == BODY:
+                    counts.append(tile_stages.program_stages(
+                        self.table[off:], block, self.want_cw,
+                        folds=not frames))
+                elif kind == GRATE1:
+                    r, m = tile_stages.transform_stages(1 << (lv - 1), block)
+                    counts.append({"reg_stages": r * (1 + do_cw),
+                                   "smem_stages": m * (1 + do_cw)})
+        return tile_stages.add_stages(*counts)
 
 
 def _compile(tree: Node, mask, subtree_level: int, want_cw: bool,
@@ -652,7 +676,8 @@ def _launch_plan(c: _Compiled, batch: int, dev="cuda",
     (``frames``: the frame-major u track's), with its schedule's size."""
     dev = torch.device(dev)
     build.stream(dev)
-    return {**c.info(), **_plan(c, dev, batch, frames)}
+    return {**c.info(), **c.tile_stages(frames), **_plan(c, dev, batch,
+                                                         frames)}
 
 
 def _run_tile(c: _Compiled, llr_t, *, hard_out: bool, what: str,
@@ -717,7 +742,8 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
     plain version of ``lane_major`` on any device. ``decode.program_steps``
     and ``decode.program_branches`` give the program's size,
     ``decode.schedule`` its tile-kernel schedule and ``decode.plan(batch)``
-    its launch. ``subtree_level``: nodes at or below it are bodies;
+    its launch (the u output's frame-major one), with the register
+    block's stage counts. ``subtree_level``: nodes at or below it are bodies;
     ``output_dtype`` casts the outputs. Any batch.
 
     With the u output, ``decode`` on a card hands the kernel the ``(B,
@@ -783,7 +809,7 @@ def make_interp_decoder(code: PolarCode, tree: Node | None = None, *,
     decode.program_steps = c.steps
     decode.program_branches = c.branches
     decode.schedule = c.info()
-    decode.plan = functools.partial(_launch_plan, c)
+    decode.plan = functools.partial(_launch_plan, c, frames=output == "u")
     decode.compiled = c
     return decode
 

@@ -28,7 +28,7 @@ ENTRIES = {
                  "polar_count_frames_occupancy"},
     "decoder.cu": {"polar_decode", "polar_tile_decode",
                    "polar_tile_decode_frames", "polar_f32_decode_frames",
-                   "polar_simd_selftest"},
+                   "polar_simd_selftest", "polar_tile_block_rows"},
     "device.cu": {"polar_set_device", "polar_get_device"},
     "encode.cu": {"polar_encode_bits"},
     "front.cu": {"polar_front_msg_rows", "polar_front_chan_rows",

@@ -2270,3 +2270,132 @@ def test_auto_decoder_routes_by_dtype(dev):
     assert torch.equal(big_dec(big_llrs), pt.make_fastssc_decoder(
         big, output="u", output_dtype=torch.int8)(big_llrs))
     assert dict(decoder_kernel.launches) == before
+
+
+# -- the tile core's register block (fastssc_simd.cuh, tile_stages.py) -----
+
+def _edge_codes(level):
+    """Three codes of 2^level rows whose REP, SPC and rate-1 nodes take
+    every length from N/4 down to 4, two nodes a length and each kind at
+    each length in one of the three (the rest rate-0): every tile shape's
+    register block edge, and twice it, among them."""
+    from polar_tpu_torch.code.construction import PolarCode
+
+    n = 1 << level
+    kinds = ("rate1", "rep", "spc")
+    codes = []
+    for shift in range(3):
+        frozen = np.ones(n, np.uint8)
+        pos, j, s = 0, shift, n // 4
+        while s >= 4:
+            for _ in range(2):
+                kind, node = kinds[j % 3], frozen[pos:pos + s]
+                node[:] = 0                # rate-1
+                if kind == "rep":          # all frozen but the last
+                    node[:-1] = 1
+                elif kind == "spc":        # the first frozen
+                    node[0] = 1
+                j, pos = j + 1, pos + s
+            s //= 2
+        codes.append(PolarCode(level, frozen))
+    return codes
+
+
+def test_tile_block_rows_match_the_host(dev):
+    """Each instance's register block on the card is the host's
+    (``tile_stages.block_rows``, the counter's)."""
+    from polar_tpu_torch.ops.cuda import tile_stages
+
+    assert tile_stages.device_block_rows(dev) == {
+        s: tile_stages.block_rows(*s[:2]) for s in tile_stages.SHAPES}
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("kernel", ["tile", "scratch", "decode_count",
+                                    "tile_step", "f32"])
+def test_register_block_edges_match_plain(dev, kernel, shift):
+    """Every changed tile kernel, bit for bit against its plain version,
+    on codes whose rate-1, SPC and REP nodes straddle each shape's
+    register block (lengths from 4 to N/4), on tie-heavy LLRs at a ragged
+    batch: the tile decoder (u, cw, frame-major u), the scratch kernel at
+    every shape (element- and frame-major), decode+count, the tile step
+    (both modes), the float kernel at each of its tile widths."""
+    batch = 2051
+    levels = {"tile": (11,), "scratch": (9, 11), "decode_count": (11, 13),
+              "tile_step": (11, 12), "f32": (9, 11, 12)}[kernel]
+    for level in levels:
+        c = _edge_codes(level)[shift]
+        program = pt.compile_program(c)
+        llr = _tie_llrs(dev, c.N, batch, 7 * level + shift)
+        llrs = llr.t().contiguous()
+        if kernel == "tile":
+            for want_cw in (False, True):
+                got = decoder_kernel.decode(program, c.frozen, llr, want_cw)
+                want = decoder_kernel.decode_plain(program, c.frozen, llr,
+                                                   want_cw)
+                assert torch.equal(got[0], want[0])
+                assert not want_cw or torch.equal(got[1], want[1])
+            got, _ = decoder_kernel.decode(program, c.frozen, llrs, False,
+                                           layout="frames")
+            assert torch.equal(got, want[0].t())
+        elif kernel == "scratch":
+            want = decoder_kernel.decode_plain(program, c.frozen, llr,
+                                               False)[0]
+            for wr, vw in decoder_kernel.SCRATCH_SHAPES:
+                if (decoder_kernel.scratch_smem(c.N, wr, 2)
+                        > decoder_kernel.SCRATCH_SMEM_BYTES):
+                    continue
+                for layout, x, w in (("lanes", llr, want),
+                                     ("frames", llrs, want.t())):
+                    got, _ = decoder_kernel.decode(
+                        program, c.frozen, x, False, "scratch", (wr, vw, 2),
+                        layout=layout)
+                    assert torch.equal(got, w), (wr, vw, layout)
+        elif kernel == "decode_count":
+            msg, _ = _inject(dev, c.K, batch, level)
+            cw = pt.encode_systematic(c, msg.t()).t().contiguous()
+            assert torch.equal(
+                step_kernel.decode_count(program, c.frozen, llr, cw),
+                step_kernel.decode_count_plain(program, c.frozen, llr, cw))
+        elif kernel == "tile_step":
+            msg, nrm = _inject(dev, c.N, batch, level + shift)
+            for systematic in (True, False):
+                args = (program, c.frozen, snr_params(0.0), systematic)
+                assert torch.equal(
+                    step_kernel.step(*args, msg_t=msg, normals_t=nrm),
+                    step_kernel.step_plain(*args, msg_t=msg, normals_t=nrm))
+        else:
+            x = _float_llrs(dev, c.N, batch, 11 * level + shift)
+            eager = pt.make_fastssc_decoder(c, output="u",
+                                            output_dtype=torch.int8)
+            assert torch.equal(decoder_kernel.decode_f32(program, c.frozen,
+                                                         x), eager(x))
+
+
+@pytest.mark.parametrize("batch", [2048, 4096])
+def test_interp_register_block_at_the_bench_code(dev, batch):
+    """The interpreter at Polar(16384, 8192), sl10 (its SPC nodes of 256,
+    512 and 1024 rows and REP and RATE1_COMB nodes of 128 and 256
+    straddle the (2, 2) block of 128 rows), and on the three edge codes
+    of 2^14 rows: the frame-major u track against the plain version, the
+    cw track against the walk and decode+count against its plain
+    version."""
+    from polar_tpu_torch.ops.cuda import interp_kernel
+
+    codes = [pt.make_code(14, 8192)] + (_edge_codes(14) if batch == 2048
+                                        else [])
+    for i, c in enumerate(codes):
+        llr_t = _tie_llrs(dev, c.N, batch, 31 * batch + i)
+        llr_t[::7] = 0
+        dec = interp_kernel.make_interp_decoder(c, subtree_level=10)
+        assert dec.schedule["reg_stages"] > 0
+        assert torch.equal(dec(llr_t.t().contiguous()), dec.plain(llr_t).t())
+        if i:
+            continue
+        cw_dec = interp_kernel.make_interp_decoder(c, subtree_level=10,
+                                                   output="codeword")
+        walk = pt.make_kernel_decoder(c, output="codeword")
+        cw = cw_dec.lane_major(llr_t)
+        assert torch.equal(cw, walk.lane_major(llr_t))
+        count = interp_kernel.make_interp_decode_count(c)
+        assert torch.equal(count(llr_t, cw), count.plain(llr_t, cw))
